@@ -10,16 +10,22 @@ non-zero and no phase's failure is caught:
 
   1. environment: the card's name and power limit, CUDA version, TF32 off;
   2. build: compiles the kernels under src/repro_torch/csrc with nvcc;
-  3. kernels vs their plain PyTorch versions at the main path's shapes,
+  3. kernels vs their plain PyTorch versions at the main paths' shapes,
      with times, the roofline bound and (where one exists) a library call;
-  4. kernels in place: the tiny model served on the CPU (plain versions)
+  4. kernels in place: the tiny DiT served on the CPU (plain versions)
      and on the card (kernels) from the same weights and noise, 6 steps
-     so that a light step's codec'd expert outputs reach the sample;
-  5. the main path: 8 DiT-MoE-XL requests x 10 steps under DICE with the
+     so that a light step's codec'd expert outputs reach the sample; the
+     smoke RWKV-6 prefilled and decoded on both from the same weights;
+  5. main path 1: 8 DiT-MoE-XL requests x 10 steps under DICE with the
      int8 residual codec, then the other four schedules (sync, displaced
      and interweaved with the codec, staggered_batch) for 4 steps each;
      each run's kernel launch counts are set to 0 before it and held to
-     what its plan implies after it.
+     what its plan implies after it;
+  6. main path 2: rwkv6-3b at full width and depth in bf16, 8 prompts of
+     2048 tokens prefilled, then 64 greedy decode steps, launch counts
+     set to 0 before and held after; the streamed logits are held against
+     one teacher-forced forward over prompt + generated tokens, and so are
+     those of the first 2 and 8 layers of the same params.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -47,6 +53,18 @@ TOL_BF16 = dict(rtol=2e-2, atol=2e-2)     # bf16 in/out, f32 accumulate
 XL_STEPS = 10
 TINY_STEPS = 6
 XL_REQUESTS = 8
+TOL_SCAN = dict(rtol=1e-3, atol=1e-3)     # f32 state, sums of 64 terms chained over T
+# max |streamed - teacher-forced| bf16 logit: 5e-2 where tests/test_streaming.py
+# holds the reference (2 layers, and the last prompt position at any depth);
+# over the decode positions at 32 layers the card's bf16 roundings, which
+# differ between cuBLAS's kernels for 8 rows and for 16,896, spread to
+# 0.19 (PERF.md, PR 12), so those are held to 0.25 and to greedy tokens
+# that agree at least 90% of the time
+TOL_STREAM = 5e-2
+TOL_STREAM_DEEP = 0.25
+MIN_GREEDY_AGREE = 0.9
+LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 64
+DIT_KERNELS = ("expert_ffn", "flash_attention", "residual_int8")
 
 
 def log(msg: str) -> None:
@@ -264,8 +282,58 @@ def phase_kernels():
         replaces="src/repro/kernels/residual_codec.py:44", max_abs_err=row_err, ms=ms,
         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="N=4096 d=1152 f32")
+
+    # ---- rwkv6_scan -------------------------------------------------------
+    log("rwkv6_scan (hand-written CUDA) vs plain PyTorch")
+    scases = [((8, 40, LM_PROMPT, 64), torch.bfloat16),    # rwkv6-3b prefill
+              ((8, 40, 1, 64), torch.bfloat16),            # rwkv6-3b decode
+              ((2, 4, 37, 16), torch.float32), ((2, 4, 37, 32), torch.bfloat16),
+              ((1, 3, 300, 32), torch.float32), ((2, 2, 64, 128), torch.bfloat16)]
+    for (B, H, T, DK), dtype in scases:
+        args = _scan_inputs(gen, B, H, T, DK, dtype)
+        out, s_T = ops.rwkv6_scan(*args)
+        want_out, want_s = ref.rwkv6_scan_ref(*args)
+        torch.cuda.synchronize()
+        tag = f"rwkv6_scan B={B} H={H} T={T} DK={DK} r/k/v {str(dtype)[6:]}"
+        err = max(compare(f"{tag} out", out, want_out, TOL_SCAN),
+                  compare(f"{tag} S_T", s_T, want_s, TOL_SCAN))
+        if (H, T) == (40, LM_PROMPT):
+            row_err, prefill_args = err, args
+        if (H, T) == (40, 1):
+            decode_args = args
+    for label, args, iters in (("prefill", prefill_args, 20),
+                               ("decode", decode_args, 200)):
+        B, H, T, DK = args[0].shape
+        ms = time_ms(lambda: ops.rwkv6_scan(*args), iters)
+        plain = time_ms(lambda: ref.rwkv6_scan_ref(*args), 3 if T > 1 else 50)
+        flops = 5.0 * DK * DK * B * H * T
+        nbytes = (B * H * T * DK * (3 * 2 + 4 + 4) + H * DK * 2
+                  + 2 * B * H * DK * DK * 4)
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"  rwkv6_scan {label} B={B} H={H} T={T} DK={DK} bf16: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"library: none (no single PyTorch call computes the recurrence)")
+        if label == "prefill":
+            rows["rwkv6_scan"] = dict(
+                name="rwkv6_scan", route="cuda",
+                source="src/repro_torch/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan.py:55", max_abs_err=row_err,
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, shape="B=8 H=40 T=2048 DK=64 bf16 (prefill)")
     torch.cuda.synchronize()
     return rows
+
+
+def _scan_inputs(gen, B, H, T, DK, dtype):
+    """r/k/v in ``dtype``, logw f32 as the model makes it, u in ``dtype``,
+    a random f32 state."""
+    import torch
+    kw = dict(generator=gen, device="cuda")
+    r, k, v = (torch.randn((B, H, T, DK), **kw).to(dtype) for _ in range(3))
+    logw = -torch.exp(torch.randn((B, H, T, DK), **kw) - 3.0)
+    u = (0.5 + 0.1 * torch.randn((H, DK), **kw)).to(dtype)
+    s0 = 0.1 * torch.randn((B, H, DK, DK), **kw)
+    return r, k, v, logw, u, s0
 
 
 def _perturb(params, gen, scale=0.05):
@@ -285,7 +353,8 @@ def planned_launches(splan, cfg, passes: int):
     attention and one expert FFN (two for a staggered half-batch layer);
     a codec'd action quantizes its dispatch payload, and an interweaved
     one with a cache its combine payload too."""
-    n = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0}
+    n = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
+         "rwkv6_scan": 0}
     for plan in splan.steps:
         for a in plan.actions:
             n["flash_attention"] += passes
@@ -319,13 +388,57 @@ def phase_tiny():
         out[dev], stats = server.generate(reqs, num_steps=TINY_STEPS, noise=noise)
         log(f"  tiny on {dev}: {stats['wall_s']:.3f} s, launches "
             f"{stats['kernel_launches']}")
-    if min(stats["kernel_launches"].values()) <= 0:
+    if min(stats["kernel_launches"][k] for k in DIT_KERNELS) <= 0:
         raise AssertionError("the CUDA run of the tiny model missed a kernel")
     # f32 sums in another order can flip an int8 rounding (one quantization
     # step, 1/127 of a row's residual range); such flips stay far below
     # 1e-3 in the sample, while a wrong kernel's errors are O(1)
     compare("tiny dice+int8 samples, cuda kernels vs cpu plain", out["cuda"].cpu(),
             out["cpu"], dict(rtol=1e-3, atol=1e-3))
+
+
+def phase_smoke_lm():
+    """The smoke RWKV-6 (f32 params from one seed) prefilled with 2 x 32
+    tokens on the CPU (plain recurrence) and on the card (kernel), then
+    decoded 8 steps; each CPU decode step starts from the card's state, so
+    a token-shift state that rounds to the other bf16 neighbour on one
+    device cannot build up over the steps.  Logits and state S agree to
+    1e-3."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+    cfg = get_smoke("rwkv6-3b")
+    api = get_model(cfg)
+    params = api.init(cfg, generator=torch.Generator().manual_seed(3),
+                      dtype=torch.float32)
+    p_gpu = _to(params, "cuda")
+    tokens = next(token_batches(cfg.vocab_size, 2, 40, seed=1))["tokens"]
+    tol = dict(rtol=1e-3, atol=1e-3)
+    ops.reset_launches()
+    lg_gpu, st_gpu = api.prefill(p_gpu, {"tokens": tokens[:, :32].cuda()}, cfg)
+    lg_cpu, st_cpu = api.prefill(params, {"tokens": tokens[:, :32]}, cfg)
+    errs = [compare("smoke rwkv6 prefill logits, cuda vs cpu", lg_gpu.cpu(), lg_cpu, tol),
+            compare("smoke rwkv6 prefill state S, cuda vs cpu", st_gpu["S"].cpu(),
+                    st_cpu["S"], tol)]
+    for t in range(32, 40):
+        st_cpu = _to({k: v for k, v in st_gpu.items() if k != "pos"}, "cpu")
+        st_cpu["pos"] = st_gpu["pos"]
+        lg_cpu, st_cpu = api.decode_step(params, {"token": tokens[:, t]}, st_cpu, cfg)
+        lg_gpu, st_gpu = api.decode_step(p_gpu, {"token": tokens[:, t].cuda()},
+                                         st_gpu, cfg)
+        torch.cuda.synchronize()
+        for name, got, want in (("logits", lg_gpu, lg_cpu), ("S", st_gpu["S"], st_cpu["S"])):
+            err = (got.cpu() - want).abs()
+            errs.append(float(err.max()))
+            if bool((err > tol["atol"] + tol["rtol"] * want.abs()).any()):
+                raise AssertionError(f"smoke rwkv6 decode step {t}: {name} differ")
+    log(f"  smoke rwkv6 8 decode steps from the card's state, cuda vs cpu: max abs "
+        f"err {max(errs[2:]):.3e} (tol rtol=1e-3 atol=1e-3) ok; rwkv6_scan "
+        f"launches on the card {ops.LAUNCHES['rwkv6_scan']}")
+    if ops.LAUNCHES["rwkv6_scan"] != cfg.num_layers * 9:
+        raise AssertionError("the CUDA run of the smoke RWKV-6 missed the kernel")
 
 
 def _to(tree, dev):
@@ -391,8 +504,8 @@ def phase_xl(rows):
     log(f"  dispatch_bytes per step {db}: refresh {refresh[0]:.0f}, light {light[0]:.0f}")
     if not max(light) < min(refresh):
         raise AssertionError("light steps do not dispatch fewer bytes than refresh steps")
-    for name, row in rows.items():
-        row["launches"] = counts[name]
+    for name in DIT_KERNELS:
+        rows[name]["launches"] = counts[name]
 
     # the other four schedules, 4 steps each from the same weights: 2
     # warm-up steps, then a refresh and a light (codec'd) step
@@ -403,6 +516,127 @@ def phase_xl(rows):
     for label, (dcfg, need_codec) in others.items():
         other = DiceServer(cfg, dcfg, params=server.params, device="cuda")
         drive(other, reqs, 4, label, need_codec=need_codec)
+
+
+def phase_lm(rows):
+    """rwkv6-3b, bf16, random params from seed 0: one warm-up prefill, then
+    a prefill of 8 x 2048 prompt tokens and 64 greedy decode steps with
+    the launch counts set to 0 before and read after; then one
+    teacher-forced forward over prompt + generated tokens."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import rwkv6
+    from repro_torch.models.api import get_model
+    cfg = get_config("rwkv6-3b")
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params).values())
+    log(f"  rwkv6-3b params: {n_params / 1e9:.3f} B ({cfg.param_count() / 1e9:.3f} B "
+        f"by the config's count), bf16, on the card, init "
+        f"{time.perf_counter() - t0:.3f} s; {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.d_model // rwkv6.HEAD_DK} heads x {rwkv6.HEAD_DK}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+    prompts = next(token_batches(cfg.vocab_size, LM_BATCH, LM_PROMPT, seed=0,
+                                 device="cuda"))["tokens"]
+    api.prefill(params, {"tokens": prompts}, cfg)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    last, state = api.prefill(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = last.argmax(-1)
+    generated, streamed = [], [last]
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        generated.append(tok)
+        lg, state = api.decode_step(params, {"token": tok}, state, cfg)
+        streamed.append(lg)
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
+            "rwkv6_scan": cfg.num_layers * (1 + LM_DECODE)}
+    log(f"  prefill {LM_BATCH} x {LM_PROMPT}: {prefill_s:.4f} s, "
+        f"{LM_BATCH * LM_PROMPT / prefill_s:.1f} tokens/s")
+    log(f"  decode {LM_DECODE} steps x {LM_BATCH}: {1e3 * decode_s / LM_DECODE:.4f} "
+        f"ms/token step, {LM_BATCH * LM_DECODE / decode_s:.1f} tokens/s")
+    log(f"  peak memory (prefill + decode) {peak:.3f} GiB; launches {counts}, "
+        f"expected {want}; state pos {state['pos']}")
+    if counts != want:
+        raise AssertionError("rwkv6-3b: kernel launch counts differ from "
+                             "32 per forward")
+    rows["rwkv6_scan"]["launches"] = counts["rwkv6_scan"]
+
+    gen_tokens = torch.stack(generated, 1).to(prompts.dtype)
+    streamed = torch.stack(streamed, 1)                      # (B, 65, V)
+    check_streaming(params, cfg, prompts, gen_tokens, streamed, TOL_STREAM_DEEP)
+    log(f"  peak memory with the teacher-forced forward "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    # the same check on the first 2 and 8 layers of the same full-width
+    # params: how the streamed-vs-forced gap grows with depth
+    for depth, tol in ((2, TOL_STREAM), (8, TOL_STREAM_DEEP)):
+        sub_cfg = cfg.replace(num_layers=depth)
+        sub = dict(params, layers={k: _first(v, depth)
+                                   for k, v in params["layers"].items()})
+        last, state = api.prefill(sub, {"tokens": prompts}, sub_cfg)
+        outs = [last]
+        for i in range(LM_DECODE):
+            last, state = api.decode_step(sub, {"token": gen_tokens[:, i]}, state,
+                                          sub_cfg)
+            outs.append(last)
+        check_streaming(sub, sub_cfg, prompts, gen_tokens, torch.stack(outs, 1), tol)
+
+
+def _first(tree, n: int):
+    return ({k: _first(v, n) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree[:n])
+
+
+def check_streaming(params, cfg, prompts, gen_tokens, streamed, tol_decode: float):
+    """Hold streamed logits (B, 1 + decode steps, V) against one teacher-
+    forced forward over prompt + generated tokens: the last prompt position
+    to TOL_STREAM, the decode positions to ``tol_decode`` and greedy tokens
+    that agree at least MIN_GREEDY_AGREE of the time.  A chunked
+    continuation (the generated tokens as one T = 64 forward from the
+    prefill state, so the state crosses a call boundary as in decode while
+    the products keep many rows) is held to TOL_STREAM."""
+    import torch
+    from repro_torch.models import rwkv6
+    P = prompts.shape[1]
+    teacher, _ = rwkv6.forward(params, torch.cat([prompts, gen_tokens], 1), cfg)
+    forced = teacher[:, P - 1:].clone()
+    del teacher
+    _, state = rwkv6.prefill(params, prompts, cfg)
+    chunked, _ = rwkv6.forward(params, gen_tokens, cfg, state=state)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(streamed).all()) and bool(torch.isfinite(forced).all())
+    err = (streamed.float() - forced.float()).abs().amax(dim=(0, 2))
+    chunk_err = (chunked.float() - forced[:, 1:].float()).abs().max()
+    chunk_vs_stream = (chunked.float() - streamed[:, 1:].float()).abs().max()
+    agree = float((streamed[:, 1:].argmax(-1) == forced[:, 1:].argmax(-1)).float().mean())
+    log(f"  {cfg.num_layers} layers: streamed vs teacher-forced max |diff| at the "
+        f"last prompt position {float(err[0]):.4e} (tol {TOL_STREAM}), over "
+        f"{streamed.shape[1] - 1} decode positions {float(err[1:].max()):.4e} (tol "
+        f"{tol_decode}), greedy tokens agree {agree:.4f}; chunked continuation vs "
+        f"forced {float(chunk_err):.4e}, vs streamed {float(chunk_vs_stream):.4e}; "
+        f"forced logits std {float(forced.float().std()):.4f}, finite {finite}")
+    if not finite or tuple(streamed.shape) != (prompts.shape[0], gen_tokens.shape[1] + 1,
+                                               cfg.vocab_size):
+        raise AssertionError("rwkv6: logits are not finite or have the wrong shape")
+    if (float(err[0]) > TOL_STREAM or float(err[1:].max()) > tol_decode
+            or agree < MIN_GREEDY_AGREE or float(chunk_err) > TOL_STREAM):
+        raise AssertionError(f"rwkv6 {cfg.num_layers} layers: streamed logits "
+                             f"disagree with teacher forcing")
 
 
 def main() -> int:
@@ -420,10 +654,13 @@ def main() -> int:
         phase_build()
     with phase("3 kernels vs plain versions"):
         rows = phase_kernels()
-    with phase("4 kernels in place (tiny, cpu vs cuda)"):
+    with phase("4 kernels in place (tiny DiT and smoke RWKV-6, cpu vs cuda)"):
         phase_tiny()
-    with phase("5 main path (DiT-MoE-XL, dice + int8_residual; other schedules)"):
+        phase_smoke_lm()
+    with phase("5 main path 1 (DiT-MoE-XL, dice + int8_residual; other schedules)"):
         phase_xl(rows)
+    with phase("6 main path 2 (rwkv6-3b prefill + decode, bf16)"):
+        phase_lm(rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: rows[n][k] for k in keys} for n in rows]}))

@@ -1,10 +1,12 @@
-"""Carry a JAX DiT-MoE parameter tree over to the port.
+"""Carry a JAX parameter tree over to the port.
 
-``from_jax_params`` takes the tree ``repro.models.dit_moe.init_dit`` builds,
-with its leaves as numpy arrays (``jax.device_get`` gives that), and returns
-the same tree of torch tensors.  Every leaf keeps its shape and its (in,
-out) layout, so nothing is transposed on the way.  This module imports
-neither JAX nor the JAX package: it reads numpy arrays only.
+``from_jax_params`` takes the tree ``repro.models.dit_moe.init_dit`` or
+``repro.models.rwkv6.init_rwkv6`` builds, with its leaves as numpy arrays
+(``jax.device_get`` gives that), and returns the same tree of torch
+tensors.  Every leaf keeps its shape, its dtype and its (in, out) layout,
+so nothing is transposed on the way; bf16 leaves cross bit for bit.  This
+module imports neither JAX nor the JAX package: it reads numpy arrays
+only.
 """
 from __future__ import annotations
 
@@ -18,6 +20,11 @@ from repro_torch.common.device import resolve_device
 TOP_KEYS = ("patch_embed", "pos_embed", "t_mlp1", "t_mlp2", "class_embed",
             "final_mod", "final_out", "final_norm", "blocks")
 BLOCK_KEYS = ("ln1", "ln2", "attn", "moe", "adaln")
+RWKV6_TOP_KEYS = ("embed", "layers", "final_norm", "unembed")
+RWKV6_LAYER_KEYS = ("ln1", "ln2", "mix", "mix_lora_a", "mix_lora_b", "wr",
+                    "wk", "wv", "wg", "wo", "decay_base", "decay_lora_a",
+                    "decay_lora_b", "bonus_u", "ln_x", "cm_mix", "cm_k",
+                    "cm_v", "cm_r")
 
 
 def _convert(node, device, path: str):
@@ -26,24 +33,34 @@ def _convert(node, device, path: str):
     if isinstance(node, (list, tuple)):
         return [_convert(v, device, f"{path}[{i}]") for i, v in enumerate(node)]
     arr = np.asarray(node)
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        # numpy has no bf16 of its own: reinterpret the 16-bit patterns
+        bits = torch.from_numpy(np.array(arr.view(np.int16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
     if arr.dtype.kind not in "fiub":
-        raise TypeError(f"{path}: leaf of dtype {arr.dtype} is not numeric "
-                        f"(bf16 leaves must be cast to float32 first)")
+        raise TypeError(f"{path}: leaf of dtype {arr.dtype} is not numeric")
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
 def from_jax_params(tree: Dict[str, Any],
                     device: Optional[str] = None) -> Dict[str, Any]:
-    """numpy tree of ``repro.models.dit_moe.init_dit`` -> port params on
-    ``device`` (``cuda`` unless given)."""
-    missing = [k for k in TOP_KEYS if k not in tree]
-    if missing:
-        raise KeyError(f"not a DiT-MoE param tree: missing {missing}")
-    for i, blk in enumerate(tree["blocks"]):
-        missing = [k for k in BLOCK_KEYS if k not in blk]
-        if missing:
-            raise KeyError(f"block {i}: missing {missing}")
+    """numpy tree of ``repro.models.dit_moe.init_dit`` or
+    ``repro.models.rwkv6.init_rwkv6`` -> port params on ``device``
+    (``cuda`` unless given)."""
+    if "layers" in tree:
+        _require(tree, RWKV6_TOP_KEYS, "not an RWKV-6 param tree")
+        _require(tree["layers"], RWKV6_LAYER_KEYS, "layers")
+    else:
+        _require(tree, TOP_KEYS, "not a DiT-MoE param tree")
+        for i, blk in enumerate(tree["blocks"]):
+            _require(blk, BLOCK_KEYS, f"block {i}")
     return _convert(tree, resolve_device(device), "params")
+
+
+def _require(node, keys, what: str) -> None:
+    missing = [k for k in keys if k not in node]
+    if missing:
+        raise KeyError(f"{what}: missing {missing}")
 
 
 def leaves(tree) -> Dict[str, torch.Tensor]:

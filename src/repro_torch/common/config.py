@@ -75,12 +75,60 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm" and self.num_heads == 0
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
     @property
     def expert_d_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs)."""
+        d = self.d_model
+        n_q = self.num_heads * self.head_dim
+        n_kv = self.num_kv_heads * self.head_dim
+        attn = d * n_q + 2 * d * n_kv + n_q * d if self.num_heads else 0
+        if self.is_moe:
+            ffn = 3 * d * self.expert_d_ff * self.num_experts
+            ffn += 3 * d * self.expert_d_ff * self.num_shared_experts
+            ffn += d * self.num_experts            # router
+        else:
+            ffn = 3 * d * self.d_ff
+        if self.family == "ssm":                    # rwkv6-style blocks
+            attn = 6 * d * d                        # r,k,v,g,o + decay projections
+            ffn = 2 * d * self.d_ff + d * d
+        if self.family == "hybrid":
+            # mamba blocks have no MLP; the attention block (attn + MLP) is
+            # weight-SHARED across all its insertion points (zamba2)
+            inner = self.ssm_expand * d
+            mamba = d * (2 * inner) + inner * d + inner * (2 * self.ssm_state)
+            k = max(self.hybrid_attn_every, 1)
+            n_mamba = self.num_layers - (self.num_layers // k
+                                         if self.hybrid_attn_every else 0)
+            shared_attn = 4 * d * d + 3 * d * self.d_ff
+            return int(n_mamba * mamba + shared_attn + 2 * self.vocab_size * d)
+        per_layer = attn + ffn
+        total = self.num_layers * per_layer + 2 * self.vocab_size * d
+        if self.encoder_layers:
+            total += self.encoder_layers * per_layer
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed-active experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        n_q = self.num_heads * self.head_dim
+        n_kv = self.num_kv_heads * self.head_dim
+        attn = d * n_q + 2 * d * n_kv + n_q * d if self.num_heads else 0
+        ffn = 3 * d * self.expert_d_ff * (self.experts_per_token
+                                          + self.num_shared_experts)
+        per_layer = attn + ffn + d * self.num_experts
+        return int(self.num_layers * per_layer + 2 * self.vocab_size * d)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,0 +1,31 @@
+"""Config registry of the port: the configs it can run so far.
+
+``get_config`` / ``get_smoke`` take the JAX package's registry names; a
+name the JAX package has but the port does not yet raises and points at
+ROADMAP.md A.12 (other model families).
+"""
+from importlib import import_module
+
+_MODULES = {
+    "dit-moe-xl": "dit_moe_xl",
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"config {name!r} is not ported yet (ported: "
+                       f"{sorted(_MODULES)}); see ROADMAP.md A.12")
+    return import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str):
+    return _module(name).config()
+
+
+def get_smoke(name: str):
+    return _module(name).smoke()
+
+
+def list_configs():
+    return list(_MODULES)

@@ -22,11 +22,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import library
 
 LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
-                            "residual_int8": 0}
+                            "residual_int8": 0, "rwkv6_scan": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
 MAX_HEAD_DIM = 256
+RWKV6_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -167,3 +168,64 @@ def residual_int8(value: torch.Tensor, base: torch.Tensor, *,
     _raise_on("residual_int8", err)
     LAUNCHES["residual_int8"] += 1
     return q, scale, recon
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """RWKV-6 recurrence.  r, k, v, logw (B, H, T, DK), read through
+    strides (the last dim must be contiguous); u (H, DK); s0 (B, H, DK, DK).
+    Returns (out (B, H, T, DK) f32, S_T (B, H, DK, DK) f32).
+
+    On the card: r/k/v share one dtype (f32 or bf16), logw and u are f32 or
+    that dtype, s0 is f32, and DK is one of ``RWKV6_HEAD_DIMS``; any T >= 1.
+    """
+    if r.dim() != 4:
+        raise ValueError("rwkv6_scan: r, k, v, logw must be (B, H, T, DK)")
+    B, H, T, DK = r.shape
+    for name, t in (("k", k), ("v", v), ("logw", logw)):
+        if t.shape != r.shape:
+            raise ValueError(f"rwkv6_scan: {name} {tuple(t.shape)} differs "
+                             f"from r {tuple(r.shape)}")
+    if tuple(u.shape) != (H, DK) or tuple(s0.shape) != (B, H, DK, DK):
+        raise ValueError(f"rwkv6_scan: u {tuple(u.shape)} / s0 "
+                         f"{tuple(s0.shape)} do not fit r {tuple(r.shape)}")
+    if T < 1:
+        raise ValueError("rwkv6_scan: T must be at least 1")
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan_ref(r, k, v, logw, u, s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
+    for t in (k, v, logw, u, s0):
+        if t.device != r.device:
+            raise ValueError(f"rwkv6_scan: tensors on different devices "
+                             f"({t.device} vs {r.device})")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6_scan: r/k/v dtypes {r.dtype}, {k.dtype}, "
+                        f"{v.dtype} (one of float32, bfloat16)")
+    for name, t in (("logw", logw), ("u", u)):
+        if t.dtype not in (torch.float32, r.dtype):
+            raise TypeError(f"rwkv6_scan: {name} dtype {t.dtype} (float32 "
+                            f"or {r.dtype})")
+    if s0.dtype != torch.float32:
+        raise TypeError(f"rwkv6_scan: s0 dtype {s0.dtype} (float32)")
+    if DK not in RWKV6_HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: head dim {DK} not in {RWKV6_HEAD_DIMS}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"rwkv6_scan: {name}'s last dim must be contiguous")
+    if not (u.is_contiguous() and s0.is_contiguous()):
+        raise ValueError("rwkv6_scan: u and s0 must be contiguous")
+    if B * H > 2**31 - 1:
+        raise ValueError(f"rwkv6_scan: B*H={B * H} exceeds the grid")
+    lib = library()
+    out = torch.empty((B, H, T, DK), dtype=torch.float32, device=r.device)
+    s_T = torch.empty((B, H, DK, DK), dtype=torch.float32, device=r.device)
+    err = lib.dice_rwkv6_scan(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_T.data_ptr(),
+        B, H, T, DK, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *logw.stride()[:3], _DTYPES[r.dtype], _DTYPES[logw.dtype],
+        _DTYPES[u.dtype], r.device.index or 0, _stream(r.device))
+    _raise_on("rwkv6_scan", err)
+    LAUNCHES["rwkv6_scan"] += 1
+    return out, s_T

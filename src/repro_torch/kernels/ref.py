@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the four CUDA kernels.
 
 They compute the same functions as the kernels under ``csrc/`` and as the
 JAX package's oracles in ``repro.kernels.ref`` / ``repro.compress.ref``.
@@ -86,3 +86,25 @@ def residual_int8_ref(value, base, *, eps: float = INT8_EPS):
     q, scale = int8_encode(value.to(torch.float32) - b, eps=eps)
     recon = (b + int8_decode(q, scale)).to(value.dtype)
     return q, scale, recon
+
+
+def rwkv6_scan_ref(r, k, v, logw, u, s0):
+    """The RWKV-6 recurrence, a Python loop over T in f32.
+
+    r, k, v, logw: (B, H, T, DK) (any strides); u: (H, DK);
+    s0: (B, H, DK, DK).  Per step::
+
+        out_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+        S_t   = diag(exp(logw_t)) S_{t-1} + k_t^T v_t
+
+    Returns (out (B, H, T, DK) f32, S_T (B, H, DK, DK) f32)."""
+    S = s0.to(torch.float32)
+    u32 = u.to(torch.float32)[None, :, :, None]
+    outs = []
+    for t in range(r.shape[2]):
+        rt, kt, vt = (a[:, :, t].to(torch.float32) for a in (r, k, v))
+        w = torch.exp(logw[:, :, t].to(torch.float32))
+        kv = kt[..., :, None] * vt[..., None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, S + u32 * kv))
+        S = w[..., :, None] * S + kv
+    return torch.stack(outs, dim=2), S

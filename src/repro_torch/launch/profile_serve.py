@@ -27,7 +27,8 @@ from repro_torch.launch.serve import SCHEDULES, DiceServer, Request
 # substrings of the port's kernel symbols (csrc/*.cu) -> wrapper name
 OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
                "flash_kernel": "flash_attention",
-               "residual_int8_kernel": "residual_int8"}
+               "residual_int8_kernel": "residual_int8",
+               "rwkv6_scan_kernel": "rwkv6_scan"}
 
 
 def kernel_group(name: str) -> str:
@@ -35,7 +36,7 @@ def kernel_group(name: str) -> str:
         if key in name:
             return group
     low = name.lower()
-    if "gemm" in low or "cutlass" in low or "xmma" in low:
+    if any(key in low for key in ("gemm", "cutlass", "xmma", "nvjet")):
         return "cublas_gemm"
     return "other"
 
@@ -45,6 +46,31 @@ def device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def kernel_groups(prof):
+    """CUDA kernels of a finished ``torch.profiler`` run: (kernel events,
+    total device us, {group: [device us, launches]})."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups = {}
+    for e in kernels:
+        g = groups.setdefault(kernel_group(e.key), [0.0, 0])
+        g[0] += device_us(e)
+        g[1] += e.count
+    return kernels, sum(device_us(e) for e in kernels), groups
+
+
+def print_groups(kernels, total_us, groups, per: int, unit: str, top: int) -> None:
+    """The group table and the top kernels, each time divided by ``per``."""
+    print(f"{'group':16s} {'ms/' + unit:>10s} {'share':>7s} {'launches/' + unit:>14s}")
+    for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"{g:16s} {us / 1e3 / per:10.3f} {100.0 * us / total_us:6.1f}% "
+              f"{n / per:14.1f}")
+    print(f"top {top} kernels by device time:")
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        print(f"  {device_us(e) / 1e3 / per:9.3f} ms/{unit} "
+              f"{e.count / per:7.1f}x  {e.key[:110]}")
 
 
 def main(argv=None):
@@ -70,28 +96,14 @@ def main(argv=None):
         t0 = time.perf_counter()
         _, stats = server.generate(reqs, num_steps=args.steps)
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(device_us(e) for e in kernels)
-    groups = {}
-    for e in kernels:
-        g = groups.setdefault(kernel_group(e.key), [0.0, 0])
-        g[0] += device_us(e)
-        g[1] += e.count
+    kernels, total, groups = kernel_groups(prof)
     print(f"{cfg.name}, {args.requests} requests, {args.schedule}, codec "
           f"{args.codec}, {args.steps} steps on {torch.cuda.get_device_name(0)}")
     print(f"wall {wall_us / 1e3:.3f} ms ({wall_us / 1e3 / args.steps:.3f} ms/step, "
           f"generate's own {stats['wall_s_per_step'] * 1e3:.3f} ms/step); "
           f"kernel time {total / 1e3:.3f} ms; device busy "
           f"{100.0 * total / wall_us:.1f}%")
-    print(f"{'group':16s} {'ms/step':>10s} {'share':>7s} {'launches/step':>14s}")
-    for g, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"{g:16s} {us / 1e3 / args.steps:10.3f} {100.0 * us / total:6.1f}% "
-              f"{n / args.steps:14.1f}")
-    print(f"top {args.top} kernels by device time:")
-    for e in sorted(kernels, key=device_us, reverse=True)[:args.top]:
-        print(f"  {device_us(e) / 1e3 / args.steps:9.3f} ms/step "
-              f"{e.count / args.steps:7.1f}x  {e.key[:110]}")
+    print_groups(kernels, total, groups, args.steps, "step", args.top)
     print(json.dumps({"wall_ms_per_step": wall_us / 1e3 / args.steps,
                       "busy_share": total / wall_us,
                       "groups_ms_per_step": {g: v[0] / 1e3 / args.steps

@@ -37,16 +37,6 @@ def timestep_embedding(t: torch.Tensor, dim: int = 256) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32).mul_(scale).to(dtype)
-
-
-def _dense(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    """Normal init scaled by 1/sqrt(fan_in), fan-in the second-to-last dim."""
-    return _normal(gen, shape, 1.0 / math.sqrt(shape[-2]), dtype)
-
-
 def _zeros(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=gen.device)
 
@@ -63,35 +53,37 @@ def init_dit(cfg, *, generator: torch.Generator,
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     E, f = cfg.num_experts, cfg.expert_d_ff
     params: Dict[str, Any] = {
-        "patch_embed": _dense(g, (c_in, d), dtype),
-        "pos_embed": _normal(g, (cfg.patch_tokens, d), 0.02, dtype),
-        "t_mlp1": _dense(g, (256, d), dtype),
-        "t_mlp2": _dense(g, (d, d), dtype),
-        "class_embed": _normal(g, (cfg.num_classes + 1, d), 0.02, dtype),
+        "patch_embed": L.dense_init(g, (c_in, d), dtype=dtype),
+        "pos_embed": L.dense_init(g, (cfg.patch_tokens, d), scale=0.02,
+                                   dtype=dtype),
+        "t_mlp1": L.dense_init(g, (256, d), dtype=dtype),
+        "t_mlp2": L.dense_init(g, (d, d), dtype=dtype),
+        "class_embed": L.dense_init(g, (cfg.num_classes + 1, d), scale=0.02,
+                                     dtype=dtype),
         "final_mod": _zeros(g, (d, 2 * d), dtype),
         "final_out": _zeros(g, (d, c_in), dtype),
-        "final_norm": {"scale": _zeros(g, (d,))},
+        "final_norm": L.rmsnorm_init(d, g.device),
     }
     blocks = []
     for _ in range(cfg.num_layers):
         moe = {
-            "router": _dense(g, (d, E), torch.float32),
-            "experts_gate": _dense(g, (E, d, f), dtype),
-            "experts_up": _dense(g, (E, d, f), dtype),
-            "experts_down": _dense(g, (E, f, d), dtype),
+            "router": L.dense_init(g, (d, E), dtype=torch.float32),
+            "experts_gate": L.dense_init(g, (E, d, f), dtype=dtype),
+            "experts_up": L.dense_init(g, (E, d, f), dtype=dtype),
+            "experts_down": L.dense_init(g, (E, f, d), dtype=dtype),
         }
         if cfg.num_shared_experts:
             fs = f * cfg.num_shared_experts
-            moe["shared_gate"] = _dense(g, (d, fs), dtype)
-            moe["shared_up"] = _dense(g, (d, fs), dtype)
-            moe["shared_down"] = _dense(g, (fs, d), dtype)
+            moe["shared_gate"] = L.dense_init(g, (d, fs), dtype=dtype)
+            moe["shared_up"] = L.dense_init(g, (d, fs), dtype=dtype)
+            moe["shared_down"] = L.dense_init(g, (fs, d), dtype=dtype)
         blocks.append({
-            "ln1": {"scale": _zeros(g, (d,))},
-            "ln2": {"scale": _zeros(g, (d,))},
-            "attn": {"wq": _dense(g, (d, H * Dh), dtype),
-                     "wk": _dense(g, (d, KVH * Dh), dtype),
-                     "wv": _dense(g, (d, KVH * Dh), dtype),
-                     "wo": _dense(g, (H * Dh, d), dtype)},
+            "ln1": L.rmsnorm_init(d, g.device),
+            "ln2": L.rmsnorm_init(d, g.device),
+            "attn": {"wq": L.dense_init(g, (d, H * Dh), dtype=dtype),
+                     "wk": L.dense_init(g, (d, KVH * Dh), dtype=dtype),
+                     "wv": L.dense_init(g, (d, KVH * Dh), dtype=dtype),
+                     "wo": L.dense_init(g, (H * Dh, d), dtype=dtype)},
             "moe": moe,
             "adaln": _zeros(g, (d, 6 * d), dtype),
         })

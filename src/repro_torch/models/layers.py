@@ -1,15 +1,32 @@
-"""Shared layers of the DiT (port of the parts of ``repro.models.layers`` the
-DiT-MoE serving path uses).  Params are plain dicts of tensors in the JAX
-package's layout: a projection weight is (in, out) and applies as
+"""Shared layers of the port's models (the parts of ``repro.models.layers``
+that the DiT-MoE and RWKV-6 paths use): init helpers, RMS norm, RoPE,
+attention and the f32 cross-entropy.  Params are plain dicts of tensors in
+the JAX package's layout: a projection weight is (in, out) and applies as
 ``x @ w``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import ops
+
+
+def dense_init(gen: torch.Generator, shape, *, scale: Optional[float] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Normal draw from ``gen`` on its device, times ``scale`` (default
+    1/sqrt(fan_in), fan-in the second-to-last dim: leading dims stack
+    experts or layers).  Drawn in f32, then cast."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).mul_(scale).to(dtype)
+
+
+def rmsnorm_init(d: int, device=None):
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
 def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -65,3 +82,12 @@ def attn_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     out = attention(q, k, v, causal=causal, window=window,
                     softcap=cfg.attn_logit_softcap)
     return out.reshape(B, S, H * Dh) @ p["wo"], (k, v)
+
+
+def softmax_cross_entropy(logits: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, computed in f32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()

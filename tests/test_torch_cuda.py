@@ -9,7 +9,8 @@ machine with only PyTorch:
 
 (``--noconftest``: the shared conftest imports JAX.)  Tolerances: f32
 1e-4 (sums of up to a few thousand terms in another order than cuBLAS'),
-bf16 2e-2; the int8 codec's q and scale must agree exactly.
+bf16 2e-2; the int8 codec's q and scale must agree exactly; the RWKV-6
+recurrence 1e-3 (f32 state and output, sums of DK terms chained over T).
 """
 import math
 
@@ -101,6 +102,75 @@ def test_residual_int8_kernel(gen, N, d, dtype):
     assert torch.equal(q, qp) and torch.equal(s, sp)
     assert torch.equal(q[0].float(), torch.round(ties))
     _close(r, rp, dtype)
+
+
+SCAN_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def _scan_inputs(gen, B, H, T, DK, dtype, logw_dtype=torch.float32):
+    kw = dict(generator=gen, device="cuda")
+    r, k, v = (torch.randn((B, H, T, DK), **kw).to(dtype) for _ in range(3))
+    logw = (-torch.exp(torch.randn((B, H, T, DK), **kw))).to(logw_dtype)
+    u = (0.5 + 0.1 * torch.randn((H, DK), **kw)).to(dtype)
+    s0 = 0.1 * torch.randn((B, H, DK, DK), **kw)
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("DK", [16, 32, 64])
+@pytest.mark.parametrize("T", [1, 37, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel(gen, DK, T, dtype):
+    args = _scan_inputs(gen, 2, 3, T, DK, dtype)
+    out, s_T = _launched("rwkv6_scan", lambda: ops.rwkv6_scan(*args))
+    want_out, want_s = ref.rwkv6_scan_ref(*args)
+    assert out.dtype == torch.float32 and s_T.dtype == torch.float32
+    torch.testing.assert_close(out, want_out, **SCAN_TOL)
+    torch.testing.assert_close(s_T, want_s, **SCAN_TOL)
+
+
+def test_rwkv6_scan_kernel_takes_logw_in_the_input_dtype_and_dk_128(gen):
+    args = _scan_inputs(gen, 1, 2, 40, 128, torch.bfloat16, torch.bfloat16)
+    out, s_T = _launched("rwkv6_scan", lambda: ops.rwkv6_scan(*args))
+    want_out, want_s = ref.rwkv6_scan_ref(*args)
+    torch.testing.assert_close(out, want_out, **SCAN_TOL)
+    torch.testing.assert_close(s_T, want_s, **SCAN_TOL)
+
+
+def test_rwkv6_scan_reads_strided_inputs(gen):
+    """(B, T, H, DK) projections permuted to (B, H, T, DK), as the model
+    passes them: no copy is made."""
+    B, T, H, DK = 2, 33, 4, 64
+    kw = dict(generator=gen, device="cuda")
+    rkv = torch.randn((B, T, 3, H, DK), **kw).to(torch.bfloat16)
+    r, k, v = (a.permute(0, 2, 1, 3) for a in rkv.unbind(2))
+    logw = (-torch.exp(torch.randn((B, T, H, DK), **kw))).permute(0, 2, 1, 3)
+    u = torch.full((H, DK), 0.5, device="cuda", dtype=torch.bfloat16)
+    s0 = torch.zeros((B, H, DK, DK), device="cuda")
+    assert not r.is_contiguous() and not logw.is_contiguous()
+    out, s_T = _launched("rwkv6_scan", lambda: ops.rwkv6_scan(r, k, v, logw, u, s0))
+    want_out, want_s = ref.rwkv6_scan_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(out, want_out, **SCAN_TOL)
+    torch.testing.assert_close(s_T, want_s, **SCAN_TOL)
+
+
+def test_rwkv6_scan_refuses_what_the_kernel_does_not_take(gen):
+    r, k, v, logw, u, s0 = _scan_inputs(gen, 1, 2, 4, 16, torch.bfloat16)
+    with pytest.raises(TypeError):                    # r/k/v in float64
+        ops.rwkv6_scan(r.double(), k.double(), v.double(), logw, u, s0)
+    with pytest.raises(TypeError):                    # mixed r/k/v
+        ops.rwkv6_scan(r, k.float(), v, logw, u, s0)
+    with pytest.raises(TypeError):                    # logw in float16
+        ops.rwkv6_scan(r, k, v, logw.half(), u, s0)
+    with pytest.raises(TypeError):                    # state not f32
+        ops.rwkv6_scan(r, k, v, logw, u, s0.to(torch.bfloat16))
+    with pytest.raises(ValueError):                   # u on another device
+        ops.rwkv6_scan(r, k, v, logw, u.cpu(), s0)
+    with pytest.raises(ValueError):                   # DK the kernel lacks
+        a = _scan_inputs(gen, 1, 2, 4, 24, torch.float32)
+        ops.rwkv6_scan(*a)
+    with pytest.raises(ValueError):                   # last dim strided
+        rt = r.transpose(2, 3).contiguous().transpose(2, 3)
+        ops.rwkv6_scan(rt, rt, rt, logw, u, s0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

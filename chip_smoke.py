@@ -10,8 +10,11 @@ non-zero and no phase's failure is caught:
 
   1. environment: the card's name and power limit, CUDA version, TF32 off;
   2. build: compiles the kernels under src/repro_torch/csrc with nvcc;
-  3. kernels vs their plain PyTorch versions at the main paths' shapes,
-     with times, the roofline bound and (where one exists) a library call;
+  3. kernels vs their plain PyTorch versions at the main paths' shapes and
+     at their tiles' edges, with times, the roofline bound and (where one
+     exists) a library call; the two f32 tensor-core kernels are bound by
+     f32-accurate 3xTF32 products on the tensor cores, and their bound on
+     the FP32 CUDA cores is printed and kept beside it (``fp32_bound_ms``);
   4. kernels in place: the tiny DiT served on the CPU (plain versions)
      and on the card (kernels) from the same weights and noise, 6 steps
      so that a light step's codec'd expert outputs reach the sample; the
@@ -44,8 +47,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-# FP32 outside the tensor cores, and HBM3 bandwidth.
+# FP32 outside the tensor cores, TF32 on the tensor cores, and HBM3
+# bandwidth.  An f32-accurate 3xTF32 product costs three TF32 products.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 TOL_F32 = dict(rtol=1e-4, atol=1e-4)      # f32 sums of up to 4608 terms
@@ -79,23 +84,6 @@ def phase(name: str):
     log(f"== phase {name} done in {time.perf_counter() - t0:.3f} s")
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls, by CUDA
-    events after a warm-up call (inputs stay where the last call left them,
-    so a working set under 50 MB is timed warm in L2)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def compare(name: str, got, want, tol) -> float:
     import torch
     g, w = got.float(), want.float()
@@ -111,8 +99,8 @@ def compare(name: str, got, want, tol) -> float:
     return max_abs
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -140,9 +128,8 @@ def phase_build():
     build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {build.build_stats['seconds']:.3f} s) into {build.build_dir()}")
-    for line in (build.build_dir() / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(f"  {line.strip()}")
+    for line in build.ptxas_report():
+        log(f"  {line}")
 
 
 def _expert_inputs(gen, E, C, d, f, dtype):
@@ -160,6 +147,7 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import time_ms
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = {}
 
@@ -170,7 +158,12 @@ def phase_kernels():
              (8, 640, 1152, 4608, torch.bfloat16, "silu"),
              (8, 320, 1152, 4608, torch.bfloat16, "silu"),
              (2, 136, 1152, 768, torch.float32, "gelu"),    # ragged C and f
-             (2, 136, 64, 768, torch.bfloat16, "gelu")]
+             (2, 136, 64, 768, torch.bfloat16, "gelu"),
+             # edges of the 128-row, BK = 32, 64/128-column tiles
+             (8, 1, 72, 100, torch.float32, "silu"),
+             (8, 127, 1000, 100, torch.bfloat16, "silu"),
+             (8, 129, 72, 4608, torch.float32, "gelu")]
+    timed = {}
     for E, C, d, f, dtype, act in cases:
         args = _expert_inputs(gen, E, C, d, f, dtype)
         got = ops.expert_ffn(*args, act=act)
@@ -178,23 +171,31 @@ def phase_kernels():
         torch.cuda.synchronize()
         err = compare(f"expert_ffn E={E} C={C} d={d} f={f} {str(dtype)[6:]} {act}",
                       got, want, TOL_F32 if dtype == torch.float32 else TOL_BF16)
-        if (C, dtype) == (640, torch.float32):
-            row_err, xl_args = err, args
-    E, C, d, f = 8, 640, 1152, 4608
-    ms = time_ms(lambda: ops.expert_ffn(*xl_args), 10)
-    plain = time_ms(lambda: ref.expert_ffn_ref(*xl_args), 10)
-    flops = 6.0 * E * C * d * f
-    nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
-    b_ms, b_by = bound(flops, nbytes)
-    log(f"  expert_ffn XL refresh f32: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
-        f"TFLOP/s), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"library: none (no single PyTorch call computes the gated MLP)")
-    rows["expert_ffn"] = dict(
-        name="expert_ffn", route="cuda", source="src/repro_torch/csrc/expert_ffn.cu",
-        replaces="src/repro/kernels/expert_ffn.py:69", max_abs_err=row_err, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape="E=8 C=640 d=1152 f=4608 f32 silu")
-    del xl_args
+        if (d, dtype) == (1152, torch.float32) and C in (320, 640):
+            timed[C] = (err, args)
+    E, d, f = 8, 1152, 4608
+    for C, label in ((640, "refresh"), (320, "light")):
+        err, args = timed.pop(C)
+        ms = time_ms(lambda: ops.expert_ffn(*args), 10)
+        plain = time_ms(lambda: ref.expert_ffn_ref(*args), 10)
+        flops = 6.0 * E * C * d * f
+        nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
+        b_ms, b_by = bound(flops, nbytes)
+        tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+        log(f"  expert_ffn XL {label} C={C} f32: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), cuBLAS yardstick (the plain "
+            f"version, three f32 matmuls) {plain:.4f} ms, bound {tc_ms:.4f} ms "
+            f"({tc_by}, 3xTF32 on the tensor cores), FP32 CUDA-core bound "
+            f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch call "
+            f"computes the gated MLP); kernel < cuBLAS: {ms < plain}")
+        if C == 640:
+            rows["expert_ffn"] = dict(
+                name="expert_ffn", route="cuda",
+                source="src/repro_torch/csrc/expert_ffn.cu",
+                replaces="src/repro/kernels/expert_ffn.py:69", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms,
+                library_ms=None, shape="E=8 C=640 d=1152 f=4608 f32 silu")
+        del args
 
     # ---- flash_attention --------------------------------------------------
     log("flash_attention (hand-written CUDA) vs plain PyTorch")
@@ -210,7 +211,11 @@ def phase_kernels():
               ((2, 64, 64, 2, 2, 128), torch.float32, {}),
               ((2, 128, 256, 8, 8, 32), torch.float32, {}),
               ((1, 64, 100, 2, 2, 256), torch.float32, dict(causal=True)),  # ragged Sk
-              ((1, 40, 40, 2, 2, 24), torch.float32, dict(window=1))]
+              ((1, 40, 40, 2, 2, 24), torch.float32, dict(window=1)),
+              # edges of the 128-row query and 32-key (16 at Dh > 128) tiles
+              ((2, 65, 257, 4, 1, 72), torch.float32, {}),
+              ((1, 65, 257, 8, 2, 128), torch.bfloat16, dict(causal=True)),
+              ((1, 40, 257, 4, 2, 256), torch.float32, dict(window=48))]
     for (B, Sq, Sk, H, KVH, Dh), dtype, opts in fcases:
         q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, Sk, KVH, Dh), generator=gen, device="cuda").to(dtype)
@@ -221,7 +226,7 @@ def phase_kernels():
         err = compare(f"flash B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh} "
                       f"{str(dtype)[6:]} {opts}", got, want,
                       TOL_F32 if dtype == torch.float32 else TOL_BF16)
-        if (Dh, dtype) == (72, torch.float32):
+        if (B, Sq, Dh, dtype) == (8, 256, 72, torch.float32):
             row_err, xl_qkv = err, (q, k, v)
     q, k, v = xl_qkv
     B, S, H, Dh = q.shape
@@ -232,14 +237,18 @@ def phase_kernels():
     flops = 4.0 * B * H * S * S * Dh
     nbytes = 4.0 * 4 * B * S * H * Dh
     b_ms, b_by = bound(flops, nbytes)
+    tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     log(f"  flash XL f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"scaled_dot_product_attention {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"scaled_dot_product_attention {lib:.4f} ms, bound {tc_ms:.4f} ms ({tc_by}, "
+        f"3xTF32 on the tensor cores), FP32 CUDA-core bound {b_ms:.4f} ms ({b_by}); "
+        f"the shape is the same on light and refresh steps; kernel <= library: "
+        f"{ms <= lib}")
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=row_err,
-        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-        shape="B=8 S=256 H=16 Dh=72 f32 non-causal")
+        ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms,
+        library_ms=lib, shape="B=8 S=256 H=16 Dh=72 f32 non-causal")
 
     # ---- residual_int8 ----------------------------------------------------
     log("residual_int8 (hand-written CUDA) vs plain PyTorch")
@@ -662,8 +671,9 @@ def main() -> int:
     with phase("6 main path 2 (rwkv6-3b prefill + decode, bf16)"):
         phase_lm(rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: rows[n][k] for k in keys} for n in rows]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "fp32_bound_ms")
+    log(json.dumps({"kernels": [{k: rows[n][k] for k in keys if k in rows[n]}
+                                for n in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // Shared helpers for the port's Hopper kernels: element loads/stores that
-// convert through f32, and warp reductions.
+// convert through f32, and a warp max.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,12 +23,6 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 

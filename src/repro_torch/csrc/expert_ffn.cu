@@ -1,35 +1,76 @@
-// Grouped gated expert MLP for Hopper (sm_90a):
+// Grouped gated expert MLP for Hopper (sm_90a) on the tensor cores:
 //   out[e] = (act(buf[e] @ Wg[e]) * (buf[e] @ Wu[e])) @ Wd[e]
 // buf (E, C, d), Wg/Wu (E, d, f), Wd (E, f, d), all row-major; f32 or bf16
 // in, the dtype of buf out, f32 accumulation throughout.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/expert_ffn.py
-// (expert_ffn_pallas).  That kernel carries the (bc, bf) gate/up sums and
-// the (bc, d) output sum in VMEM across sequential grid steps.  Hopper runs
+// (expert_ffn_pallas), which carries the (bc, bf) gate/up sums and the
+// (bc, d) output sum in VMEM across sequential grid steps.  Hopper runs
 // blocks in no order, so nothing carries across blocks; the work is two
-// launches instead:
-//   1. gate_up: one block per (f-tile, C-tile, e) loops over d in shared-
-//      memory tiles, keeps g and u in f32 registers and writes
-//      h = act(g) * u to an f32 scratch (E, C, f);
-//   2. down: one block per (d-tile, C-tile, e) computes h @ Wd.
-// Ragged C, d and f edges are masked, so any capacity and width work.
+// launches of one grouped GEMM main loop:
+//   1. gate_up_kernel: a block owns 128 rows x 64 columns of f of one
+//      expert, keeps one A tile in shared memory for both products (two
+//      accumulators), and writes h = act(g) * u to an f32 scratch (E, C, f)
+//      in its epilogue with float2 stores;
+//   2. down_kernel: a block owns 128 rows x 128 columns of d and computes
+//      h @ Wd.
+// A down projection fused into (1) would need a (rows x d) f32 sum per
+// block, which does not fit; the h round trip costs ~0.06 ms at XL.
 //
 // Bound: at DiT-MoE-XL refresh shapes (E=8, C=640, d=1152, f=4608) the
-// products are ~163 GFLOP against ~0.5 GB of weights, so the kernel is
-// bound by operations.  With f32 in it runs on the FP32 CUDA cores (FMA,
-// no TF32, to match the JAX package's f32 numerics), whose peak on an H100
-// SXM is 67 TFLOP/s.  The tiling is the plain 64x64 shared-memory SGEMM
-// with a 4x4 register tile per thread; wgmma/TMA pipelines are later work.
+// products are 163 GFLOP against 0.5 GB of weights, so operations bound
+// it.  The products run on the tensor cores as mma.sync m16n8k8 tf32 with
+// the 3xTF32 split (tf32_mma.cuh): f32 accuracy, as the JAX package's f32
+// numerics and TOL_F32 need, at up to 165 TFLOP/s against the CUDA cores'
+// 67.  wgmma takes tf32 operands only K-major from shared memory, and Wg,
+// Wu, Wd and h are N-major here; mma.sync reads fragments in any layout.
+//   - 4 warps as 2 (rows) x 2 (columns); a warp owns 64 x 64 outputs, 4 x 8
+//     m16n8 tiles (gate/up: 4 gate and 4 up tiles of the same columns, so
+//     one thread holds g and u of an output for the epilogue).  Per 8-deep
+//     k-step a warp splits 16 A and 16 B fragment values for 96 mmas; the
+//     split (cvt, sub, cvt) is the cost that the wide warp tile spreads.
+//   - BK = 32, a 2-stage cp.async ring of A and B tiles in dynamic shared
+//     memory (72 KB gate/up, 70 KB down), 255 registers a thread (down
+//     spills 20 bytes, -Xptxas -v): two blocks, 8 warps, per SM.  16-byte
+//     cp.async.cg with zero-fill on ragged edges where rows are 16-byte
+//     aligned, element loads otherwise.
+//   - On an H100 SXM (launch/kernel_variants.py), 64-row blocks of 4 warps
+//     with 64 x 32 warp tiles ran the XL refresh shape (C = 640) 1.2x as
+//     long and the light shape (C = 320, where 128-row blocks waste 64 of
+//     384 rows) 6% faster; refresh-size calls are 80% of a DICE run's, so
+//     the wide tiles win; a third pipeline stage did not help.
+//   - Rows of A are padded to BK + 4 floats and rows of B to BN + 8, so
+//     the A fragment (rows g, columns t) and the B fragment of the row-
+//     major weights (rows t, columns g) each hit 32 different banks.
+//   - bf16 operands are exact in tf32, so gate/up in bf16 runs one mma per
+//     tile and down two (h is f32).
+//   - Blocks walk rows fastest, so the C / 128 blocks that read one weight
+//     tile run together and the weights come from HBM about once.
+// Ragged C, d and f edges are masked, so any capacity and width work.
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace dice {
 namespace {
 
-constexpr int BM = 64;    // rows of C per block
-constexpr int BN = 64;    // output columns per block
-constexpr int BK = 16;    // contraction tile
-constexpr int NT = 256;   // threads: a 16x16 grid, 4x4 outputs each
-constexpr int PAD = 4;
+// Tiling.  The defaults are the port's; launch/kernel_variants.py builds
+// the other values with -D and times them against these.
+//   DICE_FFN_WARPS_M 2: 128-row blocks of 2 x 2 warps, 64 x 64 warp tiles;
+//                    1: 64-row blocks of 1 x 4 warps, 64 x 32 warp tiles.
+#ifndef DICE_FFN_WARPS_M
+#define DICE_FFN_WARPS_M 2
+#endif
+#ifndef DICE_FFN_STAGES
+#define DICE_FFN_STAGES 2
+#endif
+constexpr int BK = 32;                  // contraction tile
+constexpr int STAGES = DICE_FFN_STAGES; // cp.async ring depth
+constexpr int WARPS_M = DICE_FFN_WARPS_M, WARPS_N = 4 / WARPS_M;
+static_assert(WARPS_M == 1 || WARPS_M == 2, "DICE_FFN_WARPS_M is 1 or 2");
+constexpr int NJ = 4 * WARPS_M;         // m16n8 tiles across a warp's columns
+constexpr int NT = 32 * WARPS_M * WARPS_N;
+constexpr int BM = 64 * WARPS_M;        // rows of C per block
+constexpr int MIN_BLOCKS = 4 / WARPS_M; // blocks per SM the registers allow
 
 __device__ __forceinline__ float activation(float g, int act) {
   if (act == 0) return g * (1.0f / (1.0f + expf(-g)));  // silu
@@ -38,154 +79,244 @@ __device__ __forceinline__ float activation(float g, int act) {
   return 0.5f * g * (1.0f + tanhf(k * (g + 0.044715f * g * g * g)));
 }
 
-// Loads a BM x BK tile of the row-major (rows x cols) matrix A starting at
-// (row0, k0) into As[k][row], zero-filling outside the matrix.
-template <typename T>
-__device__ __forceinline__ void load_a_tile(float (*As)[BM + PAD], const T* A,
-                                            int rows, int cols, int row0, int k0) {
+// Shared-memory layout of one pipeline stage: an A tile BM x BK and NB B
+// tiles BK x BN (NB = 2 for gate/up), rows padded as the note says.
+template <typename TA, typename TB, bool GATED>
+struct Layout {
+  static constexpr int NB = GATED ? 2 : 1;
+  static constexpr int BN = (GATED ? 4 : 8) * NJ * WARPS_N;  // columns per B tile
+  static constexpr int LDA = BK + 16 / (int)sizeof(TA);
+  static constexpr int LDB = BN + 32 / (int)sizeof(TB);
+  static constexpr size_t A_BYTES = sizeof(TA) * BM * LDA;
+  static constexpr size_t B_BYTES = sizeof(TB) * BK * LDB;
+  static constexpr size_t STAGE = A_BYTES + NB * B_BYTES;
+  static constexpr size_t BYTES = STAGES * STAGE;
+};
+
+// ROWS x COLS tile at (r0, c0) of the row-major (rows x cols) matrix src
+// into dst (row length ld), zero outside the matrix.  vec: cols and the
+// base are 16-byte aligned, so a 16-byte piece is all inside or all out.
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, int rows,
+                                          int cols, int r0, int c0, bool vec) {
+  if (vec) {
+    constexpr int VE = 16 / sizeof(T), CPR = COLS / VE, N = ROWS * CPR;
+    static_assert(N % NT == 0, "tile pieces must split evenly over the threads");
 #pragma unroll
-  for (int l = 0; l < (BM * BK) / NT; ++l) {
-    const int idx = threadIdx.x + l * NT;
-    const int r = idx / BK, kk = idx % BK;
-    const int gr = row0 + r, gk = k0 + kk;
-    As[kk][r] = (gr < rows && gk < cols) ? load_f32(A + (size_t)gr * cols + gk) : 0.0f;
+    for (int l = 0; l < N / NT; ++l) {
+      const int idx = threadIdx.x + l * NT;
+      const int r = idx / CPR, c = (idx % CPR) * VE;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool in = gr < rows && gc < cols;
+      cp_async16(dst + r * ld + c, in ? src + (size_t)gr * cols + gc : src, in ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += NT) {
+      const int r = idx / COLS, c = idx % COLS;
+      const int gr = r0 + r, gc = c0 + c;
+      store_f32(dst + r * ld + c,
+                gr < rows && gc < cols ? load_f32(src + (size_t)gr * cols + gc) : 0.0f);
+    }
   }
 }
 
-// Loads a BK x BN tile of the row-major (rows x cols) matrix B starting at
-// (k0, col0) into Bs[k][col].
-template <typename T>
-__device__ __forceinline__ void load_b_tile(float (*Bs)[BN + PAD], const T* B,
-                                            int rows, int cols, int k0, int col0) {
-#pragma unroll
-  for (int l = 0; l < (BK * BN) / NT; ++l) {
-    const int idx = threadIdx.x + l * NT;
-    const int kk = idx / BN, c = idx % BN;
-    const int gk = k0 + kk, gc = col0 + c;
-    Bs[kk][c] = (gk < rows && gc < cols) ? load_f32(B + (size_t)gk * cols + gc) : 0.0f;
-  }
-}
+// acc[i][j] = the (i, j) m16n8 tile of this warp's 64 x 8 NJ outputs of
+// A (M x K) @ B (K x N), over the block's tile (blockIdx.x rows, blockIdx.y
+// columns).  GATED: B0 = Wg gives tiles j < NJ / 2 and B1 = Wu tiles
+// j >= NJ / 2 of the same columns.
+template <typename TA, typename TB, bool GATED>
+__device__ __forceinline__ void gemm_mainloop(const TA* __restrict__ A,
+                                              const TB* __restrict__ B0,
+                                              const TB* __restrict__ B1, int M, int K,
+                                              int N, bool vec_a, bool vec_b,
+                                              unsigned char* smem, float (&acc)[4][NJ][4]) {
+  using L = Layout<TA, TB, GATED>;
+  constexpr bool SA = kSplit<TA>;
+  constexpr bool SB = kSplit<TB>;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * L::BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  auto a_tile = [&](int s) { return reinterpret_cast<TA*>(smem + s * L::STAGE); };
+  auto b_tile = [&](int s, int mat) {
+    return reinterpret_cast<TB*>(smem + s * L::STAGE + L::A_BYTES + mat * L::B_BYTES);
+  };
+  const int ktiles = (K + BK - 1) / BK;
+  auto load_stage = [&](int s, int kt) {
+    const int k0 = kt * BK;
+    load_tile<TA, BM, BK>(a_tile(s), L::LDA, A, M, K, row0, k0, vec_a);
+    load_tile<TB, BK, L::BN>(b_tile(s, 0), L::LDB, B0, K, N, k0, col0, vec_b);
+    if constexpr (GATED)
+      load_tile<TB, BK, L::BN>(b_tile(s, 1), L::LDB, B1, K, N, k0, col0, vec_b);
+  };
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gate_up_kernel(const T* __restrict__ buf, const T* __restrict__ wg,
-               const T* __restrict__ wu, float* __restrict__ h,
-               int C, int d, int f, int act) {
-  __shared__ float As[BK][BM + PAD];
-  __shared__ float Gs[BK][BN + PAD];
-  __shared__ float Us[BK][BN + PAD];
-  const int e = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const T* A = buf + (size_t)e * C * d;
-  const T* G = wg + (size_t)e * d * f;
-  const T* U = wu + (size_t)e * d * f;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  float accg[4][4], accu[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) accg[i][j] = accu[i][j] = 0.0f;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    load_a_tile(As, A, C, d, row0, k0);
-    load_b_tile(Gs, G, d, f, k0, col0);
-    load_b_tile(Us, U, d, f, k0, col0);
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], bg[4], bu[4];
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                    // tile kt landed; tile kt - 1 consumed
+    {
+      const int nk = kt + STAGES - 1;
+      if (nk < ktiles) load_stage(nk % STAGES, nk);
+      cp_async_commit();
+    }
+    const int st = kt % STAGES;
+    const TA* as = a_tile(st) + (wm * 64 + g) * L::LDA + t;
+    const TB* bs[NJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+    for (int j = 0; j < NJ; ++j)
+      bs[j] = GATED ? b_tile(st, j / (NJ / 2)) + t * L::LDB + wn * 4 * NJ + j % (NJ / 2) * 8 + g
+                    : b_tile(st, 0) + t * L::LDB + wn * 8 * NJ + j * 8 + g;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        bg[j] = Gs[kk][tx + 16 * j];
-        bu[j] = Us[kk][tx + 16 * j];
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      Frag<SB, 2> b[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const TB* bp = bs[j] + kk * 8 * L::LDB;
+        b[j].set(0, load_f32(bp));
+        b[j].set(1, load_f32(bp + 4 * L::LDB));
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const TA* ap = as + i * 16 * L::LDA + kk * 8;
+        Frag<SA, 4> a;
+        a.set(0, load_f32(ap));
+        a.set(1, load_f32(ap + 8 * L::LDA));
+        a.set(2, load_f32(ap + 4));
+        a.set(3, load_f32(ap + 8 * L::LDA + 4));
+        // pass by pass over the NJ tiles, so that dependent mmas are NJ
+        // apart
+        if constexpr (SA) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          accg[i][j] = fmaf(a[i], bg[j], accg[i][j]);
-          accu[i][j] = fmaf(a[i], bu[j], accu[i][j]);
+          for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], a.small, b[j].big);
         }
-    }
-    __syncthreads();
-  }
-
-  float* H = h + (size_t)e * C * f;
+        if constexpr (SB) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
+          for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], a.big, b[j].small);
+        }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (r < C && c < f) H[(size_t)r * f + c] = activation(accg[i][j], act) * accu[i][j];
+        for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], a.big, b[j].big);
+      }
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-down_kernel(const float* __restrict__ h, const T* __restrict__ wd,
-            T* __restrict__ out, int C, int d, int f) {
-  __shared__ float As[BK][BM + PAD];
-  __shared__ float Bs[BK][BN + PAD];
-  const int e = blockIdx.z;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const float* A = h + (size_t)e * C * f;
-  const T* B = wd + (size_t)e * f * d;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+__device__ __forceinline__ void store2(float* p, float v0, float v1, bool pair, bool second) {
+  if (pair) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    p[0] = v0;
+    if (second) p[1] = v1;
+  }
+}
 
-  float acc[4][4];
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1, bool pair,
+                                       bool second) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    p[0] = __float2bfloat16(v0);
+    if (second) p[1] = __float2bfloat16(v1);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+gate_up_kernel(const T* __restrict__ buf, const T* __restrict__ wg,
+               const T* __restrict__ wu, float* __restrict__ h, int C, int d, int f,
+               int act, int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int e = blockIdx.z;
+  float acc[4][NJ][4];
+  gemm_mainloop<T, T, true>(buf + (size_t)e * C * d, wg + (size_t)e * d * f,
+                            wu + (size_t)e * d * f, C, d, f, vec_a, vec_b, smem, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  float* H = h + (size_t)e * C * f;
+  const int r0 = blockIdx.x * BM + wm * 64 + (lane >> 2);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < f; k0 += BK) {
-    load_a_tile(As, A, C, f, row0, k0);
-    load_b_tile(Bs, B, f, d, k0, col0);
-    __syncthreads();
+    for (int jj = 0; jj < NJ / 2; ++jj) {
+      const int c = blockIdx.y * Layout<T, T, true>::BN + wn * 4 * NJ + jj * 8 + 2 * (lane & 3);
+      if (c >= f) continue;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + i * 16 + half * 8;
+        if (r >= C) continue;
+        constexpr int U = NJ / 2;             // up tiles follow the gate tiles
+        const float v0 = activation(acc[i][jj][2 * half], act) * acc[i][jj + U][2 * half];
+        const float v1 =
+            activation(acc[i][jj][2 * half + 1], act) * acc[i][jj + U][2 * half + 1];
+        store2(H + (size_t)r * f + c, v0, v1, f % 2 == 0 && c + 1 < f, c + 1 < f);
+      }
     }
-    __syncthreads();
-  }
-
-  T* O = out + (size_t)e * C * d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (r < C && c < d) store_f32(O + (size_t)r * d + c, acc[i][j]);
-    }
-  }
 }
 
 template <typename T>
-void launch(const void* buf, const void* wg, const void* wu, const void* wd,
-            float* h, void* out, int E, int C, int d, int f, int act,
-            cudaStream_t stream) {
-  const dim3 block(NT);
-  const dim3 grid1((f + BN - 1) / BN, (C + BM - 1) / BM, E);
-  gate_up_kernel<T><<<grid1, block, 0, stream>>>(
-      static_cast<const T*>(buf), static_cast<const T*>(wg),
-      static_cast<const T*>(wu), h, C, d, f, act);
-  const dim3 grid2((d + BN - 1) / BN, (C + BM - 1) / BM, E);
-  down_kernel<T><<<grid2, block, 0, stream>>>(
-      h, static_cast<const T*>(wd), static_cast<T*>(out), C, d, f);
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+down_kernel(const float* __restrict__ h, const T* __restrict__ wd, T* __restrict__ out,
+            int C, int d, int f, int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int e = blockIdx.z;
+  float acc[4][NJ][4];
+  gemm_mainloop<float, T, false>(h + (size_t)e * C * f, wd + (size_t)e * f * d, nullptr,
+                                 C, f, d, vec_a, vec_b, smem, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  T* O = out + (size_t)e * C * d;
+  const int r0 = blockIdx.x * BM + wm * 64 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = blockIdx.y * Layout<float, T, false>::BN + wn * 8 * NJ + j * 8 + 2 * (lane & 3);
+      if (c >= d) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + i * 16 + half * 8;
+        if (r >= C) continue;
+        store2(O + (size_t)r * d + c, acc[i][j][2 * half], acc[i][j][2 * half + 1],
+               d % 2 == 0 && c + 1 < d, c + 1 < d);
+      }
+    }
+}
+
+template <typename T>
+cudaError_t launch(const void* buf, const void* wg, const void* wu, const void* wd,
+                   float* h, void* out, int E, int C, int d, int f, int act,
+                   cudaStream_t stream) {
+  using LG = Layout<T, T, true>;
+  using LD = Layout<float, T, false>;
+  const long long es = sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_up_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)LG::BYTES);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(down_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)LD::BYTES);
+  if (err != cudaSuccess) return err;
+  const int vec_buf = rows_16b_aligned(buf, d * es);
+  const int vec_gu = rows_16b_aligned(wg, f * es) && rows_16b_aligned(wu, f * es);
+  const int vec_h = rows_16b_aligned(h, f * 4LL);
+  const int vec_wd = rows_16b_aligned(wd, d * es);
+  const dim3 grid1((C + BM - 1) / BM, (f + LG::BN - 1) / LG::BN, E);
+  gate_up_kernel<T><<<grid1, NT, LG::BYTES, stream>>>(
+      static_cast<const T*>(buf), static_cast<const T*>(wg), static_cast<const T*>(wu), h,
+      C, d, f, act, vec_buf, vec_gu);
+  const dim3 grid2((C + BM - 1) / BM, (d + LD::BN - 1) / LD::BN, E);
+  down_kernel<T><<<grid2, NT, LD::BYTES, stream>>>(
+      h, static_cast<const T*>(wd), static_cast<T*>(out), C, d, f, vec_h, vec_wd);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -202,10 +333,12 @@ extern "C" int dice_expert_ffn(const void* buf, const void* wg, const void* wu,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E > 0 && C > 0 && d > 0 && f > 0) {
     if (dtype == dice::kF32)
-      dice::launch<float>(buf, wg, wu, wd, static_cast<float*>(h), out, E, C, d, f, act, s);
+      err = dice::launch<float>(buf, wg, wu, wd, static_cast<float*>(h), out, E, C, d, f,
+                                act, s);
     else
-      dice::launch<__nv_bfloat16>(buf, wg, wu, wd, static_cast<float*>(h), out, E, C, d, f,
-                                  act, s);
+      err = dice::launch<__nv_bfloat16>(buf, wg, wu, wd, static_cast<float*>(h), out, E, C,
+                                        d, f, act, s);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -1,150 +1,314 @@
-// Online-softmax attention for Hopper (sm_90a).
+// Online-softmax attention for Hopper (sm_90a) on the tensor cores.
 //   q (B, Sq, H, Dh), k/v (B, Sk, KVH, Dh) -> o (B, Sq, H, Dh)
 // read and written through strides in that layout (the last dim must be
 // contiguous), so the caller makes no transposed copy.  Options exactly as
 // the Pallas kernel's: causal, sliding window (symmetric when not causal),
 // logit softcap, GQA by h // (H / KVH); masked logits are -1e30 (not -inf),
-// so a fully masked row gives the mean of V; l is clamped at 1e-30.
+// keys past Sk are padding at -inf, so a fully masked row gives the mean of
+// V; l is clamped at 1e-30.  Dh up to 256; f32 or bf16 in and out.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention).  That kernel keeps m/l/acc in VMEM scratch across the
-// sequential kv-block grid dimension.  Here one block owns (b, h, a tile of
-// 32 query rows) and loops over 64-key k/v tiles held in shared memory;
-// each warp owns 4 query rows and keeps their running max, sum and output
-// accumulator in f32 registers (lane i holds dims i, i+32, ... of a row),
-// so nothing carries across blocks.  Dh up to 256.
+// (flash_attention), which keeps m/l/acc in VMEM scratch across its
+// sequential kv-block grid axis.  Here one block of 8 warps owns 128 query
+// rows of one (b, h) and loops over the keys; nothing carries across
+// blocks.
 //
-// Bound: at the DiT-MoE-XL shape (8, 256, 16, 72) the work is ~2.4 GFLOP
-// against ~19 MB of q/k/v/o, so it is bound by operations, which run on the
-// FP32 CUDA cores (67 TFLOP/s peak on an H100 SXM).  Scores and P.V are
-// plain FMA loops over shared memory; tensor-core (wgmma) tiles are later
-// work.
+// Bound: at the DiT-MoE-XL shape (8, 256, 16, 72) f32 the two products are
+// 2.4 GFLOP against 38 MB of q/k/v/o, so operations bound it.  Both
+// products run on the tensor cores as mma.sync m16n8k8 tf32 with the
+// 3xTF32 split (tf32_mma.cuh), which keeps f32 accuracy at up to 165
+// TFLOP/s instead of the CUDA cores' 67.  The three passes and the split
+// (cvt, sub, cvt per fragment value) are most of its time: one pass alone
+// takes half of it.
+//   - Each warp owns 16 query rows, the m16 of the mma.  S = Q K^T is
+//     computed in register fragments, Dh in k-steps of 8 (9 at Dh = 72),
+//     Dh padded with zeros to a multiple of 8 in shared memory; q is scaled
+//     as its fragments are formed.
+//   - Online softmax stays in registers: a thread holds 2 rows x 2 keys of
+//     each 8-key tile, so a row's max reduces over the 4 lanes that share
+//     it (two __shfl_xor_sync); its sum is kept per lane and reduced once
+//     at the end.
+//   - O = P V takes P straight from S's accumulator registers: the keys of
+//     each 8-key step are taken in the order 0, 2, 4, 6 | 1, 3, 5, 7, which
+//     turns the C-fragment layout into the A-fragment layout, and V's B
+//     fragments are read from the same key rows.  No shuffle, no staging.
+//   - Shared rows are padded by 16 bytes (f32: Dh + 4 floats), so the 32
+//     lanes of every fragment load hit 32 different banks, for Q and K
+//     (rows g, columns t) and for V (rows 2t, 2t + 1, columns g) alike.
+//   - q and K/V tiles of 32 keys (16 when Dh > 128) come in through a
+//     2-stage cp.async ring (16-byte cp.async.cg with zero-fill where every
+//     row is 16-byte aligned, element loads otherwise).  At Dh = 72 f32 a
+//     block holds 76 KB and its threads 128 registers (-Xptxas -v, no
+//     spill), so two blocks share an SM and the DiT shape's 256 blocks run
+//     in one wave.  4 warps of 64 rows with 64-key tiles need 95 KB and 168
+//     registers and run 512 blocks in two waves, 1.4x as long on an H100
+//     SXM (launch/kernel_variants.py); a whole 256-key head kept resident
+//     (194 KB with 128 rows of q) would allow one block per SM.
+//   - The register tiles are sized by a template argument NT (8-wide Dh
+//     tiles: 4, 9, 16 or 32), so the O accumulator never spills to local
+//     memory; Dh = 72 runs at NT = 9 with no padding tile.
+#include <type_traits>
+
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace dice {
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int ROWS = 4;                 // query rows per warp
-constexpr int BQ = WARPS * ROWS;        // query rows per block
-constexpr int BKV = 64;                 // keys per tile: two per lane
-constexpr int MAXCH = 8;                // Dh <= 32 * MAXCH = 256
+// Tiling.  The defaults are the port's; launch/kernel_variants.py builds
+// other values with -D and times them against these: DICE_FLASH_WARPS
+// warps of 16 query rows per block, K/V tiles of DICE_FLASH_KEYS keys
+// (half as many when Dh > 128).
+#ifndef DICE_FLASH_WARPS
+#define DICE_FLASH_WARPS 8
+#endif
+#ifndef DICE_FLASH_KEYS
+#define DICE_FLASH_KEYS 32
+#endif
+constexpr int WARPS = DICE_FLASH_WARPS;
+constexpr int BQ = 16 * WARPS;          // query rows per block
+constexpr int STAGES = 2;               // K/V ring depth
 constexpr float MASKED = -1e30f;
 
 struct Strides {
   long long b, s, h;
 };
 
+// keys per K/V tile for the head-dim class NT
+template <int NT>
+__host__ __device__ constexpr int key_tile() {
+  return NT > 16 ? DICE_FLASH_KEYS / 2 : DICE_FLASH_KEYS;
+}
+
+// Elements per shared row: Dh padded to dp (a multiple of 8), plus 16 bytes.
 template <typename T>
+__host__ __device__ __forceinline__ int row_ld(int dp) { return dp + 16 / (int)sizeof(T); }
+
+template <typename T, int NT>
+size_t smem_bytes(int dp) {
+  return sizeof(T) * (size_t)(BQ + STAGES * 2 * key_tile<NT>()) * row_ld<T>(dp);
+}
+
+// rows x dp tile of q, k or v (sequence positions pos0 ...) into shared
+// memory, zero past S and past Dh.  vec: every row is 16-byte aligned, so
+// cp.async pieces.
+template <typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ss, int pos0,
+                                          int rows, int S, int Dh, int dp, bool vec) {
+  const int ld = row_ld<T>(dp);
+  if (vec) {
+    constexpr int VE = 16 / sizeof(T);
+    const int cpr = dp / VE;
+    for (int idx = threadIdx.x; idx < rows * cpr; idx += blockDim.x) {
+      const int r = idx / cpr, d0 = (idx % cpr) * VE;
+      const int p = pos0 + r;
+      const int n = p < S ? max(0, min(VE, Dh - d0)) : 0;
+      cp_async16(dst + r * ld + d0, n > 0 ? src + p * ss + d0 : src, n * (int)sizeof(T));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * dp; idx += blockDim.x) {
+      const int r = idx / dp, dd = idx % dp;
+      const int p = pos0 + r;
+      store_f32(dst + r * ld + dd, p < S && dd < Dh ? load_f32(src + p * ss + dd) : 0.0f);
+    }
+  }
+}
+
+template <typename T, int NT>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
              int KVH, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
              int causal, int has_window, int window, int has_softcap,
-             float softcap, float scale) {
-  extern __shared__ float smem[];
-  const int ld = Dh + 1;                // padded: lanes read distinct banks
-  float* Qs = smem;                     // BQ x ld
-  float* Ks = Qs + BQ * ld;             // BKV x ld
-  float* Vs = Ks + BKV * ld;            // BKV x ld
-  float* Ps = Vs + BKV * ld;            // WARPS x BKV
+             float softcap, float scale, int aligned) {
+  constexpr int BKV = key_tile<NT>();
+  constexpr int SN = BKV / 8;           // 8-key tiles of S per K/V tile
+  constexpr bool SPLIT_KV = kSplit<T>;
+  constexpr bool SPLIT_QP = kSplit<float>;   // q * scale and P are f32
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nd = (Dh + 7) / 8, dp = 8 * nd;
+  const int ld = row_ld<T>(dp);
+  T* Qs = reinterpret_cast<T*>(smem);                            // BQ x ld
+  T* ring = Qs + BQ * ld;                                        // STAGES x {K, V}
+  const size_t tile = (size_t)BKV * ld;
 
   const int bh = blockIdx.y;
   const int b = bh / H, hh = bh % H;
   const int kvh = hh / (H / KVH);
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nthreads = WARPS * 32;
+  const int g = lane >> 2, t = lane & 3;
 
   const T* qb = q + b * qs.b + hh * qs.h;
   const T* kb = k + b * ks.b + kvh * ks.h;
   const T* vb = v + b * vs.b + kvh * vs.h;
+  const int ntiles = (Sk + BKV - 1) / BKV;
+  auto load_stage = [&](int stage, int kt) {
+    load_rows(ring + (2 * stage) * tile, kb, ks.s, kt * BKV, BKV, Sk, Dh, dp, aligned & 1);
+    load_rows(ring + (2 * stage + 1) * tile, vb, vs.s, kt * BKV, BKV, Sk, Dh, dp,
+              aligned & 2);
+  };
 
-  for (int idx = threadIdx.x; idx < BQ * Dh; idx += nthreads) {
-    const int r = idx / Dh, dd = idx % Dh;
-    const int gq = q0 + r;
-    Qs[r * ld + dd] = gq < Sq ? load_f32(qb + gq * qs.s + dd) * scale : 0.0f;
+  // q joins the first K/V tile's group
+  load_rows(Qs, qb, qs.s, q0, BQ, Sq, Dh, dp, aligned & 4);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) load_stage(s, s);
+    cp_async_commit();
   }
 
-  float m[ROWS], l[ROWS], acc[ROWS][MAXCH];
+  float acc[NT][4];
 #pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    m[rr] = MASKED;
-    l[rr] = 0.0f;
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < MAXCH; ++c) acc[rr][c] = 0.0f;
-  }
-  float* Pw = Ps + warp * BKV;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};
+  const int row = warp * 16 + g;        // rows row and row + 8 of the block
+  const T* qa = Qs + row * ld + t;
 
-  for (int k0 = 0; k0 < Sk; k0 += BKV) {
-    __syncthreads();                    // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < BKV * Dh; idx += nthreads) {
-      const int r = idx / Dh, dd = idx % Dh;
-      const int gk = k0 + r;
-      Ks[r * ld + dd] = gk < Sk ? load_f32(kb + gk * ks.s + dd) : 0.0f;
-      Vs[r * ld + dd] = gk < Sk ? load_f32(vb + gk * vs.s + dd) : 0.0f;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                    // tile kt landed; tile kt - 1 consumed
+    {
+      const int nk = kt + STAGES - 1;
+      if (nk < ntiles) load_stage(nk % STAGES, nk);
+      cp_async_commit();
     }
-    __syncthreads();
+    const T* Kt = ring + (2 * (kt % STAGES)) * tile;
+    const T* Vt = Kt + tile;
+    const int key0 = kt * BKV;
 
+    // S = (Q * scale) K^T for this warp's 16 rows x BKV keys
+    float s[SN][4];
 #pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const int r = warp * ROWS + rr;
-      const int pq = q0 + r;
-      const float* qr = Qs + r * ld;
-      float s[2];
+    for (int j = 0; j < SN; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = lane + 32 * jj;
-        const int pk = k0 + j;
-        const float* kr = Ks + j * ld;
-        float dot = 0.0f;
-        for (int dd = 0; dd < Dh; ++dd) dot = fmaf(qr[dd], kr[dd], dot);
-        if (has_softcap) dot = softcap * tanhf(dot / softcap);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      if (kk < nd) {
+        Frag<SPLIT_QP, 4> a;
+        const T* ap = qa + kk * 8;
+        a.set(0, load_f32(ap) * scale);
+        a.set(1, load_f32(ap + 8 * ld) * scale);
+        a.set(2, load_f32(ap + 4) * scale);
+        a.set(3, load_f32(ap + 8 * ld + 4) * scale);
+#pragma unroll
+        for (int j = 0; j < SN; ++j) {
+          const T* bp = Kt + (j * 8 + g) * ld + kk * 8 + t;
+          Frag<SPLIT_KV, 2> bf;
+          bf.set(0, load_f32(bp));
+          bf.set(1, load_f32(bp + 4));
+          mma_3xtf32(s[j], a, bf);
+        }
+      }
+    }
+
+    // softcap, masks, padding keys; running max over the quad of lanes
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pq = q0 + row + (e >> 1) * 8;
+        const int pk = key0 + j * 8 + 2 * t + (e & 1);
+        float x = s[j][e];
+        if (has_softcap) x = softcap * tanhf(x / softcap);
         bool keep = true;
         if (causal) keep = keep && (pq >= pk);
         if (has_window) {
           keep = keep && (pq - pk) < window;
           if (!causal) keep = keep && (pk - pq) < window;
         }
-        if (!keep) dot = MASKED;
-        // keys past Sk are padding, not masked keys: they get weight 0
-        s[jj] = pk < Sk ? dot : -INFINITY;
+        if (!keep) x = MASKED;
+        x = pk < Sk ? x : -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      const float m_new = fmaxf(m[rr], warp_max(fmaxf(s[0], s[1])));
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      const float corr = expf(m[rr] - m_new);
-      l[rr] = l[rr] * corr + warp_sum(p0 + p1);
-      m[rr] = m_new;
-      Pw[lane] = p0;
-      Pw[lane + 32] = p1;
-      __syncwarp();
+    float corr[2];
 #pragma unroll
-      for (int c = 0; c < MAXCH; ++c) acc[rr][c] *= corr;
-      for (int j = 0; j < BKV; ++j) {
-        const float pj = Pw[j];
-        const float* vr = Vs + j * ld;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
 #pragma unroll
-        for (int c = 0; c < MAXCH; ++c) {
-          const int dd = lane + 32 * c;
-          if (dd < Dh) acc[rr][c] = fmaf(pj, vr[dd], acc[rr][c]);
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+    // O += P V, 8 keys a step; mma k-index t <-> key 2t, t + 4 <-> key 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < SN; ++kk) {
+      Frag<SPLIT_QP, 4> a;
+      a.set(0, s[kk][0]);
+      a.set(1, s[kk][2]);
+      a.set(2, s[kk][1]);
+      a.set(3, s[kk][3]);
+      const T* bp = Vt + (kk * 8 + 2 * t) * ld + g;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n < nd) {
+          Frag<SPLIT_KV, 2> bf;
+          bf.set(0, load_f32(bp + n * 8));
+          bf.set(1, load_f32(bp + ld + n * 8));
+          mma_3xtf32(acc[n], a, bf);
         }
       }
-      __syncwarp();
     }
   }
 
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
   T* ob = o + b * os.b + hh * os.h;
 #pragma unroll
-  for (int rr = 0; rr < ROWS; ++rr) {
-    const int pq = q0 + warp * ROWS + rr;
-    if (pq >= Sq) continue;
-    const float lc = fmaxf(l[rr], 1e-30f);
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < MAXCH; ++c) {
-      const int dd = lane + 32 * c;
-      if (dd < Dh) store_f32(ob + pq * os.s + dd, acc[rr][c] / lc);
+    for (int e = 0; e < 4; ++e) {
+      const int pq = q0 + row + (e >> 1) * 8;
+      const int dd = n * 8 + 2 * t + (e & 1);
+      if (n < nd && pq < Sq && dd < Dh)
+        store_f32(ob + pq * os.s + dd, acc[n][e] / l[e >> 1]);
     }
-  }
+}
+
+template <typename T, int NT>
+cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, int B,
+                      int Sq, int Sk, int H, int KVH, int Dh, Strides qs, Strides ks,
+                      Strides vs, Strides os, int causal, int has_window, int window,
+                      int has_softcap, float softcap, cudaStream_t stream) {
+  const int dp = 8 * ((Dh + 7) / 8);
+  const size_t smem = smem_bytes<T, NT>(dp);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long es = sizeof(T);
+  auto vec = [&](const void* p, Strides st) {
+    return int(rows_16b_aligned(p, st.b * es) && st.s * es % 16 == 0 && st.h * es % 16 == 0);
+  };
+  // bit 0: k, 1: v, 2: q has 16-byte aligned rows (cp.async pieces)
+  const int aligned = vec(k, ks) | vec(v, vs) << 1 | vec(q, qs) << 2;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  flash_kernel<T, NT><<<grid, WARPS * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal, has_window,
+      window, has_softcap, softcap, (float)(1.0 / sqrt((double)Dh)), aligned);
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -152,16 +316,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Sk, int H, int KVH, int Dh, Strides qs, Strides ks,
                    Strides vs, Strides os, int causal, int has_window, int window,
                    int has_softcap, float softcap, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(BQ + 2 * BKV) * (Dh + 1) + WARPS * BKV);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_kernel<T><<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal, has_window,
-      window, has_softcap, softcap, (float)(1.0 / sqrt((double)Dh)));
-  return cudaSuccess;
+  const int nd = (Dh + 7) / 8;
+  auto run = [&](auto kernel_nt) {
+    constexpr int NT = decltype(kernel_nt)::value;
+    return launch_nt<T, NT>(q, k, v, o, B, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
+                            has_window, window, has_softcap, softcap, stream);
+  };
+  if (nd <= 4) return run(std::integral_constant<int, 4>{});
+  if (nd <= 9) return run(std::integral_constant<int, 9>{});
+  if (nd <= 16) return run(std::integral_constant<int, 16>{});
+  return run(std::integral_constant<int, 32>{});
 }
 
 }  // namespace

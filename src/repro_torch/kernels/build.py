@@ -8,6 +8,11 @@ the repository root, keyed by a hash of the sources and flags, so an
 unchanged tree reuses it and a changed one rebuilds; it is built in a
 private directory beside that one and renamed into place.  Nothing here
 runs at import time.
+
+``defines`` (``NAME`` or ``NAME=VALUE``, passed to nvcc as ``-D``) build a
+variant of the library into a directory of its own: the sources name the
+macros they read.  The port always loads the library built with none;
+``launch/kernel_variants.py`` and the card tests build the others.
 """
 from __future__ import annotations
 
@@ -15,18 +20,19 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("expert_ffn.cu", "flash_attention.cu", "residual_int8.cu",
            "rwkv6_scan.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tf32_mma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdice_kernels.so"
@@ -60,20 +66,24 @@ def nvcc_path() -> str:
                        "the CUDA toolkit is installed")
 
 
-def source_hash() -> str:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return CFLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def source_hash(defines: Tuple[str, ...] = ()) -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(ARCH + CFLAGS).encode())
+    h.update(" ".join(ARCH + _flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def build_dir() -> Path:
-    return BUILD_ROOT / f"kernels-{source_hash()}"
+def build_dir(defines: Tuple[str, ...] = ()) -> Path:
+    return BUILD_ROOT / f"kernels-{source_hash(defines)}"
 
 
-def build() -> Path:
+def build(defines: Tuple[str, ...] = ()) -> Path:
     """Compile every source in parallel and link them; returns the library
     path.  Compiler output (ptxas register/spill lines) goes to
     ``build.log`` beside the library.
@@ -81,14 +91,14 @@ def build() -> Path:
     Objects, log and library are made in a directory of this process's own
     and published by renaming the whole directory, so two processes that
     build at once never read each other's half-written files."""
-    out = build_dir()
+    out = build_dir(defines)
     lib = out / LIB_NAME
     if lib.exists():
         return lib
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix=f"{out.name}.", dir=BUILD_ROOT))
     try:
-        seconds = _compile_and_link(work)
+        seconds = _compile_and_link(work, defines)
         try:
             os.rename(work, out)       # atomic: a loader sees all or none
         except OSError:
@@ -101,14 +111,14 @@ def build() -> Path:
     return lib
 
 
-def _compile_and_link(work: Path) -> float:
+def _compile_and_link(work: Path, defines: Tuple[str, ...]) -> float:
     """Build ``LIB_NAME`` and ``build.log`` into ``work``; returns seconds."""
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = []
     for name in SOURCES:
         obj = work / (Path(name).stem + ".o")
-        cmd = [nvcc, *ARCH, *CFLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        cmd = [nvcc, *ARCH, *_flags(defines), "-c", str(CSRC / name), "-o", str(obj)]
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []
@@ -130,11 +140,33 @@ def _compile_and_link(work: Path) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
+def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once a process)."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build(defines)))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_KERNEL = re.compile(r"(gate_up|down|flash|residual_int8|rwkv6_scan)_kernel"
+                     r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?")
+_DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}   # mangled template arguments
+
+
+def ptxas_report(defines: Tuple[str, ...] = ()) -> List[str]:
+    """ptxas's register and spill lines from ``build.log`` of a built
+    library, each led by its kernel (``gate_up<f32>: ...``), and the log's
+    ``== source`` headers."""
+    lines, kernel = [], ""
+    for line in (build_dir(defines) / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = _KERNEL.search(line)
+            kernel = "" if m is None else (
+                f"{m[1]}<{', '.join(a for a in (_DTYPES.get(m[2]), m[3]) if a)}>: ")
+        if "registers" in line or "spill" in line:
+            lines.append(f"{kernel}{line.strip()}")
+        elif line.startswith("=="):
+            lines.append(line.strip())
+    return lines

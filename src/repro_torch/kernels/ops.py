@@ -83,8 +83,8 @@ def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     for t in (buf, w_gate, w_up, w_down):
         if not t.is_contiguous():
             raise ValueError("expert_ffn: inputs must be contiguous")
-    if C > 65535 * 64:
-        raise ValueError(f"expert_ffn: capacity {C} exceeds the grid")
+    if f > 65535 * 64 or d > 65535 * 128:
+        raise ValueError(f"expert_ffn: widths d={d}, f={f} exceed the grid")
     lib = library()
     h = torch.empty((E, C, f), dtype=torch.float32, device=buf.device)
     out = torch.empty_like(buf)

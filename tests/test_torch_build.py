@@ -22,7 +22,7 @@ if "-c" in args:
     if "FAIL" in open(src).read():
         sys.exit("error: refused")
     with open(out, "w") as f:
-        f.write("begin " + src + "\\n")
+        f.write("begin " + src + " " + " ".join(a for a in args if a.startswith("-D")) + "\\n")
         f.flush()
         time.sleep(0.05)
         f.write("end\\n")
@@ -89,3 +89,41 @@ def test_failed_compile_raises_and_publishes_nothing(fake_toolchain):
     with pytest.raises(RuntimeError, match="flash_attention.cu"):
         build.build()
     assert list((fake_toolchain / "build").iterdir()) == []
+
+
+def test_defines_build_a_variant_of_its_own(fake_toolchain):
+    lib = build.build()
+    variant = build.build(("DICE_FFN_STAGES=3", "DICE_TF32_ONE_PASS"))
+    assert variant.parent != lib.parent
+    assert variant.parent == build.build_dir(("DICE_FFN_STAGES=3", "DICE_TF32_ONE_PASS"))
+    obj = (variant.parent / "expert_ffn.o").read_text()
+    assert "-DDICE_FFN_STAGES=3 -DDICE_TF32_ONE_PASS" in obj
+    assert "-D" not in (lib.parent / "expert_ffn.o").read_text()
+    assert build.build() == lib                   # the port's library is untouched
+
+
+PTXAS_LOG = """\
+== expert_ffn.cu (rc 0)
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN4dice46_GLOBAL__N__b4631135_13_expert_ffn_cu_d0de499214gate_up_kernelIfEEvPKT_S4_S4_Pfiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN4dice46_GLOBAL__N__b4631135_13_expert_ffn_cu_d0de499214gate_up_kernelIfEEvPKT_S4_S4_Pfiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compile time = 338.387 ms
+
+== flash_attention.cu (rc 0)
+ptxas info    : Compiling entry function '_ZN4dice51_GLOBAL__N__04cf38d3_18_flash_attention_cu_1d39a69712flash_kernelI13__nv_bfloat16Li32EEEvPKT_S5_S5_PS3_iiiiiNS0_7StridesES7_S7_S7_iiiiffi' for 'sm_90a'
+ptxas info    : Used 252 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_labels_each_kernel(fake_toolchain):
+    out = build.build_dir(("DICE_FLASH_WARPS=4",))
+    out.mkdir(parents=True)
+    (out / "build.log").write_text(PTXAS_LOG)
+    assert build.ptxas_report(("DICE_FLASH_WARPS=4",)) == [
+        "== expert_ffn.cu (rc 0)",
+        "gate_up<f32>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "gate_up<f32>: ptxas info    : Used 255 registers, used 1 barriers",
+        "== flash_attention.cu (rc 0)",
+        "flash<bf16, 32>: ptxas info    : Used 252 registers, used 1 barriers"]

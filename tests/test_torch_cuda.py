@@ -17,7 +17,7 @@ import math
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -45,21 +45,50 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _expert_inputs(gen, E, C, d, f, dtype):
+    kw = dict(generator=gen, device="cuda")
+    return ((torch.randn((E, C, d), **kw)).to(dtype),
+            (torch.randn((E, d, f), **kw) / math.sqrt(d)).to(dtype),
+            (torch.randn((E, d, f), **kw) / math.sqrt(d)).to(dtype),
+            (torch.randn((E, f, d), **kw) / math.sqrt(f)).to(dtype))
+
+
+# after the first four: edges of the 128-row, BK = 32, 64/128-column tiles
+# (one row, rows one short of and one past a block, d not a multiple of
+# 32, ragged f, rows not 16-byte aligned) and the XL light and refresh shapes
 @pytest.mark.parametrize("E,C,d,f", [(2, 16, 64, 128), (8, 32, 64, 96),
-                                     (2, 136, 64, 768), (1, 8, 72, 100)])
+                                     (2, 136, 64, 768), (1, 8, 72, 100),
+                                     (8, 1, 72, 100), (8, 127, 1000, 100),
+                                     (8, 129, 72, 4608), (2, 5, 30, 50),
+                                     (8, 320, 1152, 4608), (8, 640, 1152, 4608)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_expert_ffn_kernel(gen, E, C, d, f, dtype, act):
-    kw = dict(generator=gen, device="cuda")
-    buf = torch.randn((E, C, d), **kw).to(dtype)
-    wg = (torch.randn((E, d, f), **kw) / math.sqrt(d)).to(dtype)
-    wu = (torch.randn((E, d, f), **kw) / math.sqrt(d)).to(dtype)
-    wd = (torch.randn((E, f, d), **kw) / math.sqrt(f)).to(dtype)
+    buf, wg, wu, wd = _expert_inputs(gen, E, C, d, f, dtype)
     got = _launched("expert_ffn", lambda: ops.expert_ffn(buf, wg, wu, wd, act=act))
     assert got.dtype == dtype and got.shape == buf.shape
     _close(got, ref.expert_ffn_ref(buf, wg, wu, wd, act=act), dtype)
 
 
+def test_expert_ffn_kernel_reads_unaligned_base(gen):
+    """Contiguous views whose data start 4 bytes past a 16-byte boundary:
+    the tiles are loaded element by element."""
+    E, C, d, f = 2, 40, 64, 96
+    args = _expert_inputs(gen, E, C, d, f, torch.float32)
+    views = []
+    for a in args:
+        flat = torch.empty(a.numel() + 1, device="cuda")
+        view = flat[1:].view(a.shape)
+        view.copy_(a)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        views.append(view)
+    got = _launched("expert_ffn", lambda: ops.expert_ffn(*views))
+    _close(got, ref.expert_ffn_ref(*args), torch.float32)
+
+
+# after the first six: edges of the 128-row query and 32-key (16 at
+# Dh > 128) K/V tiles: Dh 24/72/128/256, ragged Sk, Sq not a multiple of
+# 64, GQA and MQA, and the DiT-MoE-XL shape
 @pytest.mark.parametrize("shape,opts", [
     ((2, 64, 64, 4, 4, 72), {}),
     ((2, 128, 128, 4, 2, 64), dict(causal=True)),
@@ -67,6 +96,12 @@ def test_expert_ffn_kernel(gen, E, C, d, f, dtype, act):
     ((2, 128, 128, 4, 2, 64), dict(causal=True, window=64, softcap=30.0)),
     ((1, 64, 100, 4, 1, 32), {}),                  # MQA, ragged key tile
     ((1, 16, 16, 2, 2, 256), dict(causal=True, window=0)),   # all masked
+    ((2, 40, 100, 4, 2, 24), {}),
+    ((2, 65, 257, 4, 1, 72), {}),                  # MQA
+    ((8, 256, 256, 16, 16, 72), {}),
+    ((1, 65, 257, 8, 2, 128), dict(causal=True)),
+    ((1, 40, 257, 4, 2, 256), dict(window=48)),
+    ((2, 65, 100, 4, 4, 128), dict(softcap=20.0)),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(gen, shape, opts, dtype):
@@ -77,6 +112,38 @@ def test_flash_attention_kernel(gen, shape, opts, dtype):
     v = torch.randn((B, Sk, KVH, Dh), **kw).to(dtype)
     got = _launched("flash_attention", lambda: ops.flash_attention(q, k, v, **opts))
     _close(got, ref.flash_attention_ref(q, k, v, **opts), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_unaligned_rows(gen, dtype):
+    """Dh = 30 sliced one element into a 31-wide tensor: no row is 16-byte
+    aligned, so q, k and v are loaded element by element."""
+    base = torch.randn((2, 70, 3, 4, 31), generator=gen, device="cuda").to(dtype)
+    q, k, v = base[..., 1:].unbind(2)
+    assert q.stride(-1) == 1 and k.data_ptr() % 16 != 0
+    got = _launched("flash_attention", lambda: ops.flash_attention(q, k, v, causal=True))
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.parametrize("kernel", ["expert_ffn", "flash_attention"])
+def test_one_tf32_pass_misses_the_f32_tolerance(gen, monkeypatch, kernel):
+    """The 3xTF32 split is what holds the f32 kernels to 1e-4: the same
+    sources built with -DDICE_TF32_ONE_PASS (one TF32 pass a product) miss
+    it at the DiT-MoE-XL contraction lengths (d = 1152, f = 4608; Dh = 72)."""
+    if kernel == "expert_ffn":
+        args = _expert_inputs(gen, 2, 64, 1152, 4608, torch.float32)
+        run, plain = ops.expert_ffn, ref.expert_ffn_ref
+    else:
+        args = tuple(torch.randn((2, 128, 4, 72), generator=gen, device="cuda")
+                     for _ in range(3))
+        run, plain = ops.flash_attention, ref.flash_attention_ref
+    want = plain(*args)
+    _close(_launched(kernel, lambda: run(*args)), want, torch.float32)
+    one_pass = build.library(("DICE_TF32_ONE_PASS",))
+    monkeypatch.setattr(ops, "library", lambda: one_pass)
+    got = _launched(kernel, lambda: run(*args))
+    with pytest.raises(AssertionError):
+        _close(got, want, torch.float32)
 
 
 def test_flash_attention_reads_strided_inputs(gen):

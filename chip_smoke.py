@@ -14,7 +14,15 @@ non-zero and no phase's failure is caught:
      at their tiles' edges, with times, the roofline bound and (where one
      exists) a library call; the two f32 tensor-core kernels are bound by
      f32-accurate 3xTF32 products on the tensor cores, and their bound on
-     the FP32 CUDA cores is printed and kept beside it (``fp32_bound_ms``);
+     the FP32 CUDA cores is printed and kept beside it (``fp32_bound_ms``).
+     Every kernel is timed twice: by CUDA events around back-to-back
+     wrapper calls (``events_ms``, the host's checks and launch included)
+     and by its device time alone in a profiler trace (``device_ms``).
+     ``ms`` is the events time for the two tensor-core kernels and the
+     device time for ``residual_int8`` and ``rwkv6_scan``, whose device
+     time is shorter than their wrappers' host path; their inputs rotate
+     over several sets where one would fit in L2.  ``rwkv6_scan`` has a
+     row for prefill and one for decode, each with its own launches;
   4. kernels in place: the tiny DiT served on the CPU (plain versions)
      and on the card (kernels) from the same weights and noise, 6 steps
      so that a light step's codec'd expert outputs reach the sample; the
@@ -147,7 +155,7 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.timing import time_ms
+    from repro_torch.launch.timing import device_ms, rotating, time_ms
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = {}
 
@@ -177,13 +185,14 @@ def phase_kernels():
     for C, label in ((640, "refresh"), (320, "light")):
         err, args = timed.pop(C)
         ms = time_ms(lambda: ops.expert_ffn(*args), 10)
+        dev = device_ms(lambda: ops.expert_ffn(*args), 10)
         plain = time_ms(lambda: ref.expert_ffn_ref(*args), 10)
         flops = 6.0 * E * C * d * f
         nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
         b_ms, b_by = bound(flops, nbytes)
         tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
         log(f"  expert_ffn XL {label} C={C} f32: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s), cuBLAS yardstick (the plain "
+            f"({flops / ms / 1e9:.2f} TFLOP/s; device alone {dev:.4f} ms), cuBLAS yardstick (the plain "
             f"version, three f32 matmuls) {plain:.4f} ms, bound {tc_ms:.4f} ms "
             f"({tc_by}, 3xTF32 on the tensor cores), FP32 CUDA-core bound "
             f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch call "
@@ -193,7 +202,7 @@ def phase_kernels():
                 name="expert_ffn", route="cuda",
                 source="src/repro_torch/csrc/expert_ffn.cu",
                 replaces="src/repro/kernels/expert_ffn.py:69", max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms,
+                device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms,
                 library_ms=None, shape="E=8 C=640 d=1152 f=4608 f32 silu")
         del args
 
@@ -231,6 +240,7 @@ def phase_kernels():
     q, k, v = xl_qkv
     B, S, H, Dh = q.shape
     ms = time_ms(lambda: ops.flash_attention(q, k, v), 50)
+    dev = device_ms(lambda: ops.flash_attention(q, k, v), 50)
     plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), 50)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50)
@@ -238,7 +248,7 @@ def phase_kernels():
     nbytes = 4.0 * 4 * B * S * H * Dh
     b_ms, b_by = bound(flops, nbytes)
     tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
-    log(f"  flash XL f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+    log(f"  flash XL f32: kernel {ms:.4f} ms (device alone {dev:.4f} ms), plain {plain:.4f} ms, "
         f"scaled_dot_product_attention {lib:.4f} ms, bound {tc_ms:.4f} ms ({tc_by}, "
         f"3xTF32 on the tensor cores), FP32 CUDA-core bound {b_ms:.4f} ms ({b_by}); "
         f"the shape is the same on light and refresh steps; kernel <= library: "
@@ -247,99 +257,160 @@ def phase_kernels():
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=row_err,
-        ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms,
-        library_ms=lib, shape="B=8 S=256 H=16 Dh=72 f32 non-causal")
+        ms=ms, device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by,
+        fp32_bound_ms=b_ms, library_ms=lib, shape="B=8 S=256 H=16 Dh=72 f32 non-causal")
 
     # ---- residual_int8 ----------------------------------------------------
     log("residual_int8 (hand-written CUDA) vs plain PyTorch")
-    for N, dtype in ((2048, torch.float32), (4096, torch.float32),
-                     (4096, torch.bfloat16)):
-        d = 1152
-        value = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
-        base = (value.float() + 0.1 * torch.randn((N, d), generator=gen,
-                                                 device="cuda")).to(dtype)
+    # the register path at the XL payloads (N = 4096 dispatch, 8192
+    # combine; 4096 is its widest bf16 row), then the looping path's rows:
+    # d not a multiple of the 16-byte vector, wider than 16 vectors a lane,
+    # rows not 16-byte aligned; N not a multiple of the 8 rows a block
+    icases = [(2048, 1152, torch.float32), (4096, 1152, torch.float32),
+              (8192, 1152, torch.float32), (4096, 1152, torch.bfloat16),
+              (16, 4096, torch.bfloat16), (37, 1151, torch.float32),
+              (9, 1150, torch.bfloat16), (16, 4096, torch.float32),
+              (16, 8192, torch.float32), (5, 9000, torch.bfloat16),
+              (40, 1152, "unaligned f32")]
+    for N, d, dtype in icases:
+        unaligned = dtype == "unaligned f32"
+        dtype = torch.float32 if unaligned else dtype
+        value, base = _int8_inputs(gen, N, d, dtype, unaligned=unaligned)
         # exact .5 ties: base 0 and a row abs-max of 127 give scale 1, so
         # r / scale lands on k + 0.5, which must round half to even
         ties = torch.arange(d, device="cuda", dtype=torch.float32) % 254 - 126.5
         ties[0] = 127.0
-        value[:64] = ties.to(dtype)
-        base[:64] = 0
+        value[:4] = ties.to(dtype)
+        base[:4] = 0
         qk, sk, rk = ops.residual_int8(value, base)
         qp, sp, rp = ref.residual_int8_ref(value, base)
         torch.cuda.synchronize()
         mism = int((qk != qp).sum())
-        log(f"  residual_int8 N={N} d={d} {str(dtype)[6:]}: q mismatches {mism} "
-            f"(tol 0), tie rows round half to even: "
-            f"{bool((qk[:64].float() == torch.round(ties)[None]).all())}")
+        tag = f"N={N} d={d} {str(dtype)[6:]}{' unaligned rows' if unaligned else ''}"
+        log(f"  residual_int8 {tag}: q mismatches {mism} (tol 0), scale equal "
+            f"{torch.equal(sk, sp)}, tie rows round half to even: "
+            f"{bool((qk[:4].float() == torch.round(ties)[None]).all())}")
         if mism or not torch.equal(sk, sp):
             raise AssertionError("residual_int8: q or scale differ from the plain version")
-        err = compare(f"residual_int8 recon N={N} {str(dtype)[6:]}", rk, rp,
+        err = compare(f"residual_int8 recon {tag}", rk, rp,
                       dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else TOL_BF16)
+        if (N, d, dtype, unaligned) == (4096, 1152, torch.float32, False):
+            row_err = err
+    # timed on three input sets a shape (113 MB at N = 4096), in turn, so
+    # that no call finds its inputs in the 50 MB L2
+    for N, dtype in ((4096, torch.float32), (8192, torch.float32),
+                     (4096, torch.bfloat16)):
+        d = 1152
+        sets = [_int8_inputs(gen, N, d, dtype) for _ in range(3)]
+        dev = device_ms(rotating(ops.residual_int8, sets), 300)
+        events = time_ms(rotating(ops.residual_int8, sets), 300)
+        plain = time_ms(rotating(ref.residual_int8_ref, sets), 30)
+        es = 4 if dtype == torch.float32 else 2
+        nbytes = N * d * (3 * es + 1) + N * 4
+        b_ms, b_by = bound(6.0 * N * d, nbytes)
+        log(f"  residual_int8 N={N} d={d} {str(dtype)[6:]}: kernel device {dev:.4f} ms "
+            f"({nbytes / dev / 1e6:.1f} GB/s, {100 * b_ms / dev:.1f}% of bound), with host "
+            f"(CUDA events) {events:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), library: none")
         if (N, dtype) == (4096, torch.float32):
-            row_err, xl_vb = err, (value, base)
-    value, base = xl_vb
-    N, d = value.shape
-    ms = time_ms(lambda: ops.residual_int8(value, base), 100)
-    plain = time_ms(lambda: ref.residual_int8_ref(value, base), 100)
-    nbytes = N * d * (4 + 4 + 1 + 4) + N * 4
-    b_ms, b_by = bound(6.0 * N * d, nbytes)
-    log(f"  residual_int8 N=4096 d=1152 f32: kernel {ms:.4f} ms "
-        f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}), library: none")
-    rows["residual_int8"] = dict(
-        name="residual_int8", route="cuda", source="src/repro_torch/csrc/residual_int8.cu",
-        replaces="src/repro/kernels/residual_codec.py:44", max_abs_err=row_err, ms=ms,
-        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape="N=4096 d=1152 f32")
+            rows["residual_int8"] = dict(
+                name="residual_int8", route="cuda",
+                source="src/repro_torch/csrc/residual_int8.cu",
+                replaces="src/repro/kernels/residual_codec.py:44", max_abs_err=row_err,
+                ms=dev, device_ms=dev, events_ms=events, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, shape="N=4096 d=1152 f32")
+        del sets
 
     # ---- rwkv6_scan -------------------------------------------------------
     log("rwkv6_scan (hand-written CUDA) vs plain PyTorch")
-    scases = [((8, 40, LM_PROMPT, 64), torch.bfloat16),    # rwkv6-3b prefill
-              ((8, 40, 1, 64), torch.bfloat16),            # rwkv6-3b decode
-              ((2, 4, 37, 16), torch.float32), ((2, 4, 37, 32), torch.bfloat16),
-              ((1, 3, 300, 32), torch.float32), ((2, 2, 64, 128), torch.bfloat16)]
-    for (B, H, T, DK), dtype in scases:
-        args = _scan_inputs(gen, B, H, T, DK, dtype)
+    # the main path's shapes, then T across the 2048 / DK-step tiles (1, a
+    # ragged last tile at 37 and 300), DK 16 and 128, B * H odd, inputs
+    # whose rows are not 16-byte aligned
+    scases = [((8, 40, LM_PROMPT, 64), torch.bfloat16, False),    # rwkv6-3b prefill
+              ((8, 40, 1, 64), torch.bfloat16, False),            # rwkv6-3b decode
+              ((2, 4, 37, 16), torch.float32, False), ((2, 4, 37, 32), torch.bfloat16, False),
+              ((1, 3, 300, 32), torch.float32, False), ((2, 2, 64, 128), torch.bfloat16, False),
+              ((3, 5, 300, 64), torch.bfloat16, False), ((2, 3, 1, 128), torch.float32, False),
+              ((1, 2, 37, 128), torch.bfloat16, False), ((2, 3, 300, 16), torch.bfloat16, False),
+              ((3, 5, 45, 64), torch.bfloat16, True), ((1, 3, 45, 16), torch.float32, True)]
+    for (B, H, T, DK), dtype, unaligned in scases:
+        args = _scan_inputs(gen, B, H, T, DK, dtype, unaligned=unaligned)
         out, s_T = ops.rwkv6_scan(*args)
         want_out, want_s = ref.rwkv6_scan_ref(*args)
         torch.cuda.synchronize()
-        tag = f"rwkv6_scan B={B} H={H} T={T} DK={DK} r/k/v {str(dtype)[6:]}"
+        tag = (f"rwkv6_scan B={B} H={H} T={T} DK={DK} r/k/v {str(dtype)[6:]}"
+               f"{' unaligned rows' if unaligned else ''}")
         err = max(compare(f"{tag} out", out, want_out, TOL_SCAN),
                   compare(f"{tag} S_T", s_T, want_s, TOL_SCAN))
         if (H, T) == (40, LM_PROMPT):
-            row_err, prefill_args = err, args
+            errs = {"prefill": err}
         if (H, T) == (40, 1):
-            decode_args = args
-    for label, args, iters in (("prefill", prefill_args, 20),
-                               ("decode", decode_args, 200)):
-        B, H, T, DK = args[0].shape
-        ms = time_ms(lambda: ops.rwkv6_scan(*args), iters)
-        plain = time_ms(lambda: ref.rwkv6_scan_ref(*args), 3 if T > 1 else 50)
+            errs["decode"] = err
+    # prefill on one input set (0.6 GB, far above L2); decode in turn on 8
+    # (84 MB of state), as 32 layers' states would come
+    for label, T, n_sets, iters in (("prefill", LM_PROMPT, 1, 20), ("decode", 1, 8, 200)):
+        B, H, DK = 8, 40, 64
+        sets = [_scan_inputs(gen, B, H, T, DK, torch.bfloat16, unaligned=False,
+                             permuted=True) for _ in range(n_sets)]
+        dev = device_ms(rotating(ops.rwkv6_scan, sets), iters)
+        events = time_ms(rotating(ops.rwkv6_scan, sets), iters)
+        plain = time_ms(rotating(ref.rwkv6_scan_ref, sets), 3 if T > 1 else 50)
         flops = 5.0 * DK * DK * B * H * T
         nbytes = (B * H * T * DK * (3 * 2 + 4 + 4) + H * DK * 2
                   + 2 * B * H * DK * DK * 4)
         b_ms, b_by = bound(flops, nbytes)
-        log(f"  rwkv6_scan {label} B={B} H={H} T={T} DK={DK} bf16: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        log(f"  rwkv6_scan {label} B={B} H={H} T={T} DK={DK} bf16: kernel device "
+            f"{dev:.4f} ms ({100 * b_ms / dev:.1f}% of bound), with host (CUDA events) "
+            f"{events:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; FP32 "
+            f"cores {flops / PEAK_FP32_FLOPS * 1e3:.4f} ms, bytes {bytes_ms:.4f} ms), "
             f"library: none (no single PyTorch call computes the recurrence)")
-        if label == "prefill":
-            rows["rwkv6_scan"] = dict(
-                name="rwkv6_scan", route="cuda",
-                source="src/repro_torch/csrc/rwkv6_scan.cu",
-                replaces="src/repro/kernels/rwkv6_scan.py:55", max_abs_err=row_err,
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, shape="B=8 H=40 T=2048 DK=64 bf16 (prefill)")
+        rows["rwkv6_scan" if label == "prefill" else "rwkv6_scan decode"] = dict(
+            name="rwkv6_scan", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
+            replaces="src/repro/kernels/rwkv6_scan.py:55", max_abs_err=errs[label],
+            ms=dev, device_ms=dev, events_ms=events, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+            shape=f"B=8 H=40 T={T} DK=64 bf16 ({label})")
+        del sets
     torch.cuda.synchronize()
     return rows
 
 
-def _scan_inputs(gen, B, H, T, DK, dtype):
+def _int8_inputs(gen, N, d, dtype, unaligned=False):
+    """A payload and its residual base, 0.1 apart; with ``unaligned``, both
+    are contiguous views that start one element into their storage."""
+    import torch
+    value = torch.randn((N, d), generator=gen, device="cuda")
+    base = value + 0.1 * torch.randn((N, d), generator=gen, device="cuda")
+    if unaligned:
+        flat = torch.empty(2 * N * d + 1, device="cuda")
+        flat[1:1 + N * d] = value.flatten()
+        flat[1 + N * d:] = base.flatten()
+        value, base = flat[1:1 + N * d].view(N, d), flat[1 + N * d:].view(N, d)
+    return value.to(dtype), base.to(dtype)
+
+
+def _scan_inputs(gen, B, H, T, DK, dtype, unaligned=False, permuted=False):
     """r/k/v in ``dtype``, logw f32 as the model makes it, u in ``dtype``,
-    a random f32 state."""
+    a random f32 state.  ``permuted``: (B, T, H, DK) projections permuted to
+    (B, H, T, DK), as the model passes them; ``unaligned``: cut one element
+    into wider rows as well, so no row is 16-byte aligned."""
     import torch
     kw = dict(generator=gen, device="cuda")
-    r, k, v = (torch.randn((B, H, T, DK), **kw).to(dtype) for _ in range(3))
-    logw = -torch.exp(torch.randn((B, H, T, DK), **kw) - 3.0)
+    if unaligned:
+        width = H * DK
+        rkv = torch.randn((B, T, 3 * width + 3), **kw).to(dtype)
+        r, k, v = (rkv[..., 1 + i * width:1 + (i + 1) * width].unflatten(-1, (H, DK))
+                   .permute(0, 2, 1, 3) for i in range(3))
+        w = -torch.exp(torch.randn((B, T, width + 1), **kw) - 3.0)
+        logw = w[..., 1:].unflatten(-1, (H, DK)).permute(0, 2, 1, 3)
+    elif permuted:
+        r, k, v = (torch.randn((B, T, H, DK), **kw).to(dtype).permute(0, 2, 1, 3)
+                   for _ in range(3))
+        logw = (-torch.exp(torch.randn((B, T, H, DK), **kw) - 3.0)).permute(0, 2, 1, 3)
+    else:
+        r, k, v = (torch.randn((B, H, T, DK), **kw).to(dtype) for _ in range(3))
+        logw = -torch.exp(torch.randn((B, H, T, DK), **kw) - 3.0)
     u = (0.5 + 0.1 * torch.randn((H, DK), **kw)).to(dtype)
     s0 = 0.1 * torch.randn((B, H, DK, DK), **kw)
     return r, k, v, logw, u, s0
@@ -561,6 +632,7 @@ def phase_lm(rows):
     last, state = api.prefill(params, {"tokens": prompts}, cfg)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.LAUNCHES["rwkv6_scan"]
     tok = last.argmax(-1)
     generated, streamed = [], [last]
     t0 = time.perf_counter()
@@ -584,7 +656,10 @@ def phase_lm(rows):
     if counts != want:
         raise AssertionError("rwkv6-3b: kernel launch counts differ from "
                              "32 per forward")
-    rows["rwkv6_scan"]["launches"] = counts["rwkv6_scan"]
+    rows["rwkv6_scan"]["launches"] = prefill_launches
+    rows["rwkv6_scan decode"]["launches"] = counts["rwkv6_scan"] - prefill_launches
+    log(f"  rwkv6_scan launches: prefill {prefill_launches}, decode "
+        f"{counts['rwkv6_scan'] - prefill_launches}")
 
     gen_tokens = torch.stack(generated, 1).to(prompts.dtype)
     streamed = torch.stack(streamed, 1)                      # (B, 65, V)
@@ -671,7 +746,8 @@ def main() -> int:
     with phase("6 main path 2 (rwkv6-3b prefill + decode, bf16)"):
         phase_lm(rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "fp32_bound_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "fp32_bound_ms", "device_ms",
+            "events_ms", "shape")
     log(json.dumps({"kernels": [{k: rows[n][k] for k in keys if k in rows[n]}
                                 for n in rows]}))
     log(smi)

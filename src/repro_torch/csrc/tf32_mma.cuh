@@ -1,6 +1,6 @@
 // Tensor-core building blocks for the port's f32 kernels on Hopper
-// (sm_90a), written as inline PTX: the 3xTF32 split, mma.sync m16n8k8
-// with tf32 operands, and cp.async copies into shared memory.
+// (sm_90a), written as inline PTX: the 3xTF32 split and mma.sync m16n8k8
+// with tf32 operands (the cp.async copies are in common.cuh).
 //
 // 3xTF32.  An f32 operand x is split as x ~ big + small with
 //   big = cvt.rna.tf32(x),  small = cvt.rna.tf32(x - big),
@@ -26,10 +26,9 @@
 // (tests/test_torch_cuda.py).
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace dice {
 
@@ -81,30 +80,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Frag<SA, 4>& a,
   if constexpr (SA) mma_tf32(d, a.small, b.big);
   if constexpr (SB) mma_tf32(d, a.big, b.small);
   mma_tf32(d, a.big, b.big);
-}
-
-// 16-byte global -> shared copy that bypasses L1; bytes past src_bytes
-// (0..16) are zero-filled, and with src_bytes 0 nothing is read.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// True when rows that start at ptr + i * stride_bytes (any i) can be
-// copied in 16-byte pieces.
-__host__ __forceinline__ bool rows_16b_aligned(const void* ptr, long long stride_bytes) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && stride_bytes % 16 == 0;
 }
 
 }  // namespace dice

@@ -150,7 +150,7 @@ def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
-_KERNEL = re.compile(r"(gate_up|down|flash|residual_int8|rwkv6_scan)_kernel"
+_KERNEL = re.compile(r"(gate_up|down|flash|residual_int8_loop|residual_int8|rwkv6_scan)_kernel"
                      r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}   # mangled template arguments
 

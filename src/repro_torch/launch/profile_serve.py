@@ -23,11 +23,13 @@ import torch
 from repro_torch.compress.codecs import CODEC_KINDS, CompressConfig
 from repro_torch.configs.dit_moe_xl import config as xl_config, tiny
 from repro_torch.launch.serve import SCHEDULES, DiceServer, Request
+from repro_torch.launch.timing import device_us
 
 # substrings of the port's kernel symbols (csrc/*.cu) -> wrapper name
 OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
                "flash_kernel": "flash_attention",
                "residual_int8_kernel": "residual_int8",
+               "residual_int8_loop_kernel": "residual_int8",
                "rwkv6_scan_kernel": "rwkv6_scan"}
 
 
@@ -39,13 +41,6 @@ def kernel_group(name: str) -> str:
     if any(key in low for key in ("gemm", "cutlass", "xmma", "nvjet")):
         return "cublas_gemm"
     return "other"
-
-
-def device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
 
 
 def kernel_groups(prof):

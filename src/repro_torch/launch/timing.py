@@ -1,13 +1,18 @@
-"""Device time of a call on the card, by CUDA events."""
+"""Time a call on the card: wall time by CUDA events, or device time from
+a ``torch.profiler`` trace."""
 from __future__ import annotations
+
+import itertools
 
 import torch
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls, by CUDA
-    events after a warm-up call (inputs stay where the last call left them,
-    so a working set under 50 MB is timed warm in L2)."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, by CUDA events
+    after a warm-up call.  It includes the host cost of each call (checks,
+    ``torch.empty``, the launch): a kernel that runs shorter than its
+    wrapper's host path is timed as the host path.  Inputs stay where the
+    last call left them, so a working set under 50 MB is timed warm in L2."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -18,3 +23,47 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(evt) -> float:
+    """Self device time (us) of a ``key_averages()`` entry, under the
+    attribute name of this PyTorch version."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time per call of ``fn``: the durations of the CUDA
+    kernels in a ``torch.profiler`` trace of ``iters`` calls (after a
+    warm-up call), averaged over the launches the trace holds, times the
+    launches a call makes (the traced launches over ``iters``, rounded: the
+    trace can miss a few of many short launches).  Host time between
+    launches is not counted, so a kernel shorter than its wrapper's host
+    path is timed as itself.  ``fn`` should launch only the kernels to be
+    timed (a wrapper's ``torch.empty`` launches none); raises if the trace
+    holds no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in kernels)
+    per_call = round(launches / iters)
+    if per_call < 1:
+        raise RuntimeError(f"device_ms: {launches} kernel launches traced for "
+                           f"{iters} calls; the profiler saw no device time")
+    return sum(device_us(e) for e in kernels) / 1e3 / launches * per_call
+
+
+def rotating(fn, sets):
+    """A call of ``fn`` on the next input set each time, round robin: with
+    sets that together outgrow the 50 MB L2, no call finds its inputs
+    there."""
+    turn = itertools.count()
+    return lambda: fn(*sets[next(turn) % len(sets)])

@@ -12,6 +12,7 @@ import threading
 import pytest
 
 from repro_torch.kernels import build
+from repro_torch.launch import kernel_variants
 
 FAKE_NVCC = """\
 import sys, time
@@ -100,6 +101,21 @@ def test_defines_build_a_variant_of_its_own(fake_toolchain):
     assert "-DDICE_FFN_STAGES=3 -DDICE_TF32_ONE_PASS" in obj
     assert "-D" not in (lib.parent / "expert_ffn.o").read_text()
     assert build.build() == lib                   # the port's library is untouched
+
+
+@pytest.mark.parametrize("name", [n for n, (_, d) in kernel_variants.VARIANTS.items() if d])
+def test_variant_macros_reach_only_their_own_build(fake_toolchain, name):
+    """Each design alternative of launch/kernel_variants.py compiles every
+    source with its -D macros, in a directory of its own; the port's
+    library is compiled with none."""
+    defines = kernel_variants.VARIANTS[name][1]
+    variant = build.build(defines)
+    lib = build.build()
+    flags = " ".join(f"-D{d}" for d in defines)
+    for src in build.SOURCES:
+        obj = src.replace(".cu", ".o")
+        assert (variant.parent / obj).read_text().split("\n")[0].endswith(flags)
+        assert "-D" not in (lib.parent / obj).read_text()
 
 
 PTXAS_LOG = """\

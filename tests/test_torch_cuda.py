@@ -155,7 +155,14 @@ def test_flash_attention_reads_strided_inputs(gen):
     _close(got, ref.flash_attention_ref(q, k, v), torch.float32)
 
 
-@pytest.mark.parametrize("N,d", [(64, 1152), (33, 96)])
+# the register path's widths (d = 1152 at N = 4096 and 8192, the XL
+# dispatch and combine payloads; 4096 is its widest bf16 row), and the
+# looping path's rows: d not a multiple of the 16-byte vector (1151, 1150
+# in bf16), wider than 16 vectors a lane (4096 f32, 8192, 9000); N not a
+# multiple of the 8 rows a block
+@pytest.mark.parametrize("N,d", [(64, 1152), (33, 96), (4096, 1152), (8192, 1152),
+                                 (37, 1151), (9, 1150), (16, 4096), (16, 8192),
+                                 (5, 9000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_residual_int8_kernel(gen, N, d, dtype):
     value = torch.randn((N, d), generator=gen, device="cuda")
@@ -171,6 +178,21 @@ def test_residual_int8_kernel(gen, N, d, dtype):
     _close(r, rp, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_int8_reads_unaligned_rows(gen, dtype):
+    """Contiguous (N, d) views that start 1 element into their storage: the
+    rows are not 16-byte aligned, so the looping path takes them."""
+    N, d = 40, 1152
+    flat = torch.randn(2 * N * d + 1, generator=gen, device="cuda").to(dtype)
+    value = flat[1:1 + N * d].view(N, d)
+    base = flat[1 + N * d:].view(N, d)
+    assert value.data_ptr() % 16 and base.data_ptr() % 16 and base.is_contiguous()
+    q, s, r = _launched("residual_int8", lambda: ops.residual_int8(value, base))
+    qp, sp, rp = ref.residual_int8_ref(value, base)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    _close(r, rp, dtype)
+
+
 SCAN_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
@@ -183,8 +205,10 @@ def _scan_inputs(gen, B, H, T, DK, dtype, logw_dtype=torch.float32):
     return r, k, v, logw, u, s0
 
 
-@pytest.mark.parametrize("DK", [16, 32, 64])
-@pytest.mark.parametrize("T", [1, 37, 256])
+# T across the staged tiles (512 / DK steps: 1, a ragged last tile at 37
+# and 300, whole tiles at 256); B * H = 6 blocks, one per (b, h)
+@pytest.mark.parametrize("DK", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [1, 37, 256, 300])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv6_scan_kernel(gen, DK, T, dtype):
     args = _scan_inputs(gen, 2, 3, T, DK, dtype)
@@ -214,6 +238,28 @@ def test_rwkv6_scan_reads_strided_inputs(gen):
     u = torch.full((H, DK), 0.5, device="cuda", dtype=torch.bfloat16)
     s0 = torch.zeros((B, H, DK, DK), device="cuda")
     assert not r.is_contiguous() and not logw.is_contiguous()
+    out, s_T = _launched("rwkv6_scan", lambda: ops.rwkv6_scan(r, k, v, logw, u, s0))
+    want_out, want_s = ref.rwkv6_scan_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(out, want_out, **SCAN_TOL)
+    torch.testing.assert_close(s_T, want_s, **SCAN_TOL)
+
+
+@pytest.mark.parametrize("DK", [16, 64, 128])
+def test_rwkv6_scan_reads_unaligned_rows(gen, DK):
+    """r/k/v and logw cut out of wider rows one element in, with odd time
+    strides: no row is 16-byte aligned, so the tiles are copied element by
+    element; B * H = 15 (3 x 5)."""
+    B, T, H = 3, 45, 5
+    kw = dict(generator=gen, device="cuda")
+    width = H * DK
+    rkv = torch.randn((B, T, 3 * width + 3), **kw).to(torch.bfloat16)
+    r, k, v = (rkv[..., 1 + i * width:1 + (i + 1) * width].unflatten(-1, (H, DK))
+               .permute(0, 2, 1, 3) for i in range(3))
+    w = -torch.exp(torch.randn((B, T, width + 1), **kw) - 2.0)
+    logw = w[..., 1:].unflatten(-1, (H, DK)).permute(0, 2, 1, 3)
+    u = (0.5 + 0.1 * torch.randn((H, DK), **kw)).to(torch.bfloat16)
+    s0 = 0.1 * torch.randn((B, H, DK, DK), **kw)
+    assert r.data_ptr() % 16 and logw.data_ptr() % 16
     out, s_T = _launched("rwkv6_scan", lambda: ops.rwkv6_scan(r, k, v, logw, u, s0))
     want_out, want_s = ref.rwkv6_scan_ref(r, k, v, logw, u, s0)
     torch.testing.assert_close(out, want_out, **SCAN_TOL)

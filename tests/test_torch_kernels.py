@@ -6,6 +6,7 @@ kernel in interpret mode and against its pure-jnp oracle, on the same
 numpy inputs.  The shape sweeps follow ``tests/test_kernels.py``.
 Tolerances as there: f32 1e-5, bf16 2e-2.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,6 +186,28 @@ def test_residual_int8_zero_residual_uses_eps_scale():
     jq, js, jr = jax_ops.residual_int8_pallas(jv, jb, interpret=True)
     assert (q == 0).all() and torch.equal(recon, tv)
     np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
+
+
+def test_residual_int8_follows_the_jitted_encoder_at_seed_34():
+    """The example that hypothesis keeps replaying against
+    tests/test_compress.py::test_pallas_kernel_matches_reference (seed 34,
+    scale 1e-4): the port's plain version gives the q and scale of the
+    jitted encoder (amax * f32(1/127)) and of the Pallas kernel in
+    interpret mode, bit for bit.  The inputs are made as that test makes
+    them and handed to both packages as numpy arrays."""
+    k1, k2 = jax.random.split(jax.random.PRNGKey(34))
+    base = jax.random.normal(k1, (16, 64))
+    value = base + 1e-4 * jax.random.normal(k2, (16, 64))
+    vn, bn = np.array(value), np.array(base)
+    q, scale, recon = ops.residual_int8(torch.from_numpy(vn), torch.from_numpy(bn))
+    jq, js = jax.jit(jax_codec_ref.int8_encode)(jnp.asarray(vn) - jnp.asarray(bn))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
+    pq, ps, pr = jax_ops.residual_int8_pallas(jnp.asarray(vn), jnp.asarray(bn),
+                                              interpret=True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(pq))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(ps))
+    np.testing.assert_allclose(recon.numpy(), np.asarray(pr), rtol=1e-6, atol=1e-6)
 
 
 def test_wrappers_refuse_a_device_without_a_kernel():

@@ -36,7 +36,17 @@ non-zero and no phase's failure is caught:
      2048 tokens prefilled, then 64 greedy decode steps, launch counts
      set to 0 before and held after; the streamed logits are held against
      one teacher-forced forward over prompt + generated tokens, and so are
-     those of the first 2 and 8 layers of the same params.
+     those of the first 2 and 8 layers of the same params;
+  7. main path 3: continuous batching.  (a) The 4-layer DiT of
+     tests/test_serve_continuous.py served on the card by
+     ``serve_continuous`` (3 requests, 2 slots, arrivals 0, 0, 1; 4 and 6
+     steps) under sync, interweaved, dice and dice + int8: the recycled request's and
+     the first wave's samples against the same requests in a fresh fixed
+     batch on the card, expected bit-identical (else held to TOL_F32 and
+     the gap printed).  (b) DiT-MoE-XL with phase 5's weights, dice + int8:
+     24 requests arriving 4 every 2 ticks through ``serve_continuous`` on 8
+     slots, then the same 24 through ``serve_queue``; launch counts set to
+     0 before each run and held to what its ticks' plans imply after it.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -44,6 +54,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -77,6 +88,7 @@ TOL_STREAM = 5e-2
 TOL_STREAM_DEEP = 0.25
 MIN_GREEDY_AGREE = 0.9
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 64
+CONT_REQUESTS, CONT_SLOTS, CONT_EVERY = 24, 8, 2   # 7b: 4 requests every 2 ticks
 DIT_KERNELS = ("expert_ffn", "flash_attention", "residual_int8")
 
 
@@ -187,23 +199,31 @@ def phase_kernels():
         ms = time_ms(lambda: ops.expert_ffn(*args), 10)
         dev = device_ms(lambda: ops.expert_ffn(*args), 10)
         plain = time_ms(lambda: ref.expert_ffn_ref(*args), 10)
+        x, wg, wu, wd = args
+        h = torch.randn((E, C, f), device="cuda")     # leaves gen's stream as it was
+        # the GEMMs alone, three cuBLAS bmm calls: a yardstick, not one
+        # library call computing the gated MLP
+        yard = time_ms(lambda: (torch.bmm(x, wg), torch.bmm(x, wu),
+                                torch.bmm(h, wd)), 10)
+        del x, wg, wu, wd, h
         flops = 6.0 * E * C * d * f
         nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
         b_ms, b_by = bound(flops, nbytes)
         tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
         log(f"  expert_ffn XL {label} C={C} f32: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s; device alone {dev:.4f} ms), cuBLAS yardstick (the plain "
-            f"version, three f32 matmuls) {plain:.4f} ms, bound {tc_ms:.4f} ms "
-            f"({tc_by}, 3xTF32 on the tensor cores), FP32 CUDA-core bound "
-            f"{b_ms:.4f} ms ({b_by}); library: none (no single PyTorch call "
-            f"computes the gated MLP); kernel < cuBLAS: {ms < plain}")
+            f"({flops / ms / 1e9:.2f} TFLOP/s; device alone {dev:.4f} ms), plain "
+            f"version (three f32 matmuls, activation and product) {plain:.4f} ms, "
+            f"cuBLAS yardstick (the three f32 bmm calls alone) {yard:.4f} ms, bound "
+            f"{tc_ms:.4f} ms ({tc_by}, 3xTF32 on the tensor cores), FP32 CUDA-core "
+            f"bound {b_ms:.4f} ms ({b_by}); library: none (no single PyTorch call "
+            f"computes the gated MLP); kernel < yardstick: {ms < yard}")
         if C == 640:
             rows["expert_ffn"] = dict(
                 name="expert_ffn", route="cuda",
                 source="src/repro_torch/csrc/expert_ffn.cu",
                 replaces="src/repro/kernels/expert_ffn.py:69", max_abs_err=err, ms=ms,
                 device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms,
-                library_ms=None, shape="E=8 C=640 d=1152 f=4608 f32 silu")
+                library_ms=None, yardstick_ms=yard, shape="E=8 C=640 d=1152 f=4608 f32 silu")
         del args
 
     # ---- flash_attention --------------------------------------------------
@@ -428,14 +448,14 @@ def _perturb(params, gen, scale=0.05):
     return params
 
 
-def planned_launches(splan, cfg, passes: int):
-    """Kernel launches the plan implies: per pass and layer one flash
-    attention and one expert FFN (two for a staggered half-batch layer);
-    a codec'd action quantizes its dispatch payload, and an interweaved
-    one with a cache its combine payload too."""
+def planned_launches(plans, passes: int):
+    """Kernel launches a sequence of step plans implies: per pass and layer
+    one flash attention and one expert FFN (two for a staggered half-batch
+    layer); a codec'd action quantizes its dispatch payload, and an
+    interweaved one with a cache its combine payload too."""
     n = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
          "rwkv6_scan": 0}
-    for plan in splan.steps:
+    for plan in plans:
         for a in plan.actions:
             n["flash_attention"] += passes
             n["expert_ffn"] += passes * (2 if a.mode == "staggered" else 1)
@@ -539,7 +559,7 @@ def drive(server, reqs, num_steps: int, label: str, *, need_codec: bool):
     ops.reset_launches()
     samples, stats = server.generate(reqs, num_steps=num_steps)
     counts = dict(ops.LAUNCHES)
-    want = planned_launches(splan, server.cfg, passes=2)
+    want = planned_launches(splan.steps, passes=2)
     finite = bool(torch.isfinite(samples).all())
     log(f"  {label} XL {len(reqs)} requests x {num_steps} steps: "
         f"{stats['wall_s_per_step']:.4f} s/step, finite {finite}, std "
@@ -554,18 +574,27 @@ def drive(server, reqs, num_steps: int, label: str, *, need_codec: bool):
     return samples, stats, counts
 
 
+def _xl_server(dcfg):
+    """DiT-MoE-XL on the card, params from seed 0, adaLN and the output
+    layer perturbed from seed 99: phases 5 and 7 serve the same weights."""
+    import torch
+    from repro_torch.configs.dit_moe_xl import config
+    from repro_torch.launch.serve import DiceServer
+    server = DiceServer(config(), dcfg, device="cuda", seed=0)
+    _perturb(server.params, torch.Generator(device="cuda").manual_seed(99))
+    return server
+
+
 def phase_xl(rows):
     import torch
     from repro_torch.bridge import leaves
     from repro_torch.compress.codecs import CompressConfig
-    from repro_torch.configs.dit_moe_xl import config
     from repro_torch.core.schedules import DiceConfig
     from repro_torch.launch.serve import DiceServer, Request
-    cfg = config()
     int8 = CompressConfig("int8_residual")
     t0 = time.perf_counter()
-    server = DiceServer(cfg, DiceConfig.dice(compress=int8), device="cuda", seed=0)
-    _perturb(server.params, torch.Generator(device="cuda").manual_seed(99))
+    server = _xl_server(DiceConfig.dice(compress=int8))
+    cfg = server.cfg
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(server.params).values())
     log(f"  XL params: {n_params / 1e9:.3f} B on the card, init {time.perf_counter() - t0:.3f} s")
@@ -723,6 +752,126 @@ def check_streaming(params, cfg, prompts, gen_tokens, streamed, tol_decode: floa
                              f"disagree with teacher forcing")
 
 
+def phase_continuous_tiny():
+    """7a: a recycled slot's sample and the first wave's against the same
+    requests in a fresh fixed batch, on the card, for four schedules."""
+    import torch
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.configs.dit_moe_xl import tiny
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch.serve import (DiceServer, Request, request_noise,
+                                          serve_continuous)
+    from repro_torch.models.dit_moe import init_dit
+    # the 4-layer config of tests/test_serve_continuous.py: capacity_factor
+    # 8.0, so no dispatch overflows and every row is independent of its
+    # co-residents
+    cfg = tiny().replace(num_layers=4, d_model=64, moe_d_ff=64, d_ff=256,
+                         patch_tokens=16, capacity_factor=8.0)
+    gen = torch.Generator(device="cpu").manual_seed(99)
+    params = _to(_perturb(init_dit(cfg, generator=gen), gen), "cuda")
+    schedules = {"sync": DiceConfig.sync_ep(),
+                 "interweaved": DiceConfig.interweaved(),
+                 "dice": DiceConfig.dice(),
+                 "dice+int8": DiceConfig.dice(compress=CompressConfig("int8_residual"))}
+    reqs = [Request(1, 0), Request(2, 1), Request(3, 2)]
+    worst = 0.0
+    # at 6 steps a light step's output (int8-coded under dice+int8) reaches
+    # the sample; at 4, the reference test's count, it does not
+    for (label, dcfg), steps in itertools.product(schedules.items(), (4, 6)):
+        server = DiceServer(cfg, dcfg, params=params, device="cuda")
+        out, stats = serve_continuous(server, reqs, max_batch=2, num_steps=steps,
+                                      seed=42, arrival_steps=[0.0, 0.0, 1.0])
+        if stats["recycled_admissions"] < 1 or sorted(out) != [0, 1, 2]:
+            raise AssertionError(f"7a {label}: no recycled admission")
+
+        def fresh(batch):
+            noise = torch.stack([request_noise(42, r.rid, cfg, "cuda") for r in batch])
+            x, _ = server.generate(batch, num_steps=steps, noise=noise)
+            return {r.rid: x[i].cpu() for i, r in enumerate(batch)}
+        ref = {**fresh([reqs[2], Request(5, 7)]), **fresh(reqs[:2])}
+        diff = max(float((out[r] - ref[r]).abs().max()) for r in (0, 1, 2))
+        moved = float((out[2] - request_noise(42, 2, cfg)).abs().max())
+        log(f"  7a {label} {steps} steps: recycled and first-wave samples vs a fresh "
+            f"batch on the card, max abs diff {diff:.3e} "
+            f"({'bit-identical' if diff == 0 else 'NOT bit-identical'}); "
+            f"ticks {stats['ticks']}, step keys {stats['step_keys']}, moved {moved:.3f}")
+        if moved == 0:
+            raise AssertionError(f"7a {label}: the sampler left the noise unchanged")
+        if diff != 0:
+            for r in (0, 1, 2):
+                compare(f"7a {label} {steps} steps rid {r}, continuous vs fresh batch",
+                        out[r], ref[r], TOL_F32)
+        worst = max(worst, diff)
+    log(f"  7a largest recycled-vs-fresh difference over the four schedules and "
+        f"4 and 6 steps: {worst:.3e}")
+
+
+def phase_continuous_xl(rows):
+    """7b: 24 XL requests through serve_continuous, then serve_queue."""
+    import torch
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, serve_continuous, serve_queue
+    server = _xl_server(DiceConfig.dice(compress=CompressConfig("int8_residual")))
+    cfg = server.cfg
+    reqs = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+            for i in range(CONT_REQUESTS)]
+    arrivals = [float(CONT_EVERY * (i // 4)) for i in range(CONT_REQUESTS)]
+    server.generate(reqs[:CONT_SLOTS], num_steps=1)     # warm-up: cuBLAS, allocator
+    splan = server.plan(XL_STEPS)
+
+    def check(label, out, counts, want):
+        bad = [r for r, x in out.items()
+               if tuple(x.shape) != (cfg.patch_tokens, cfg.in_channels)
+               or not bool(torch.isfinite(x).all())]
+        if sorted(out) != list(range(CONT_REQUESTS)) or bad:
+            raise AssertionError(f"7b {label}: samples missing, misshapen or not finite")
+        log(f"  7b {label} launches {counts}, planned {want}")
+        if counts != want or min(counts[k] for k in DIT_KERNELS) <= 0:
+            raise AssertionError(f"7b {label}: kernel launch counts differ from the plans")
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, st = serve_continuous(server, reqs, max_batch=CONT_SLOTS,
+                               num_steps=XL_STEPS, seed=0, arrival_steps=arrivals)
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plans = [splan.variants[v] for v, _ in st["tick_variants"]]
+    e2e = st["e2e_s"]
+    log(f"  7b continuous: {CONT_REQUESTS} XL requests, {CONT_SLOTS} slots, "
+        f"{XL_STEPS} steps: ticks {st['ticks']}, makespan {st['makespan_steps']}, "
+        f"slotted ticks {st['slotted_ticks']}, admissions {st['admissions']} "
+        f"(recycled {st['recycled_admissions']}), slot occupancy "
+        f"{st['slot_occupancy']:.4f}, wall {st['wall_s']:.4f} s "
+        f"({st['wall_s_per_tick']:.4f} s/tick, {CONT_REQUESTS / st['wall_s']:.4f} "
+        f"requests/s), e2e p50 {e2e['p50']:.4f} s p95 {e2e['p95']:.4f} s, peak "
+        f"memory {peak:.3f} GiB, step keys {st['step_keys']} of "
+        f"{st['num_plan_variants']} plan variants; modeled paper8 (the paper's "
+        f"8 x RTX 4090 model, not a measurement) {st['modeled_step_s_paper8']:.6f} s/step")
+    check("continuous", out, counts, planned_launches(plans, passes=2))
+    if st["recycled_admissions"] < 16 or st["slotted_ticks"] < 1:
+        raise AssertionError("7b continuous: the mix did not recycle slots or "
+                             "run a slotted tick")
+    if st["step_keys"] != st["num_plan_variants"] or min(v for v, _ in st["tick_variants"]) < 0:
+        raise AssertionError("7b continuous: step keys differ from the plan variants")
+    for name in DIT_KERNELS:
+        rows[name]["launches_continuous"] = counts[name]
+
+    ops.reset_launches()
+    out_q, view = serve_queue(server, reqs, max_batch=CONT_SLOTS,
+                              num_steps=XL_STEPS, seed=0)
+    counts_q = dict(ops.LAUNCHES)
+    log(f"  7b queue: {view['batches']} batches of {CONT_SLOTS}, wall "
+        f"{view['wall_s']:.4f} s ({view['wall_s'] / (view['batches'] * XL_STEPS):.4f} "
+        f"s/step, {CONT_REQUESTS / view['wall_s']:.4f} requests/s), e2e p50 "
+        f"{view['e2e_s']['p50']:.4f} s p95 {view['e2e_s']['p95']:.4f} s")
+    check("queue", {r: x.cpu() for r, x in out_q.items()}, counts_q,
+          planned_launches(list(splan.steps) * view["batches"], passes=2))
+
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -745,8 +894,13 @@ def main() -> int:
         phase_xl(rows)
     with phase("6 main path 2 (rwkv6-3b prefill + decode, bf16)"):
         phase_lm(rows)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "fp32_bound_ms", "device_ms",
+    with phase("7 main path 3 (continuous serving, DiT-MoE-XL)"):
+        phase_continuous_tiny()
+        phase_continuous_xl(rows)
+    keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
+            "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "fp32_bound_ms",
+            "device_ms",
             "events_ms", "shape")
     log(json.dumps({"kernels": [{k: rows[n][k] for k in keys if k in rows[n]}
                                 for n in rows]}))

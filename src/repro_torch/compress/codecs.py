@@ -52,6 +52,10 @@ class CodecSpec:
             return d * itemsize
         return d + 4                             # int8 payload + f32 scale
 
+    def wire_ratio(self, d: int, itemsize: int = 4) -> float:
+        """Compressed / raw wire size (<= 1) for a length-``d`` row."""
+        return self.wire_bytes_per_row(d, itemsize) / float(d * itemsize)
+
 
 @dataclass(frozen=True)
 class CompressConfig:

@@ -230,6 +230,14 @@ def normalize_overlap(dcfg, n_dev: int):
     return dataclasses.replace(dcfg, overlap="blocking")
 
 
+def placement_wire_scale(dcfg) -> float:
+    """Mean planned capacity scale over layers, by which expert placement
+    shrinks every capacity-sized wire payload.  Always 1.0 here: the
+    port's ``DiceConfig`` refuses placements (ROADMAP A.9)."""
+    del dcfg
+    return 1.0
+
+
 def codec_spec_of(dcfg) -> Optional[CodecSpec]:
     compress = getattr(dcfg, "compress", None)
     return compress.spec() if compress is not None else None
@@ -362,3 +370,80 @@ register_schedule("displaced", _plan_displaced)
 register_schedule("interweaved", _plan_interweaved)
 register_schedule("staggered_batch", _plan_staggered_batch)
 register_schedule("dice", _plan_dice)
+
+
+# ---------------------------------------------------------------------------
+# steady-state probe
+# ---------------------------------------------------------------------------
+def steady_state_plan(schedule, *, num_moe_layers: int = 2,
+                      experts_per_token: int = 2) -> StepPlan:
+    """A representative post-warmup refresh-step plan for ``schedule`` with
+    its default DiceConfig: the source of the schedule-level staleness and
+    buffer counts the paper tabulates."""
+    from repro_torch.core.schedules import DiceConfig
+    factories = {
+        "sync": DiceConfig.sync_ep,
+        "displaced": DiceConfig.displaced,
+        "interweaved": DiceConfig.interweaved,
+        "dice": DiceConfig.dice,
+        "staggered_batch": DiceConfig.staggered_batch,
+    }
+    name = schedule_name(schedule)
+    dcfg = factories[name]() if name in factories else DiceConfig(schedule=name)
+    return steady_state_plan_for(dcfg, num_moe_layers,
+                                 experts_per_token=experts_per_token)
+
+
+def steady_state_plan_for(dcfg, num_moe_layers: int, *,
+                          experts_per_token: int) -> StepPlan:
+    """The plan of the first post-warmup refresh step under ``dcfg``: what
+    the latency model treats as the schedule's characteristic step."""
+    step = dcfg.warmup_steps
+    while not conditional.is_refresh_step(step, dcfg.cond_stride):
+        step += 1
+    return plan_for_step(dcfg, num_moe_layers, step,
+                         experts_per_token=experts_per_token)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: per-slot warmup support
+# ---------------------------------------------------------------------------
+def steady_period(dcfg, num_moe_layers: int, *, experts_per_token: int,
+                  max_period: int = 8) -> int:
+    """Period of the post-warmup plan sequence: 1 for sync, and for
+    displaced / interweaved without a codec; ``cond_stride`` for DICE's
+    refresh/light alternation and for any codec'd schedule.
+
+    The continuous engine admits requests only at ticks
+    ``g % steady_period == 0``, so every established slot is at the same
+    point of the steady-state cycle and the batch shares one plan a tick.
+    """
+    w = dcfg.warmup_steps
+    probe = [plan_for_step(dcfg, num_moe_layers, w + i,
+                           experts_per_token=experts_per_token)
+             for i in range(2 * max_period)]
+    for p in range(1, max_period + 1):
+        if all(probe[i] == probe[i + p] for i in range(len(probe) - p)):
+            return p
+    raise ValueError(
+        f"schedule {schedule_name(dcfg.schedule)!r} has no steady-state "
+        f"period <= {max_period}; continuous batching cannot align "
+        f"admissions")
+
+
+def slotted_merge_plan(dcfg, num_moe_layers: int, *,
+                       experts_per_token: int) -> StepPlan:
+    """The plan a mixed warmup/steady tick runs under per-slot selectors.
+
+    A recycled slot replays the warmup prefix (sync steps, full dispatch)
+    while established slots go on in steady state.  The tick runs the
+    steady-state full-dispatch plan (the refresh variant, already in the
+    SchedulePlan) and resolves the per-slot difference with tensors:
+    ``slot_fresh`` (tokens,) makes warmup-slot tokens consume the fresh
+    combine instead of ``y_buf``, and ``consume_mask`` (tokens, K) is
+    all-fresh on warmup rows and the local step's conditional-
+    communication mask on established rows.  So every warmup mixture
+    shares one step key, (this plan, slotted=True).
+    """
+    return steady_state_plan_for(dcfg, num_moe_layers,
+                                 experts_per_token=experts_per_token)

@@ -53,12 +53,13 @@ class DiceConfig:
         if self.overlap not in ("blocking", "ring"):
             raise ValueError(f"overlap must be 'blocking' or 'ring', got "
                              f"{self.overlap!r}")
-        for name in ("placements", "paging", "resilience"):
+        for name, item in (("placements", "A.9"), ("paging", "A.9"),
+                           ("resilience", "A.10")):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
-                    f"DiceConfig.{name} is not ported yet: the single-device "
-                    f"PyTorch slice runs without expert placement, paging "
-                    f"and resilience")
+                    f"DiceConfig.{name} is not ported yet (ROADMAP {item}): "
+                    f"the single-device PyTorch port runs without expert "
+                    f"placement, paging and resilience")
 
     @staticmethod
     def sync_ep(*, overlap="blocking") -> "DiceConfig":

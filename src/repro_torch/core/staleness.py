@@ -70,6 +70,33 @@ def state_bytes(states: Dict[int, MoELayerState]) -> int:
     return sum(s.bytes() for s in states.values())
 
 
+def reset_slots(states: Dict[int, MoELayerState], slot_mask: torch.Tensor,
+                *, tokens_per_slot: int) -> Dict[int, MoELayerState]:
+    """Zero the staleness rows of recycled batch slots.
+
+    ``slot_mask`` is a (B,) bool tensor marking slots handed to a new
+    request; each slot owns ``tokens_per_slot`` consecutive token rows of
+    every buffer.  A recycled slot then starts from the all-zeros planned
+    state a fresh batch has, so no activation of the previous occupant
+    reaches its successor.  Handles the flat ``(B * tokens_per_slot, ...)``
+    layout and the factored ``(B, T, ...)`` one, whose leading dim is the
+    slot dim.  Runs on the buffers' device without a host sync.
+    """
+    slot = torch.as_tensor(slot_mask, dtype=torch.bool)
+    tok = slot[:, None].expand(-1, tokens_per_slot).reshape(-1)
+
+    def _zero(buf):
+        if buf is None:
+            return None
+        m = slot if buf.shape[0] == slot.shape[0] else tok
+        m = m.to(buf.device).reshape((-1,) + (1,) * (buf.ndim - 1))
+        return torch.where(m, torch.zeros_like(buf), buf)
+
+    return {i: MoELayerState(y_buf=_zero(s.y_buf), x_prev=_zero(s.x_prev),
+                             h_cache=_zero(s.h_cache), c_base=_zero(s.c_base))
+            for i, s in states.items()}
+
+
 def _cache_update_mask(mask, pair_keep):
     """Pairs whose cache entry may take the fresh value: transmitted fresh
     (mask) AND survived capacity (keep) — an overflowed pair gathers zeros,
@@ -83,16 +110,27 @@ def _cache_update_mask(mask, pair_keep):
 
 def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                        state: MoELayerState, *,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       slot_fresh: Optional[torch.Tensor] = None,
+                       consume_mask: Optional[torch.Tensor] = None):
     """Execute one MoE layer under a planned :class:`LayerAction`.
 
     x: (T, d) flat tokens.  ``generator`` feeds the "random" conditional-
-    communication policy.  Returns (y, new_state, aux)."""
+    communication policy.  ``slot_fresh`` (T,) / ``consume_mask`` (T, K)
+    are the continuous engine's per-slot warmup replay: tokens of slots
+    replaying warmup consume the fresh combine (sync semantics) instead of
+    the staleness buffer, and ``consume_mask`` replaces the policy mask of
+    a non-sync cached action (all-fresh rows for warmup slots, the local
+    step's policy mask for established ones).  ``None`` for both is the
+    uniform-batch path.  Returns (y, new_state, aux)."""
     mask = None
     if action.mask_policy is not None:
         mask = conditional.policy_mask(action.mask_policy, x.shape[0],
                                        cfg.experts_per_token,
                                        device=x.device, generator=generator)
+    if slot_fresh is not None and consume_mask is not None \
+            and action.want_cache and action.mode != "sync":
+        mask = consume_mask
     want_cache = action.want_cache
 
     def run(inp, m=None, cache=None):
@@ -113,6 +151,12 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
             return payload
         return state.c_base
 
+    def select_out(y_new, y_buf):
+        """Consumed output: warmup-slot tokens take the fresh combine."""
+        if slot_fresh is None:
+            return y_buf
+        return torch.where(slot_fresh[:, None], y_new, y_buf)
+
     if action.mode == "sync":
         y, aux = run(x)
         new = MoELayerState(
@@ -127,11 +171,14 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
 
     if action.mode == "displaced":
         # experts process the tokens buffered at s-1; the output consumed
-        # now is the buffered result of x(s-2)
-        y_new, aux = run(state.x_prev)
+        # now is the buffered result of x(s-2).  Warmup slots run sync:
+        # their experts see x(s), and they consume it.
+        inp = state.x_prev if slot_fresh is None else \
+            torch.where(slot_fresh[:, None], x, state.x_prev)
+        y_new, aux = run(inp)
         new = MoELayerState(y_buf=y_new, x_prev=x, h_cache=None,
-                            c_base=next_base(state.x_prev, aux))
-        return state.y_buf, new, aux
+                            c_base=next_base(inp, aux))
+        return select_out(y_new, state.y_buf), new, aux
 
     if action.mode == "staggered":
         # two half-batch MoE calls; both the dispatched tokens and the
@@ -150,7 +197,7 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                      + aux1.raw_dispatch_bytes,
                      counts=aux0.counts + aux1.counts,
                      served_counts=aux0.served_counts + aux1.served_counts)
-        return state.y_buf, new, aux
+        return select_out(y_new, state.y_buf), new, aux
 
     # "interweaved": dispatch of x(s) completes in step s, the combine is
     # deferred, so the output consumed now is the buffered result of x(s-1)
@@ -162,4 +209,4 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
             _cache_update_mask(mask, aux.pair_keep))
         if want_cache else None,
         c_base=next_base(x, aux))
-    return state.y_buf, new, aux
+    return select_out(y_new, state.y_buf), new, aux

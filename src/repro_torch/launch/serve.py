@@ -1,33 +1,51 @@
-"""DICE serving engine on one device (port of the fixed-batch half of
-``repro.launch.serve``).
+"""DICE serving engine on one device (port of ``repro.launch.serve``).
 
 Serves class-conditional DiT-MoE generation requests under a selectable
-parallelism schedule.  Besides the samples it reports the quantities behind
-the paper's claims — per-step dispatch payload, persistent staleness-buffer
-bytes — and the measured wall time on the device, plus how often each
-hand-written kernel was launched.
+parallelism schedule, in three ways: one fixed batch
+(:meth:`DiceServer.generate`), rigid FIFO batches (:func:`serve_queue`),
+and continuous batching (:func:`serve_continuous`), where each batch slot
+steps and completes on its own and freed slots are recycled mid-flight
+with their staleness rows reset.  Besides the samples it reports the
+per-step dispatch payload, the persistent staleness-buffer bytes, the
+wall time measured on the device and how often each hand-written kernel
+was launched.  It also reports the modeled step latency of the paper's
+deployment (8 x RTX 4090 over PCIe, ``PAPER_HW``): a model computed from
+roofline terms, not a measurement, and named ``..._paper8``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --schedule dice \\
       --requests 8 --steps 10 --no-tiny --codec int8_residual
+  PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
+      --max-batch 8 --requests 24 --steps 10 --no-tiny
+
+Mesh-native serving, expert paging, online placement (ROADMAP A.9) and the
+resilience ladder (A.10) are not ported.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import math
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.compress.codecs import CODEC_KINDS, CompressConfig
 from repro_torch.configs.dit_moe_xl import config as xl_config, tiny
+from repro_torch.core import conditional
+from repro_torch.core import overlap as overlap_lib
 from repro_torch.core import plan as plan_lib
+from repro_torch.core import staleness as stale_lib
 from repro_torch.core.schedules import DiceConfig
 from repro_torch.kernels import ops
 from repro_torch.models.dit_moe import init_dit
-from repro_torch.sampling.rectified_flow import rf_sample
+from repro_torch.obs import MetricsRegistry, StepTracer
+from repro_torch.resilience.recovery import AdmissionQueue
+from repro_torch.sampling.rectified_flow import make_rf_step, rf_sample
 
 
 @dataclass
@@ -45,25 +63,291 @@ SCHEDULES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# modeled step latency of the paper's deployment
+# ---------------------------------------------------------------------------
+# The paper's setup: 8x RTX 4090 over PCIe.  Effective (not peak) constants,
+# calibrated by the reference against the paper's Table 5 (all-to-all is
+# 75.6-79.2% of sync-EP step time on DiT-MoE-XL at batch 4-32):
+#   flops   = 82.6 TF dense bf16 x ~45% achieved utilisation,
+#   link_bw = ~0.9 GB/s effective per-GPU all-to-all bandwidth.
+PAPER_HW = {"flops": 37e12, "link_bw": 0.9e9}
+
+
+def layer_compute_flops(cfg, tokens: int) -> float:
+    """Per-MoE-layer forward flops (attention + routed + shared experts):
+    QKV + output projections 8*T*d^2, QK^T + AV 4*T^2*d, and three d x d_ff
+    matmuls per dispatched token for the gated expert FFNs."""
+    d = cfg.d_model
+    attn_flops = 8 * tokens * d * d + 4 * tokens ** 2 * d
+    moe_flops = 6 * tokens * d * cfg.expert_d_ff * (
+        cfg.experts_per_token + cfg.num_shared_experts)
+    return attn_flops + moe_flops
+
+
+def hop_wire_times(t_comm: float, n_dev: int, sched, *,
+                   devices_per_host: int, link_bw: float,
+                   inter_host_bw: float) -> List[float]:
+    """Per-hop wire seconds of a chunked ring all-to-all on a two-tier
+    fabric: a shift-h hop pushes ``hop_crossings(h, n, H)`` chunks through
+    the single inter-host trunk, so it takes the slower of the trunk's
+    serialisation and one intra-host chunk transfer."""
+    base = t_comm / max(1, n_dev - 1)
+    out = []
+    for h in sched:
+        c = overlap_lib.hop_crossings(h, n_dev, devices_per_host)
+        out.append(max(base, c * base * (link_bw / inter_host_bw)))
+    return out
+
+
+def _ring_pipeline_bound(chunk_comp: float, wire_times) -> float:
+    """Flow-shop recurrence of the ring engine over explicit per-hop wire
+    times: the local chunk's FFN runs behind hop 1's wire, then each
+    arriving chunk computes once its data has landed and the previous
+    chunk's FFN is done."""
+    done = chunk_comp
+    wire = 0.0
+    for w in wire_times:
+        wire += w
+        done = max(done, wire) + chunk_comp
+    return done
+
+
+def modeled_step_latency(cfg, dcfg, *, local_batch: int, n_dev: int = 8,
+                         hw: Optional[dict] = None,
+                         devices_per_host: int = 0,
+                         inter_host_bw: Optional[float] = None) -> dict:
+    """Modeled seconds per diffusion step on ``n_dev`` devices of ``hw``
+    (default ``PAPER_HW``, the paper's 8 x RTX 4090 point).
+
+    A ``"blocking"`` layer is serial (compute + its all-to-alls); a
+    ``"ring"`` layer takes the per-hop pipeline bound.  The result carries
+    both bounds and ``overlap_efficiency``, the share of communication
+    time the selected engine hides.  ``devices_per_host`` with an
+    ``inter_host_bw`` below the link rate models a two-tier fabric whose
+    ring follows :func:`~repro_torch.core.overlap.ring_hop_schedule`.
+    The number is a model of that hardware, never a measurement.
+    """
+    hw = hw or PAPER_HW
+    hetero = (0 < devices_per_host < n_dev
+              and inter_host_bw is not None
+              and inter_host_bw < hw["link_bw"]
+              and n_dev % max(1, devices_per_host) == 0)
+    steady = plan_lib.steady_state_plan_for(dcfg, cfg.num_layers,
+                                            experts_per_token=cfg.experts_per_token)
+    tokens = local_batch * cfg.patch_tokens
+    d = cfg.d_model
+    t_comp = layer_compute_flops(cfg, tokens) / hw["flops"]
+    # per-layer all-to-all: dispatch + combine of the capacity buffer
+    cap_tokens = tokens * cfg.experts_per_token * cfg.capacity_factor
+    a2a_full = 2 * cap_tokens * d * 2 * (n_dev - 1) / n_dev
+    a2a_full *= plan_lib.placement_wire_scale(dcfg)
+    a2a_async = a2a_full
+    # wire codec: light-step payloads shrink by the codec's ratio at the
+    # 2-byte wire dtype the model counts in
+    light_scale = 1.0
+    cspec = plan_lib.codec_spec_of(dcfg)
+    if cspec is not None and plan_lib.schedule_name(dcfg.schedule) in (
+            "displaced", "interweaved", "dice"):
+        light_scale = cspec.wire_ratio(d, itemsize=2)
+    if dcfg.cond_comm:
+        # conditional communication gates the async layers only
+        a2a_async = a2a_full * conditional.comm_volume_fraction(
+            cfg.experts_per_token, dcfg.cond_stride, dcfg.cond_policy,
+            light_scale=light_scale)
+    elif light_scale < 1.0 and dcfg.cond_stride > 1:
+        a2a_async = a2a_full * (
+            1 + (dcfg.cond_stride - 1) * light_scale) / dcfg.cond_stride
+    t_comm_full = a2a_full / hw["link_bw"]
+    t_comm_async = a2a_async / hw["link_bw"]
+
+    if plan_lib.schedule_name(dcfg.schedule) == "staggered_batch":
+        # two half-batches: each expert GEMM runs at lower utilisation
+        def eff(b):
+            return b / (b + 4)
+        t_comp = t_comp * eff(local_batch) / eff(max(1, local_batch // 2))
+
+    sync_frac = steady.num_sync_layers / max(1, steady.num_layers)
+
+    aware_sched = oblivious_sched = tuple(range(1, n_dev))
+    if hetero:
+        aware_sched = overlap_lib.ring_hop_schedule(
+            n_dev, devices_per_host=devices_per_host)
+
+    def _wire(tm, sched):
+        return hop_wire_times(tm, n_dev, sched,
+                              devices_per_host=devices_per_host,
+                              link_bw=hw["link_bw"],
+                              inter_host_bw=inter_host_bw)
+
+    def ring_bound(tc: float, tm: float, sched=None) -> float:
+        if n_dev <= 1:
+            return tc + tm
+        t_local = tc / n_dev
+        if not hetero:
+            return t_local + (n_dev - 1) * max(tm / (n_dev - 1), tc / n_dev)
+        return _ring_pipeline_bound(
+            t_local, _wire(tm, aware_sched if sched is None else sched))
+
+    def _comm(tm: float) -> float:
+        return sum(_wire(tm, oblivious_sched)) if hetero else tm
+
+    def step_of(t_sync: float, t_async: float) -> float:
+        return cfg.num_layers * (sync_frac * t_sync
+                                 + (1 - sync_frac) * t_async)
+
+    t_blocking = step_of(t_comp + _comm(t_comm_full),
+                         t_comp + _comm(t_comm_async))
+    t_ring = step_of(ring_bound(t_comp, t_comm_full),
+                     ring_bound(t_comp, t_comm_async))
+    t_ring_obl = (step_of(ring_bound(t_comp, t_comm_full, oblivious_sched),
+                          ring_bound(t_comp, t_comm_async, oblivious_sched))
+                  if hetero else t_ring)
+    t_step = t_ring if plan_lib.overlap_of(dcfg) else t_blocking
+    t_comm_step = cfg.num_layers * (sync_frac * _comm(t_comm_full)
+                                    + (1 - sync_frac) * _comm(t_comm_async))
+    efficiency = ((t_blocking - t_step) / t_comm_step
+                  if t_comm_step > 0 else 0.0)
+    return {"t_step_s": t_step,
+            "t_step_blocking_s": t_blocking,
+            "t_step_ring_s": t_ring,
+            "t_step_ring_oblivious_s": t_ring_obl,
+            "hop_schedule": aware_sched if hetero else None,
+            "overlap_efficiency": max(0.0, min(1.0, efficiency)),
+            "t_comp_layer": t_comp,
+            "t_comm_layer": t_comm_async, "sync_frac": sync_frac,
+            "a2a_bytes_layer": sync_frac * a2a_full
+            + (1 - sync_frac) * a2a_async}
+
+
+def _modeled(lat: dict, steps: int) -> dict:
+    """The summary keys of a modeled latency over ``steps`` steps."""
+    return {"modeled_step_s_paper8": lat["t_step_s"],
+            "modeled_total_s_paper8": lat["t_step_s"] * steps,
+            "modeled_step_blocking_s": lat["t_step_blocking_s"],
+            "modeled_step_ring_s": lat["t_step_ring_s"],
+            "modeled_overlap_efficiency": lat["overlap_efficiency"],
+            "a2a_bytes_per_layer": lat["a2a_bytes_layer"]}
+
+
+# ---------------------------------------------------------------------------
+# metrics publication: the registry is the single source of truth; the
+# summaries the serving loops return are views of it.  Flows are counters,
+# per-batch sizes max-gauges, the modeled step time a histogram mean.
+# ---------------------------------------------------------------------------
+def _publish_batch(reg: MetricsRegistry, stats: dict, lab: dict) -> None:
+    """Publish one ``DiceServer.generate`` summary, with its modeled
+    latency (:func:`_modeled`), into a registry."""
+    reg.counter("dice_batches_total", "generate() batches executed",
+                lab).inc()
+    reg.histogram("dice_modeled_step_seconds",
+                  "modeled per-step latency of the paper's deployment",
+                  lab).observe(stats["modeled_step_s_paper8"])
+    reg.counter("dice_modeled_seconds_total",
+                "modeled run seconds of the paper's deployment",
+                lab).inc(stats["modeled_total_s_paper8"])
+    reg.gauge("dice_a2a_bytes_per_layer",
+              "modeled per-MoE-layer all-to-all payload",
+              lab).set_max(float(stats["a2a_bytes_per_layer"]))
+    reg.gauge("dice_buffer_bytes", "persistent staleness-buffer footprint",
+              lab).set_max(int(stats["buffer_bytes"]))
+    reg.counter("dice_dispatch_bytes_total", "dispatch payload moved",
+                lab).inc(float(sum(stats["dispatch_bytes_per_step"])))
+    reg.counter("dice_wire_bytes_total",
+                "codec-compressed bytes on the wire",
+                lab).inc(stats["wire_bytes_total"])
+    reg.counter("dice_raw_bytes_total", "lossless-equivalent payload bytes",
+                lab).inc(stats["raw_bytes_total"])
+    reg.gauge("dice_overlap_efficiency",
+              "fraction of comm time the selected engine hides",
+              lab).set_max(float(stats["modeled_overlap_efficiency"]))
+    reg.gauge("dice_plan_variants", "StepPlan variants", lab).set_max(
+        stats["num_plan_variants"])
+    reg.gauge("dice_step_keys", "(plan, slotted) keys the step fn ran",
+              lab).set_max(stats["step_keys"])
+    reg.counter("dice_wall_seconds_total",
+                "measured wall seconds on the device", lab).inc(
+                    stats["wall_s"])
+
+
+def _registry_view(reg: MetricsRegistry, lab: dict) -> dict:
+    """The ``serve_queue`` summary, computed from the registry."""
+    e2e = reg.histogram("dice_request_e2e_seconds", labels=lab)
+    return {
+        "batches": int(reg.value("dice_batches_total", lab)),
+        "padded": int(reg.value("dice_padded_requests_total", lab)),
+        "modeled_step_s_paper8": reg.histogram("dice_modeled_step_seconds",
+                                               labels=lab).mean,
+        "modeled_total_s_paper8": reg.value("dice_modeled_seconds_total",
+                                            lab),
+        "a2a_bytes_per_layer": reg.value("dice_a2a_bytes_per_layer", lab),
+        "buffer_bytes": int(reg.value("dice_buffer_bytes", lab)),
+        "dispatch_bytes_total": reg.value("dice_dispatch_bytes_total", lab),
+        "wire_bytes_total": reg.value("dice_wire_bytes_total", lab),
+        "raw_bytes_total": reg.value("dice_raw_bytes_total", lab),
+        "modeled_overlap_efficiency": reg.value("dice_overlap_efficiency",
+                                                lab),
+        "num_plan_variants": int(reg.value("dice_plan_variants", lab)),
+        "step_keys": int(reg.value("dice_step_keys", lab)),
+        "wall_s": reg.value("dice_wall_seconds_total", lab),
+        "e2e_s": e2e.snap(),
+    }
+
+
+def write_metrics(registry: MetricsRegistry, path: str) -> None:
+    """Write a registry to ``path``: JSON snapshot for ``*.json``,
+    Prometheus text exposition otherwise."""
+    if str(path).endswith(".json"):
+        registry.write_snapshot(path)
+    else:
+        registry.write_prometheus(path)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
+def _span(tracer: Optional[StepTracer], name: str, cat: str, args: dict):
+    return (tracer.span(name, cat=cat, args=args) if tracer is not None
+            else contextlib.nullcontext())
+
+
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+
+
+# ---------------------------------------------------------------------------
+# engine
+# ---------------------------------------------------------------------------
 class DiceServer:
-    """One device serving fixed batches.  ``params`` defaults to a random
+    """One device serving DiT-MoE requests.  ``params`` defaults to a random
     init from ``seed`` drawn on the device; ``compress`` threads a wire
-    codec into the schedule config."""
+    codec into the schedule config.  ``n_dev`` is the device count of the
+    modeled deployment and enters the latency model only.  ``metrics`` is
+    the registry the serving loops fold their registries into; ``tracer``
+    (a :class:`~repro_torch.obs.StepTracer`) records host phases."""
 
     def __init__(self, cfg, dcfg: DiceConfig, *, params=None, seed: int = 0,
                  device: Optional[str] = None,
-                 compress: Optional[CompressConfig] = None):
+                 compress: Optional[CompressConfig] = None,
+                 n_dev: int = 8,
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer: Optional[StepTracer] = None):
         if compress is not None:
             dcfg = dataclasses.replace(
                 dcfg, compress=None if compress.codec == "none" else compress)
+        if n_dev < 1:
+            raise ValueError(f"n_dev must be >= 1, got {n_dev}")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.dcfg = plan_lib.normalize_overlap(dcfg, 1)
+        # the requested config: the latency model describes its engine on
+        # n_dev devices, while the steps run on one, where a ring is the
+        # blocking exchange (the samplers normalize it away)
+        self.dcfg = dcfg
+        self.n_dev = n_dev
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_dit(cfg, generator=gen)
@@ -72,14 +356,28 @@ class DiceServer:
     def plan(self, num_steps: int) -> plan_lib.SchedulePlan:
         """The schedule plan a ``generate`` call will run."""
         return plan_lib.compile_step_plans(
-            self.dcfg, self.cfg.num_layers, num_steps,
-            experts_per_token=self.cfg.experts_per_token)
+            plan_lib.normalize_overlap(self.dcfg, 1), self.cfg.num_layers,
+            num_steps, experts_per_token=self.cfg.experts_per_token)
+
+    def latency(self, local_batch: int) -> dict:
+        """:func:`modeled_step_latency` of this server's deployment."""
+        return modeled_step_latency(self.cfg, self.dcfg,
+                                    n_dev=self.n_dev,
+                                    local_batch=max(1, local_batch))
 
     def generate(self, requests: List[Request], *, num_steps: int = 20,
                  guidance: float = 1.5, noise: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 metric_labels: Optional[dict] = None):
         """Sample one batch.  Noise comes from ``noise`` or ``generator``
-        (default: a generator on the server's device seeded with 0)."""
+        (default: a generator on the server's device seeded with 0).
+
+        Returns (samples, summary): the summary holds what was measured and
+        counted.  It is published into ``metrics`` (default: the server's
+        registry) under ``metric_labels``, together with the modeled
+        latency of the paper's deployment, which :func:`serve_queue`'s view
+        reads from there."""
         classes = torch.tensor([r.class_id for r in requests],
                                dtype=torch.int64, device=self.device)
         if noise is None and generator is None:
@@ -93,6 +391,7 @@ class DiceServer:
                                    guidance=guidance)
         _sync(self.device)
         wall = time.perf_counter() - t0
+        lat = self.latency(len(requests) // self.n_dev)
         result = {
             "device": (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu"),
@@ -104,10 +403,362 @@ class DiceServer:
             "wire_bytes_total": float(sum(stats["dispatch_bytes"])),
             "raw_bytes_total": float(sum(stats["raw_bytes"])),
             "num_plan_variants": stats["num_plan_variants"],
-            "kernel_launches": {k: ops.LAUNCHES[k] - before[k]
-                                for k in ops.LAUNCHES},
+            "step_keys": stats["step_keys"],
+            "kernel_launches": _launches_since(before),
         }
+        reg = metrics if metrics is not None else self.metrics
+        lab = metric_labels if metric_labels is not None else {
+            "schedule": plan_lib.schedule_name(self.dcfg.schedule),
+            "engine": "batch"}
+        _publish_batch(reg, {**result, **_modeled(lat, num_steps)}, lab)
         return samples, result
+
+
+def _seed_of(seed: int, n: int) -> int:
+    """One generator seed for the pair ``(seed, n)``, hashed to 32 bits
+    (the CPU generator keeps only the low 32 bits of a seed)."""
+    return int(np.random.SeedSequence([seed, n & 0xFFFFFFFF])
+               .generate_state(1)[0])
+
+
+def request_noise(seed: int, rid: int, cfg,
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+    """Per-request initial latent noise (patch_tokens, in_channels).
+
+    Drawn from a CPU generator seeded from ``(seed, rid)`` and then moved
+    to ``device``, so the CPU and the card see the same noise and a
+    request's noise does not depend on the slot or batch it lands in: the
+    recycled-slot guarantee of :func:`serve_continuous` is stated against
+    this derivation."""
+    gen = torch.Generator().manual_seed(_seed_of(seed, rid))
+    z = torch.randn((cfg.patch_tokens, cfg.in_channels), generator=gen)
+    return z if device is None else z.to(device, non_blocking=True)
+
+
+def _noise_of(noise: Optional[dict], seed: int, rid: int, cfg, device):
+    """``noise[rid]`` where the caller gave it, else :func:`request_noise`."""
+    if noise is not None and rid in noise:
+        return torch.as_tensor(noise[rid], dtype=torch.float32).to(device)
+    return request_noise(seed, rid, cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# batched serving loop (FIFO queue -> fixed-size batches)
+# ---------------------------------------------------------------------------
+def serve_queue(server: DiceServer, requests: List[Request], *,
+                max_batch: int = 8, num_steps: int = 10,
+                guidance: float = 1.5, seed: int = 0,
+                noise: Optional[dict] = None):
+    """Drain a request queue through fixed-size batches; short final
+    batches are padded with the null class (rid -1) and trimmed.  A
+    request's noise is ``noise[rid]`` or :func:`request_noise`.  Returns
+    ({rid: sample}, summary), the summary a view of a call-scoped registry
+    that is folded into ``server.metrics``."""
+    cfg, dev = server.cfg, server.device
+    out: dict = {}
+    reg = MetricsRegistry()
+    lab = {"schedule": plan_lib.schedule_name(server.dcfg.schedule),
+           "engine": "queue"}
+    queue = list(requests)
+    t_start = time.perf_counter()
+    while queue:
+        batch, queue = queue[:max_batch], queue[max_batch:]
+        pad = max_batch - len(batch)
+        reg.series("dice_queue_depth", "requests still waiting",
+                   lab).append(len(queue))
+        padded = batch + [Request(class_id=cfg.num_classes, rid=-1)] * pad
+        x0 = torch.stack([_noise_of(noise, seed, r.rid, cfg, dev)
+                          for r in padded])
+        with _span(server.tracer, "serve_queue_batch", "serve",
+                   {"batch": len(batch), "pad": pad}):
+            samples, _ = server.generate(padded, num_steps=num_steps,
+                                         guidance=guidance, noise=x0,
+                                         metrics=reg, metric_labels=lab)
+        for i, r in enumerate(batch):
+            out[r.rid] = samples[i]
+        # every request of a rigid batch completes with the batch
+        done = time.perf_counter() - t_start
+        e2e = reg.histogram("dice_request_e2e_seconds",
+                            "request end-to-end seconds (enqueue->sample)",
+                            lab)
+        for _ in batch:
+            e2e.observe(done)
+        reg.counter("dice_requests_total", "requests served", lab).inc(
+            len(batch))
+        reg.counter("dice_padded_requests_total", "null-class pad slots",
+                    lab).inc(pad)
+    server.metrics.merge(reg)
+    return out, _registry_view(reg, lab)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching (slot-level staleness-state recycling)
+# ---------------------------------------------------------------------------
+@dataclass
+class _Slot:
+    """One batch lane of the continuous engine."""
+    rid: int = -1
+    class_id: int = 0
+    local_step: int = 0
+    active: bool = False
+
+
+def _tick_generator(seed: int, tick: int, device) -> torch.Generator:
+    """The "random" policy's generator of one tick, seeded from
+    ``(seed, tick)``: the counterpart of the reference's
+    ``fold_in(step_key, tick)``."""
+    return torch.Generator(device=device).manual_seed(_seed_of(seed, tick))
+
+
+def serve_continuous(server: DiceServer, requests: List[Request], *,
+                     max_batch: int = 8, num_steps: int = 10,
+                     guidance: float = 1.5, seed: int = 0,
+                     arrival_steps: Optional[List[float]] = None,
+                     noise: Optional[dict] = None, mesh=None):
+    """Continuous-batching serving loop: slot-level admission + recycling.
+
+    Each of the ``max_batch`` slots carries its own step count and
+    completes on its own.  Queued requests are admitted into free slots at
+    plan-aligned ticks (``tick % steady_period == 0``), so every
+    established slot shares the tick's StepPlan.  A recycled slot's
+    staleness rows are zeroed (:func:`~repro_torch.core.staleness.reset_slots`)
+    and it replays the warmup prefix through the per-slot selectors of
+    the step function, so no activation of the previous occupant reaches
+    its successor: for configurations whose sampling draws nothing
+    (``cond_policy != "random"``) a recycled slot's sample equals the same
+    request's in a fresh batch.
+
+    ``arrival_steps[i]`` is the tick at which ``requests[i]`` arrives
+    (default 0).  A request's noise is ``noise[rid]`` or
+    :func:`request_noise`; a ``"random"`` policy draws each tick's mask
+    from a generator seeded from ``(seed, tick)``.  Slot surgery runs on
+    the device without a host sync; a finished slot's sample is copied to
+    the CPU when it completes, which is when its end-to-end latency is
+    read.  Returns ({rid: sample on the CPU}, stats).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-native continuous batching needs the expert-parallel mesh "
+            "(ROADMAP A.9)")
+    cfg, dev = server.cfg, server.device
+    dcfg = plan_lib.normalize_overlap(server.dcfg, 1)
+    reg = MetricsRegistry()
+    lab = {"schedule": plan_lib.schedule_name(dcfg.schedule),
+           "engine": "continuous"}
+    tracer = server.tracer
+    B, Tp, k_exp = max_batch, cfg.patch_tokens, cfg.experts_per_token
+    dt = 1.0 / num_steps
+    with _span(tracer, "plan_build", "plan",
+               {"schedule": lab["schedule"], "num_steps": num_steps}):
+        splan = plan_lib.compile_step_plans(
+            dcfg, cfg.num_layers, num_steps, experts_per_token=k_exp)
+        merge_plan = plan_lib.slotted_merge_plan(
+            dcfg, cfg.num_layers, experts_per_token=k_exp)
+        rf_step = make_rf_step(server.params, cfg, dt=dt, guidance=guidance)
+    period = plan_lib.steady_period(dcfg, cfg.num_layers,
+                                    experts_per_token=k_exp)
+    merge_wants_cache = any(a.want_cache for a in merge_plan.actions)
+    variant_of = {p: v for v, p in enumerate(splan.variants)}
+    random_policy = dcfg.cond_comm and dcfg.cond_policy == "random"
+
+    def planned_init():
+        return stale_lib.init_planned_states(
+            splan, num_tokens=B * Tp, d_model=cfg.d_model, k=k_exp,
+            dtype=torch.float32, device=dev)
+
+    states, states_u = planned_init(), planned_init()
+    x = torch.zeros((B, Tp, cfg.in_channels), dtype=torch.float32,
+                    device=dev)
+    # per-slot state the step reads, kept on the device and changed by
+    # scalar writes (no host->device copy, so no sync per tick)
+    classes = torch.full((B,), cfg.num_classes, dtype=torch.int64,
+                         device=dev)
+    steps = torch.zeros((B,), dtype=torch.int64, device=dev)
+    active = torch.zeros((B,), dtype=torch.bool, device=dev)
+    # t = s * dt as the fixed-batch sampler forms it, so slots match it
+    t_of_step = torch.tensor([s * dt for s in range(num_steps)],
+                             dtype=torch.float32, device=dev)
+    slots = [_Slot() for _ in range(B)]
+    ever_used = [False] * B
+
+    queue = AdmissionQueue()
+    for i, r in enumerate(requests):
+        queue.push(0.0 if arrival_steps is None else float(arrival_steps[i]),
+                   r)
+    out: dict = {}
+    admit_time: dict = {}
+    tick_variants = []
+    tick = 0
+    before = dict(ops.LAUNCHES)
+    _sync(dev)
+    t0 = time.perf_counter()
+
+    def _next_aligned(g: float) -> int:
+        g = math.ceil(g)
+        return g + (-g) % period
+
+    while len(queue) or any(s.active for s in slots):
+        # ---- admission at plan-aligned ticks ------------------------------
+        if tick % period == 0:
+            recycle = torch.zeros((B,), dtype=torch.bool, device=dev)
+            any_recycled = False
+            for i, slot in enumerate(slots):
+                if slot.active:
+                    continue
+                req = queue.pop_ready(tick)
+                if req is None:
+                    break
+                slots[i] = _Slot(rid=req.rid, class_id=req.class_id,
+                                 local_step=0, active=True)
+                recycle[i] = True
+                any_recycled = True
+                classes[i] = req.class_id
+                steps[i] = 0
+                active[i] = True
+                x[i] = _noise_of(noise, seed, req.rid, cfg, dev)
+                reg.counter("dice_admissions_total", "slot admissions",
+                            lab).inc()
+                if ever_used[i]:
+                    reg.counter("dice_recycled_admissions_total",
+                                "admissions into a recycled slot",
+                                lab).inc()
+                if tracer is not None:
+                    tracer.instant("admit", args={
+                        "rid": req.rid, "slot": i, "tick": tick,
+                        "recycled": bool(ever_used[i])})
+                admit_time[req.rid] = time.perf_counter()
+                ever_used[i] = True
+            if any_recycled:
+                states = stale_lib.reset_slots(states, recycle,
+                                               tokens_per_slot=Tp)
+                states_u = stale_lib.reset_slots(states_u, recycle,
+                                                 tokens_per_slot=Tp)
+        if not any(s.active for s in slots):
+            nxt = queue.next_arrival()
+            if nxt is None:
+                break
+            # fully idle: jump to the next aligned tick with an arrival
+            tick = _next_aligned(max(nxt, tick + 1))
+            continue
+
+        # ---- one engine tick ----------------------------------------------
+        slotted = any(s.active and s.local_step < dcfg.warmup_steps
+                      for s in slots)
+        gen = _tick_generator(seed, tick, dev) if random_policy else None
+        if slotted:
+            plan = merge_plan
+            # free slots replay warmup too: their discarded lanes then
+            # consume only fresh values, never the zeroed buffers
+            fresh_b = ~active | (steps < dcfg.warmup_steps)
+            slot_fresh = fresh_b[:, None].expand(B, Tp).reshape(-1)
+            consume = None
+            if merge_wants_cache:
+                if dcfg.cond_comm and not conditional.is_refresh_step(
+                        tick, dcfg.cond_stride):
+                    steady_mask = conditional.policy_mask(
+                        dcfg.cond_policy, B * Tp, k_exp, device=dev,
+                        generator=gen)
+                else:
+                    steady_mask = torch.ones((B * Tp, k_exp),
+                                             dtype=torch.bool, device=dev)
+                consume = slot_fresh[:, None] | steady_mask
+        else:
+            ref = min(s.local_step for s in slots if s.active)
+            plan = splan.steps[min(ref, num_steps - 1)]
+            slot_fresh = consume = None
+        tick_variants.append((variant_of.get(plan, -1), slotted))
+
+        t = torch.where(active, t_of_step[steps.clamp(max=num_steps - 1)],
+                        0.0)
+        with _span(tracer, "tick", "step",
+                   {"tick": tick, "slotted": slotted}):
+            x, states, states_u, aux = rf_step(
+                x, classes, states, states_u, t, plan=plan,
+                slotted=slotted, slot_fresh=slot_fresh,
+                consume_mask=consume, generator=gen)
+
+        n_free = sum(not s.active for s in slots)
+        reg.counter("dice_ticks_total", "engine ticks executed", lab).inc()
+        if slotted:
+            reg.counter("dice_slotted_ticks_total",
+                        "ticks on the slotted merge plan", lab).inc()
+        reg.counter("dice_padded_slot_steps_total",
+                    "free-slot step executions", lab).inc(n_free)
+        reg.series("dice_slot_occupancy", "active-slot fraction per tick",
+                   lab).append(1.0 - n_free / B)
+        reg.series("dice_queue_depth", "requests still waiting",
+                   lab).append(len(queue))
+        reg.counter("dice_dispatch_bytes_total", "dispatch payload moved",
+                    lab).inc(float(aux["dispatch_bytes"]))
+        reg.counter("dice_wire_bytes_total",
+                    "codec-compressed bytes on the wire",
+                    lab).inc(float(aux["dispatch_bytes"]))
+        reg.counter("dice_raw_bytes_total",
+                    "lossless-equivalent payload bytes",
+                    lab).inc(float(aux["raw_dispatch_bytes"]))
+        reg.gauge("dice_buffer_bytes",
+                  "persistent staleness-buffer footprint",
+                  lab).set(int(aux["buffer_bytes"]))
+
+        steps += active
+        for i, slot in enumerate(slots):
+            if not slot.active:
+                continue
+            slot.local_step += 1
+            if slot.local_step >= num_steps:
+                # a copy: x's rows are overwritten at the next admission
+                out[slot.rid] = x[i].to("cpu", copy=True)
+                reg.counter("dice_requests_total", "requests served",
+                            lab).inc()
+                reg.histogram(
+                    "dice_request_e2e_seconds",
+                    "request end-to-end seconds (admission->sample)",
+                    lab).observe(time.perf_counter()
+                                 - admit_time.pop(slot.rid))
+                slots[i] = _Slot()
+                classes[i] = cfg.num_classes
+                active[i] = False
+        tick += 1
+    _sync(dev)
+    wall = time.perf_counter() - t0
+
+    lat = server.latency(B // server.n_dev)
+    reg.gauge("dice_step_keys", "(plan, slotted) keys the step fn ran",
+              lab).set_max(len(rf_step.keys))
+    reg.gauge("dice_plan_variants", "StepPlan variants",
+              lab).set_max(splan.num_variants)
+    reg.counter("dice_wall_seconds_total",
+                "measured wall seconds on the device", lab).inc(wall)
+    ticks = int(reg.value("dice_ticks_total", lab))
+    padded_slot_steps = int(reg.value("dice_padded_slot_steps_total", lab))
+    stats = {
+        "device": (torch.cuda.get_device_name(dev)
+                   if dev.type == "cuda" else "cpu"),
+        "ticks": ticks,
+        "makespan_steps": tick,
+        "padded_slot_steps": padded_slot_steps,
+        "slot_occupancy": 1.0 - padded_slot_steps / max(1, ticks * B),
+        "slotted_ticks": int(reg.value("dice_slotted_ticks_total", lab)),
+        "admissions": int(reg.value("dice_admissions_total", lab)),
+        "recycled_admissions": int(
+            reg.value("dice_recycled_admissions_total", lab)),
+        "steady_period": period,
+        "wall_s": wall,
+        "wall_s_per_tick": wall / max(1, ticks),
+        "e2e_s": reg.histogram("dice_request_e2e_seconds",
+                               labels=lab).snap(),
+        **_modeled(lat, ticks),
+        "buffer_bytes": int(reg.value("dice_buffer_bytes", lab)),
+        "dispatch_bytes_total": reg.value("dice_dispatch_bytes_total", lab),
+        "wire_bytes_total": reg.value("dice_wire_bytes_total", lab),
+        "raw_bytes_total": reg.value("dice_raw_bytes_total", lab),
+        "num_plan_variants": splan.num_variants,
+        "step_keys": int(reg.value("dice_step_keys", lab)),
+        "tick_variants": tick_variants,
+        "kernel_launches": _launches_since(before),
+    }
+    server.metrics.merge(reg)
+    return out, stats
 
 
 def main(argv=None):
@@ -122,36 +773,70 @@ def main(argv=None):
                     help="wire codec for light/stale steps; refresh steps "
                          "stay lossless")
     ap.add_argument("--guidance", type=float, default=1.5)
+    ap.add_argument("--n-dev", type=int, default=8,
+                    help="device count of the modeled deployment (latency "
+                         "model only; the steps run on one device)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--continuous", action="store_true",
+                    help="drain the requests through the continuous-"
+                         "batching engine (--max-batch slots) instead of "
+                         "one fixed batch")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace-event JSON of host phases "
+                         "to this path")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the metrics registry here after the run: "
+                         "Prometheus text, or a JSON snapshot when the "
+                         "path ends in .json")
     args = ap.parse_args(argv)
 
     cfg = tiny() if args.tiny else xl_config()
     server = DiceServer(cfg, SCHEDULES[args.schedule](), seed=args.seed,
-                        device=args.device,
-                        compress=CompressConfig(codec=args.codec))
+                        device=args.device, n_dev=args.n_dev,
+                        compress=CompressConfig(codec=args.codec),
+                        tracer=StepTracer() if args.trace_out else None)
     reqs = [Request(class_id=i % cfg.num_classes, rid=i)
             for i in range(args.requests)]
     splan = server.plan(args.steps)
     print(f"serving {len(reqs)} requests, schedule={args.schedule}, "
           f"{args.steps} steps, model={cfg.name}, device={server.device}"
-          + (f", wire codec {args.codec}" if args.codec != "none" else ""))
+          + (f", wire codec {args.codec}" if args.codec != "none" else "")
+          + (f", continuous over {args.max_batch} slots"
+             if args.continuous else ""))
     print(f"step plan: {splan.num_variants} variants for "
           f"{splan.num_steps} steps "
           f"({[len(splan.steps_of_variant(v)) for v in range(splan.num_variants)]}"
           f" steps each)")
-    samples, stats = server.generate(reqs, num_steps=args.steps,
-                                     guidance=args.guidance)
-    print(f"samples: {tuple(samples.shape)}, "
-          f"finite={bool(torch.isfinite(samples).all())}")
+    if args.continuous:
+        out, stats = serve_continuous(server, reqs, max_batch=args.max_batch,
+                                      num_steps=args.steps,
+                                      guidance=args.guidance, seed=args.seed)
+        finite = all(bool(torch.isfinite(s).all()) for s in out.values())
+        print(f"served {len(out)} requests continuously, finite={finite}")
+        stats["tick_variants"] = (f"{len(stats['tick_variants'])} ticks, "
+                                  f"{len(set(stats['tick_variants']))} keys")
+    else:
+        samples, stats = server.generate(reqs, num_steps=args.steps,
+                                         guidance=args.guidance)
+        print(f"samples: {tuple(samples.shape)}, "
+              f"finite={bool(torch.isfinite(samples).all())}")
     for k, v in stats.items():
         if isinstance(v, list):
             v = f"[{v[0]:.6g} ... {v[-1]:.6g}] ({len(v)} steps)"
         elif isinstance(v, float):
             v = f"{v:.6g}"
         print(f"  {k:26s} {v}")
+    if args.trace_out:
+        server.tracer.write(args.trace_out)
+        print(f"wrote step trace to {args.trace_out} "
+              f"({len(server.tracer.events)} events)")
+    if args.metrics_out:
+        write_metrics(server.metrics, args.metrics_out)
+        print(f"wrote metrics to {args.metrics_out}")
 
 
 if __name__ == "__main__":

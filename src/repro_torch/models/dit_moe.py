@@ -101,12 +101,16 @@ def _modulate(x, shift, scale):
 def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                 cfg, states: Dict[int, stale_lib.MoELayerState], *,
                 plan: plan_lib.StepPlan,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                slot_fresh: Optional[torch.Tensor] = None,
+                consume_mask: Optional[torch.Tensor] = None):
     """Velocity prediction.
 
     x: (B, T, C_in) latents; t: (B,) times; y: (B,) class ids
     (``cfg.num_classes`` = null class).  The schedule enters via ``plan``
     (one step of :func:`~repro_torch.core.plan.compile_step_plans`).
+    ``slot_fresh`` (B*T,) / ``consume_mask`` (B*T, K) are the continuous
+    engine's per-slot warmup-replay selectors, passed to every MoE layer.
     Returns (v, new_states, aux dict)."""
     B, T, _ = x.shape
     d = cfg.d_model
@@ -132,7 +136,8 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
         hn = _modulate(L.rmsnorm(blk["ln2"], h, eps=cfg.norm_eps), s2, sc2)
         moe_out, new_st, aux = stale_lib.apply_layer_action(
             blk["moe"], hn.reshape(B * T, d), cfg, plan.actions[i], states[i],
-            generator=generator)
+            generator=generator, slot_fresh=slot_fresh,
+            consume_mask=consume_mask)
         new_states[i] = new_st
         total_lb = total_lb + aux.lb_loss
         total_dispatch_bytes += aux.dispatch_bytes

@@ -6,8 +6,8 @@ velocity v = x1 - x0, and sampling is Euler integration from t=0 to t=1.
 ``compile_step_plans`` buckets the run's steps into a few plan variants
 (warmup-sync / refresh / light for DICE); the loop calls one per-step
 function with the step's plan.  PyTorch runs eagerly, so there is no
-compile cache: ``num_plan_variants`` is what a later CUDA-graph capture
-per variant would hold.
+compile cache: the step function records the ``(plan, slotted)`` keys it
+ran, which is what a later CUDA-graph capture per key would hold.
 """
 from __future__ import annotations
 
@@ -22,33 +22,69 @@ from repro_torch.models.dit_moe import dit_forward
 
 def _euler_step(params, cfg, x, classes, states, states_u, t, *,
                 plan, dt: float, guidance: float,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                slot_fresh: Optional[torch.Tensor] = None,
+                consume_mask: Optional[torch.Tensor] = None):
     """One CFG-guided Euler step: a conditional and a null-class
-    ``dit_forward`` pass, each with its own staleness state.  Returns
-    (x_next, new_states, new_states_u, aux of the conditional pass)."""
+    ``dit_forward`` pass, each with its own staleness state and both with
+    the same per-slot selectors.  Returns (x_next, new_states,
+    new_states_u, aux of the conditional pass)."""
     v_c, ns, aux = dit_forward(params, x, t, classes, cfg, states,
-                               plan=plan, generator=generator)
+                               plan=plan, generator=generator,
+                               slot_fresh=slot_fresh,
+                               consume_mask=consume_mask)
     if guidance != 1.0:
         null = torch.full_like(classes, cfg.num_classes)
         v_u, nsu, _ = dit_forward(params, x, t, null, cfg, states_u,
-                                  plan=plan, generator=generator)
+                                  plan=plan, generator=generator,
+                                  slot_fresh=slot_fresh,
+                                  consume_mask=consume_mask)
         v = v_u + guidance * (v_c - v_u)
     else:
         v, nsu = v_c, states_u
     return x + dt * v, ns, nsu, aux
 
 
-def make_rf_step(params, cfg, *, dt: float, guidance: float = 1.5):
-    """The per-step function behind :func:`rf_sample`::
+class RFStep:
+    """The per-step function behind :func:`rf_sample` and the continuous
+    serving engine::
 
-        rf_step(x, classes, states, states_u, t, *, plan, generator=None)
+        rf_step(x, classes, states, states_u, t, *, plan, slotted=False,
+                slot_fresh=None, consume_mask=None, generator=None)
             -> (x_next, states, states_u, aux)
+
+    ``slotted=True`` is the continuous engine's mixed warmup/steady tick:
+    ``slot_fresh`` (B*T,) marks tokens of slots replaying warmup and
+    ``consume_mask`` (B*T, K) carries each slot's conditional-
+    communication mask; both are ignored when ``slotted`` is False.
+
+    ``keys`` holds every distinct ``(plan, slotted)`` pair the function
+    has run: the counterpart of the reference's jit cache, and what one
+    CUDA graph per key would hold.  Every warmup mixture shares one key,
+    so ``len(keys)`` stays at the plan-variant count.
     """
-    def rf_step(x, classes, states, states_u, t, *, plan, generator=None):
-        return _euler_step(params, cfg, x, classes, states, states_u,
-                           t, plan=plan, dt=dt, guidance=guidance,
-                           generator=generator)
-    return rf_step
+
+    def __init__(self, params, cfg, *, dt: float, guidance: float = 1.5):
+        self.params, self.cfg = params, cfg
+        self.dt, self.guidance = dt, guidance
+        self.keys = set()
+
+    def __call__(self, x, classes, states, states_u, t, *, plan,
+                 slotted: bool = False,
+                 slot_fresh: Optional[torch.Tensor] = None,
+                 consume_mask: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+        self.keys.add((plan, bool(slotted)))
+        return _euler_step(self.params, self.cfg, x, classes, states,
+                           states_u, t, plan=plan, dt=self.dt,
+                           guidance=self.guidance, generator=generator,
+                           slot_fresh=slot_fresh if slotted else None,
+                           consume_mask=consume_mask if slotted else None)
+
+
+def make_rf_step(params, cfg, *, dt: float, guidance: float = 1.5) -> RFStep:
+    """The per-step function behind :func:`rf_sample` (see :class:`RFStep`)."""
+    return RFStep(params, cfg, dt=dt, guidance=guidance)
 
 
 def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
@@ -60,8 +96,8 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
     The initial noise is ``noise`` when given (the tests pass the JAX
     reference's), else drawn from ``generator``; one of the two is
     required.  Everything runs on the device of ``classes``.  Returns
-    (samples, stats): per-step dispatch / raw / buffer bytes and
-    ``num_plan_variants``.
+    (samples, stats): per-step dispatch / raw / buffer bytes,
+    ``num_plan_variants`` and ``step_keys`` (distinct step keys run).
     """
     device = classes.device
     B = classes.shape[0]
@@ -97,4 +133,5 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
         stats["raw_bytes"].append(float(aux["raw_dispatch_bytes"]))
         stats["buffer_bytes"].append(float(aux["buffer_bytes"]))
     stats["num_plan_variants"] = splan.num_variants
+    stats["step_keys"] = len(rf_step.keys)
     return x, stats

@@ -304,3 +304,57 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         ops.flash_attention(q, q, q)                  # head_dim over 256
     with pytest.raises(ValueError):
         ops.residual_int8(x[0], x[1].t())
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cuda(v) for v in tree]
+    return tree.cuda()
+
+
+@pytest.mark.parametrize("steps", [4, 6])
+@pytest.mark.parametrize("schedule", ["sync", "interweaved", "dice", "dice_int8"])
+def test_recycled_slot_equals_fresh_batch_on_the_card(gen, schedule, steps):
+    """Continuous batching on the card: rid 2 is admitted into a recycled
+    slot, and its sample and the first wave's equal the same requests in a
+    fresh fixed batch bit for bit (the 4-layer config of
+    tests/test_serve_continuous.py; capacity_factor 8.0, so no overflow).
+    At 6 steps a light step's output reaches the sample; at 4 it does not."""
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.configs.dit_moe_xl import tiny
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch.serve import (DiceServer, Request, request_noise,
+                                          serve_continuous)
+    from repro_torch.models.dit_moe import init_dit
+    cfg = tiny().replace(num_layers=4, d_model=64, moe_d_ff=64, d_ff=256,
+                         patch_tokens=16, capacity_factor=8.0)
+    cpu = torch.Generator().manual_seed(99)
+    params = init_dit(cfg, generator=cpu)
+    for blk in params["blocks"]:
+        blk["adaln"] = 0.05 * torch.randn(blk["adaln"].shape, generator=cpu)
+    params["final_out"] = 0.05 * torch.randn(params["final_out"].shape,
+                                             generator=cpu)
+    params = _to_cuda(params)
+    dcfg = {"sync": DiceConfig.sync_ep(), "interweaved": DiceConfig.interweaved(),
+            "dice": DiceConfig.dice(),
+            "dice_int8": DiceConfig.dice(
+                compress=CompressConfig("int8_residual"))}[schedule]
+    server = DiceServer(cfg, dcfg, params=params, device="cuda")
+    reqs = [Request(1, 0), Request(2, 1), Request(3, 2)]
+    before = dict(ops.LAUNCHES)
+    out, stats = serve_continuous(server, reqs, max_batch=2, num_steps=steps,
+                                  seed=42, arrival_steps=[0.0, 0.0, 1.0])
+    assert stats["recycled_admissions"] >= 1
+    assert stats["step_keys"] == stats["num_plan_variants"]
+    assert ops.LAUNCHES["expert_ffn"] > before["expert_ffn"]
+
+    def fresh(batch):
+        noise = torch.stack([request_noise(42, r.rid, cfg, "cuda")
+                             for r in batch])
+        x, _ = server.generate(batch, num_steps=steps, noise=noise)
+        return {r.rid: x[i].cpu() for i, r in enumerate(batch)}
+    ref = {**fresh([reqs[2], Request(5, 7)]), **fresh(reqs[:2])}
+    for rid in (0, 1, 2):
+        assert torch.equal(out[rid], ref[rid]), rid

@@ -85,3 +85,36 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
                          cwd=tmp_path, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode != 0 and not _ok_line(out.stdout)
+
+
+SERVING_MODULES = ("repro_torch.core.overlap", "repro_torch.launch.serve",
+                   "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                   "repro_torch.resilience.recovery")
+# pure-Python modules of the JAX package the port keeps a copy of
+COPIES = ("obs/metrics.py", "obs/trace.py", "resilience/recovery.py")
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_are_among_those_checked(module):
+    path = REPO / "src" / (module.replace(".", "/") + ".py")
+    assert path in _sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def _code_without_docstrings(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and node.body and isinstance(node.body[0], ast.Expr)
+                and isinstance(node.body[0].value, ast.Constant)
+                and isinstance(node.body[0].value.value, str)):
+            node.body = node.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_modules_keep_the_reference_code(rel):
+    """The copies differ from the JAX package's modules in their
+    docstrings only."""
+    assert _code_without_docstrings(PORT / rel) == \
+        _code_without_docstrings(REPO / "src" / "repro" / rel)

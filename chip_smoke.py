@@ -46,7 +46,24 @@ non-zero and no phase's failure is caught:
      the gap printed).  (b) DiT-MoE-XL with phase 5's weights, dice + int8:
      24 requests arriving 4 every 2 ticks through ``serve_continuous`` on 8
      slots, then the same 24 through ``serve_queue``; launch counts set to
-     0 before each run and held to what its ticks' plans imply after it.
+     0 before each run and held to what its ticks' plans imply after it;
+  8. main path 4: expert parallelism over ``torch.distributed`` on the one
+     card, one spawned process per ep rank (the kernels were built in
+     phase 2, before any rank starts).  (a) ep = 1 over NCCL: the 4-layer
+     DiT of 7a under dice + int8, bit-identical to the mesh-less card run.
+     (b) ep = 2, two ranks sharing the card over gloo (whose collectives
+     copy CUDA tensors through the host; the ring's send/recv go through
+     pinned host buffers): the 4-layer DiT at capacity_factor 8 under all
+     five schedules, dice + int8 and staggered_batch, with blocking
+     all-to-alls and with the ring, each against the single-process card
+     run to TOL_F32.  (c) ep = 2 at full XL width with phase 5's weights
+     (each rank draws the init and keeps its 4 experts, layer by layer):
+     dice + int8, 8 requests (4 a rank) x 10 steps, blocking then ring; then
+     ``serve_continuous`` with 24 requests arriving 4 every 2 ticks on 8
+     slots (4 a rank).  Each rank's launch counts are set to 0 before each
+     run and held to its plans after it, in the rank; the ranks send their
+     counts back.  These numbers are ep = 2 sharing one card over a
+     host-staged wire, not the paper's speed-up.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -54,6 +71,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -90,6 +108,8 @@ MIN_GREEDY_AGREE = 0.9
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 2048, 64
 CONT_REQUESTS, CONT_SLOTS, CONT_EVERY = 24, 8, 2   # 7b: 4 requests every 2 ticks
 DIT_KERNELS = ("expert_ffn", "flash_attention", "residual_int8")
+EP = 2                                    # phase 8: ranks sharing the one card
+EP_TIMEOUT_S = 600                        # per spawn: collectives and reports
 
 
 def log(msg: str) -> None:
@@ -175,6 +195,7 @@ def phase_kernels():
     log("expert_ffn (hand-written CUDA, two launches) vs plain PyTorch")
     cases = [(8, 640, 1152, 4608, torch.float32, "silu"),   # XL refresh
              (8, 320, 1152, 4608, torch.float32, "silu"),   # XL DICE light
+             (4, 640, 1152, 4608, torch.float32, "silu"),   # XL ep=2 rank refresh
              (8, 640, 1152, 4608, torch.bfloat16, "silu"),
              (8, 320, 1152, 4608, torch.bfloat16, "silu"),
              (2, 136, 1152, 768, torch.float32, "gelu"),    # ragged C and f
@@ -192,10 +213,11 @@ def phase_kernels():
         err = compare(f"expert_ffn E={E} C={C} d={d} f={f} {str(dtype)[6:]} {act}",
                       got, want, TOL_F32 if dtype == torch.float32 else TOL_BF16)
         if (d, dtype) == (1152, torch.float32) and C in (320, 640):
-            timed[C] = (err, args)
-    E, d, f = 8, 1152, 4608
-    for C, label in ((640, "refresh"), (320, "light")):
-        err, args = timed.pop(C)
+            timed[E, C] = (err, args)
+    d, f = 1152, 4608
+    for E, C, label in ((8, 640, "refresh"), (8, 320, "light"),
+                        (4, 640, "ep=2 rank refresh")):
+        err, args = timed.pop((E, C))
         ms = time_ms(lambda: ops.expert_ffn(*args), 10)
         dev = device_ms(lambda: ops.expert_ffn(*args), 10)
         plain = time_ms(lambda: ref.expert_ffn_ref(*args), 10)
@@ -210,14 +232,22 @@ def phase_kernels():
         nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
         b_ms, b_by = bound(flops, nbytes)
         tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
-        log(f"  expert_ffn XL {label} C={C} f32: kernel {ms:.4f} ms "
+        log(f"  expert_ffn XL {label} E={E} C={C} f32: kernel {ms:.4f} ms "
             f"({flops / ms / 1e9:.2f} TFLOP/s; device alone {dev:.4f} ms), plain "
             f"version (three f32 matmuls, activation and product) {plain:.4f} ms, "
             f"cuBLAS yardstick (the three f32 bmm calls alone) {yard:.4f} ms, bound "
             f"{tc_ms:.4f} ms ({tc_by}, 3xTF32 on the tensor cores), FP32 CUDA-core "
             f"bound {b_ms:.4f} ms ({b_by}); library: none (no single PyTorch call "
             f"computes the gated MLP); kernel < yardstick: {ms < yard}")
-        if C == 640:
+        if (E, C) == (4, 640):
+            rows["expert_ffn ep2 rank"] = dict(
+                name="expert_ffn", route="cuda",
+                source="src/repro_torch/csrc/expert_ffn.cu",
+                replaces="src/repro/kernels/expert_ffn.py:69", max_abs_err=err, ms=ms,
+                device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by,
+                fp32_bound_ms=b_ms, library_ms=None, yardstick_ms=yard,
+                shape="E=4 C=640 d=1152 f=4608 f32 silu (an ep=2 rank at refresh)")
+        if (E, C) == (8, 640):
             rows["expert_ffn"] = dict(
                 name="expert_ffn", route="cuda",
                 source="src/repro_torch/csrc/expert_ffn.cu",
@@ -448,17 +478,19 @@ def _perturb(params, gen, scale=0.05):
     return params
 
 
-def planned_launches(plans, passes: int):
-    """Kernel launches a sequence of step plans implies: per pass and layer
-    one flash attention and one expert FFN (two for a staggered half-batch
-    layer); a codec'd action quantizes its dispatch payload, and an
-    interweaved one with a cache its combine payload too."""
+def planned_launches(plans, passes: int, ranks: int = 1):
+    """Kernel launches a sequence of step plans implies (on each rank of an
+    ep mesh of ``ranks``): per pass and layer one flash attention and one
+    expert FFN (two for a staggered half-batch layer; on the ring one per
+    chunk, ``ranks`` a call); a codec'd action quantizes its dispatch
+    payload, and an interweaved one with a cache its combine payload too."""
     n = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
          "rwkv6_scan": 0}
     for plan in plans:
         for a in plan.actions:
             n["flash_attention"] += passes
-            n["expert_ffn"] += passes * (2 if a.mode == "staggered" else 1)
+            n["expert_ffn"] += passes * (2 if a.mode == "staggered" else 1) \
+                * (ranks if a.overlap else 1)
             if a.codec is not None:
                 n["residual_int8"] += passes * (
                     1 + int(a.mode == "interweaved" and a.want_cache))
@@ -872,6 +904,255 @@ def phase_continuous_xl(rows):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 8: expert parallelism (each function below named _ep_* runs in the
+# spawned ranks: spawn imports this script again as a module, so they live
+# at its top level)
+# ---------------------------------------------------------------------------
+def _tiny4():
+    """Phase 7a's 4-layer DiT (capacity_factor 8.0, so no dispatch
+    overflows) from seed 99 on the CPU, its 8 requests and their noise."""
+    import torch
+    from repro_torch.configs.dit_moe_xl import tiny
+    from repro_torch.launch.serve import Request, request_noise
+    from repro_torch.models.dit_moe import init_dit
+    cfg = tiny().replace(num_layers=4, d_model=64, moe_d_ff=64, d_ff=256,
+                         patch_tokens=16, capacity_factor=8.0)
+    gen = torch.Generator(device="cpu").manual_seed(99)
+    params = _perturb(init_dit(cfg, generator=gen), gen)
+    reqs = [Request(class_id=(3 * i) % cfg.num_classes, rid=i) for i in range(8)]
+    noise = torch.stack([request_noise(42, r.rid, cfg) for r in reqs])
+    return cfg, params, reqs, noise
+
+
+def _tiny_schedules():
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.core.schedules import DiceConfig, Schedule
+    return {"sync": DiceConfig.sync_ep(), "displaced": DiceConfig.displaced(),
+            "interweaved": DiceConfig.interweaved(),
+            "selective": DiceConfig(schedule=Schedule.DICE, sync_policy="deep",
+                                    cond_comm=False),
+            "dice": DiceConfig.dice(),
+            "dice+int8": DiceConfig.dice(compress=CompressConfig("int8_residual")),
+            "staggered_batch": DiceConfig.staggered_batch()}
+
+
+def _every_rank(value):
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def _ep_generate(server, reqs, steps, label, **kw):
+    """One ``generate`` over the mesh with this rank's launch counts set to
+    0 before and held to its plan after; returns (samples, summary,
+    counts)."""
+    import torch
+    from repro_torch.kernels import ops
+    ranks = server.mesh.size
+    ops.reset_launches()
+    x, st = server.generate(reqs, num_steps=steps, **kw)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = planned_launches(server.plan(steps).steps, passes=2, ranks=ranks)
+    needed = ["expert_ffn", "flash_attention"] + ["residual_int8"] * (
+        server.dcfg.compress is not None)
+    if counts != want or min(counts[k] for k in needed) <= 0:
+        raise AssertionError(f"8 {label} rank {server.mesh.rank}: launches "
+                             f"{counts} differ from the plan's {want}")
+    return x, st, counts
+
+
+def _ep_tiny_runs(mesh, runs, steps):
+    """8a/8b in each rank: the 4-layer DiT over the mesh for each
+    (label, DiceConfig); returns {label: (samples, wall s/step, counts of
+    every rank)}."""
+    import torch
+    from repro_torch.launch.serve import DiceServer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params, reqs, noise = _tiny4()
+    out = {}
+    for label, dcfg in runs:
+        server = DiceServer(cfg, dcfg, params=params, mesh=mesh)
+        x, st, counts = _ep_generate(server, reqs, steps, label, noise=noise)
+        out[label] = (x, st["wall_s_per_step"], _every_rank(counts))
+    return out
+
+
+def _ep_xl(mesh, tiny_runs):
+    """8b then 8c in each rank of the ep=2 gloo mesh."""
+    import torch
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.configs.dit_moe_xl import config
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import DiceServer, Request, serve_continuous
+    tiny = _ep_tiny_runs(mesh, tiny_runs, TINY_STEPS)
+    t0 = time.perf_counter()
+    server = DiceServer(config(), DiceConfig.dice(compress=CompressConfig("int8_residual")),
+                        mesh=mesh, seed=0)
+    _perturb(server.params, torch.Generator(device=mesh.device).manual_seed(99))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = server.cfg
+    reqs = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+            for i in range(XL_REQUESTS)]
+    server.generate(reqs, num_steps=1)             # warm-up: cuBLAS, allocator
+    wire_ms = _every_rank(_ep_wire_ms(mesh, cfg, XL_REQUESTS // mesh.size))
+    runs = {}
+    for engine in ("blocking", "ring"):
+        srv = server if engine == "blocking" else DiceServer(
+            cfg, dataclasses.replace(server.dcfg, overlap="ring"),
+            params=server.params, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        x, st, counts = _ep_generate(srv, reqs, XL_STEPS, f"XL {engine}")
+        runs[engine] = dict(
+            s_per_step=st["wall_s_per_step"], dispatch=st["dispatch_bytes_per_step"],
+            hops=st["ring_hops"], hop_bytes=st["hop_bytes_total"],
+            finite=bool(torch.isfinite(x).all()), shape=tuple(x.shape),
+            std=float(x.std()), counts=_every_rank(counts),
+            peak_gib=_every_rank(torch.cuda.max_memory_allocated() / 2**30),
+            backend=st["backend"], ep=st["ep"])
+    reqs = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+            for i in range(CONT_REQUESTS)]
+    arrivals = [float(CONT_EVERY * (i // 4)) for i in range(CONT_REQUESTS)]
+    splan = server.plan(XL_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, st = serve_continuous(server, reqs, max_batch=CONT_SLOTS,
+                               num_steps=XL_STEPS, seed=0, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = planned_launches([splan.variants[v] for v, _ in st["tick_variants"]],
+                            passes=2, ranks=mesh.size)
+    if counts != want or min(counts[k] for k in DIT_KERNELS) <= 0:
+        raise AssertionError(f"8c continuous rank {mesh.rank}: launches {counts} "
+                             f"differ from the ticks' plans {want}")
+    bad = [r for r, x in out.items() if tuple(x.shape) != (cfg.patch_tokens, cfg.in_channels)
+           or not bool(torch.isfinite(x).all())]
+    if sorted(out) != list(range(CONT_REQUESTS)) or bad:
+        raise AssertionError("8c continuous: samples missing, misshapen or not finite")
+    cont = {k: st[k] for k in ("ticks", "makespan_steps", "slotted_ticks", "admissions",
+                               "recycled_admissions", "slot_occupancy", "wall_s",
+                               "wall_s_per_tick", "e2e_s", "step_keys",
+                               "num_plan_variants", "backend", "ep")}
+    cont.update(counts=_every_rank(counts),
+                peak_gib=_every_rank(torch.cuda.max_memory_allocated() / 2**30))
+    return dict(tiny=tiny, init_s=_every_rank(init_s), wire_ms=wire_ms, runs=runs,
+                continuous=cont)
+
+
+def _ep_wire_ms(mesh, cfg, requests):
+    """The wire alone: ms of one blocking all-to-all of the rank's f32
+    (E, C, d) dispatch buffer at the refresh capacity of ``requests`` a
+    rank, mean of 10 after 2 warm-ups."""
+    import torch
+    from repro_torch.core.moe import default_capacity
+    C = default_capacity(requests * cfg.patch_tokens, cfg)
+    buf = torch.randn((mesh.size, cfg.num_experts // mesh.size, C, cfg.d_model),
+                      device=mesh.device)
+    for _ in range(2):
+        mesh.all_to_all(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mesh.all_to_all(buf)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 10 * 1e3, tuple(buf.shape)
+
+
+def phase_ep(rows):
+    """8: expert parallelism on the one card (see the module docstring)."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import DiceServer
+    torch.cuda.empty_cache()
+    cfg, params, reqs, noise = _tiny4()
+    schedules = _tiny_schedules()
+    params = _to(params, "cuda")
+    single = {}
+    for label, dcfg in schedules.items():
+        server = DiceServer(cfg, dcfg, params=params, device="cuda")
+        single[label], _ = server.generate(reqs, num_steps=TINY_STEPS, noise=noise)
+        single[label] = single[label].cpu()
+
+    # (a) ep = 1 over NCCL: the mesh path's exchanges on one rank
+    t0 = time.perf_counter()
+    got, counts = mesh_lib.spawn(_ep_tiny_runs, 1, backend="nccl",
+                                 timeout_s=EP_TIMEOUT_S,
+                                 args=([("dice+int8", schedules["dice+int8"])],
+                                       TINY_STEPS))
+    x, _, rank_counts = got["dice+int8"]
+    diff = float((x - single["dice+int8"]).abs().max())
+    log(f"  8a ep=1 over nccl, 4-layer DiT dice+int8 {TINY_STEPS} steps: vs the "
+        f"mesh-less card run max abs diff {diff:.3e} "
+        f"({'bit-identical' if torch.equal(x, single['dice+int8']) else 'NOT bit-identical'}); "
+        f"launches {rank_counts[0]}; {time.perf_counter() - t0:.1f} s with the spawn")
+    if not torch.equal(x, single["dice+int8"]):
+        raise AssertionError("8a: ep=1 over nccl differs from the mesh-less run")
+
+    # (b) and (c): ep = 2 sharing the card over gloo, in one spawn
+    t0 = time.perf_counter()
+    tiny_runs = [(f"{label} {engine}", dataclasses.replace(dcfg, overlap=engine))
+                 for label, dcfg in schedules.items() for engine in ("blocking", "ring")]
+    res, totals = mesh_lib.spawn(_ep_xl, EP, backend="gloo", device="cuda",
+                                 timeout_s=EP_TIMEOUT_S, args=(tiny_runs,))
+    spawn_s = time.perf_counter() - t0
+    for (label, dcfg), engine in itertools.product(schedules.items(), ("blocking", "ring")):
+        x, s_step, rank_counts = res["tiny"][f"{label} {engine}"]
+        compare(f"8b ep=2 gloo {label} {engine}, vs the single-process card run",
+                x, single[label], TOL_F32)
+        log(f"    launches per rank {rank_counts}; {s_step:.4f} s/step")
+    (_, wire_shape) = res["wire_ms"][0]
+    log(f"  8c wire: one gloo all_to_all_single of a rank's {wire_shape} f32 dispatch "
+        f"buffer ({math.prod(wire_shape) * 4} B), ranks sharing one card: "
+        f"{[round(ms, 4) for ms, _ in res['wire_ms']]} ms per rank")
+    runs = res["runs"]
+    for engine, r in runs.items():
+        db = r["dispatch"]
+        refresh = [db[i] for i in range(XL_STEPS) if i >= 2 and i % 2 == 0]
+        light = [db[i] for i in range(XL_STEPS) if i >= 2 and i % 2 == 1]
+        log(f"  8c XL ep=2 {r['backend']} (ranks sharing one card, host-staged wire), "
+            f"dice+int8 {engine}, {XL_REQUESTS} requests ({XL_REQUESTS // EP} a rank) x "
+            f"{XL_STEPS} steps: {r['s_per_step']:.4f} s/step, per-rank dispatch bytes "
+            f"by step {[int(b) for b in db]} (refresh {refresh[0]:.0f} > light "
+            f"{light[0]:.0f}: {max(light) < min(refresh)}), ring hops per layer "
+            f"{r['hops']}, hop bytes {r['hop_bytes']:.0f}, peak memory per rank "
+            f"{[round(g, 3) for g in r['peak_gib']]} GiB, finite {r['finite']}, "
+            f"shape {r['shape']}, std {r['std']:.6f}; launches per rank {r['counts']}")
+        if not (r["finite"] and r["shape"] == (XL_REQUESTS, 256, 16)
+                and max(light) < min(refresh)):
+            raise AssertionError(f"8c {engine}: samples or bytes are wrong")
+        if r["hops"] != (2 * (EP - 1) if engine == "ring" else 0):
+            raise AssertionError(f"8c {engine}: {r['hops']} ring hops per layer")
+    c = res["continuous"]
+    log(f"  8c XL ep=2 {c['backend']} serve_continuous (ranks sharing one card, "
+        f"host-staged wire): {CONT_REQUESTS} requests, {CONT_SLOTS} slots "
+        f"({CONT_SLOTS // EP} a rank): ticks {c['ticks']}, makespan "
+        f"{c['makespan_steps']}, slotted {c['slotted_ticks']}, admissions "
+        f"{c['admissions']} (recycled {c['recycled_admissions']}), wall "
+        f"{c['wall_s']:.4f} s ({c['wall_s_per_tick']:.4f} s/tick, "
+        f"{CONT_REQUESTS / c['wall_s']:.4f} requests/s), e2e p50 {c['e2e_s']['p50']:.4f} s "
+        f"p95 {c['e2e_s']['p95']:.4f} s, step keys {c['step_keys']} of "
+        f"{c['num_plan_variants']} variants, peak memory per rank "
+        f"{[round(g, 3) for g in c['peak_gib']]} GiB, launches per rank {c['counts']} "
+        f"(held to the ticks' plans in each rank)")
+    if c["step_keys"] != c["num_plan_variants"]:
+        raise AssertionError("8c continuous: step keys differ from the plan variants")
+    log(f"  8c XL init per rank {[round(t, 3) for t in res['init_s']]} s; launch "
+        f"totals per rank over 8b and 8c {totals}; the ep=2 spawn took {spawn_s:.1f} s. "
+        f"These numbers are ep=2 sharing one card over a host-staged wire, not the "
+        f"paper's speed-up.")
+    blocking = runs["blocking"]["counts"]
+    for name in DIT_KERNELS:
+        rows[name]["launches_ep2_per_rank"] = [c[name] for c in blocking]
+    rows["expert_ffn ep2 rank"]["launches"] = blocking[0]["expert_ffn"]
+    rows["expert_ffn ep2 rank"]["launches_ep2_per_rank"] = [
+        c["expert_ffn"] for c in blocking]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -897,8 +1178,11 @@ def main() -> int:
     with phase("7 main path 3 (continuous serving, DiT-MoE-XL)"):
         phase_continuous_tiny()
         phase_continuous_xl(rows)
+    with phase("8 main path 4 (expert parallelism on the one card: ep=1 nccl, "
+               "ep=2 gloo)"):
+        phase_ep(rows)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
-            "max_abs_err", "ms",
+            "launches_ep2_per_rank", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "fp32_bound_ms",
             "device_ms",
             "events_ms", "shape")

@@ -1,13 +1,21 @@
-"""Capacity-based Mixture-of-Experts, single device (port of
-``repro.core.moe``).
+"""Capacity-based Mixture-of-Experts, on one device or expert-parallel
+(port of ``repro.core.moe``).
 
 The dispatch path is sort-based, never materialising (T, E, C) one-hots:
 
   1. top-k routing -> (token, rank) -> expert assignments,
   2. stable-sort pairs by expert, position-in-expert via group offsets,
   3. scatter into a static (E, capacity, d) buffer (overflow pairs drop),
-  4. grouped expert FFN (the hand-written ``expert_ffn`` kernel on CUDA),
-  5. score-weighted un-permute (combine).
+  4. over an ep mesh, the dispatch all-to-all to the experts' ranks,
+  5. grouped expert FFN (the hand-written ``expert_ffn`` kernel on CUDA)
+     on the local experts,
+  6. over an ep mesh, the combine all-to-all back; then the score-weighted
+     un-permute (combine).
+
+Under a mesh (:class:`~repro_torch.launch.mesh.EPMesh`) ``x`` is the
+rank's token shard, the ``experts_*`` params its expert shard, and the
+capacity a per-rank capacity; ``overlap`` swaps the two all-to-alls for
+the ring engine of :mod:`repro_torch.core.overlap`.
 
 ``fresh_mask`` / ``h_cache`` implement Conditional Communication: masked
 pairs are not dispatched (they take no buffer capacity) and their
@@ -25,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.compress import codecs as codec_lib
+from repro_torch.core import overlap as overlap_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act_fn
 
@@ -49,15 +58,36 @@ class DispatchPlan(NamedTuple):
     counts: torch.Tensor      # (E,) pairs routed per expert (pre-drop)
 
 
+def refuse_router_jitter(cfg) -> None:
+    """Raise for ``router_jitter > 0``.  The reference adds
+    ``router_jitter * normal(key)`` to the router logits, drawn from the
+    JAX PRNG key of each step; JAX PRNG keys cannot be replayed in torch,
+    so the port cannot draw the same noise and serves no jitter rather
+    than ignoring it."""
+    if cfg.router_jitter > 0:
+        raise ValueError(
+            f"router_jitter={cfg.router_jitter}: the reference draws the "
+            f"router noise from JAX PRNG keys, which cannot be replayed in "
+            f"torch; the port serves router_jitter == 0 only")
+
+
 def route(p, x: torch.Tensor, cfg):
     """Router probabilities + top-k selection.  x: (T, d).  An optional
-    ``p["router_bias"]`` (E,) adds to the logits."""
+    ``p["router_bias"]`` (E,) adds to the logits.
+
+    Among equal probabilities the lower expert id comes first, as in
+    ``jax.lax.top_k``: a stable descending sort, where ``torch.topk``
+    leaves the order of ties unspecified.  Ties are common where the
+    softmax saturates (a large router bias) and decide which experts,
+    slots and drops a token gets, and under expert parallelism which rank
+    it goes to."""
     logits = x.to(torch.float32) @ p["router"]
     if "router_bias" in p:
         logits = logits + p["router_bias"].to(torch.float32)[None, :]
     probs = torch.softmax(logits, dim=-1)
-    scores, idx = torch.topk(probs, cfg.experts_per_token, dim=-1)
-    return probs, scores, idx
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    return probs, top.values[:, :k], top.indices[:, :k]
 
 
 def make_plan(idx: torch.Tensor, E: int, capacity: int,
@@ -152,22 +182,42 @@ def shared_expert(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     return (fn(x @ p["shared_gate"]) * (x @ p["shared_up"])) @ p["shared_down"]
 
 
-def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
-                      E: int) -> torch.Tensor:
-    """Switch-style aux loss over the (unsharded) token batch."""
-    T, K = idx.shape
+def lb_terms(probs: torch.Tensor, idx: torch.Tensor, E: int) -> torch.Tensor:
+    """(1, 2, E): the two token means of the switch loss, the fraction of
+    pairs routed to each expert and its mean router probability."""
+    T, _ = idx.shape
     frac_routed = histogram(idx.reshape(-1), E).to(torch.float32) / T
-    mean_prob = probs.mean(0)
-    return E * torch.sum(frac_routed / K * mean_prob)
+    return torch.stack([frac_routed, probs.mean(0)])[None]
+
+
+def lb_from_terms(terms: torch.Tensor, k: int) -> torch.Tensor:
+    """The switch loss from (calls, 2, E) terms, averaged over the calls
+    (two for a staggered layer's half batches)."""
+    E = terms.shape[-1]
+    return (E * torch.sum(terms[:, 0] / k * terms[:, 1], dim=-1)).mean()
+
+
+def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor, E: int,
+                      mesh=None) -> torch.Tensor:
+    """Switch-style aux loss.  Under an ep ``mesh`` the token batch is
+    sharded: the loss is bilinear in the two batch means, so each is
+    averaged over the ranks BEFORE the product, as the reference's
+    ``pmean`` does (a mean of per-shard losses would be a mean of
+    products)."""
+    terms = lb_terms(probs, idx, E)
+    if mesh is not None:
+        terms = mesh.all_reduce_mean(terms)
+    return lb_from_terms(terms, idx.shape[1])
 
 
 # ---------------------------------------------------------------------------
 # full forward
 # ---------------------------------------------------------------------------
 class MoEAux(NamedTuple):
-    lb_loss: torch.Tensor
+    lb_loss: Optional[torch.Tensor]  # None under a mesh: see lb_terms
     dropped_frac: torch.Tensor       # capacity drops over dispatched pairs
-    dispatch_bytes: int              # one-way dispatch payload, as transmitted
+    dispatch_bytes: int              # one-way per-rank dispatch payload,
+    #                                  as transmitted
     pair_vals: Optional[torch.Tensor]
     scores: Optional[torch.Tensor]
     pair_keep: Optional[torch.Tensor] = None
@@ -175,6 +225,9 @@ class MoEAux(NamedTuple):
     wire_payload: Optional[torch.Tensor] = None   # decoded dispatch payload
     counts: Optional[torch.Tensor] = None         # (E,) routed, pre-drop
     served_counts: Optional[torch.Tensor] = None  # (E,) served, post-drop
+    hops: int = 0                    # ring hops this layer ran (2 (n-1))
+    hop_bytes: int = 0               # per-rank wire bytes of one ring hop
+    lb_terms: Optional[torch.Tensor] = None   # (calls, 2, E) local means
 
 
 def moe_forward(p, x: torch.Tensor, cfg, *,
@@ -183,8 +236,24 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
                 h_cache: Optional[torch.Tensor] = None,
                 want_pair_vals: bool = False,
                 codec: Optional[codec_lib.CodecSpec] = None,
-                dispatch_base: Optional[torch.Tensor] = None):
-    """MoE layer forward on one device.  x: (T, d) flat tokens.
+                dispatch_base: Optional[torch.Tensor] = None,
+                mesh=None, overlap: bool = False):
+    """MoE layer forward.  x: (T, d) flat tokens (the rank's shard under
+    ``mesh``).
+
+    Under an ep ``mesh`` the ``experts_*`` params hold the rank's
+    ``E / n`` experts, ``capacity`` (and its default from the local T) is
+    per rank, and the (E, C, d) buffer goes through the dispatch
+    all-to-all as (n, e_loc, C, d), the local experts compute
+    (e_loc, n * C, d), and the combine all-to-all brings the outputs back
+    (cast to ``x.dtype`` first).  ``overlap`` runs the ring engine instead,
+    its hops in the natural order.  ``aux.dispatch_bytes`` is the
+    per-rank one-way payload; ``aux.hops`` / ``aux.hop_bytes`` the ring's
+    hop count and per-hop bytes (0 on the blocking path).  Under a mesh
+    ``aux.lb_loss`` is None and ``aux.lb_terms`` holds the local means:
+    the caller reduces them over the ranks once for all layers
+    (:func:`repro_torch.models.dit_moe.dit_forward`) or calls
+    :func:`load_balance_loss` with the mesh.
 
     With ``codec`` the dispatch payload is encoded against
     ``dispatch_base`` (zeros if None) and its reconstruction returned as
@@ -206,7 +275,13 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
             else torch.zeros_like(x)
         x_wire = codec_lib.apply(codec, x, base)
     buf = dispatch(x_wire, plan, E, capacity)
-    buf_out = expert_ffn(p, buf, act=cfg.act)
+    n = 1 if mesh is None else mesh.size
+    ring = bool(overlap and n > 1)
+    if mesh is None:
+        buf_out = expert_ffn(p, buf, act=cfg.act)
+    else:
+        buf_out = _ep_exchange(p, buf, cfg, mesh, ring=ring,
+                               wire_dtype=x.dtype)
     y, pair_vals, pair_keep = combine(buf_out, plan, scores, T,
                                       h_cache=h_cache, fresh_mask=fresh_mask)
     if codec is not None and h_cache is not None:
@@ -235,7 +310,7 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
                if codec is not None else d * itemsize)
     keep_pairs = want_pair_vals or fresh_mask is not None
     aux = MoEAux(
-        lb_loss=load_balance_loss(probs, idx, E),
+        lb_loss=None if mesh is not None else load_balance_loss(probs, idx, E),
         dropped_frac=dropped_frac,
         dispatch_bytes=E * capacity * per_row,
         pair_vals=pair_vals if keep_pairs else None,
@@ -245,5 +320,39 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
         wire_payload=x_wire if codec is not None else None,
         counts=counts,
         served_counts=served_counts,
+        hops=2 * (n - 1) if ring else 0,
+        hop_bytes=(E // n) * capacity * per_row if ring else 0,
+        lb_terms=lb_terms(probs, idx, E) if mesh is not None else None,
     )
     return y.to(x.dtype), aux
+
+
+def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,
+                 wire_dtype) -> torch.Tensor:
+    """(E, C, d) dispatch buffer -> the (E, C, d) expert outputs of its
+    rows, the experts spread over the ranks of ``mesh``."""
+    E, C, d = buf.shape
+    n = mesh.size
+    if E % n:
+        raise ValueError(
+            f"num_experts={E} must divide over the {n}-way 'ep' mesh axis "
+            f"for expert parallelism (expert paging, which lifts this in the "
+            f"reference, is not ported: ROADMAP A.9)")
+    e_loc = E // n
+    local = {k: v for k, v in p.items() if k.startswith("experts_")}
+    if local["experts_gate"].shape[0] != e_loc:
+        raise ValueError(
+            f"the params hold {local['experts_gate'].shape[0]} experts, not "
+            f"this rank's {e_loc}: shard them with "
+            f"repro_torch.common.sharding.ep_shard_params")
+    chunks = buf.reshape(n, e_loc, C, d)
+    if ring:
+        out = overlap_lib.ring_expert_exchange(
+            chunks, lambda c: expert_ffn(local, c, act=cfg.act), mesh=mesh,
+            wire_dtype=wire_dtype)
+        return out.reshape(E, C, d)
+    b = mesh.all_to_all(chunks)            # piece j: rank j's rows for us
+    b = b.transpose(0, 1).reshape(e_loc, n * C, d)
+    b = expert_ffn(local, b, act=cfg.act)
+    b = b.reshape(e_loc, n, C, d).transpose(0, 1).to(wire_dtype)
+    return mesh.all_to_all(b).reshape(E, C, d)

@@ -52,9 +52,14 @@ class LayerAction:
         wire codec for this step's payloads; ``None`` is the lossless wire
     store_base
         refresh the residual base ``c_base`` from this step's lossless payload
-    overlap / placement / paging / prefetch / resident
-        the reference's mesh-execution fields.  The port's single-device
-        slice never sets them; they stay so plans compare field-equal.
+    overlap
+        run this step's dispatch/combine as the ring engine
+        (:mod:`repro_torch.core.overlap`) instead of two all-to-alls; the
+        samplers normalize it away where no ep mesh of more than one rank
+        backs the run (:func:`normalize_overlap`)
+    placement / paging / prefetch / resident
+        the reference's placement and paging fields.  The port never sets
+        them (ROADMAP A.9); they stay so plans compare field-equal.
     """
     mode: str = "sync"
     store_y: bool = False
@@ -118,8 +123,10 @@ class LayerAction:
 
     # -- buffer sizing ---------------------------------------------------------
     def dispatch_capacity(self, num_local_tokens: int, cfg) -> int:
-        """Per-expert dispatch-buffer capacity: a Conditional-Communication
-        light step (``effective_k < K``) genuinely shrinks the buffer."""
+        """Per-expert dispatch-buffer capacity, sized from the tokens of
+        this call (a rank's shard over an ep mesh): a Conditional-
+        Communication light step (``effective_k < K``) genuinely shrinks
+        the buffer."""
         return default_capacity(num_local_tokens, cfg, k=self.effective_k)
 
     def dispatch_bytes(self, num_local_tokens: int, cfg, *,
@@ -223,11 +230,28 @@ def overlap_of(dcfg) -> bool:
 
 
 def normalize_overlap(dcfg, n_dev: int):
-    """Strip ``overlap="ring"`` when no multi-device ep axis backs the run:
-    on one device the ring is the blocking exchange."""
+    """Strip ``overlap="ring"`` when no ep mesh of more than one rank backs
+    the run (``n_dev`` is its size, 1 without a mesh): on one rank the
+    ring is the blocking exchange, and plans stay equal to a blocking
+    config's.  ``n_dev > 1`` keeps the ring."""
     if n_dev > 1 or not overlap_of(dcfg):
         return dcfg
     return dataclasses.replace(dcfg, overlap="blocking")
+
+
+def normalize_hop_schedule(hop_schedule, n_dev: int):
+    """Canonicalize a ring hop order against the ep size: a permutation of
+    ``1 .. n_dev - 1`` (else ``ValueError``), with the natural order and
+    anything on one rank normalized to ``None``."""
+    if hop_schedule is None or n_dev <= 1:
+        return None
+    sched = tuple(int(h) for h in hop_schedule)
+    if sorted(sched) != list(range(1, n_dev)):
+        raise ValueError(
+            f"hop_schedule {sched} is not a permutation of 1..{n_dev - 1}")
+    if sched == tuple(range(1, n_dev)):
+        return None
+    return sched
 
 
 def placement_wire_scale(dcfg) -> float:

@@ -7,8 +7,8 @@ port of ``repro.core.schedules``.
   DICE         staleness 1   + selective sync + conditional communication
 
 ``placements``, ``paging`` and ``resilience`` are kept so a config carries
-the same fields as the reference; the port's single-device slice runs
-none of them and raises if one is set.
+the same fields as the reference; the port runs none of them yet and
+raises if one is set.
 """
 from __future__ import annotations
 
@@ -41,10 +41,10 @@ class DiceConfig:
     warmup_steps: int = 2
     # -- wire level: residual compression of staleness-era payloads -----------
     compress: Optional[CompressConfig] = None
-    # -- execution level: "blocking" | "ring" (ring needs an ep mesh, which
-    # this slice does not have; normalized to "blocking" on one device)
+    # -- execution level: "blocking" | "ring" (the ring runs over an ep mesh
+    # of more than one rank; normalized to "blocking" elsewhere)
     overlap: str = "blocking"
-    # -- not in this slice: expert placement, paging, resilience -------------
+    # -- not ported yet: expert placement, paging, resilience ----------------
     placements: Optional[Any] = None
     paging: Optional[Any] = None
     resilience: Optional[Any] = None
@@ -58,8 +58,8 @@ class DiceConfig:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"DiceConfig.{name} is not ported yet (ROADMAP {item}): "
-                    f"the single-device PyTorch port runs without expert "
-                    f"placement, paging and resilience")
+                    f"the PyTorch port runs without expert placement, "
+                    f"paging and resilience")
 
     @staticmethod
     def sync_ep(*, overlap="blocking") -> "DiceConfig":

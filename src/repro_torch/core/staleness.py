@@ -1,5 +1,5 @@
 """Staleness buffers: per-layer state that encodes asynchronous execution
-(port of ``repro.core.staleness``, single device).
+(port of ``repro.core.staleness``).
 
 The numerical effect of the paper's schedules is *which step's activations
 each MoE layer consumes*, carried as per-layer state through the sampling
@@ -14,6 +14,10 @@ loop:
 :func:`apply_layer_action` is the sole executor of a planned
 :class:`~repro_torch.core.plan.LayerAction`.  Like the reference it builds
 a new state object each call and never writes a buffer in place.
+
+Over an expert-parallel mesh every buffer holds the rank's token rows
+only: the state follows the batch shard, as the reference's
+``state_specs`` shard the leading token dim over ``ep``.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.core import conditional
 from repro_torch.core.moe import MoEAux, moe_forward
-from repro_torch.core.plan import LayerAction
+from repro_torch.core.plan import LayerAction, plan_for_step
 
 
 @dataclass
@@ -45,7 +49,8 @@ def init_planned_states(splan, *, num_tokens: int, d_model: int, k: int,
                         dtype=torch.float32,
                         device=None) -> Dict[int, MoELayerState]:
     """Pre-allocate exactly the buffers a SchedulePlan will ever write,
-    zero-filled (a warmup step overwrites each before it is read)."""
+    zero-filled (a warmup step overwrites each before it is read).  Over
+    an ep mesh ``num_tokens`` is the rank's token count."""
     states = {}
     num_layers = splan.steps[0].num_layers if splan.steps else 0
 
@@ -75,10 +80,11 @@ def reset_slots(states: Dict[int, MoELayerState], slot_mask: torch.Tensor,
     """Zero the staleness rows of recycled batch slots.
 
     ``slot_mask`` is a (B,) bool tensor marking slots handed to a new
-    request; each slot owns ``tokens_per_slot`` consecutive token rows of
-    every buffer.  A recycled slot then starts from the all-zeros planned
-    state a fresh batch has, so no activation of the previous occupant
-    reaches its successor.  Handles the flat ``(B * tokens_per_slot, ...)``
+    request (over an ep mesh, the rank's B / n slots); each slot owns
+    ``tokens_per_slot`` consecutive token rows of every buffer.  A
+    recycled slot then starts from the all-zeros planned state a fresh
+    batch has, so no activation of the previous occupant reaches its
+    successor.  Handles the flat ``(B * tokens_per_slot, ...)``
     layout and the factored ``(B, T, ...)`` one, whose leading dim is the
     slot dim.  Runs on the buffers' device without a host sync.
     """
@@ -112,11 +118,16 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                        state: MoELayerState, *,
                        generator: Optional[torch.Generator] = None,
                        slot_fresh: Optional[torch.Tensor] = None,
-                       consume_mask: Optional[torch.Tensor] = None):
+                       consume_mask: Optional[torch.Tensor] = None,
+                       mesh=None):
     """Execute one MoE layer under a planned :class:`LayerAction`.
 
-    x: (T, d) flat tokens.  ``generator`` feeds the "random" conditional-
-    communication policy.  ``slot_fresh`` (T,) / ``consume_mask`` (T, K)
+    x: (T, d) flat tokens (the rank's shard over an ep ``mesh``, whose
+    all-to-alls or ring, per ``action.overlap``, :func:`moe_forward`
+    runs).  ``generator`` feeds the "random" conditional-communication
+    policy; over a mesh the caller gives each rank its own (the reference
+    folds the device index into the key), so each token shard draws its
+    own mask.  ``slot_fresh`` (T,) / ``consume_mask`` (T, K)
     are the continuous engine's per-slot warmup replay: tokens of slots
     replaying warmup consume the fresh combine (sync semantics) instead of
     the staleness buffer, and ``consume_mask`` replaces the policy mask of
@@ -139,7 +150,8 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
         capacity = action.dispatch_capacity(inp.shape[0], cfg)
         return moe_forward(p, inp, cfg, capacity=capacity, fresh_mask=m,
                            h_cache=cache, want_pair_vals=want_cache,
-                           codec=action.codec, dispatch_base=state.c_base)
+                           codec=action.codec, dispatch_base=state.c_base,
+                           mesh=mesh, overlap=action.overlap)
 
     def next_base(payload, aux):
         """Residual base for the next transmission: the decoded
@@ -189,14 +201,19 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
         y_new = torch.cat([y0, y1], dim=0)
         new = MoELayerState(y_buf=y_new, x_prev=x, h_cache=None,
                             c_base=state.c_base)
-        aux = MoEAux(lb_loss=(aux0.lb_loss + aux1.lb_loss) / 2,
+        aux = MoEAux(lb_loss=None if aux0.lb_loss is None
+                     else (aux0.lb_loss + aux1.lb_loss) / 2,
                      dropped_frac=(aux0.dropped_frac + aux1.dropped_frac) / 2,
                      dispatch_bytes=aux0.dispatch_bytes + aux1.dispatch_bytes,
                      pair_vals=None, scores=None, pair_keep=None,
                      raw_dispatch_bytes=aux0.raw_dispatch_bytes
                      + aux1.raw_dispatch_bytes,
                      counts=aux0.counts + aux1.counts,
-                     served_counts=aux0.served_counts + aux1.served_counts)
+                     served_counts=aux0.served_counts + aux1.served_counts,
+                     # two independent half-batch exchanges
+                     hops=aux0.hops + aux1.hops, hop_bytes=aux0.hop_bytes,
+                     lb_terms=None if aux0.lb_terms is None
+                     else torch.cat([aux0.lb_terms, aux1.lb_terms]))
         return select_out(y_new, state.y_buf), new, aux
 
     # "interweaved": dispatch of x(s) completes in step s, the combine is
@@ -210,3 +227,15 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
         if want_cache else None,
         c_base=next_base(x, aux))
     return select_out(y_new, state.y_buf), new, aux
+
+
+def moe_step(p, x: torch.Tensor, cfg, dcfg, state: MoELayerState, *,
+             moe_layer_idx: int, num_moe_layers: int, step_idx: int,
+             generator: Optional[torch.Generator] = None, mesh=None):
+    """One MoE layer under a schedule, planned by step index: the
+    registry shim over :func:`apply_layer_action` (the sampler compiles a
+    SchedulePlan once instead).  Returns (y, new_state, aux)."""
+    plan = plan_for_step(dcfg, num_moe_layers, step_idx,
+                         experts_per_token=cfg.experts_per_token)
+    return apply_layer_action(p, x, cfg, plan.actions[moe_layer_idx], state,
+                              generator=generator, mesh=mesh)

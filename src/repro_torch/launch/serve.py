@@ -1,4 +1,4 @@
-"""DICE serving engine on one device (port of ``repro.launch.serve``).
+"""DICE serving engine (port of ``repro.launch.serve``).
 
 Serves class-conditional DiT-MoE generation requests under a selectable
 parallelism schedule, in three ways: one fixed batch
@@ -16,9 +16,16 @@ roofline terms, not a measurement, and named ``..._paper8``.
       --requests 8 --steps 10 --no-tiny --codec int8_residual
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
       --max-batch 8 --requests 24 --steps 10 --no-tiny
+  PYTHONPATH=src python -m repro_torch.launch.serve --ep 2 --backend gloo \\
+      --overlap ring --requests 8 --steps 10
 
-Mesh-native serving, expert paging, online placement (ROADMAP A.9) and the
-resilience ladder (A.10) are not ported.
+With a mesh (``DiceServer(mesh=...)``, or ``--ep N`` which spawns N ranks)
+every engine runs expert-parallel: one process per ep rank, each holding
+its slice of the batch and of the experts, with the dispatch and combine
+exchanges as all-to-alls or as the ring (``overlap``).  ``nccl`` needs a
+card per rank; ``gloo`` runs on the CPU or with ranks sharing one card.
+Expert paging, online placement, the dp and patch mesh axes (ROADMAP A.9)
+and the resilience ladder (A.10) are not ported.
 """
 from __future__ import annotations
 
@@ -30,9 +37,9 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
+from repro_torch.common import sharding as shard_lib
 from repro_torch.common.device import resolve_device
 from repro_torch.compress.codecs import CODEC_KINDS, CompressConfig
 from repro_torch.configs.dit_moe_xl import config as xl_config, tiny
@@ -40,12 +47,15 @@ from repro_torch.core import conditional
 from repro_torch.core import overlap as overlap_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
+from repro_torch.core.moe import refuse_router_jitter
 from repro_torch.core.schedules import DiceConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.dit_moe import init_dit
 from repro_torch.obs import MetricsRegistry, StepTracer
 from repro_torch.resilience.recovery import AdmissionQueue
-from repro_torch.sampling.rectified_flow import make_rf_step, rf_sample
+from repro_torch.sampling.rectified_flow import (fold_seed, make_rf_step,
+                                                 rf_sample)
 
 
 @dataclass
@@ -321,43 +331,72 @@ def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
 # engine
 # ---------------------------------------------------------------------------
 class DiceServer:
-    """One device serving DiT-MoE requests.  ``params`` defaults to a random
-    init from ``seed`` drawn on the device; ``compress`` threads a wire
-    codec into the schedule config.  ``n_dev`` is the device count of the
-    modeled deployment and enters the latency model only.  ``metrics`` is
-    the registry the serving loops fold their registries into; ``tracer``
-    (a :class:`~repro_torch.obs.StepTracer`) records host phases."""
+    """Serves DiT-MoE requests on one device, or as one rank of an
+    expert-parallel ``mesh`` (:class:`~repro_torch.launch.mesh.EPMesh`).
+
+    ``params`` defaults to a random init from ``seed`` drawn on the device
+    (over a mesh only the rank's experts are kept, layer by layer, so no
+    rank ever holds the whole expert tree); given params are sharded over
+    the mesh.  ``compress`` threads a wire codec into the schedule
+    config; the exchange engine is ``dcfg.overlap``.
+    ``n_dev`` is the device count of the modeled deployment (default: the
+    mesh's ep size, else 8) and enters the latency model only.
+    ``metrics`` is the registry the serving loops fold their registries
+    into; ``tracer`` (a :class:`~repro_torch.obs.StepTracer`) records host
+    phases."""
 
     def __init__(self, cfg, dcfg: DiceConfig, *, params=None, seed: int = 0,
                  device: Optional[str] = None,
                  compress: Optional[CompressConfig] = None,
-                 n_dev: int = 8,
+                 n_dev: Optional[int] = None,
+                 mesh: Optional[mesh_lib.EPMesh] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[StepTracer] = None):
+        refuse_router_jitter(cfg)
+        if mesh is not None:
+            _check_mesh(mesh)
         if compress is not None:
             dcfg = dataclasses.replace(
                 dcfg, compress=None if compress.codec == "none" else compress)
+        if n_dev is None:
+            n_dev = mesh.size if mesh is not None else 8
         if n_dev < 1:
             raise ValueError(f"n_dev must be >= 1, got {n_dev}")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device!r} is not the mesh rank's "
+                                 f"device {mesh.device}")
+            self.device = mesh.device
         self.cfg = cfg
         # the requested config: the latency model describes its engine on
-        # n_dev devices, while the steps run on one, where a ring is the
-        # blocking exchange (the samplers normalize it away)
+        # n_dev devices; the samplers normalize a ring away where no mesh
+        # of more than one rank runs the steps
         self.dcfg = dcfg
         self.n_dev = n_dev
+        self.mesh = mesh
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_dit(cfg, generator=gen)
+            params = init_dit(cfg, generator=gen, experts=None if mesh is None
+                              else shard_lib.expert_slice(cfg.num_experts,
+                                                          mesh))
+        elif mesh is not None:
+            params = shard_lib.ep_shard_params(params, mesh)
         self.params = params
+
+    @property
+    def n_ep(self) -> int:
+        return self.mesh.size if self.mesh is not None else 1
 
     def plan(self, num_steps: int) -> plan_lib.SchedulePlan:
         """The schedule plan a ``generate`` call will run."""
         return plan_lib.compile_step_plans(
-            plan_lib.normalize_overlap(self.dcfg, 1), self.cfg.num_layers,
-            num_steps, experts_per_token=self.cfg.experts_per_token)
+            plan_lib.normalize_overlap(self.dcfg, self.n_ep),
+            self.cfg.num_layers, num_steps,
+            experts_per_token=self.cfg.experts_per_token)
 
     def latency(self, local_batch: int) -> dict:
         """:func:`modeled_step_latency` of this server's deployment."""
@@ -371,13 +410,15 @@ class DiceServer:
                  metrics: Optional[MetricsRegistry] = None,
                  metric_labels: Optional[dict] = None):
         """Sample one batch.  Noise comes from ``noise`` or ``generator``
-        (default: a generator on the server's device seeded with 0).
+        (default: a generator on the server's device seeded with 0).  Over
+        a mesh every rank calls this with the same requests; each samples
+        its slice and every rank gets the whole batch back.
 
         Returns (samples, summary): the summary holds what was measured and
-        counted.  It is published into ``metrics`` (default: the server's
-        registry) under ``metric_labels``, together with the modeled
-        latency of the paper's deployment, which :func:`serve_queue`'s view
-        reads from there."""
+        counted (dispatch bytes per rank).  It is published into
+        ``metrics`` (default: the server's registry) under
+        ``metric_labels``, together with the modeled latency of the paper's
+        deployment, which :func:`serve_queue`'s view reads from there."""
         classes = torch.tensor([r.class_id for r in requests],
                                dtype=torch.int64, device=self.device)
         if noise is None and generator is None:
@@ -388,15 +429,16 @@ class DiceServer:
         samples, stats = rf_sample(self.params, self.cfg, self.dcfg,
                                    num_steps=num_steps, classes=classes,
                                    noise=noise, generator=generator,
-                                   guidance=guidance)
+                                   guidance=guidance, mesh=self.mesh)
         _sync(self.device)
         wall = time.perf_counter() - t0
         lat = self.latency(len(requests) // self.n_dev)
         result = {
-            "device": (torch.cuda.get_device_name(self.device)
-                       if self.device.type == "cuda" else "cpu"),
+            **_where(self.device, self.mesh),
             "wall_s": wall,
             "wall_s_per_step": wall / max(num_steps, 1),
+            "ring_hops": max(stats["hops"], default=0),
+            "hop_bytes_total": float(sum(stats["hop_bytes"])),
             "buffer_bytes": stats["buffer_bytes"][-1]
             if stats["buffer_bytes"] else 0,
             "dispatch_bytes_per_step": stats["dispatch_bytes"],
@@ -414,11 +456,20 @@ class DiceServer:
         return samples, result
 
 
-def _seed_of(seed: int, n: int) -> int:
-    """One generator seed for the pair ``(seed, n)``, hashed to 32 bits
-    (the CPU generator keeps only the low 32 bits of a seed)."""
-    return int(np.random.SeedSequence([seed, n & 0xFFFFFFFF])
-               .generate_state(1)[0])
+def _check_mesh(mesh) -> None:
+    if not isinstance(mesh, mesh_lib.EPMesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.EPMesh, got "
+                        f"{type(mesh).__name__}")
+
+
+def _where(device: torch.device, mesh) -> dict:
+    """The summary keys naming where a run ran: the device, and over a
+    mesh its ep size and backend."""
+    out = {"device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu")}
+    if mesh is not None:
+        out.update(ep=mesh.size, backend=mesh.backend)
+    return out
 
 
 def request_noise(seed: int, rid: int, cfg,
@@ -430,7 +481,7 @@ def request_noise(seed: int, rid: int, cfg,
     request's noise does not depend on the slot or batch it lands in: the
     recycled-slot guarantee of :func:`serve_continuous` is stated against
     this derivation."""
-    gen = torch.Generator().manual_seed(_seed_of(seed, rid))
+    gen = torch.Generator().manual_seed(fold_seed(seed, rid))
     z = torch.randn((cfg.patch_tokens, cfg.in_channels), generator=gen)
     return z if device is None else z.to(device, non_blocking=True)
 
@@ -503,11 +554,16 @@ class _Slot:
     active: bool = False
 
 
-def _tick_generator(seed: int, tick: int, device) -> torch.Generator:
+def _tick_generator(seed: int, tick: int, device,
+                    rank: Optional[int] = None) -> torch.Generator:
     """The "random" policy's generator of one tick, seeded from
     ``(seed, tick)``: the counterpart of the reference's
-    ``fold_in(step_key, tick)``."""
-    return torch.Generator(device=device).manual_seed(_seed_of(seed, tick))
+    ``fold_in(step_key, tick)``; with ``rank``, from ``(seed, tick,
+    rank)``, as the reference folds the device index in on a mesh."""
+    s = fold_seed(seed, tick)
+    if rank is not None:
+        s = fold_seed(s, rank)
+    return torch.Generator(device=device).manual_seed(s)
 
 
 def serve_continuous(server: DiceServer, requests: List[Request], *,
@@ -535,18 +591,36 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     the device without a host sync; a finished slot's sample is copied to
     the CPU when it completes, which is when its end-to-end latency is
     read.  Returns ({rid: sample on the CPU}, stats).
+
+    ``mesh`` (default: the server's) runs every tick expert-parallel: each
+    rank holds ``max_batch / n`` consecutive slots (their latents, per-slot
+    tensors and staleness rows), while admission and the tick's plan are
+    decided on the host from the same queue and counters, identically on
+    every rank.  A finished slot's sample is gathered from its rank, so
+    every rank returns every sample.  Over a mesh a "random" policy draws
+    a steady tick's masks from ``(seed, tick, rank)``, one per token
+    shard, and a slotted tick's from ``(seed, tick)`` over all slots.
     """
+    mesh = mesh if mesh is not None else server.mesh
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-native continuous batching needs the expert-parallel mesh "
-            "(ROADMAP A.9)")
-    cfg, dev = server.cfg, server.device
-    dcfg = plan_lib.normalize_overlap(server.dcfg, 1)
+        _check_mesh(mesh)
+        if server.mesh is not None and mesh is not server.mesh:
+            raise ValueError("serve_continuous: mesh differs from the "
+                             "server's mesh")
+    cfg = server.cfg
+    dev = server.device if mesh is None else mesh.device
+    n_ep = mesh.size if mesh is not None else 1
+    dcfg = plan_lib.normalize_overlap(server.dcfg, n_ep)
     reg = MetricsRegistry()
     lab = {"schedule": plan_lib.schedule_name(dcfg.schedule),
            "engine": "continuous"}
     tracer = server.tracer
     B, Tp, k_exp = max_batch, cfg.patch_tokens, cfg.experts_per_token
+    if B % n_ep:
+        raise ValueError(f"max_batch={B} must divide over the {n_ep}-way "
+                         f"'ep' mesh axis")
+    own = shard_lib.local_rows(B, mesh)       # the slots this rank holds
+    B_loc = own.stop - own.start
     dt = 1.0 / num_steps
     with _span(tracer, "plan_build", "plan",
                {"schedule": lab["schedule"], "num_steps": num_steps}):
@@ -554,7 +628,8 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
             dcfg, cfg.num_layers, num_steps, experts_per_token=k_exp)
         merge_plan = plan_lib.slotted_merge_plan(
             dcfg, cfg.num_layers, experts_per_token=k_exp)
-        rf_step = make_rf_step(server.params, cfg, dt=dt, guidance=guidance)
+        rf_step = make_rf_step(server.params, cfg, dt=dt, guidance=guidance,
+                               mesh=mesh)
     period = plan_lib.steady_period(dcfg, cfg.num_layers,
                                     experts_per_token=k_exp)
     merge_wants_cache = any(a.want_cache for a in merge_plan.actions)
@@ -563,18 +638,19 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
 
     def planned_init():
         return stale_lib.init_planned_states(
-            splan, num_tokens=B * Tp, d_model=cfg.d_model, k=k_exp,
+            splan, num_tokens=B_loc * Tp, d_model=cfg.d_model, k=k_exp,
             dtype=torch.float32, device=dev)
 
     states, states_u = planned_init(), planned_init()
-    x = torch.zeros((B, Tp, cfg.in_channels), dtype=torch.float32,
+    x = torch.zeros((B_loc, Tp, cfg.in_channels), dtype=torch.float32,
                     device=dev)
-    # per-slot state the step reads, kept on the device and changed by
-    # scalar writes (no host->device copy, so no sync per tick)
-    classes = torch.full((B,), cfg.num_classes, dtype=torch.int64,
+    # per-slot state the step reads (this rank's slots), kept on the device
+    # and changed by scalar writes (no host->device copy, so no sync per
+    # tick)
+    classes = torch.full((B_loc,), cfg.num_classes, dtype=torch.int64,
                          device=dev)
-    steps = torch.zeros((B,), dtype=torch.int64, device=dev)
-    active = torch.zeros((B,), dtype=torch.bool, device=dev)
+    steps = torch.zeros((B_loc,), dtype=torch.int64, device=dev)
+    active = torch.zeros((B_loc,), dtype=torch.bool, device=dev)
     # t = s * dt as the fixed-batch sampler forms it, so slots match it
     t_of_step = torch.tensor([s * dt for s in range(num_steps)],
                              dtype=torch.float32, device=dev)
@@ -600,7 +676,7 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     while len(queue) or any(s.active for s in slots):
         # ---- admission at plan-aligned ticks ------------------------------
         if tick % period == 0:
-            recycle = torch.zeros((B,), dtype=torch.bool, device=dev)
+            recycle = torch.zeros((B_loc,), dtype=torch.bool, device=dev)
             any_recycled = False
             for i, slot in enumerate(slots):
                 if slot.active:
@@ -610,12 +686,14 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                     break
                 slots[i] = _Slot(rid=req.rid, class_id=req.class_id,
                                  local_step=0, active=True)
-                recycle[i] = True
-                any_recycled = True
-                classes[i] = req.class_id
-                steps[i] = 0
-                active[i] = True
-                x[i] = _noise_of(noise, seed, req.rid, cfg, dev)
+                if own.start <= i < own.stop:
+                    j = i - own.start
+                    recycle[j] = True
+                    any_recycled = True
+                    classes[j] = req.class_id
+                    steps[j] = 0
+                    active[j] = True
+                    x[j] = _noise_of(noise, seed, req.rid, cfg, dev)
                 reg.counter("dice_admissions_total", "slot admissions",
                             lab).inc()
                 if ever_used[i]:
@@ -644,22 +722,27 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         # ---- one engine tick ----------------------------------------------
         slotted = any(s.active and s.local_step < dcfg.warmup_steps
                       for s in slots)
-        gen = _tick_generator(seed, tick, dev) if random_policy else None
+        gen = tick_gen = None
+        if random_policy:
+            tick_gen = _tick_generator(seed, tick, dev)
+            gen = tick_gen if mesh is None else \
+                _tick_generator(seed, tick, dev, mesh.rank)
         if slotted:
             plan = merge_plan
             # free slots replay warmup too: their discarded lanes then
             # consume only fresh values, never the zeroed buffers
             fresh_b = ~active | (steps < dcfg.warmup_steps)
-            slot_fresh = fresh_b[:, None].expand(B, Tp).reshape(-1)
+            slot_fresh = fresh_b[:, None].expand(B_loc, Tp).reshape(-1)
             consume = None
             if merge_wants_cache:
                 if dcfg.cond_comm and not conditional.is_refresh_step(
                         tick, dcfg.cond_stride):
+                    # drawn over all slots, then this rank's rows
                     steady_mask = conditional.policy_mask(
                         dcfg.cond_policy, B * Tp, k_exp, device=dev,
-                        generator=gen)
+                        generator=tick_gen)[own.start * Tp:own.stop * Tp]
                 else:
-                    steady_mask = torch.ones((B * Tp, k_exp),
+                    steady_mask = torch.ones((B_loc * Tp, k_exp),
                                              dtype=torch.bool, device=dev)
                 consume = slot_fresh[:, None] | steady_mask
         else:
@@ -701,13 +784,18 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                   lab).set(int(aux["buffer_bytes"]))
 
         steps += active
+        finishing = any(s.active and s.local_step + 1 >= num_steps
+                        for s in slots)
+        # every slot's latents, gathered from their ranks when one finishes
+        x_all = x if mesh is None or not finishing else \
+            mesh.all_gather(x)
         for i, slot in enumerate(slots):
             if not slot.active:
                 continue
             slot.local_step += 1
             if slot.local_step >= num_steps:
                 # a copy: x's rows are overwritten at the next admission
-                out[slot.rid] = x[i].to("cpu", copy=True)
+                out[slot.rid] = x_all[i].to("cpu", copy=True)
                 reg.counter("dice_requests_total", "requests served",
                             lab).inc()
                 reg.histogram(
@@ -716,8 +804,9 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                     lab).observe(time.perf_counter()
                                  - admit_time.pop(slot.rid))
                 slots[i] = _Slot()
-                classes[i] = cfg.num_classes
-                active[i] = False
+                if own.start <= i < own.stop:
+                    classes[i - own.start] = cfg.num_classes
+                    active[i - own.start] = False
         tick += 1
     _sync(dev)
     wall = time.perf_counter() - t0
@@ -732,8 +821,7 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     ticks = int(reg.value("dice_ticks_total", lab))
     padded_slot_steps = int(reg.value("dice_padded_slot_steps_total", lab))
     stats = {
-        "device": (torch.cuda.get_device_name(dev)
-                   if dev.type == "cuda" else "cpu"),
+        **_where(dev, mesh),
         "ticks": ticks,
         "makespan_steps": tick,
         "padded_slot_steps": padded_slot_steps,
@@ -773,9 +861,22 @@ def main(argv=None):
                     help="wire codec for light/stale steps; refresh steps "
                          "stay lossless")
     ap.add_argument("--guidance", type=float, default=1.5)
-    ap.add_argument("--n-dev", type=int, default=8,
+    ap.add_argument("--n-dev", type=int, default=None,
                     help="device count of the modeled deployment (latency "
-                         "model only; the steps run on one device)")
+                         "model only; default the --ep size, else 8)")
+    ap.add_argument("--ep", type=int, default=0,
+                    help="run expert-parallel over N spawned ranks, one "
+                         "process each (needs --backend); 0 = one process "
+                         "without a mesh")
+    ap.add_argument("--backend", choices=list(mesh_lib.BACKENDS),
+                    default=None,
+                    help="torch.distributed backend of the ep mesh: nccl "
+                         "needs one card per rank; gloo runs on the CPU or "
+                         "with ranks sharing one card")
+    ap.add_argument("--overlap", choices=("blocking", "ring"),
+                    default="blocking",
+                    help="dispatch/combine engine over the mesh: two "
+                         "all-to-alls, or the ring of 2 (ep - 1) hops")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -793,43 +894,74 @@ def main(argv=None):
                          "Prometheus text, or a JSON snapshot when the "
                          "path ends in .json")
     args = ap.parse_args(argv)
+    if args.ep < 0:
+        ap.error("--ep must be >= 0")
+    if args.ep and args.backend is None:
+        ap.error("--ep needs --backend (nccl: one card per rank; gloo: the "
+                 "CPU, or ranks sharing one card)")
+    if not args.ep:
+        _serve_cli(args)
+        return
+    _, counts = mesh_lib.spawn(_serve_cli_rank, args.ep,
+                               backend=args.backend, device=args.device,
+                               args=(args,))
+    for r, c in enumerate(counts):
+        print(f"  rank {r} kernel launches {c}")
 
+
+def _serve_cli_rank(mesh, args) -> None:
+    """One rank of ``main --ep N``."""
+    _serve_cli(args, mesh)
+
+
+def _serve_cli(args, mesh=None) -> None:
+    """The CLI's run, on one device or as one rank of ``mesh`` (rank 0
+    prints and writes the outputs)."""
     cfg = tiny() if args.tiny else xl_config()
-    server = DiceServer(cfg, SCHEDULES[args.schedule](), seed=args.seed,
-                        device=args.device, n_dev=args.n_dev,
+    dcfg = dataclasses.replace(SCHEDULES[args.schedule](),
+                               overlap=args.overlap)
+    server = DiceServer(cfg, dcfg, seed=args.seed,
+                        device=None if mesh is not None else args.device,
+                        n_dev=args.n_dev, mesh=mesh,
                         compress=CompressConfig(codec=args.codec),
                         tracer=StepTracer() if args.trace_out else None)
     reqs = [Request(class_id=i % cfg.num_classes, rid=i)
             for i in range(args.requests)]
     splan = server.plan(args.steps)
-    print(f"serving {len(reqs)} requests, schedule={args.schedule}, "
-          f"{args.steps} steps, model={cfg.name}, device={server.device}"
-          + (f", wire codec {args.codec}" if args.codec != "none" else "")
-          + (f", continuous over {args.max_batch} slots"
-             if args.continuous else ""))
-    print(f"step plan: {splan.num_variants} variants for "
-          f"{splan.num_steps} steps "
-          f"({[len(splan.steps_of_variant(v)) for v in range(splan.num_variants)]}"
-          f" steps each)")
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    say(f"serving {len(reqs)} requests, schedule={args.schedule}, "
+        f"{args.steps} steps, model={cfg.name}, device={server.device}"
+        + (f", wire codec {args.codec}" if args.codec != "none" else "")
+        + (f", continuous over {args.max_batch} slots"
+           if args.continuous else "")
+        + (f", expert-parallel over {mesh.size} ranks ({mesh.backend}, "
+           f"{plan_lib.normalize_overlap(server.dcfg, mesh.size).overlap})"
+           if mesh is not None else ""))
+    say(f"step plan: {splan.num_variants} variants for "
+        f"{splan.num_steps} steps "
+        f"({[len(splan.steps_of_variant(v)) for v in range(splan.num_variants)]}"
+        f" steps each)")
     if args.continuous:
         out, stats = serve_continuous(server, reqs, max_batch=args.max_batch,
                                       num_steps=args.steps,
                                       guidance=args.guidance, seed=args.seed)
         finite = all(bool(torch.isfinite(s).all()) for s in out.values())
-        print(f"served {len(out)} requests continuously, finite={finite}")
+        say(f"served {len(out)} requests continuously, finite={finite}")
         stats["tick_variants"] = (f"{len(stats['tick_variants'])} ticks, "
                                   f"{len(set(stats['tick_variants']))} keys")
     else:
         samples, stats = server.generate(reqs, num_steps=args.steps,
                                          guidance=args.guidance)
-        print(f"samples: {tuple(samples.shape)}, "
-              f"finite={bool(torch.isfinite(samples).all())}")
+        say(f"samples: {tuple(samples.shape)}, "
+            f"finite={bool(torch.isfinite(samples).all())}")
     for k, v in stats.items():
         if isinstance(v, list):
             v = f"[{v[0]:.6g} ... {v[-1]:.6g}] ({len(v)} steps)"
         elif isinstance(v, float):
             v = f"{v:.6g}"
-        print(f"  {k:26s} {v}")
+        say(f"  {k:26s} {v}")
+    if mesh is not None and mesh.rank != 0:
+        return
     if args.trace_out:
         server.tracer.write(args.trace_out)
         print(f"wrote step trace to {args.trace_out} "

@@ -1,5 +1,5 @@
 """Rectified Flow sampling for DiT-MoE (port of the sampling half of
-``repro.sampling.rectified_flow``, single device).
+``repro.sampling.rectified_flow``).
 
 x_t = t * x1 + (1 - t) * x0 with x0 ~ N(0, I); the model predicts the
 velocity v = x1 - x0, and sampling is Euler integration from t=0 to t=1.
@@ -8,15 +8,23 @@ velocity v = x1 - x0, and sampling is Euler integration from t=0 to t=1.
 function with the step's plan.  PyTorch runs eagerly, so there is no
 compile cache: the step function records the ``(plan, slotted)`` keys it
 ran, which is what a later CUDA-graph capture per key would hold.
+
+Over an expert-parallel mesh (``mesh=``, an
+:class:`~repro_torch.launch.mesh.EPMesh`) every rank runs the same loop on
+its slice of the batch and of the experts: the counterpart of the
+reference's ``shard_map``-ped step over ``make_ep_mesh(n)``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.common import sharding as shard_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
+from repro_torch.core.moe import refuse_router_jitter
 from repro_torch.models.dit_moe import dit_forward
 
 
@@ -24,21 +32,18 @@ def _euler_step(params, cfg, x, classes, states, states_u, t, *,
                 plan, dt: float, guidance: float,
                 generator: Optional[torch.Generator] = None,
                 slot_fresh: Optional[torch.Tensor] = None,
-                consume_mask: Optional[torch.Tensor] = None):
+                consume_mask: Optional[torch.Tensor] = None,
+                mesh=None):
     """One CFG-guided Euler step: a conditional and a null-class
     ``dit_forward`` pass, each with its own staleness state and both with
     the same per-slot selectors.  Returns (x_next, new_states,
     new_states_u, aux of the conditional pass)."""
-    v_c, ns, aux = dit_forward(params, x, t, classes, cfg, states,
-                               plan=plan, generator=generator,
-                               slot_fresh=slot_fresh,
-                               consume_mask=consume_mask)
+    kw = dict(plan=plan, generator=generator, slot_fresh=slot_fresh,
+              consume_mask=consume_mask, mesh=mesh)
+    v_c, ns, aux = dit_forward(params, x, t, classes, cfg, states, **kw)
     if guidance != 1.0:
         null = torch.full_like(classes, cfg.num_classes)
-        v_u, nsu, _ = dit_forward(params, x, t, null, cfg, states_u,
-                                  plan=plan, generator=generator,
-                                  slot_fresh=slot_fresh,
-                                  consume_mask=consume_mask)
+        v_u, nsu, _ = dit_forward(params, x, t, null, cfg, states_u, **kw)
         v = v_u + guidance * (v_c - v_u)
     else:
         v, nsu = v_c, states_u
@@ -61,12 +66,23 @@ class RFStep:
     ``keys`` holds every distinct ``(plan, slotted)`` pair the function
     has run: the counterpart of the reference's jit cache, and what one
     CUDA graph per key would hold.  Every warmup mixture shares one key,
-    so ``len(keys)`` stays at the plan-variant count.
+    so ``len(keys)`` stays at the plan-variant count, on every rank of a
+    mesh too.
+
+    With ``mesh`` the step runs on this rank's shard: ``x``, ``classes``,
+    the states and the selectors hold its rows, and ``params`` are
+    sharded here (:func:`~repro_torch.common.sharding.ep_shard_params`).
     """
 
-    def __init__(self, params, cfg, *, dt: float, guidance: float = 1.5):
+    def __init__(self, params, cfg, *, dt: float, guidance: float = 1.5,
+                 mesh=None):
+        refuse_router_jitter(cfg)
+        if mesh is not None:
+            shard_lib.expert_slice(cfg.num_experts, mesh)    # E % n check
+            params = shard_lib.ep_shard_params(params, mesh)
         self.params, self.cfg = params, cfg
         self.dt, self.guidance = dt, guidance
+        self.mesh = mesh
         self.keys = set()
 
     def __call__(self, x, classes, states, states_u, t, *, plan,
@@ -79,29 +95,65 @@ class RFStep:
                            states_u, t, plan=plan, dt=self.dt,
                            guidance=self.guidance, generator=generator,
                            slot_fresh=slot_fresh if slotted else None,
-                           consume_mask=consume_mask if slotted else None)
+                           consume_mask=consume_mask if slotted else None,
+                           mesh=self.mesh)
 
 
-def make_rf_step(params, cfg, *, dt: float, guidance: float = 1.5) -> RFStep:
-    """The per-step function behind :func:`rf_sample` (see :class:`RFStep`)."""
-    return RFStep(params, cfg, dt=dt, guidance=guidance)
+def make_rf_step(params, cfg, *, dt: float, guidance: float = 1.5,
+                 mesh=None) -> RFStep:
+    """The per-step function behind :func:`rf_sample` (see :class:`RFStep`).
+    Raises for ``cfg.router_jitter > 0`` (JAX PRNG keys cannot be replayed
+    in torch) and, with ``mesh``, for experts that do not divide over it."""
+    return RFStep(params, cfg, dt=dt, guidance=guidance, mesh=mesh)
+
+
+def rank_generator(generator: Optional[torch.Generator], mesh
+                   ) -> Optional[torch.Generator]:
+    """The "random" policy's generator on a rank: over a mesh, one seeded
+    from (the caller's seed, rank), so each token shard draws its own mask
+    as the reference's ``fold_in(key, axis_index)`` does; else the
+    caller's."""
+    if generator is None or mesh is None:
+        return generator
+    return torch.Generator(device=generator.device).manual_seed(
+        fold_seed(generator.initial_seed(), mesh.rank))
+
+
+def fold_seed(seed: int, n: int) -> int:
+    """One generator seed for the pair ``(seed, n)``, hashed to 32 bits
+    (the CPU generator keeps only the low 32 bits of a seed)."""
+    return int(np.random.SeedSequence([seed, n & 0xFFFFFFFF])
+               .generate_state(1)[0])
 
 
 def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
               noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              guidance: float = 1.5):
+              guidance: float = 1.5, mesh=None):
     """Generate latents (B, T, C) for ``classes`` under a schedule.
 
     The initial noise is ``noise`` when given (the tests pass the JAX
     reference's), else drawn from ``generator``; one of the two is
-    required.  Everything runs on the device of ``classes``.  Returns
-    (samples, stats): per-step dispatch / raw / buffer bytes,
-    ``num_plan_variants`` and ``step_keys`` (distinct step keys run).
+    required.  Everything runs on the device of ``classes``, or on the
+    mesh's.  Returns (samples, stats): per-step dispatch / raw / buffer
+    bytes, ring hops and hop bytes, drop fractions, ``num_plan_variants``
+    and ``step_keys`` (distinct step keys run).
+
+    With an ep ``mesh`` every rank calls this with the same global
+    ``classes`` and noise and keeps its rows of both
+    (:func:`~repro_torch.common.sharding.ep_place_batch`); the batch must
+    divide over the mesh.  ``dispatch_bytes`` is then the per-rank wire
+    payload, ``buffer_bytes`` the whole mesh's, and the samples are
+    gathered back to every rank.  A "random" policy draws each rank's
+    masks from a generator seeded from (``generator``'s seed, rank).
     """
-    device = classes.device
+    device = classes.device if mesh is None else mesh.device
     B = classes.shape[0]
-    dcfg = plan_lib.normalize_overlap(dcfg, 1)
+    n_ep = mesh.size if mesh is not None else 1
+    if B % n_ep:
+        raise ValueError(f"batch {B} must divide over the {n_ep}-way 'ep' "
+                         f"mesh axis")
+    dcfg = plan_lib.normalize_overlap(dcfg, n_ep)
     if noise is not None:
         x = noise.to(device=device, dtype=torch.float32)
     elif generator is not None:
@@ -110,6 +162,13 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
                         dtype=torch.float32).to(device)
     else:
         raise ValueError("rf_sample needs noise= or generator=")
+    rf_step = make_rf_step(params, cfg, dt=1.0 / num_steps,
+                           guidance=guidance, mesh=mesh)
+    if mesh is not None:
+        x = shard_lib.ep_place_batch(x, mesh)
+        classes = shard_lib.ep_place_batch(classes, mesh)
+        generator = rank_generator(generator, mesh)
+    B_loc = x.shape[0]
     dt = 1.0 / num_steps
     splan = plan_lib.compile_step_plans(
         dcfg, cfg.num_layers, num_steps,
@@ -117,21 +176,27 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
 
     def planned_init():
         return stale_lib.init_planned_states(
-            splan, num_tokens=B * cfg.patch_tokens, d_model=cfg.d_model,
+            splan, num_tokens=B_loc * cfg.patch_tokens, d_model=cfg.d_model,
             k=cfg.experts_per_token, dtype=x.dtype, device=device)
 
     states = planned_init()
     states_u = planned_init()
-    stats = {"dispatch_bytes": [], "raw_bytes": [], "buffer_bytes": []}
-    rf_step = make_rf_step(params, cfg, dt=dt, guidance=guidance)
+    stats = {"dispatch_bytes": [], "raw_bytes": [], "buffer_bytes": [],
+             "hops": [], "hop_bytes": [], "dropped_frac": []}
     for s in range(num_steps):
-        t = torch.full((B,), s * dt, dtype=torch.float32, device=device)
+        t = torch.full((B_loc,), s * dt, dtype=torch.float32, device=device)
         x, states, states_u, aux = rf_step(x, classes, states, states_u, t,
                                            plan=splan.steps[s],
                                            generator=generator)
         stats["dispatch_bytes"].append(float(aux["dispatch_bytes"]))
         stats["raw_bytes"].append(float(aux["raw_dispatch_bytes"]))
         stats["buffer_bytes"].append(float(aux["buffer_bytes"]))
+        stats["hops"].append(int(aux["hops"]))
+        stats["hop_bytes"].append(float(aux["hop_bytes"]))
+        stats["dropped_frac"].append(aux["dropped_frac"])
+    stats["dropped_frac"] = [float(f) for f in stats["dropped_frac"]]
     stats["num_plan_variants"] = splan.num_variants
     stats["step_keys"] = len(rf_step.keys)
+    if mesh is not None:
+        x = mesh.all_gather(x)
     return x, stats

@@ -358,3 +358,39 @@ def test_recycled_slot_equals_fresh_batch_on_the_card(gen, schedule, steps):
     ref = {**fresh([reqs[2], Request(5, 7)]), **fresh(reqs[:2])}
     for rid in (0, 1, 2):
         assert torch.equal(out[rid], ref[rid]), rid
+
+
+@pytest.mark.parametrize("case", ["equal", "saturated"])
+def test_route_breaks_ties_like_jax_top_k_on_the_card(gen, case):
+    """The card's stable sort keeps the lowest expert id first among equal
+    probabilities, as ``jax.lax.top_k`` does (ROADMAP C.1): all 8 equal,
+    or a softmax saturated by a bias of 200 on expert 0."""
+    from repro_torch.configs.dit_moe_xl import tiny
+    from repro_torch.core import moe
+    cfg = tiny().replace(num_experts=8, experts_per_token=2)
+    x = torch.randn((64, 16), generator=gen, device="cuda")
+    p = {"router": torch.zeros((16, 8), device="cuda")}
+    if case == "saturated":
+        p["router"] = torch.randn((16, 8), generator=gen, device="cuda")
+        p["router_bias"] = torch.zeros(8, device="cuda")
+        p["router_bias"][0] = 200.0
+    _, scores, idx = moe.route(p, x, cfg)
+    assert (idx.cpu() == torch.tensor([0, 1])).all()
+    _, cpu_scores, cpu_idx = moe.route({k: v.cpu() for k, v in p.items()},
+                                       x.cpu(), cfg)
+    assert torch.equal(idx.cpu(), cpu_idx)
+
+
+def test_gloo_transports_take_cuda_tensors(gen):
+    """Two gloo ranks sharing the card, the pairing of ``chip_smoke.py``'s
+    phase 8: the mesh's collectives take CUDA tensors as they are, and a
+    ring hop, whose send/recv gloo takes from host memory only, arrives
+    through the pinned staging of ``EPMesh.exchange``.  Each spawned rank
+    and its collectives time out after 120 s, so a hang fails the test."""
+    import torch_ep_jobs as jobs
+    from repro_torch.launch import mesh as mesh_lib
+    every_rank, _ = mesh_lib.spawn(jobs.mesh_transports, 2,
+                                   backend="gloo", device="cuda",
+                                   timeout_s=120)
+    for r, ok in enumerate(every_rank):
+        assert all(ok.values()), (r, ok)

@@ -88,6 +88,7 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
 
 
 SERVING_MODULES = ("repro_torch.core.overlap", "repro_torch.launch.serve",
+                   "repro_torch.launch.mesh", "repro_torch.common.sharding",
                    "repro_torch.obs.metrics", "repro_torch.obs.trace",
                    "repro_torch.resilience.recovery")
 # pure-Python modules of the JAX package the port keeps a copy of

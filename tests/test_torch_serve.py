@@ -522,8 +522,8 @@ def test_serve_queue_matches_reference(jax_params, port_params):
     for rid in ref_out:
         np.testing.assert_allclose(out[rid].numpy(), np.asarray(ref_out[rid]),
                                    **TOL)
-    # the port has no ring: the reference's ring_hops / hop_bytes_total
-    # are mesh keys (ROADMAP A.9)
+    # serve_queue's view keeps no ring keys: ring_hops / hop_bytes_total
+    # are in each generate() summary
     renamed = {k.replace("tpu8", "paper8").replace("jit_cache_size", "step_keys")
                for k in ref} - {"ring_hops", "hop_bytes_total"}
     assert set(view) == renamed | {"wall_s", "e2e_s"}
@@ -568,7 +568,9 @@ def test_request_noise_is_the_same_on_every_call_and_slot():
 def test_unported_serving_paths_raise(port_params):
     server = serve.DiceServer(_cfg(), DiceConfig.dice(), params=port_params,
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # a mesh is served now (tests/test_torch_ep_serve.py), but only the
+    # port's own expert-parallel mesh
+    with pytest.raises(TypeError, match="EPMesh"):
         serve.serve_continuous(server, [serve.Request(1, 0)], mesh=object())
     for field, item in (("placements", "A.9"), ("paging", "A.9"),
                         ("resilience", "A.10")):

@@ -11,7 +11,8 @@ non-zero and no phase's failure is caught:
   1. environment: the card's name and power limit, CUDA version, TF32 off;
   2. build: compiles the kernels under src/repro_torch/csrc with nvcc;
   3. kernels vs their plain PyTorch versions at the main paths' shapes and
-     at their tiles' edges, with times, the roofline bound and (where one
+     at their tiles' edges (``residual_int8`` also on rows holding NaN and
+     Inf, on both of its paths), with times, the roofline bound and (where one
      exists) a library call; the two f32 tensor-core kernels are bound by
      f32-accurate 3xTF32 products on the tensor cores, and their bound on
      the FP32 CUDA cores is printed and kept beside it (``fp32_bound_ms``).
@@ -63,7 +64,25 @@ non-zero and no phase's failure is caught:
      slots (4 a rank).  Each rank's launch counts are set to 0 before each
      run and held to its plans after it, in the rank; the ranks send their
      counts back.  These numbers are ep = 2 sharing one card over a
-     host-staged wire, not the paper's speed-up.
+     host-staged wire, not the paper's speed-up;
+  9. main path 5: checkpoints, telemetry, the top-k codec and the
+     resilience ladder at DiT-MoE-XL width, with phase 5's weights.  (a)
+     The weights cut to 2 layers (1.4 GB) written with ``save_checkpoint``
+     into a temporary directory under build/ (removed after), read back
+     onto the card with ``load_checkpoint``, write and read GB/s printed;
+     dice + int8 served 4 steps from the file and from memory, bit for
+     bit; a flipped byte must raise ``CheckpointCorruptionError``.  (b) 8
+     requests x 10 steps of dice + int8 with telemetry on: bit-identical to
+     phase 5, s/step beside phase 5's, the per-layer means of the six
+     fields, every age and codec error held to the plan.  (c) dice +
+     topk_residual (0.125: 144 of 1152 entries a row), 4 steps, dispatch
+     bytes held to the plan.  (d) guards on and faults off, bit-identical
+     to phase 5; seeded corruption with guards on, finite, its fault
+     counts printed; phase 7b's mix under dice with rid 0 poisoned at tick
+     2, one requeue, its replay equal to rid 0 in a clean fixed batch bit
+     for bit; a codec-error limit that demotes the codec at the first plan
+     boundary after a coded tick.  Every run's launch counts are set to 0
+     before it and held to its plans (the rebuilt ones after a demotion).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -346,6 +365,36 @@ def phase_kernels():
                       dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else TOL_BF16)
         if (N, d, dtype, unaligned) == (4096, 1152, torch.float32, False):
             row_err = err
+    # C.6: rows holding NaN, +Inf, -Inf and a mix, and a NaN in a base row,
+    # on the register path and the looping path: the plain version's (and
+    # the JAX encoder's) scale NaN or Inf, q 0 and a NaN reconstruction
+    for N, d, dtype in ((33, 1152, torch.float32), (33, 1152, torch.bfloat16),
+                        (9, 1151, torch.float32), (16, 4096, torch.bfloat16),
+                        (9, 9000, torch.float32)):
+        value, base = _int8_inputs(gen, N, d, torch.float32)
+        value[0, 3] = math.nan
+        value[1, 2] = math.inf
+        value[2, d - 1] = -math.inf
+        value[3, 1], value[3, d // 2], value[3, d - 2] = math.nan, math.inf, -math.inf
+        base[4, 0] = math.nan
+        value, base = value.to(dtype), base.to(dtype)
+        qk, sk, rk = ops.residual_int8(value, base)
+        qp, sp, rp = ref.residual_int8_ref(value, base)
+        torch.cuda.synchronize()
+        same_scale = bool(((sk == sp) | (torch.isnan(sk) & torch.isnan(sp))).all())
+        same_nan = torch.equal(torch.isnan(rk), torch.isnan(rp))
+        ok = (torch.equal(qk, qp) and same_scale and same_nan
+              and bool(torch.isnan(rk[:5]).all()) and bool((qk[:5] == 0).all()))
+        log(f"  residual_int8 non-finite rows N={N} d={d} {str(dtype)[6:]}: q equal "
+            f"{torch.equal(qk, qp)}, scale equal (NaN = NaN) {same_scale}, NaN "
+            f"positions of recon equal {same_nan}, scales of the bad rows "
+            f"{[float(x) for x in sk[:5, 0]]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("residual_int8: non-finite rows differ from the "
+                                 "plain version")
+        compare(f"residual_int8 recon of the finite rows N={N} d={d} {str(dtype)[6:]}",
+                rk[5:], rp[5:],
+                dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else TOL_BF16)
     # timed on three input sets a shape (113 MB at N = 4096), in turn, so
     # that no call finds its inputs in the 50 MB L2
     for N, dtype in ((4096, torch.float32), (8192, torch.float32),
@@ -483,7 +532,8 @@ def planned_launches(plans, passes: int, ranks: int = 1):
     ep mesh of ``ranks``): per pass and layer one flash attention and one
     expert FFN (two for a staggered half-batch layer; on the ring one per
     chunk, ``ranks`` a call); a codec'd action quantizes its dispatch
-    payload, and an interweaved one with a cache its combine payload too."""
+    payload, and an interweaved one with a cache its combine payload too
+    (the int8 codec through ``residual_int8``; top-k is plain PyTorch)."""
     n = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
          "rwkv6_scan": 0}
     for plan in plans:
@@ -491,7 +541,7 @@ def planned_launches(plans, passes: int, ranks: int = 1):
             n["flash_attention"] += passes
             n["expert_ffn"] += passes * (2 if a.mode == "staggered" else 1) \
                 * (ranks if a.overlap else 1)
-            if a.codec is not None:
+            if a.codec is not None and a.codec.kind == "int8_residual":
                 n["residual_int8"] += passes * (
                     1 + int(a.mode == "interweaved" and a.want_cache))
     return n
@@ -657,6 +707,7 @@ def phase_xl(rows):
     for label, (dcfg, need_codec) in others.items():
         other = DiceServer(cfg, dcfg, params=server.params, device="cuda")
         drive(other, reqs, 4, label, need_codec=need_codec)
+    return samples.cpu(), stats["wall_s_per_step"]
 
 
 def phase_lm(rows):
@@ -902,6 +953,255 @@ def phase_continuous_xl(rows):
     check("queue", {r: x.cpu() for r, x in out_q.items()}, counts_q,
           planned_launches(list(splan.steps) * view["batches"], passes=2))
 
+
+
+# ---------------------------------------------------------------------------
+# phase 9: checkpoint, telemetry, top-k codec, resilience at XL width
+# ---------------------------------------------------------------------------
+def _generate_checked(server, reqs, num_steps, label, *, planned=True):
+    """``generate`` with the launch counts set to 0 before and read after;
+    the samples must be finite and, with ``planned``, the counts those of
+    the plan."""
+    import torch
+    from repro_torch.kernels import ops
+    splan = server.plan(num_steps)
+    ops.reset_launches()
+    samples, stats = server.generate(reqs, num_steps=num_steps)
+    counts = dict(ops.LAUNCHES)
+    want = planned_launches(splan.steps, passes=2)
+    finite = bool(torch.isfinite(samples).all())
+    log(f"  {label}: {stats['wall_s_per_step']:.4f} s/step, finite {finite}, "
+        f"launches {counts}, planned {want}")
+    if not finite or (planned and counts != want):
+        raise AssertionError(f"{label}: samples not finite or launch counts differ "
+                             f"from the plan")
+    return samples, stats
+
+
+def phase_checkpoint(cfg, params, reqs):
+    """9a: phase 5's weights cut to 2 layers at full width, written and read
+    back on the card, served from the file and from memory; a flipped byte
+    must raise."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch.serve import DiceServer
+    from repro_torch.models.dit_moe import init_dit
+    cfg2 = cfg.replace(num_layers=2)
+    params2 = dict(params, blocks=params["blocks"][:2])
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params2).values())
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=scratch)
+    try:
+        path = str(Path(tmp) / "xl2.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_io.save_checkpoint(path, params2, step=1)
+        t_write = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        loaded = ckpt_io.load_checkpoint(path, init_dit(cfg2, generator=None),
+                                         device="cuda")
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        log(f"  9a checkpoint of XL cut to 2 layers: {nbytes / 1e9:.4f} GB of "
+            f"leaves, file {size / 1e9:.4f} GB; write {t_write:.3f} s "
+            f"({nbytes / t_write / 1e9:.3f} GB/s, card to file), read "
+            f"{t_read:.3f} s ({nbytes / t_read / 1e9:.3f} GB/s, file to card)")
+        same = all(torch.equal(a, b) for a, b in zip(leaves(loaded).values(),
+                                                     leaves(params2).values()))
+        if not same:
+            raise AssertionError("9a: the leaves read back differ from those written")
+        dcfg = DiceConfig.dice(compress=CompressConfig("int8_residual"))
+        out = {}
+        for label, p in (("from the file", loaded), ("in memory", params2)):
+            server = DiceServer(cfg2, dcfg, params=p, device="cuda")
+            out[label], _ = _generate_checked(server, reqs, 4,
+                                              f"9a dice+int8 2-layer XL {label}")
+        diff = float((out["from the file"] - out["in memory"]).abs().max())
+        log(f"  9a samples from the file vs in memory: max abs diff {diff:.3e} "
+            f"({'bit-identical' if torch.equal(*out.values()) else 'DIFFERENT'})")
+        if not torch.equal(*out.values()):
+            raise AssertionError("9a: samples from the checkpoint differ")
+        del loaded
+        # one byte inside the first chunk (the first leaf's bytes follow the
+        # manifest)
+        head = len(ckpt_io.msgpack_lite.packb(ckpt_io.read_checkpoint_manifest(path)))
+        with open(path, "r+b") as f:
+            f.seek(head + 4096)
+            b = f.read(1)
+            f.seek(head + 4096)
+            f.write(bytes([b[0] ^ 0x5A]))
+        try:
+            ckpt_io.load_checkpoint(path, init_dit(cfg2, generator=None), device="cuda")
+        except ckpt_io.CheckpointCorruptionError as e:
+            log(f"  9a flipped byte: CheckpointCorruptionError ({e})")
+        else:
+            raise AssertionError("9a: a flipped byte was read without an error")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_telemetry(server, reqs, phase5):
+    """9b: telemetry on, samples bit-identical to phase 5's; the ages and
+    codec errors held to the plan."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import DiceServer
+    from repro_torch.obs import ObsConfig, telemetry
+    samples5, s_per_step5 = phase5
+    obs_server = DiceServer(server.cfg, server.dcfg, params=server.params,
+                            device="cuda", obs=ObsConfig(enabled=True))
+    samples, stats = _generate_checked(obs_server, reqs, XL_STEPS,
+                                       "9b dice+int8 XL, telemetry on")
+    same = torch.equal(samples.cpu(), samples5)
+    log(f"  9b samples vs phase 5 (telemetry off): "
+        f"{'bit-identical' if same else 'DIFFERENT'}; s/step {stats['wall_s_per_step']:.4f} "
+        f"with telemetry vs {s_per_step5:.4f} in phase 5 "
+        f"({100 * (stats['wall_s_per_step'] / s_per_step5 - 1):+.2f}%)")
+    if not same:
+        raise AssertionError("9b: telemetry changed the samples")
+    tel = np.stack(stats["telemetry"])                  # (steps, L, 6)
+    splan = obs_server.plan(XL_STEPS)
+    age = np.array([[a.staleness for a in p.actions] for p in splan.steps])
+    coded = np.array([[a.codec is not None for a in p.actions] for p in splan.steps])
+    means = tel.mean(axis=0)
+    log("  9b per-layer means over the steps (" + ", ".join(telemetry.TELEMETRY_FIELDS) + "):")
+    for i, row in enumerate(means):
+        log(f"    layer {i:2d}: " + " ".join(f"{v:.6g}" for v in row))
+    ok_age = np.array_equal(tel[..., telemetry.AGE], age)
+    ok_err = bool((tel[..., telemetry.CODEC_ERR][~coded] == 0).all()
+                  and (tel[..., telemetry.CODEC_ERR][coded] > 0).all())
+    log(f"  9b age = the plan's staleness on every step and layer (0 on sync "
+        f"layers and warm-up steps, {int(age.max())} on stale layers): {ok_age}; "
+        f"codec error 0 on every lossless step and > 0 on every coded one: {ok_err}")
+    if not (ok_age and ok_err):
+        raise AssertionError("9b: telemetry disagrees with the plan")
+
+
+def phase_topk(server, reqs):
+    """9c: dice + topk_residual at XL width."""
+    from repro_torch.compress.codecs import CodecSpec, CompressConfig
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch.serve import DiceServer
+    cfg = server.cfg
+    dcfg = DiceConfig.dice(compress=CompressConfig("topk_residual", topk_frac=0.125))
+    topk = DiceServer(cfg, dcfg, params=server.params, device="cuda")
+    samples, stats = _generate_checked(topk, reqs, 4, "9c dice+topk_residual XL")
+    spec = CodecSpec("topk_residual", topk_frac=0.125)
+    tokens = len(reqs) * cfg.patch_tokens
+    want = [sum(a.dispatch_bytes(tokens, cfg) for a in p.actions)
+            for p in topk.plan(4).steps]
+    got = stats["dispatch_bytes_per_step"]
+    log(f"  9c kept {spec.keep_count(cfg.d_model)} of {cfg.d_model} entries a row, "
+        f"{spec.wire_bytes_per_row(cfg.d_model)} B a row on the wire; dispatch "
+        f"bytes per step {got}, planned {want}")
+    if spec.wire_bytes_per_row(cfg.d_model) != 144 * 8 or [float(w) for w in want] != got:
+        raise AssertionError("9c: dispatch bytes differ from the plan")
+
+
+def phase_resilience(server, reqs, phase5):
+    """9d: guards, seeded corruption, quarantine, codec demotion."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import DiceServer, Request, serve_continuous
+    from repro_torch.obs import ObsConfig
+    from repro_torch.resilience.faults import parse_resilience
+    cfg = server.cfg
+
+    def resilient(spec, **kw):
+        return DiceServer(cfg, server.dcfg, params=server.params, device="cuda",
+                          resilience=parse_resilience(spec), **kw)
+
+    samples, _ = _generate_checked(resilient("guards=1"), reqs, XL_STEPS,
+                                   "9d guards on, faults off")
+    same = torch.equal(samples.cpu(), phase5[0])
+    log(f"  9d guards on, faults off vs phase 5: "
+        f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("9d: guards changed clean samples")
+    samples, stats = _generate_checked(
+        resilient("seed=7,corrupt=0.01,corrupt_dispatch=0.01"), reqs, 4,
+        "9d corrupt=0.01, corrupt_dispatch=0.01, guards on")
+    log(f"  9d fault events {stats['fault_events']}")
+    if stats["fault_events"]["corrupt_combine"] <= 0 or \
+            stats["fault_events"]["guarded_dispatch"] <= 0:
+        raise AssertionError("9d: the corruption hit nothing")
+
+    # phase 7b's mix under dice, rid 0 (slot 0) poisoned at tick 2 and
+    # replayed in slot 0 from tick 4.  Slot 0's tokens lead every expert's
+    # queue, so no capacity drop reaches them, and without a codec a slot's
+    # sample does not depend on which of its ticks were slotted: the replay
+    # must equal rid 0 in a clean fixed batch bit for bit.  (With the int8
+    # codec a light step that meets another slot's warm-up runs the
+    # lossless merge plan, so a replay on another schedule differs.)
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch.serve import request_noise
+    reqs7 = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+             for i in range(CONT_REQUESTS)]
+    arrivals = [float(CONT_EVERY * (i // 4)) for i in range(CONT_REQUESTS)]
+    dice = DiceServer(cfg, DiceConfig.dice(), params=server.params, device="cuda",
+                      resilience=parse_resilience("seed=1,poison_tick=2"))
+    ops.reset_launches()
+    out, st = serve_continuous(dice, reqs7, max_batch=CONT_SLOTS,
+                               num_steps=XL_STEPS, seed=0, arrival_steps=arrivals)
+    counts = dict(ops.LAUNCHES)
+    want = planned_launches(st["tick_plans"], passes=2)
+    clean = DiceServer(cfg, DiceConfig.dice(), params=server.params, device="cuda")
+    noise = torch.stack([request_noise(0, r.rid, cfg, "cuda") for r in reqs7[:8]])
+    ref, _ = clean.generate(reqs7[:8], num_steps=XL_STEPS, noise=noise)
+    diff = float((out[0] - ref[0].cpu()).abs().max())
+    log(f"  9d poison_tick=2 on phase 7b's mix (dice): quarantined {st['quarantined']}, "
+        f"requeued {st['requeued']}, shed {st['shed']}, served {len(out)}, ticks "
+        f"{st['ticks']}, {st['wall_s_per_tick']:.4f} s/tick; replayed rid 0 vs rid 0 in a "
+        f"clean fixed batch: max abs diff {diff:.3e} "
+        f"({'bit-identical' if diff == 0 else 'DIFFERENT'}); launches {counts}, "
+        f"planned {want}")
+    if (st["quarantined"], st["requeued"]) != (1, 1) or sorted(out) != list(
+            range(CONT_REQUESTS)) or diff != 0 or counts != want:
+        raise AssertionError("9d: quarantine and replay went wrong")
+
+    # codec-error limit below any light step's error: demoted at a plan
+    # boundary, the rebuilt plans' launches
+    ops.reset_launches()
+    out, st = serve_continuous(
+        resilient("codec_err_limit=1e-12,demote_after=1",
+                  obs=ObsConfig(enabled=True)),
+        reqs, max_batch=CONT_SLOTS, num_steps=6, seed=0)
+    counts = dict(ops.LAUNCHES)
+    plans = st["tick_plans"]
+    want = planned_launches(plans, passes=2)
+    first = next(i for i, p in enumerate(plans) if any(a.codec for a in p.actions))
+    expect = first + 1 + (-(first + 1)) % st["steady_period"]
+    ticks = [t for t, _ in st["demotion_ticks"]]
+    after = all(a.codec is None for p in plans[expect:] for a in p.actions)
+    log(f"  9d codec_err_limit=1e-12: demotions {st['demotion_ticks']} (first coded "
+        f"tick {first}, expected at {expect}); coded plans after it: {not after}; "
+        f"launches {counts}, planned {want}")
+    if st["demotions"] != ["codec"] or ticks != [expect] or not after or \
+            counts != want or sorted(out) != [r.rid for r in reqs]:
+        raise AssertionError("9d: the codec demotion went wrong")
+
+
+def phase_main5(phase5):
+    import torch
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch.serve import Request
+    server = _xl_server(DiceConfig.dice(compress=CompressConfig("int8_residual")))
+    reqs = [Request(class_id=(37 * i) % server.cfg.num_classes, rid=i)
+            for i in range(XL_REQUESTS)]
+    phase_checkpoint(server.cfg, server.params, reqs)
+    phase_telemetry(server, reqs, phase5)
+    phase_topk(server, reqs)
+    phase_resilience(server, reqs, phase5)
+    del server
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1172,7 +1472,7 @@ def main() -> int:
         phase_tiny()
         phase_smoke_lm()
     with phase("5 main path 1 (DiT-MoE-XL, dice + int8_residual; other schedules)"):
-        phase_xl(rows)
+        phase5 = phase_xl(rows)
     with phase("6 main path 2 (rwkv6-3b prefill + decode, bf16)"):
         phase_lm(rows)
     with phase("7 main path 3 (continuous serving, DiT-MoE-XL)"):
@@ -1181,6 +1481,9 @@ def main() -> int:
     with phase("8 main path 4 (expert parallelism on the one card: ep=1 nccl, "
                "ep=2 gloo)"):
         phase_ep(rows)
+    with phase("9 main path 5 (checkpoint, telemetry, top-k codec, resilience; "
+               "DiT-MoE-XL width)"):
+        phase_main5(phase5)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "fp32_bound_ms",

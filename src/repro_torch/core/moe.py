@@ -22,7 +22,9 @@ pairs are not dispatched (they take no buffer capacity) and their
 contribution comes from the cached expert output of an earlier step.
 ``codec`` / ``dispatch_base`` carry the wire codec: the dispatch payload is
 a quantized residual against ``dispatch_base`` and the combine payload one
-against ``h_cache``.  All scatters and gathers avoid host synchronisation:
+against ``h_cache``.  ``obs`` adds the layer's staleness telemetry vector
+and ``resilience`` the seeded wire corruption and the NaN/Inf guards, with
+their event counts.  All scatters and gathers avoid host synchronisation:
 dropped pairs go to one extra dump row that is cut off.
 """
 from __future__ import annotations
@@ -36,6 +38,8 @@ from repro_torch.compress import codecs as codec_lib
 from repro_torch.core import overlap as overlap_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act_fn
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.resilience import faults as fault_lib
 
 
 def default_capacity(num_tokens: int, cfg, *, k: Optional[int] = None,
@@ -228,6 +232,20 @@ class MoEAux(NamedTuple):
     hops: int = 0                    # ring hops this layer ran (2 (n-1))
     hop_bytes: int = 0               # per-rank wire bytes of one ring hop
     lb_terms: Optional[torch.Tensor] = None   # (calls, 2, E) local means
+    telemetry: Optional[torch.Tensor] = None  # (NUM_FIELDS,) f32 staleness
+    #                                telemetry; None unless obs is enabled
+    fault_events: Optional[torch.Tensor] = None  # (NUM_FAULT_EVENTS,) f32:
+    #                                combine rows corrupted / guarded,
+    #                                dispatch rows corrupted / guarded; None
+    #                                without a ResilienceConfig
+
+
+class FaultMasks(NamedTuple):
+    """Corruption masks given to :func:`moe_forward` instead of drawn:
+    ``dispatch`` (T,) token rows, ``combine`` (T, K) pairs (either may be
+    None).  The tests pass the reference's ``corruption_mask`` draws."""
+    dispatch: Optional[torch.Tensor] = None
+    combine: Optional[torch.Tensor] = None
 
 
 def moe_forward(p, x: torch.Tensor, cfg, *,
@@ -237,7 +255,11 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
                 want_pair_vals: bool = False,
                 codec: Optional[codec_lib.CodecSpec] = None,
                 dispatch_base: Optional[torch.Tensor] = None,
-                mesh=None, overlap: bool = False):
+                mesh=None, overlap: bool = False,
+                obs: Optional[obs_telemetry.ObsConfig] = None,
+                resilience: Optional[fault_lib.ResilienceConfig] = None,
+                fault_salt: int = 0, fault_key: Optional[int] = None,
+                fault_masks: Optional[FaultMasks] = None):
     """MoE layer forward.  x: (T, d) flat tokens (the rank's shard under
     ``mesh``).
 
@@ -262,7 +284,25 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     feeds the weighted sum and the next cache entry (``aux.pair_vals``).
     ``aux.dispatch_bytes`` reports the compressed payload,
     ``aux.raw_dispatch_bytes`` the lossless one.
+
+    An enabled ``obs`` fills ``aux.telemetry``
+    (:func:`~repro_torch.obs.telemetry.layer_telemetry`).  ``resilience``
+    corrupts the wire payloads with NaN at its fault rates and guards them:
+    a non-finite dispatch row falls back to the codec base (zeros on a
+    lossless wire), a non-finite combine pair to its ``h_cache`` entry (zero
+    without a cache) and leaves ``pair_keep``; ``aux.fault_events`` counts
+    both.  The masks are drawn from ``(faults.seed, site, fault_salt,
+    fault_key)`` (:func:`~repro_torch.resilience.faults.corruption_mask`)
+    unless ``fault_masks`` gives them.  With guards on and clean payloads
+    every select passes everything through: the output is bit-identical to
+    the guard-less path.
     """
+    faults = resilience.faults if resilience is not None else None
+    guard = resilience.guards if resilience is not None else False
+    fe = None
+    if resilience is not None:
+        fe = torch.zeros((fault_lib.NUM_FAULT_EVENTS,), dtype=torch.float32,
+                         device=x.device)
     T, d = x.shape
     E = cfg.num_experts
     probs, scores, idx = route(p, x, cfg)
@@ -274,6 +314,21 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
         base = dispatch_base if dispatch_base is not None \
             else torch.zeros_like(x)
         x_wire = codec_lib.apply(codec, x, base)
+    # resilience, dispatch direction: corrupt token rows of the wire
+    # payload, then guard them; a bad row falls back to the codec base (the
+    # previous step's decoded payload, which both endpoints hold) or, on a
+    # lossless wire, to zeros (the gated FFN maps a zero row to zero)
+    cm = _fault_mask(fault_masks, "dispatch", faults, "corrupt_dispatch_rate",
+                     fault_lib.FE_CORRUPT_DISPATCH, fault_key, fault_salt,
+                     (T,), x.device)
+    if cm is not None:
+        x_wire = fault_lib.corrupt_rows(x_wire, cm)
+        fe[fault_lib.FE_CORRUPT_DISPATCH] += cm.sum()
+    if guard:
+        row_ok = torch.isfinite(x_wire).all(-1)
+        fe[fault_lib.FE_GUARDED_DISPATCH] += (~row_ok).sum()
+        fb = base if codec is not None else torch.zeros_like(x_wire)
+        x_wire = torch.where(row_ok[:, None], x_wire, fb)
     buf = dispatch(x_wire, plan, E, capacity)
     n = 1 if mesh is None else mesh.size
     ring = bool(overlap and n > 1)
@@ -284,15 +339,43 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
                                wire_dtype=x.dtype)
     y, pair_vals, pair_keep = combine(buf_out, plan, scores, T,
                                       h_cache=h_cache, fresh_mask=fresh_mask)
+    # fresh-kept pairs still hold the raw wire value here: the telemetry
+    # measures the combine residual on them, before the codec and before
+    # any corruption
+    pair_vals_fresh = pair_vals
+    y_dirty = False
+    sent = pair_keep if fresh_mask is None else (pair_keep & fresh_mask)
+    cm = _fault_mask(fault_masks, "combine", faults, "corrupt_combine_rate",
+                     fault_lib.FE_CORRUPT_COMBINE, fault_key, fault_salt,
+                     tuple(pair_keep.shape), x.device)
+    if cm is not None:
+        # corrupt the expert outputs of transmitted pairs, as a wire fault
+        cm = cm & sent
+        pair_vals = fault_lib.corrupt_rows(pair_vals, cm)
+        fe[fault_lib.FE_CORRUPT_COMBINE] += cm.sum()
+        y_dirty = True
+    recon = None
     if codec is not None and h_cache is not None:
         # freshly transmitted pairs arrive as residuals against the shared
         # (token, rank) cache; masked pairs already read h_cache and
         # dropped pairs stay zero
-        wire_ok = pair_keep if fresh_mask is None else (pair_keep & fresh_mask)
         recon = codec_lib.apply(codec, pair_vals.to(torch.float32),
-                                h_cache.to(torch.float32))
-        pair_vals = torch.where(wire_ok[..., None],
+                                h_cache.to(torch.float32), guard=guard)
+        pair_vals = torch.where(sent[..., None],
                                 recon.to(pair_vals.dtype), pair_vals)
+        y_dirty = True
+    if guard:
+        # a non-finite pair falls back to its h_cache entry, the value a
+        # masked pair would read (zero without a cache, like a capacity
+        # drop), and leaves pair_keep so it never enters the cache
+        pair_ok = torch.isfinite(pair_vals).all(-1)
+        fe[fault_lib.FE_GUARDED_COMBINE] += (~pair_ok).sum()
+        fb = h_cache.to(pair_vals.dtype) if h_cache is not None \
+            else torch.zeros_like(pair_vals)
+        pair_vals = torch.where(pair_ok[..., None], pair_vals, fb)
+        pair_keep = pair_keep & pair_ok
+        y_dirty = True
+    if y_dirty:
         y = weighted_sum(scores, pair_vals)
     if cfg.num_shared_experts:
         y = y + shared_expert(p, x, act=cfg.act).to(y.dtype)
@@ -309,6 +392,13 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     per_row = (codec.wire_bytes_per_row(d, itemsize)
                if codec is not None else d * itemsize)
     keep_pairs = want_pair_vals or fresh_mask is not None
+    telemetry = None
+    if obs is not None and obs.enabled:
+        telemetry = obs_telemetry.layer_telemetry(
+            x=x, x_wire=x_wire, dispatch_base=dispatch_base, codec=codec,
+            pair_vals=pair_vals_fresh, recon=recon, pair_keep=pair_keep,
+            fresh_mask=fresh_mask, h_cache=h_cache,
+            dropped_frac=dropped_frac)
     aux = MoEAux(
         lb_loss=None if mesh is not None else load_balance_loss(probs, idx, E),
         dropped_frac=dropped_frac,
@@ -323,8 +413,23 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
         hops=2 * (n - 1) if ring else 0,
         hop_bytes=(E // n) * capacity * per_row if ring else 0,
         lb_terms=lb_terms(probs, idx, E) if mesh is not None else None,
+        telemetry=telemetry,
+        fault_events=fe,
     )
     return y.to(x.dtype), aux
+
+
+def _fault_mask(given: Optional[FaultMasks], which: str, faults, rate_field,
+                site: int, key, salt: int, shape, device):
+    """The corruption mask of one site: the caller's, else drawn at the
+    fault config's rate; None when that site injects nothing."""
+    if faults is None or getattr(faults, rate_field) <= 0:
+        return None
+    if given is not None and getattr(given, which) is not None:
+        return getattr(given, which).to(device=device, dtype=torch.bool)
+    return fault_lib.corruption_mask(key, faults.seed, salt, site,
+                                     getattr(faults, rate_field), shape,
+                                     device)
 
 
 def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,

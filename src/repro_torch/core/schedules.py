@@ -6,9 +6,11 @@ port of ``repro.core.schedules``.
   INTERWEAVED  staleness 1   dispatch in-step, combine deferred
   DICE         staleness 1   + selective sync + conditional communication
 
-``placements``, ``paging`` and ``resilience`` are kept so a config carries
-the same fields as the reference; the port runs none of them yet and
-raises if one is set.
+``resilience`` carries the degradation ladder
+(:class:`~repro_torch.resilience.faults.ResilienceConfig`), normalized on
+construction so an inert one is ``None``.  ``placements`` and ``paging``
+are kept so a config carries the same fields as the reference; the port
+runs neither yet (ROADMAP A.9) and raises if one is set.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from dataclasses import dataclass
 from typing import Any, Optional, Union
 
 from repro_torch.compress.codecs import CompressConfig
+from repro_torch.resilience.faults import (ResilienceConfig,
+                                           normalize_resilience)
 
 
 class Schedule(enum.Enum):
@@ -44,22 +48,30 @@ class DiceConfig:
     # -- execution level: "blocking" | "ring" (the ring runs over an ep mesh
     # of more than one rank; normalized to "blocking" elsewhere)
     overlap: str = "blocking"
-    # -- not ported yet: expert placement, paging, resilience ----------------
+    # -- not ported yet: expert placement and paging (ROADMAP A.9) ----------
     placements: Optional[Any] = None
     paging: Optional[Any] = None
-    resilience: Optional[Any] = None
+    # -- resilience level: fault injection + the degradation ladder; the
+    # planner ignores it, so plans and variants are untouched
+    resilience: Optional[ResilienceConfig] = None
 
     def __post_init__(self):
         if self.overlap not in ("blocking", "ring"):
             raise ValueError(f"overlap must be 'blocking' or 'ring', got "
                              f"{self.overlap!r}")
-        for name, item in (("placements", "A.9"), ("paging", "A.9"),
-                           ("resilience", "A.10")):
+        for name in ("placements", "paging"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
-                    f"DiceConfig.{name} is not ported yet (ROADMAP {item}): "
-                    f"the PyTorch port runs without expert placement, "
-                    f"paging and resilience")
+                    f"DiceConfig.{name} is not ported yet (ROADMAP A.9): "
+                    f"the PyTorch port runs without expert placement and "
+                    f"paging")
+        if self.resilience is not None and \
+                not isinstance(self.resilience, ResilienceConfig):
+            raise TypeError(f"DiceConfig.resilience must be a "
+                            f"ResilienceConfig, got "
+                            f"{type(self.resilience).__name__}")
+        object.__setattr__(self, "resilience",
+                           normalize_resilience(self.resilience))
 
     @staticmethod
     def sync_ep(*, overlap="blocking") -> "DiceConfig":

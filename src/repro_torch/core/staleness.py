@@ -29,6 +29,7 @@ import torch
 from repro_torch.core import conditional
 from repro_torch.core.moe import MoEAux, moe_forward
 from repro_torch.core.plan import LayerAction, plan_for_step
+from repro_torch.obs import telemetry as obs_telemetry
 
 
 @dataclass
@@ -119,7 +120,8 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                        generator: Optional[torch.Generator] = None,
                        slot_fresh: Optional[torch.Tensor] = None,
                        consume_mask: Optional[torch.Tensor] = None,
-                       mesh=None):
+                       mesh=None, obs=None, resilience=None,
+                       layer_idx: int = 0, fault_key: Optional[int] = None):
     """Execute one MoE layer under a planned :class:`LayerAction`.
 
     x: (T, d) flat tokens (the rank's shard over an ep ``mesh``, whose
@@ -133,7 +135,10 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
     the staleness buffer, and ``consume_mask`` replaces the policy mask of
     a non-sync cached action (all-fresh rows for warmup slots, the local
     step's policy mask for established ones).  ``None`` for both is the
-    uniform-batch path.  Returns (y, new_state, aux)."""
+    uniform-batch path.  ``obs`` / ``resilience`` go down to
+    :func:`moe_forward` with the layer index as the fault salt (and
+    ``fault_key``); the action's staleness age is
+    stamped into ``aux.telemetry``.  Returns (y, new_state, aux)."""
     mask = None
     if action.mask_policy is not None:
         mask = conditional.policy_mask(action.mask_policy, x.shape[0],
@@ -151,7 +156,12 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
         return moe_forward(p, inp, cfg, capacity=capacity, fresh_mask=m,
                            h_cache=cache, want_pair_vals=want_cache,
                            codec=action.codec, dispatch_base=state.c_base,
-                           mesh=mesh, overlap=action.overlap)
+                           mesh=mesh, overlap=action.overlap, obs=obs,
+                           resilience=resilience, fault_salt=layer_idx,
+                           fault_key=fault_key)
+
+    def stamped(aux):
+        return obs_telemetry.stamp_age(aux, action, obs)
 
     def next_base(payload, aux):
         """Residual base for the next transmission: the decoded
@@ -179,7 +189,7 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                 _cache_update_mask(None, aux.pair_keep))
             if want_cache else None,
             c_base=next_base(x, aux))
-        return y, new, aux
+        return y, new, stamped(aux)
 
     if action.mode == "displaced":
         # experts process the tokens buffered at s-1; the output consumed
@@ -190,7 +200,7 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
         y_new, aux = run(inp)
         new = MoELayerState(y_buf=y_new, x_prev=x, h_cache=None,
                             c_base=next_base(inp, aux))
-        return select_out(y_new, state.y_buf), new, aux
+        return select_out(y_new, state.y_buf), new, stamped(aux)
 
     if action.mode == "staggered":
         # two half-batch MoE calls; both the dispatched tokens and the
@@ -213,8 +223,12 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                      # two independent half-batch exchanges
                      hops=aux0.hops + aux1.hops, hop_bytes=aux0.hop_bytes,
                      lb_terms=None if aux0.lb_terms is None
-                     else torch.cat([aux0.lb_terms, aux1.lb_terms]))
-        return select_out(y_new, state.y_buf), new, aux
+                     else torch.cat([aux0.lb_terms, aux1.lb_terms]),
+                     telemetry=obs_telemetry.merge_staggered(
+                         aux0.telemetry, aux1.telemetry),
+                     fault_events=None if aux0.fault_events is None
+                     else aux0.fault_events + aux1.fault_events)
+        return select_out(y_new, state.y_buf), new, stamped(aux)
 
     # "interweaved": dispatch of x(s) completes in step s, the combine is
     # deferred, so the output consumed now is the buffered result of x(s-1)
@@ -226,7 +240,7 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
             _cache_update_mask(mask, aux.pair_keep))
         if want_cache else None,
         c_base=next_base(x, aux))
-    return select_out(y_new, state.y_buf), new, aux
+    return select_out(y_new, state.y_buf), new, stamped(aux)
 
 
 def moe_step(p, x: torch.Tensor, cfg, dcfg, state: MoELayerState, *,

@@ -1,5 +1,5 @@
 // Shared helpers for the port's Hopper kernels: element loads/stores that
-// convert through f32, a warp max, and cp.async copies into shared memory.
+// convert through f32, and cp.async copies into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,12 +18,6 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // 16-byte global -> shared copy that bypasses L1; bytes past src_bytes

@@ -10,7 +10,7 @@
 // (residual_int8_pallas), which holds a (bn, d) row tile in VMEM.  Here one
 // warp owns one row and holds it in registers: each lane loads its share of
 // value and base once, in 16-byte vectors (4 f32 or 8 bf16), takes the
-// abs-max with warp shuffles, and writes q packed four (f32) or eight
+// abs-max with one warp reduction, and writes q packed four (f32) or eight
 // (bf16) to a store, recon in 16-byte vectors and the scale once.  Loads
 // and stores carry streaming hints (ld.global.cs / st.global.cs): nothing is
 // read twice.  Rounding is rintf (half to even, like jnp.round); the
@@ -70,19 +70,65 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float quantize(float r, float s) {
-  return fminf(fmaxf(rintf(r / s), -127.0f), 127.0f);
+// |x| as its IEEE bits.  For non-negative floats the unsigned order is the
+// float order, and every NaN (exponent all ones, mantissa non-zero) lies
+// above +Inf, so an integer max finds a row's abs-max and propagates NaN
+// as jnp.max does, where fmaxf would drop a NaN operand: one integer max
+// an element, as fmaxf was, and one __reduce_max_sync a warp.
+__device__ __forceinline__ uint32_t abs_bits(float x) { return __float_as_uint(fabsf(x)); }
+constexpr uint32_t kInfBits = 0x7f800000u;   // rows with a smaller max are finite
+
+__device__ __forceinline__ float row_scale(uint32_t amax_bits, float eps) {
+  // amax * f32(1/127): XLA compiles the reference's division by the
+  // constant 127 into this product, so the scales agree to the bit; a NaN
+  // scale stays NaN, as jnp.maximum keeps it
+  const float s = __fmul_rn(__uint_as_float(amax_bits), 1.0f / 127.0f);
+  return s != s ? s : fmaxf(s, eps);
 }
 
-__device__ __forceinline__ float row_scale(float amax, float eps) {
-  // amax * f32(1/127): XLA compiles the reference's division by the
-  // constant 127 into this product, so the scales agree to the bit
-  return fmaxf(__fmul_rn(amax, 1.0f / 127.0f), eps);
+// In a row with a NaN or Inf the quotient can be NaN; it quantizes to 0, as
+// the int8 cast does in JAX and in torch (fmaxf alone would clip it to
+// -127).  Finite rows, the fast path, skip the test: a whole warp takes one
+// of the two instantiations.
+template <bool FINITE>
+__device__ __forceinline__ float quantize(float r, float s) {
+  const float t = rintf(r / s);
+  if (!FINITE && t != t) return 0.0f;
+  return fminf(fmaxf(t, -127.0f), 127.0f);
 }
 
 __device__ __forceinline__ uint32_t pack_q4(const float* q) {
   return (uint32_t)(uint8_t)(int8_t)q[0] | (uint32_t)(uint8_t)(int8_t)q[1] << 8 |
          (uint32_t)(uint8_t)(int8_t)q[2] << 16 | (uint32_t)(uint8_t)(int8_t)q[3] << 24;
+}
+
+// q and recon of one row from the lane's registers.
+template <typename T, int VPL, bool FINITE>
+__device__ __forceinline__ void store_row(const uint4 (&vr)[VPL], const uint4 (&br)[VPL], int lane,
+                                          int nvec, float s, int8_t* __restrict__ q,
+                                          T* __restrict__ recon) {
+  constexpr int W = Vec<T>::W;
+  uint4* rp = reinterpret_cast<uint4*>(recon);
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nvec) {
+      float v[W], b[W], qi[W], out[W];
+      Vec<T>::unpack(vr[i], v);
+      Vec<T>::unpack(br[i], b);
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        qi[e] = quantize<FINITE>(v[e] - b[e], s);
+        out[e] = __fadd_rn(b[e], __fmul_rn(qi[e], s));
+      }
+      if constexpr (W == 4) {
+        __stcs(reinterpret_cast<unsigned int*>(q) + c, pack_q4(qi));
+      } else {
+        __stcs(reinterpret_cast<uint2*>(q) + c, make_uint2(pack_q4(qi), pack_q4(qi + 4)));
+      }
+      __stcs(rp + c, Vec<T>::pack(out));
+    }
+  }
 }
 
 // The register path: VPL vectors of value and base per lane.
@@ -109,7 +155,7 @@ residual_int8_kernel(const T* __restrict__ value, const T* __restrict__ base,
       br[i] = __ldcs(bp + c);
     }
   }
-  float amax = 0.0f;
+  uint32_t amax = 0;
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     if (lane + 32 * i < nvec) {
@@ -117,32 +163,15 @@ residual_int8_kernel(const T* __restrict__ value, const T* __restrict__ base,
       Vec<T>::unpack(vr[i], v);
       Vec<T>::unpack(br[i], b);
 #pragma unroll
-      for (int e = 0; e < W; ++e) amax = fmaxf(amax, fabsf(v[e] - b[e]));
+      for (int e = 0; e < W; ++e) amax = max(amax, abs_bits(v[e] - b[e]));
     }
   }
-  const float s = row_scale(warp_max(amax), eps);
-
-  uint4* rp = reinterpret_cast<uint4*>(recon + off);
-#pragma unroll
-  for (int i = 0; i < VPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < nvec) {
-      float v[W], b[W], qi[W], out[W];
-      Vec<T>::unpack(vr[i], v);
-      Vec<T>::unpack(br[i], b);
-#pragma unroll
-      for (int e = 0; e < W; ++e) {
-        qi[e] = quantize(v[e] - b[e], s);
-        out[e] = __fadd_rn(b[e], __fmul_rn(qi[e], s));
-      }
-      if constexpr (W == 4) {
-        __stcs(reinterpret_cast<unsigned int*>(q + off) + c, pack_q4(qi));
-      } else {
-        __stcs(reinterpret_cast<uint2*>(q + off) + c, make_uint2(pack_q4(qi), pack_q4(qi + 4)));
-      }
-      __stcs(rp + c, Vec<T>::pack(out));
-    }
-  }
+  amax = __reduce_max_sync(0xffffffffu, amax);
+  const float s = row_scale(amax, eps);
+  if (amax < kInfBits)
+    store_row<T, VPL, true>(vr, br, lane, nvec, s, q + off, recon + off);
+  else
+    store_row<T, VPL, false>(vr, br, lane, nvec, s, q + off, recon + off);
   if (lane == 0) scale[row] = s;
 }
 
@@ -159,13 +188,16 @@ residual_int8_loop_kernel(const T* __restrict__ value, const T* __restrict__ bas
   const T* v = value + off;
   const T* b = base + off;
 
-  float amax = 0.0f;
-  for (int i = lane; i < d; i += 32) amax = fmaxf(amax, fabsf(load_f32(v + i) - load_f32(b + i)));
-  const float s = row_scale(warp_max(amax), eps);
+  uint32_t amax = 0;
+  for (int i = lane; i < d; i += 32)
+    amax = max(amax, abs_bits(load_f32(v + i) - load_f32(b + i)));
+  amax = __reduce_max_sync(0xffffffffu, amax);
+  const float s = row_scale(amax, eps);
 
   for (int i = lane; i < d; i += 32) {
     const float bi = load_f32(b + i);
-    const float qi = quantize(load_f32(v + i) - bi, s);
+    const float r = load_f32(v + i) - bi;
+    const float qi = amax < kInfBits ? quantize<true>(r, s) : quantize<false>(r, s);
     q[off + i] = (int8_t)qi;
     store_f32(recon + off + i, __fadd_rn(bi, __fmul_rn(qi, s)));
   }

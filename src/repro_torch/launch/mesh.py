@@ -88,6 +88,12 @@ class EPMesh:
         dist.all_reduce(out, group=self.group)
         return out / self.size
 
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``t`` over the ranks (``lax.pmax``)."""
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
     def exchange(self, send: torch.Tensor, dst: int, recv: torch.Tensor,
                  src: int, tag: int) -> Callable[[], None]:
         """Start one ring hop: send ``send`` to rank ``dst`` and receive

@@ -10,7 +10,10 @@ share of the wall time (one stream, so kernel time over wall time)::
 
 Defaults to DiT-MoE-XL at 8 requests from random weights (the weights do
 not change any shape, so they do not change the time).  A warm-up call
-runs first and is not traced.  Needs a CUDA device.
+runs first and is not traced.  ``--obs`` serves with the staleness
+telemetry on, which names each MoE layer's action as a profiler range
+(``moe_lNN_<mode>``); the ranges are listed after the kernels.  Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.compress.codecs import CODEC_KINDS, CompressConfig
 from repro_torch.configs.dit_moe_xl import config as xl_config, tiny
 from repro_torch.launch.serve import SCHEDULES, DiceServer, Request
 from repro_torch.launch.timing import device_us
+from repro_torch.obs import ObsConfig
 
 # substrings of the port's kernel symbols (csrc/*.cu) -> wrapper name
 OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
@@ -47,7 +51,8 @@ def kernel_groups(prof):
     """CUDA kernels of a finished ``torch.profiler`` run: (kernel events,
     total device us, {group: [device us, launches]})."""
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("moe_l")]   # --obs's ranges
     groups = {}
     for e in kernels:
         g = groups.setdefault(kernel_group(e.key), [0.0, 0])
@@ -76,13 +81,16 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--obs", action="store_true",
+                    help="telemetry on: per-layer profiler ranges")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tiny() if args.tiny else xl_config()
     server = DiceServer(cfg, SCHEDULES[args.schedule](), device="cuda",
-                        compress=CompressConfig(args.codec))
+                        compress=CompressConfig(args.codec),
+                        obs=ObsConfig(enabled=args.obs))
     reqs = [Request(class_id=i % cfg.num_classes, rid=i)
             for i in range(args.requests)]
     server.generate(reqs, num_steps=1)                 # warm-up, not traced
@@ -99,6 +107,11 @@ def main(argv=None):
           f"kernel time {total / 1e3:.3f} ms; device busy "
           f"{100.0 * total / wall_us:.1f}%")
     print_groups(kernels, total, groups, args.steps, "step", args.top)
+    if args.obs:
+        print("MoE layer ranges (host time):")
+        for e in sorted(prof.key_averages(), key=lambda e: e.key):
+            if e.key.startswith("moe_l"):
+                print(f"  {e.key:24s} {e.count:4d}x {e.cpu_time_total / 1e3:9.3f} ms")
     print(json.dumps({"wall_ms_per_step": wall_us / 1e3 / args.steps,
                       "busy_share": total / wall_us,
                       "groups_ms_per_step": {g: v[0] / 1e3 / args.steps

@@ -18,14 +18,21 @@ roofline terms, not a measurement, and named ``..._paper8``.
       --max-batch 8 --requests 24 --steps 10 --no-tiny
   PYTHONPATH=src python -m repro_torch.launch.serve --ep 2 --backend gloo \\
       --overlap ring --requests 8 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --obs \\
+      --continuous --max-batch 2 --requests 3 --faults seed=7,poison_tick=2
 
 With a mesh (``DiceServer(mesh=...)``, or ``--ep N`` which spawns N ranks)
 every engine runs expert-parallel: one process per ep rank, each holding
 its slice of the batch and of the experts, with the dispatch and combine
 exchanges as all-to-alls or as the ring (``overlap``).  ``nccl`` needs a
 card per rank; ``gloo`` runs on the CPU or with ranks sharing one card.
-Expert paging, online placement, the dp and patch mesh axes (ROADMAP A.9)
-and the resilience ladder (A.10) are not ported.
+
+``obs`` adds the per-layer staleness telemetry and measured step wall
+times to the registry; ``resilience`` (``--faults``) the seeded wire
+faults, the guards and the ladder of :func:`serve_continuous` (watchdog
+demotion, quarantine, bounded admission); ``--ckpt`` serves weights from
+a checkpoint file in the reference's format.  Expert paging, online
+placement and the dp and patch mesh axes (ROADMAP A.9) are not ported.
 """
 from __future__ import annotations
 
@@ -37,10 +44,12 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common import sharding as shard_lib
 from repro_torch.common.device import resolve_device
+from repro_torch.checkpoint.io import load_checkpoint
 from repro_torch.compress.codecs import CODEC_KINDS, CompressConfig
 from repro_torch.configs.dit_moe_xl import config as xl_config, tiny
 from repro_torch.core import conditional
@@ -52,7 +61,10 @@ from repro_torch.core.schedules import DiceConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.dit_moe import init_dit
-from repro_torch.obs import MetricsRegistry, StepTracer
+from repro_torch.obs import MetricsRegistry, ObsConfig, StepTracer
+from repro_torch.obs import telemetry as obs_fields
+from repro_torch.resilience import degrade as degrade_lib
+from repro_torch.resilience import faults as fault_lib
 from repro_torch.resilience.recovery import AdmissionQueue
 from repro_torch.sampling.rectified_flow import (fold_seed, make_rf_step,
                                                  rf_sample)
@@ -280,6 +292,44 @@ def _publish_batch(reg: MetricsRegistry, stats: dict, lab: dict) -> None:
                     stats["wall_s"])
 
 
+def _publish_telemetry_step(reg: MetricsRegistry, tel, lab: dict) -> None:
+    """Append one step's (num_layers, NUM_FIELDS) telemetry block, already
+    on the host, to the per-layer series (the reference's names)."""
+    tel = np.asarray(tel)
+    per_layer = {"dice_staleness_age": obs_fields.AGE,
+                 "dice_mask_rate": obs_fields.MASK_RATE,
+                 "dice_dropped_frac": obs_fields.DROP_FRAC,
+                 "dice_codec_error": obs_fields.CODEC_ERR}
+    for layer in range(tel.shape[0]):
+        ll = {**lab, "layer": f"{layer:02d}"}
+        reg.series("dice_residual_energy",
+                   "relative staleness-residual energy per layer/step",
+                   {**ll, "path": "dispatch"}).append(
+                       float(tel[layer, obs_fields.RES_DISPATCH]))
+        reg.series("dice_residual_energy", "",
+                   {**ll, "path": "combine"}).append(
+                       float(tel[layer, obs_fields.RES_COMBINE]))
+        for name, idx in per_layer.items():
+            reg.series(name, "", ll).append(float(tel[layer, idx]))
+
+
+FAULT_EVENTS = ("corrupt_combine", "guarded_combine", "corrupt_dispatch",
+                "guarded_dispatch")
+
+
+def _publish_fault_events(reg: MetricsRegistry, fe, lab: dict) -> None:
+    for idx, nm in enumerate(FAULT_EVENTS):
+        if fe[idx]:
+            reg.counter("dice_fault_events_total",
+                        "in-graph wire corruption / guard events",
+                        {**lab, "event": nm}).inc(float(fe[idx]))
+
+
+def _count(reg: MetricsRegistry, name: str, labels: dict) -> float:
+    return reg.value(name, labels) if reg.get(name, labels) is not None \
+        else 0.0
+
+
 def _registry_view(reg: MetricsRegistry, lab: dict) -> dict:
     """The ``serve_queue`` summary, computed from the registry."""
     e2e = reg.histogram("dice_request_e2e_seconds", labels=lab)
@@ -343,7 +393,11 @@ class DiceServer:
     mesh's ep size, else 8) and enters the latency model only.
     ``metrics`` is the registry the serving loops fold their registries
     into; ``tracer`` (a :class:`~repro_torch.obs.StepTracer`) records host
-    phases."""
+    phases (made for an enabled ``obs`` when not given).  ``obs`` adds the
+    staleness telemetry and measured step times; ``resilience`` (a
+    :class:`~repro_torch.resilience.faults.ResilienceConfig`) is stamped on
+    the schedule config, normalized (an inert one is dropped, so the
+    samples stay those without it)."""
 
     def __init__(self, cfg, dcfg: DiceConfig, *, params=None, seed: int = 0,
                  device: Optional[str] = None,
@@ -351,13 +405,17 @@ class DiceServer:
                  n_dev: Optional[int] = None,
                  mesh: Optional[mesh_lib.EPMesh] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 tracer: Optional[StepTracer] = None):
+                 tracer: Optional[StepTracer] = None,
+                 obs: Optional[ObsConfig] = None,
+                 resilience: Optional[fault_lib.ResilienceConfig] = None):
         refuse_router_jitter(cfg)
         if mesh is not None:
             _check_mesh(mesh)
         if compress is not None:
             dcfg = dataclasses.replace(
                 dcfg, compress=None if compress.codec == "none" else compress)
+        if resilience is not None:
+            dcfg = dataclasses.replace(dcfg, resilience=resilience)
         if n_dev is None:
             n_dev = mesh.size if mesh is not None else 8
         if n_dev < 1:
@@ -377,7 +435,9 @@ class DiceServer:
         self.n_dev = n_dev
         self.mesh = mesh
         self.metrics = metrics if metrics is not None else MetricsRegistry()
-        self.tracer = tracer
+        self.obs = obs if obs is not None else ObsConfig()
+        self.tracer = tracer if tracer is not None or not self.obs.enabled \
+            else StepTracer()
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_dit(cfg, generator=gen, experts=None if mesh is None
@@ -429,7 +489,8 @@ class DiceServer:
         samples, stats = rf_sample(self.params, self.cfg, self.dcfg,
                                    num_steps=num_steps, classes=classes,
                                    noise=noise, generator=generator,
-                                   guidance=guidance, mesh=self.mesh)
+                                   guidance=guidance, mesh=self.mesh,
+                                   obs=self.obs)
         _sync(self.device)
         wall = time.perf_counter() - t0
         lat = self.latency(len(requests) // self.n_dev)
@@ -448,11 +509,25 @@ class DiceServer:
             "step_keys": stats["step_keys"],
             "kernel_launches": _launches_since(before),
         }
+        if "telemetry" in stats:
+            result["telemetry"] = stats["telemetry"]
+            result["step_wall_s"] = stats["step_wall_s"]
+        if "fault_events" in stats:
+            result["fault_events"] = dict(zip(
+                FAULT_EVENTS, map(float, stats["fault_events"])))
         reg = metrics if metrics is not None else self.metrics
         lab = metric_labels if metric_labels is not None else {
             "schedule": plan_lib.schedule_name(self.dcfg.schedule),
             "engine": "batch"}
         _publish_batch(reg, {**result, **_modeled(lat, num_steps)}, lab)
+        for w in stats.get("step_wall_s", ()):
+            reg.histogram("dice_step_wall_seconds",
+                          "measured wall seconds per diffusion step",
+                          lab).observe(w)
+        for tel in stats.get("telemetry", ()):
+            _publish_telemetry_step(reg, tel, lab)
+        if "fault_events" in stats:
+            _publish_fault_events(reg, stats["fault_events"], lab)
         return samples, result
 
 
@@ -600,6 +675,21 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     every rank returns every sample.  Over a mesh a "random" policy draws
     a steady tick's masks from ``(seed, tick, rank)``, one per token
     shard, and a slotted tick's from ``(seed, tick)`` over all slots.
+
+    With ``server.obs`` enabled each tick's wall time (after a device
+    synchronisation) and telemetry block go to the registry.  With a
+    resilience config on the server's schedule config the loop runs the
+    ladder: the watchdog (:class:`~repro_torch.resilience.degrade.DegradationController`)
+    demotes ring -> blocking or codec -> none at plan-aligned ticks,
+    rebuilding the plans and the step function; ``hop_delay`` sleeps while
+    the ring is live; ``poison_tick`` NaN-poisons a live slot, and the
+    quarantine scans the latents for non-finite lanes (one ``isfinite``
+    reduction on the device), resets such a slot and requeues its request
+    up to ``max_requeues`` times, then sheds it; the admission queue is
+    bounded by ``max_queue_depth`` and ``admission_deadline_steps``.  The
+    tick's telemetry, fault counts and lane flags reach the host in one
+    copy.  Over a mesh one small all-reduce (max) per tick agrees on the
+    wall time and the lane flags, so every rank takes the same decisions.
     """
     mesh = mesh if mesh is not None else server.mesh
     if mesh is not None:
@@ -615,6 +705,12 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     lab = {"schedule": plan_lib.schedule_name(dcfg.schedule),
            "engine": "continuous"}
     tracer = server.tracer
+    obs_on = server.obs.enabled
+    res = fault_lib.resilience_of(dcfg)
+    fplan = (fault_lib.FaultPlan(res.faults)
+             if res is not None and res.faults is not None else None)
+    ctrl = degrade_lib.DegradationController(res) if res is not None else None
+    quarantine = res is not None and res.quarantine
     B, Tp, k_exp = max_batch, cfg.patch_tokens, cfg.experts_per_token
     if B % n_ep:
         raise ValueError(f"max_batch={B} must divide over the {n_ep}-way "
@@ -622,18 +718,27 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     own = shard_lib.local_rows(B, mesh)       # the slots this rank holds
     B_loc = own.stop - own.start
     dt = 1.0 / num_steps
-    with _span(tracer, "plan_build", "plan",
-               {"schedule": lab["schedule"], "num_steps": num_steps}):
-        splan = plan_lib.compile_step_plans(
-            dcfg, cfg.num_layers, num_steps, experts_per_token=k_exp)
-        merge_plan = plan_lib.slotted_merge_plan(
-            dcfg, cfg.num_layers, experts_per_token=k_exp)
-        rf_step = make_rf_step(server.params, cfg, dt=dt, guidance=guidance,
-                               mesh=mesh)
-    period = plan_lib.steady_period(dcfg, cfg.num_layers,
-                                    experts_per_token=k_exp)
-    merge_wants_cache = any(a.want_cache for a in merge_plan.actions)
-    variant_of = {p: v for v, p in enumerate(splan.variants)}
+
+    def build(dcfg):
+        """Plans and step function of one config (a demotion rebuilds)."""
+        with _span(tracer, "plan_build", "plan",
+                   {"schedule": lab["schedule"], "num_steps": num_steps}):
+            splan = plan_lib.compile_step_plans(
+                dcfg, cfg.num_layers, num_steps, experts_per_token=k_exp)
+            merge_plan = plan_lib.slotted_merge_plan(
+                dcfg, cfg.num_layers, experts_per_token=k_exp)
+            rf_step = make_rf_step(server.params, cfg, dt=dt,
+                                   guidance=guidance, mesh=mesh,
+                                   obs=server.obs, resilience=res)
+        period = plan_lib.steady_period(dcfg, cfg.num_layers,
+                                        experts_per_token=k_exp)
+        return (splan, merge_plan, rf_step, period,
+                any(a.want_cache for a in merge_plan.actions),
+                {p: v for v, p in enumerate(splan.variants)})
+
+    splan, merge_plan, rf_step, period, merge_wants_cache, variant_of = \
+        build(dcfg)
+    step_keys = 0
     random_policy = dcfg.cond_comm and dcfg.cond_policy == "random"
 
     def planned_init():
@@ -657,13 +762,18 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     slots = [_Slot() for _ in range(B)]
     ever_used = [False] * B
 
-    queue = AdmissionQueue()
+    # bounded admission: without a resilience config the queue is
+    # unbounded and nothing is ever shed
+    queue = AdmissionQueue(
+        max_queue_depth=res.max_queue_depth if res is not None else 0,
+        admission_deadline_steps=(res.admission_deadline_steps
+                                  if res is not None else 0))
     for i, r in enumerate(requests):
         queue.push(0.0 if arrival_steps is None else float(arrival_steps[i]),
                    r)
     out: dict = {}
     admit_time: dict = {}
-    tick_variants = []
+    tick_variants, tick_plans, demotion_ticks = [], [], []
     tick = 0
     before = dict(ops.LAUNCHES)
     _sync(dev)
@@ -673,7 +783,37 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         g = math.ceil(g)
         return g + (-g) % period
 
+    def free_slot(i: int) -> None:
+        slots[i] = _Slot()
+        if own.start <= i < own.stop:
+            classes[i - own.start] = cfg.num_classes
+            active[i - own.start] = False
+
     while len(queue) or any(s.active for s in slots):
+        # ---- watchdog demotion at plan-aligned ticks: repeated deadline
+        # breaches while the ring is live demote it to blocking, repeated
+        # codec-error blowups demote the codec; a rebuild of the plans
+        if ctrl is not None and tick % period == 0:
+            kind = ctrl.should_demote(
+                ring_live=plan_lib.overlap_of(dcfg),
+                codec_live=plan_lib.codec_spec_of(dcfg) is not None)
+            if kind is not None:
+                if tracer is not None:
+                    tracer.instant("demote", args={"kind": kind,
+                                                   "tick": tick})
+                step_keys = max(step_keys, len(rf_step.keys))
+                dcfg = dataclasses.replace(
+                    dcfg, **({"overlap": "blocking"}
+                             if kind == degrade_lib.DEMOTE_OVERLAP
+                             else {"compress": None}))
+                splan, merge_plan, rf_step, period, merge_wants_cache, \
+                    variant_of = build(dcfg)
+                ctrl.record_demotion(kind)
+                demotion_ticks.append((tick, kind))
+                reg.counter("dice_demotions_total",
+                            "watchdog variant demotions",
+                            {**lab, "kind": kind}).inc()
+
         # ---- admission at plan-aligned ticks ------------------------------
         if tick % period == 0:
             recycle = torch.zeros((B_loc,), dtype=torch.bool, device=dev)
@@ -706,6 +846,12 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                         "recycled": bool(ever_used[i])})
                 admit_time[req.rid] = time.perf_counter()
                 ever_used[i] = True
+            # load shedding: a no-op unless a bound is configured
+            for rid in queue.shed_overdue(tick, retry_after=float(period)):
+                reg.counter("dice_shed_requests_total",
+                            "requests shed by admission bounds", lab).inc()
+                if tracer is not None:
+                    tracer.instant("shed", args={"rid": rid, "tick": tick})
             if any_recycled:
                 states = stale_lib.reset_slots(states, recycle,
                                                tokens_per_slot=Tp)
@@ -714,7 +860,7 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         if not any(s.active for s in slots):
             nxt = queue.next_arrival()
             if nxt is None:
-                break
+                break                  # everything remaining was shed
             # fully idle: jump to the next aligned tick with an arrival
             tick = _next_aligned(max(nxt, tick + 1))
             continue
@@ -750,15 +896,61 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
             plan = splan.steps[min(ref, num_steps - 1)]
             slot_fresh = consume = None
         tick_variants.append((variant_of.get(plan, -1), slotted))
+        tick_plans.append(plan)
 
         t = torch.where(active, t_of_step[steps.clamp(max=num_steps - 1)],
                         0.0)
+        t_tick = time.perf_counter()
         with _span(tracer, "tick", "step",
                    {"tick": tick, "slotted": slotted}):
             x, states, states_u, aux = rf_step(
                 x, classes, states, states_u, t, plan=plan,
                 slotted=slotted, slot_fresh=slot_fresh,
-                consume_mask=consume, generator=gen)
+                consume_mask=consume, generator=gen, tick=tick)
+            if (fplan is not None and plan_lib.overlap_of(dcfg)
+                    and fplan.hop_delay(tick)):
+                # an injected slow ring hop, gated on the live engine:
+                # demoting the ring stops it
+                reg.counter("dice_injected_hop_delays_total",
+                            "injected slow ring hops", lab).inc()
+                time.sleep(fplan.cfg.hop_delay_s)
+            if obs_on or ctrl is not None:
+                _sync(dev)
+        wall = time.perf_counter() - t_tick
+
+        # ---- the tick's observations, on the host in one copy -------------
+        poisoned = None
+        if quarantine and fplan is not None and fplan.poison(tick):
+            poisoned = next((i for i, s in enumerate(slots) if s.active),
+                            None)
+            if poisoned is not None and own.start <= poisoned < own.stop:
+                x[poisoned - own.start].fill_(float("nan"))
+            if poisoned is not None and tracer is not None:
+                tracer.instant("poison", args={"slot": poisoned,
+                                               "tick": tick})
+        bad = None
+        tel = fe = None
+        if obs_on or res is not None:
+            lanes = None
+            if quarantine:
+                lanes = (~torch.isfinite(x).reshape(B_loc, -1).all(1)).to(
+                    torch.float32)
+            tel, fe, wall, bad = _tick_observations(aux, lanes, wall, mesh,
+                                                    own, B)
+        if obs_on:
+            reg.histogram("dice_step_wall_seconds",
+                          "measured wall seconds per engine tick",
+                          lab).observe(wall)
+            if tel is not None:
+                _publish_telemetry_step(reg, tel, lab)
+        if ctrl is not None:
+            codec_err = None
+            if tel is not None:
+                codec_err = float(tel[:, obs_fields.CODEC_ERR].mean())
+            if ctrl.observe_step(wall, codec_err):
+                reg.counter("dice_watchdog_breaches_total",
+                            "engine-tick step-deadline breaches",
+                            lab).inc()
 
         n_free = sum(not s.active for s in slots)
         reg.counter("dice_ticks_total", "engine ticks executed", lab).inc()
@@ -771,6 +963,8 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                    lab).append(1.0 - n_free / B)
         reg.series("dice_queue_depth", "requests still waiting",
                    lab).append(len(queue))
+        if fe is not None:
+            _publish_fault_events(reg, fe, lab)
         reg.counter("dice_dispatch_bytes_total", "dispatch payload moved",
                     lab).inc(float(aux["dispatch_bytes"]))
         reg.counter("dice_wire_bytes_total",
@@ -784,6 +978,41 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                   lab).set(int(aux["buffer_bytes"]))
 
         steps += active
+        # ---- quarantine: a non-finite lane (the poison, or corruption the
+        # guards did not catch) is reset before the completion scan, its
+        # request requeued for a replay (its noise is rid-keyed) up to
+        # max_requeues times, then shed
+        if bad is not None:
+            hit = [i for i in range(B) if bad[i] and slots[i].active]
+            if hit:
+                qm = torch.zeros((B_loc,), dtype=torch.bool, device=dev)
+                for i in hit:
+                    slot = slots[i]
+                    reg.counter("dice_quarantined_slots_total",
+                                "poisoned slots quarantined", lab).inc()
+                    if tracer is not None:
+                        tracer.instant("quarantine", args={
+                            "rid": slot.rid, "slot": i, "tick": tick})
+                    if queue.requeue(tick, Request(class_id=slot.class_id,
+                                                   rid=slot.rid),
+                                     res.max_requeues):
+                        reg.counter("dice_requeued_requests_total",
+                                    "quarantined requests requeued",
+                                    lab).inc()
+                    else:
+                        reg.counter("dice_shed_requests_total",
+                                    "requests shed by admission bounds",
+                                    lab).inc()
+                    admit_time.pop(slot.rid, None)
+                    if own.start <= i < own.stop:
+                        qm[i - own.start] = True
+                    free_slot(i)
+                x = torch.where(qm[:, None, None], 0.0, x)
+                states = stale_lib.reset_slots(states, qm,
+                                               tokens_per_slot=Tp)
+                states_u = stale_lib.reset_slots(states_u, qm,
+                                                 tokens_per_slot=Tp)
+
         finishing = any(s.active and s.local_step + 1 >= num_steps
                         for s in slots)
         # every slot's latents, gathered from their ranks when one finishes
@@ -798,22 +1027,20 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                 out[slot.rid] = x_all[i].to("cpu", copy=True)
                 reg.counter("dice_requests_total", "requests served",
                             lab).inc()
-                reg.histogram(
-                    "dice_request_e2e_seconds",
-                    "request end-to-end seconds (admission->sample)",
-                    lab).observe(time.perf_counter()
-                                 - admit_time.pop(slot.rid))
-                slots[i] = _Slot()
-                if own.start <= i < own.stop:
-                    classes[i - own.start] = cfg.num_classes
-                    active[i - own.start] = False
+                if slot.rid in admit_time:
+                    reg.histogram(
+                        "dice_request_e2e_seconds",
+                        "request end-to-end seconds (admission->sample)",
+                        lab).observe(time.perf_counter()
+                                     - admit_time.pop(slot.rid))
+                free_slot(i)
         tick += 1
     _sync(dev)
     wall = time.perf_counter() - t0
 
     lat = server.latency(B // server.n_dev)
     reg.gauge("dice_step_keys", "(plan, slotted) keys the step fn ran",
-              lab).set_max(len(rf_step.keys))
+              lab).set_max(max(step_keys, len(rf_step.keys)))
     reg.gauge("dice_plan_variants", "StepPlan variants",
               lab).set_max(splan.num_variants)
     reg.counter("dice_wall_seconds_total",
@@ -843,10 +1070,66 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         "num_plan_variants": splan.num_variants,
         "step_keys": int(reg.value("dice_step_keys", lab)),
         "tick_variants": tick_variants,
+        "tick_plans": tick_plans,
         "kernel_launches": _launches_since(before),
     }
+    if res is not None:
+        stats.update({
+            "quarantined": int(_count(reg, "dice_quarantined_slots_total",
+                                      lab)),
+            "requeued": int(_count(reg, "dice_requeued_requests_total", lab)),
+            "shed": len(queue.shed),
+            "shed_rids": sorted(rid for rid, _ in queue.shed),
+            "queue_peak_depth": queue.peak_depth,
+            "watchdog_breaches": int(_count(
+                reg, "dice_watchdog_breaches_total", lab)),
+            "injected_hop_delays": int(_count(
+                reg, "dice_injected_hop_delays_total", lab)),
+            "demotions": list(ctrl.demotions),
+            "demotion_ticks": demotion_ticks,
+            "fault_events": {
+                nm: float(_count(reg, "dice_fault_events_total",
+                                 {**lab, "event": nm}))
+                for nm in FAULT_EVENTS},
+        })
     server.metrics.merge(reg)
     return out, stats
+
+
+def _tick_observations(aux: dict, lanes: Optional[torch.Tensor], wall: float,
+                       mesh, own: slice, B: int):
+    """(telemetry block, fault counts, wall time, per-slot bad-lane flags)
+    of one engine tick, on the host from one device-to-host copy; None for
+    what the tick did not compute.  ``lanes`` (B_loc,) flags this rank's
+    non-finite slots.  Over a mesh the vector first goes through one
+    all-reduce (max) with the wall time and every slot's flags (each rank
+    fills its own, zeros elsewhere), so every rank holds the same values;
+    the telemetry and fault counts are equal on every rank already."""
+    parts = [aux[k].reshape(-1).to(torch.float32)
+             for k in ("telemetry", "fault_events") if k in aux]
+    head = sum(p.numel() for p in parts)
+    if mesh is not None:
+        flags = torch.zeros((B,), dtype=torch.float32, device=mesh.device)
+        if lanes is not None:
+            flags[own] = lanes
+        parts += [flags, torch.tensor([wall], dtype=torch.float32,
+                                      device=mesh.device)]
+        vec = mesh.all_reduce_max(torch.cat(parts)).to("cpu").numpy()
+        wall = float(vec[-1])
+    else:
+        if lanes is not None:
+            parts.append(lanes)
+        vec = torch.cat(parts).to("cpu").numpy()
+    tel = fe = None
+    at = 0
+    if "telemetry" in aux:
+        n = aux["telemetry"].numel()
+        tel = vec[:n].reshape(tuple(aux["telemetry"].shape))
+        at = n
+    if "fault_events" in aux:
+        fe = vec[at:head]
+    bad = None if lanes is None else vec[head:head + B] > 0
+    return tel, fe, wall, bad
 
 
 def main(argv=None):
@@ -857,9 +1140,16 @@ def main(argv=None):
     ap.add_argument("--tiny", action="store_true", default=True,
                     help="small model (default); --no-tiny for XL shapes")
     ap.add_argument("--no-tiny", dest="tiny", action="store_false")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the weights of this checkpoint (the "
+                         "reference's format, either package's writer), "
+                         "checked against the config's param tree")
     ap.add_argument("--codec", choices=list(CODEC_KINDS), default="none",
                     help="wire codec for light/stale steps; refresh steps "
                          "stay lossless")
+    ap.add_argument("--topk-frac", type=float, default=0.125,
+                    help="fraction of residual entries the topk_residual "
+                         "codec keeps per token")
     ap.add_argument("--guidance", type=float, default=1.5)
     ap.add_argument("--n-dev", type=int, default=None,
                     help="device count of the modeled deployment (latency "
@@ -886,13 +1176,27 @@ def main(argv=None):
                          "batching engine (--max-batch slots) instead of "
                          "one fixed batch")
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--obs", action="store_true",
+                    help="per-layer staleness telemetry, measured step "
+                         "wall times and host-phase tracing (samples stay "
+                         "bit-identical to an obs-off run)")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace-event JSON of host phases "
-                         "to this path")
+                         "to this path (implies --obs)")
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics registry here after the run: "
                          "Prometheus text, or a JSON snapshot when the "
-                         "path ends in .json")
+                         "path ends in .json (implies --obs)")
+    ap.add_argument("--faults", default=None,
+                    help="resilience / chaos spec: comma-separated "
+                         "key=value, e.g. 'seed=7,corrupt=0.05,"
+                         "corrupt_dispatch=0.02,poison_tick=3,"
+                         "hop_delay=0.5:0.01,queue=16'.  Fault keys inject "
+                         "seeded failures; policy keys (guards, quarantine, "
+                         "demote_after, step_deadline_factor, "
+                         "codec_err_limit, queue, admit_deadline, requeues) "
+                         "tune the degradation ladder.  'off' disables; "
+                         "the paging keys need expert paging (ROADMAP A.9)")
     args = ap.parse_args(argv)
     if args.ep < 0:
         ap.error("--ep must be >= 0")
@@ -920,11 +1224,23 @@ def _serve_cli(args, mesh=None) -> None:
     cfg = tiny() if args.tiny else xl_config()
     dcfg = dataclasses.replace(SCHEDULES[args.schedule](),
                                overlap=args.overlap)
-    server = DiceServer(cfg, dcfg, seed=args.seed,
+    obs_on = bool(args.obs or args.trace_out or args.metrics_out)
+    resilience = fault_lib.parse_resilience(args.faults)
+    params = None
+    if args.ckpt:
+        # the like tree holds shapes only; each rank keeps its experts
+        dev = resolve_device(args.device) if mesh is None else mesh.device
+        params = load_checkpoint(
+            args.ckpt, init_dit(cfg, generator=None), device=dev,
+            experts=None if mesh is None
+            else shard_lib.expert_slice(cfg.num_experts, mesh))
+    server = DiceServer(cfg, dcfg, params=params, seed=args.seed,
                         device=None if mesh is not None else args.device,
                         n_dev=args.n_dev, mesh=mesh,
-                        compress=CompressConfig(codec=args.codec),
-                        tracer=StepTracer() if args.trace_out else None)
+                        compress=CompressConfig(codec=args.codec,
+                                                topk_frac=args.topk_frac),
+                        obs=ObsConfig(enabled=obs_on),
+                        resilience=resilience)
     reqs = [Request(class_id=i % cfg.num_classes, rid=i)
             for i in range(args.requests)]
     splan = server.plan(args.steps)
@@ -934,6 +1250,12 @@ def _serve_cli(args, mesh=None) -> None:
         + (f", wire codec {args.codec}" if args.codec != "none" else "")
         + (f", continuous over {args.max_batch} slots"
            if args.continuous else "")
+        + (f", weights from {args.ckpt}" if args.ckpt else "")
+        + (", telemetry on" if obs_on else "")
+        + (", resilience on"
+           + (f" (fault seed {resilience.faults.seed})"
+              if resilience.faults is not None else "")
+           if server.dcfg.resilience is not None else "")
         + (f", expert-parallel over {mesh.size} ranks ({mesh.backend}, "
            f"{plan_lib.normalize_overlap(server.dcfg, mesh.size).overlap})"
            if mesh is not None else ""))
@@ -942,20 +1264,33 @@ def _serve_cli(args, mesh=None) -> None:
         f"({[len(splan.steps_of_variant(v)) for v in range(splan.num_variants)]}"
         f" steps each)")
     if args.continuous:
+        arrivals = None
+        if (resilience is not None and resilience.faults is not None
+                and resilience.faults.burst_size > 0):
+            arrivals = fault_lib.bursty_arrivals(
+                len(reqs), rate=1.0, burst_size=resilience.faults.burst_size)
         out, stats = serve_continuous(server, reqs, max_batch=args.max_batch,
                                       num_steps=args.steps,
-                                      guidance=args.guidance, seed=args.seed)
+                                      guidance=args.guidance, seed=args.seed,
+                                      arrival_steps=arrivals)
         finite = all(bool(torch.isfinite(s).all()) for s in out.values())
         say(f"served {len(out)} requests continuously, finite={finite}")
         stats["tick_variants"] = (f"{len(stats['tick_variants'])} ticks, "
                                   f"{len(set(stats['tick_variants']))} keys")
+        del stats["tick_plans"]
     else:
         samples, stats = server.generate(reqs, num_steps=args.steps,
                                          guidance=args.guidance)
         say(f"samples: {tuple(samples.shape)}, "
             f"finite={bool(torch.isfinite(samples).all())}")
+        if "telemetry" in stats:
+            # per-field means over steps and layers
+            tel = np.mean(stats.pop("telemetry"), axis=(0, 1))
+            stats["telemetry_means"] = " ".join(
+                f"{f}={v:.6g}" for f, v in zip(obs_fields.TELEMETRY_FIELDS,
+                                               tel))
     for k, v in stats.items():
-        if isinstance(v, list):
+        if isinstance(v, list) and v and k.endswith(("_s", "_per_step")):
             v = f"[{v[0]:.6g} ... {v[-1]:.6g}] ({len(v)} steps)"
         elif isinstance(v, float):
             v = f"{v:.6g}"

@@ -6,8 +6,9 @@ experts, class-conditional with a null class for CFG.  The forward pass
 takes per-MoE-layer staleness state (:mod:`repro_torch.core.staleness`)
 and a precompiled :class:`~repro_torch.core.plan.StepPlan`, so one
 implementation serves every schedule, on one device or on one rank of an
-expert-parallel mesh.  Patch parallelism, expert paging, observability and
-resilience are not ported yet.
+expert-parallel mesh, with the staleness telemetry (``obs``) and the wire
+faults and guards of the resilience ladder.  Patch parallelism and expert
+paging are not ported yet (ROADMAP A.9).
 
 Params are a plain dict in the JAX package's tree layout and (in, out)
 weight orientation; :mod:`repro_torch.bridge` carries a JAX tree over.
@@ -24,6 +25,7 @@ from repro_torch.core import moe as moe_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
 from repro_torch.models import layers as L
+from repro_torch.obs import telemetry as obs_telemetry
 
 
 def timestep_embedding(t: torch.Tensor, dim: int = 256) -> torch.Tensor:
@@ -39,11 +41,7 @@ def timestep_embedding(t: torch.Tensor, dim: int = 256) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _zeros(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
-    return torch.zeros(shape, dtype=dtype, device=gen.device)
-
-
-def init_dit(cfg, *, generator: torch.Generator,
+def init_dit(cfg, *, generator: Optional[torch.Generator],
              dtype: torch.dtype = torch.float32,
              experts: Optional[slice] = None) -> Dict[str, Any]:
     """Random params on ``generator.device``, in the layout of
@@ -55,22 +53,35 @@ def init_dit(cfg, *, generator: torch.Generator,
     rank's shard): every layer's full stacks are still drawn, in the same
     order, so the kept rows equal those of the unsharded init, but only
     one layer's full stacks exist at a time.
+
+    ``generator=None`` gives the same tree of ``meta`` tensors: shapes and
+    dtypes without storage, the ``like`` tree
+    :func:`repro_torch.checkpoint.io.load_checkpoint` checks a file
+    against.
     """
     g = generator
+    dev = torch.device("meta") if g is None else g.device
+
+    def dense(shape, *, scale=None, dtype=dtype):
+        if g is None:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        return L.dense_init(g, shape, scale=scale, dtype=dtype)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     d, c_in = cfg.d_model, cfg.in_channels
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     E, f = cfg.num_experts, cfg.expert_d_ff
     params: Dict[str, Any] = {
-        "patch_embed": L.dense_init(g, (c_in, d), dtype=dtype),
-        "pos_embed": L.dense_init(g, (cfg.patch_tokens, d), scale=0.02,
-                                   dtype=dtype),
-        "t_mlp1": L.dense_init(g, (256, d), dtype=dtype),
-        "t_mlp2": L.dense_init(g, (d, d), dtype=dtype),
-        "class_embed": L.dense_init(g, (cfg.num_classes + 1, d), scale=0.02,
-                                     dtype=dtype),
-        "final_mod": _zeros(g, (d, 2 * d), dtype),
-        "final_out": _zeros(g, (d, c_in), dtype),
-        "final_norm": L.rmsnorm_init(d, g.device),
+        "patch_embed": dense((c_in, d)),
+        "pos_embed": dense((cfg.patch_tokens, d), scale=0.02),
+        "t_mlp1": dense((256, d)),
+        "t_mlp2": dense((d, d)),
+        "class_embed": dense((cfg.num_classes + 1, d), scale=0.02),
+        "final_mod": zeros((d, 2 * d)),
+        "final_out": zeros((d, c_in)),
+        "final_norm": L.rmsnorm_init(d, dev),
     }
     def keep(stack):
         return stack if experts is None else stack[experts].clone()
@@ -78,25 +89,25 @@ def init_dit(cfg, *, generator: torch.Generator,
     blocks = []
     for _ in range(cfg.num_layers):
         moe = {
-            "router": L.dense_init(g, (d, E), dtype=torch.float32),
-            "experts_gate": keep(L.dense_init(g, (E, d, f), dtype=dtype)),
-            "experts_up": keep(L.dense_init(g, (E, d, f), dtype=dtype)),
-            "experts_down": keep(L.dense_init(g, (E, f, d), dtype=dtype)),
+            "router": dense((d, E), dtype=torch.float32),
+            "experts_gate": keep(dense((E, d, f))),
+            "experts_up": keep(dense((E, d, f))),
+            "experts_down": keep(dense((E, f, d))),
         }
         if cfg.num_shared_experts:
             fs = f * cfg.num_shared_experts
-            moe["shared_gate"] = L.dense_init(g, (d, fs), dtype=dtype)
-            moe["shared_up"] = L.dense_init(g, (d, fs), dtype=dtype)
-            moe["shared_down"] = L.dense_init(g, (fs, d), dtype=dtype)
+            moe["shared_gate"] = dense((d, fs))
+            moe["shared_up"] = dense((d, fs))
+            moe["shared_down"] = dense((fs, d))
         blocks.append({
-            "ln1": L.rmsnorm_init(d, g.device),
-            "ln2": L.rmsnorm_init(d, g.device),
-            "attn": {"wq": L.dense_init(g, (d, H * Dh), dtype=dtype),
-                     "wk": L.dense_init(g, (d, KVH * Dh), dtype=dtype),
-                     "wv": L.dense_init(g, (d, KVH * Dh), dtype=dtype),
-                     "wo": L.dense_init(g, (H * Dh, d), dtype=dtype)},
+            "ln1": L.rmsnorm_init(d, dev),
+            "ln2": L.rmsnorm_init(d, dev),
+            "attn": {"wq": dense((d, H * Dh)),
+                     "wk": dense((d, KVH * Dh)),
+                     "wv": dense((d, KVH * Dh)),
+                     "wo": dense((H * Dh, d))},
             "moe": moe,
-            "adaln": _zeros(g, (d, 6 * d), dtype),
+            "adaln": zeros((d, 6 * d)),
         })
     params["blocks"] = blocks
     return params
@@ -115,7 +126,8 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 slot_fresh: Optional[torch.Tensor] = None,
                 consume_mask: Optional[torch.Tensor] = None,
-                mesh=None):
+                mesh=None, obs=None, resilience=None,
+                fault_key: Optional[int] = None):
     """Velocity prediction.
 
     x: (B, T, C_in) latents; t: (B,) times; y: (B,) class ids
@@ -129,7 +141,15 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     (``lb_loss``, ``dropped_frac``, ``expert_counts``) are then averaged
     over the ranks in one all-reduce of one stacked tensor per call, and
     ``buffer_bytes`` counts every rank's buffers, while ``dispatch_bytes``
-    stays the per-rank payload.  Returns (v, new_states, aux dict)."""
+    stays the per-rank payload.
+
+    An enabled ``obs`` adds ``aux["telemetry"]``, the (L, NUM_FIELDS)
+    staleness block stacked on the device (the shard mean over a mesh,
+    in the same all-reduce), and names each layer's action in a profiler
+    range.  ``resilience`` adds ``aux["fault_events"]``, the
+    (NUM_FAULT_EVENTS,) counts summed over layers (and over ranks);
+    ``fault_key`` is the pass's corruption-mask coordinate.  Returns (v,
+    new_states, aux dict)."""
     B, T, _ = x.shape
     d = cfg.d_model
     h = x @ params["patch_embed"] + params["pos_embed"][None]
@@ -139,7 +159,8 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
 
     new_states: Dict[int, stale_lib.MoELayerState] = {}
-    lbs, drops, served, terms = [], [], [], []
+    lbs, drops, served, terms, telems = [], [], [], [], []
+    fault_events = None
     total_dispatch_bytes = 0
     total_raw_bytes = 0
     ring_hops = 0
@@ -153,10 +174,12 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
         h = h + g1[:, None, :] * attn
 
         hn = _modulate(L.rmsnorm(blk["ln2"], h, eps=cfg.norm_eps), s2, sc2)
-        moe_out, new_st, aux = stale_lib.apply_layer_action(
-            blk["moe"], hn.reshape(B * T, d), cfg, plan.actions[i], states[i],
-            generator=generator, slot_fresh=slot_fresh,
-            consume_mask=consume_mask, mesh=mesh)
+        with obs_telemetry.scope(obs, f"moe_l{i:02d}_{plan.actions[i].mode}"):
+            moe_out, new_st, aux = stale_lib.apply_layer_action(
+                blk["moe"], hn.reshape(B * T, d), cfg, plan.actions[i],
+                states[i], generator=generator, slot_fresh=slot_fresh,
+                consume_mask=consume_mask, mesh=mesh, obs=obs,
+                resilience=resilience, layer_idx=i, fault_key=fault_key)
         new_states[i] = new_st
         lbs.append(aux.lb_loss)
         terms.append(aux.lb_terms)
@@ -166,6 +189,10 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
         total_raw_bytes += aux.raw_dispatch_bytes
         ring_hops = max(ring_hops, aux.hops)
         total_hop_bytes += aux.hop_bytes
+        telems.append(aux.telemetry)
+        if aux.fault_events is not None:
+            fault_events = aux.fault_events if fault_events is None \
+                else fault_events + aux.fault_events
         h = h + g2[:, None, :] * moe_out.reshape(B, T, d).to(h.dtype)
 
     fmod = F.silu(c) @ params["final_mod"]
@@ -173,19 +200,32 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     h = _modulate(L.rmsnorm(params["final_norm"], h, eps=cfg.norm_eps), fs, fsc)
     v = h @ params["final_out"]
     counts = torch.stack(served)                       # (L, E)
+    telemetry = torch.stack(telems) if obs is not None and obs.enabled \
+        else None                                     # (L, NUM_FIELDS)
     buffer_bytes = stale_lib.state_bytes(new_states)
     if mesh is not None:
         # one all-reduce for the step's token means: the lb terms of every
-        # MoE call, the drop fractions and the served-pair histogram
+        # MoE call, the drop fractions, the served-pair histogram, the
+        # telemetry block and the fault counts (a mean times the ranks)
         calls = [t.shape[0] for t in terms]
+        extra = [x.reshape(-1) for x in (telemetry, fault_events)
+                 if x is not None]
         flat = mesh.all_reduce_mean(torch.cat(
             [torch.cat(terms).reshape(-1), torch.stack(drops),
-             counts.reshape(-1)]))
+             counts.reshape(-1)] + extra))
         n_terms = sum(calls) * 2 * cfg.num_experts
         terms = flat[:n_terms].reshape(-1, 2, cfg.num_experts).split(calls)
         lbs = [moe_lib.lb_from_terms(t, cfg.experts_per_token) for t in terms]
         drops = flat[n_terms:n_terms + len(calls)].unbind()
-        counts = flat[n_terms + len(calls):].reshape(counts.shape)
+        at = n_terms + len(calls)
+        counts = flat[at:at + counts.numel()].reshape(counts.shape)
+        at += counts.numel()
+        if telemetry is not None:
+            telemetry = flat[at:at + telemetry.numel()].reshape(
+                telemetry.shape)
+            at += telemetry.numel()
+        if fault_events is not None:
+            fault_events = torch.round(flat[at:] * mesh.size)
         buffer_bytes *= mesh.size
     aux_out = {
         "lb_loss": sum(lbs) / cfg.num_layers,
@@ -197,4 +237,8 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
         "buffer_bytes": buffer_bytes,
         "expert_counts": counts,
     }
+    if telemetry is not None:
+        aux_out["telemetry"] = telemetry
+    if fault_events is not None:
+        aux_out["fault_events"] = fault_events
     return v, new_states, aux_out

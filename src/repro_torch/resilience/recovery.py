@@ -1,6 +1,5 @@
 """Request-level recovery: bounded admission queue with load shedding (a
-copy of ``repro.resilience.recovery``; the rest of resilience is ROADMAP
-A.10).
+copy of ``repro.resilience.recovery``; DESIGN.md §17, rungs 4-5).
 
 ``serve_continuous`` historically kept pending requests in a plain sorted
 list — an arrival flood grew it unboundedly and every request waited
@@ -16,8 +15,7 @@ semantics (FIFO by ``(arrival, serial)``) when unbounded, and adds:
   persistently-poisoned request degrades to a shed, never a livelock.
 
 Shedding only ever happens when a bound is configured — the default
-(bounds at 0, the only setting the port's ``serve_continuous`` uses)
-completes every request.
+(``ResilienceConfig`` absent or bounds at 0) completes every request.
 """
 import bisect
 from typing import List, Optional, Tuple

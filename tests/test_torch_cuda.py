@@ -193,6 +193,61 @@ def test_residual_int8_reads_unaligned_rows(gen, dtype):
     _close(r, rp, dtype)
 
 
+def _nonfinite_rows(value, base):
+    """NaN, +Inf, -Inf and a mix in the first rows of the payload, and a
+    NaN in the base of the fifth."""
+    d = value.shape[1]
+    value[0, 3] = math.nan
+    value[1, 2] = math.inf
+    value[2, d - 1] = -math.inf
+    value[3, 1], value[3, d // 2], value[3, d - 2] = math.nan, math.inf, -math.inf
+    base[4, 0] = math.nan
+
+
+# C.6: the register path (d = 1152, and 4096 bf16) and the looping path
+# (d = 1151, and rows wider than the registers hold)
+@pytest.mark.parametrize("N,d", [(33, 1152), (9, 1151), (16, 4096), (5, 9000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_int8_kernel_on_non_finite_rows(gen, N, d, dtype):
+    """A row holding NaN or Inf: the kernel gives its plain version's (and
+    the JAX encoder's) scale NaN or Inf, q 0 and a NaN reconstruction,
+    where fmaxf would have dropped the NaN and quantized it to -127."""
+    value = torch.randn((N, d), generator=gen, device="cuda")
+    base = value + 0.1 * torch.randn((N, d), generator=gen, device="cuda")
+    _nonfinite_rows(value, base)
+    value, base = value.to(dtype), base.to(dtype)
+    q, s, r = _launched("residual_int8", lambda: ops.residual_int8(value, base))
+    qp, sp, rp = ref.residual_int8_ref(value, base)
+    assert torch.equal(q, qp)
+    torch.testing.assert_close(s, sp, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(torch.isnan(r), torch.isnan(rp))
+    assert bool(torch.isnan(r[:5]).all()) and bool((q[:5] == 0).all())
+    _close(r[5:], rp[5:], dtype)
+
+
+def test_kernels_keep_a_nan_row_where_their_plain_versions_do(gen):
+    """expert_ffn: a NaN buffer row stays in its own output row (rows are
+    independent in the grouped GEMM).  flash_attention: a NaN key reaches
+    every query of its batch entry, on both sides."""
+    buf, wg, wu, wd = _expert_inputs(gen, 8, 40, 72, 100, torch.float32)
+    buf[2, 7, 5] = math.nan
+    got = _launched("expert_ffn", lambda: ops.expert_ffn(buf, wg, wu, wd))
+    want = ref.expert_ffn_ref(buf, wg, wu, wd)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[2, 7]).all())
+    assert int(torch.isnan(got).sum()) == got.shape[-1]
+    _close(torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0),
+           torch.float32)
+    q, k, v = (torch.randn((2, 64, 4, 72), generator=gen, device="cuda")
+               for _ in range(3))
+    k[1, 10, 2, 3] = math.nan
+    got = _launched("flash_attention", lambda: ops.flash_attention(q, k, v))
+    want = ref.flash_attention_ref(q, k, v)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[1, :, 2]).all())
+    _close(got[0], want[0], torch.float32)
+
+
 SCAN_TOL = dict(rtol=1e-3, atol=1e-3)
 
 

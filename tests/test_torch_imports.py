@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package, and the smoke script
-refuses to run without a card or outside a checkout of the repository.
+``chip_smoke.py``, imports JAX, the JAX package or ``msgpack`` (the card's
+machine has none of them), and the smoke script refuses to run without a
+card or outside a checkout of the repository.
 """
 import ast
 import os
@@ -13,7 +14,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _sources():
@@ -90,7 +91,12 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
 SERVING_MODULES = ("repro_torch.core.overlap", "repro_torch.launch.serve",
                    "repro_torch.launch.mesh", "repro_torch.common.sharding",
                    "repro_torch.obs.metrics", "repro_torch.obs.trace",
-                   "repro_torch.resilience.recovery")
+                   "repro_torch.obs.telemetry",
+                   "repro_torch.resilience.recovery",
+                   "repro_torch.resilience.faults",
+                   "repro_torch.resilience.degrade",
+                   "repro_torch.checkpoint.io",
+                   "repro_torch.checkpoint.msgpack_lite")
 # pure-Python modules of the JAX package the port keeps a copy of
 COPIES = ("obs/metrics.py", "obs/trace.py", "resilience/recovery.py")
 

@@ -281,8 +281,19 @@ def test_codecs_match_jax(kind):
 
 @pytest.mark.parametrize("kind", ["topk_residual", "bogus"])
 def test_codecs_outside_the_slice_raise(kind):
-    """Only ``none`` and ``int8_residual`` are ported; the reference's
-    top-k codec is refused, not silently served as something else."""
+    """An unknown codec is refused, not silently served as something else.
+    ``topk_residual`` is ported now (tests/test_torch_faults.py holds it
+    against the reference): like the reference it refuses a ``topk_frac``
+    outside (0, 1]."""
+    if kind == "topk_residual":
+        for frac in (0.0, -0.5, 1.5):
+            with pytest.raises(ValueError):
+                codecs.CodecSpec(kind, topk_frac=frac)
+            with pytest.raises(ValueError):
+                jax_codecs.CodecSpec(kind, topk_frac=frac)
+        assert codecs.CodecSpec(kind).keep_count(1152) == \
+            jax_codecs.CodecSpec(kind).keep_count(1152) == 144
+        return
     with pytest.raises(ValueError):
         codecs.CodecSpec(kind)
     with pytest.raises(ValueError):

@@ -51,6 +51,7 @@ from repro_torch.core.schedules import DiceConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
 from repro_torch.obs import MetricsRegistry, StepTracer, parse_prometheus
+from repro_torch.resilience.faults import FaultConfig, ResilienceConfig
 from repro_torch.resilience.recovery import AdmissionQueue
 from repro_torch.sampling.rectified_flow import rf_sample
 
@@ -572,10 +573,14 @@ def test_unported_serving_paths_raise(port_params):
     # port's own expert-parallel mesh
     with pytest.raises(TypeError, match="EPMesh"):
         serve.serve_continuous(server, [serve.Request(1, 0)], mesh=object())
-    for field, item in (("placements", "A.9"), ("paging", "A.9"),
-                        ("resilience", "A.10")):
+    for field, item in (("placements", "A.9"), ("paging", "A.9")):
         with pytest.raises(NotImplementedError, match=item):
             DiceConfig(**{field: object()})
+    # resilience is served now (tests/test_torch_faults.py); its paging
+    # rungs still wait for expert paging
+    with pytest.raises(ValueError, match="A.9"):
+        DiceConfig(resilience=ResilienceConfig(
+            faults=FaultConfig(paging_error_rate=0.1)))
     with pytest.raises(ValueError):
         serve.DiceServer(_cfg(), DiceConfig.dice(), params=port_params,
                          device="cpu", n_dev=0)

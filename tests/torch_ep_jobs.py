@@ -11,10 +11,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import bridge
+from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.common import sharding as shard_lib
 from repro_torch.core import conditional
 from repro_torch.core import moe as moe_lib
 from repro_torch.core import overlap as overlap_lib
+from repro_torch.core.schedules import DiceConfig
 from repro_torch.launch import serve
+from repro_torch.models.dit_moe import init_dit
 from repro_torch.sampling.rectified_flow import rf_sample
 
 STEPS = 6
@@ -136,3 +140,76 @@ def mesh_transports(mesh):
         "exchange": torch.equal(got.cpu(), rows[(r - 1) % n]),
         "results_on_card": on_card,
     })
+
+
+def checkpoint_slices(mesh, path, cfg):
+    """Each rank's params read from ``path`` with only its experts kept
+    (as the CLI's ``--ckpt`` reads over a mesh), as flattened (path,
+    tensor) pairs, gathered from every rank."""
+    params = ckpt_io.load_checkpoint(
+        path, init_dit(cfg, generator=None), device=mesh.device,
+        experts=shard_lib.expert_slice(cfg.num_experts, mesh))
+    return _every_rank(ckpt_io.flatten(params)[0])
+
+
+def obs_blocks(mesh, tree, cfg, dcfg, noise, classes, steps):
+    """``rf_sample`` with telemetry on over the mesh: every rank's
+    per-step (L, NUM_FIELDS) blocks and the samples."""
+    from repro_torch.obs import ObsConfig
+    params = bridge.from_jax_params(tree, device="cpu")
+    x, st = rf_sample(params, cfg, dcfg, num_steps=steps,
+                      classes=torch.as_tensor(classes),
+                      noise=torch.as_tensor(noise), mesh=mesh,
+                      obs=ObsConfig(enabled=True))
+    return x, _every_rank([torch.as_tensor(t) for t in st["telemetry"]])
+
+
+def fault_ladder(mesh, tree, cfg, noise):
+    """Two runs of ``serve_continuous`` over the mesh.  (a) The ring under
+    a watchdog, with rank 1 alone made slow from its 8th device sync on
+    (each tick syncs once; its clock jumps a minute at each, so the breach
+    does not hang on the host's load): the ranks must agree on the wall
+    time and so demote at the same tick, else the next exchange would mix
+    the ring and the all-to-alls.  (b) Four slots, two a rank: request 3
+    lands in slot 3 (rank 1) at tick 2, and ``poison_tick=4`` poisons it
+    when it is the only live slot; both ranks must quarantine it.  Returns
+    every rank's outcomes."""
+    import time
+    import types
+    from repro_torch.resilience.faults import (FaultConfig,
+                                               ResilienceConfig)
+    params = bridge.from_jax_params(tree, device="cpu")
+    syncs, offset = [0], [0.0]
+    real_sync = serve._sync
+
+    def slow_sync(device):
+        syncs[0] += 1
+        if mesh.rank == 1 and syncs[0] >= 8:
+            offset[0] += 60.0
+        real_sync(device)
+
+    clock = types.SimpleNamespace(
+        perf_counter=lambda: time.perf_counter() + offset[0],
+        sleep=time.sleep)
+
+    res = ResilienceConfig(demote_after=2, step_deadline_factor=4.0)
+    server = serve.DiceServer(cfg, DiceConfig.dice(overlap="ring"),
+                              params=params, mesh=mesh, resilience=res)
+    reqs = [serve.Request(i % 4, i) for i in range(6)]
+    serve._sync, serve.time = slow_sync, clock
+    try:
+        out_a, st_a = serve.serve_continuous(
+            server, reqs, max_batch=2, num_steps=4, seed=0, noise=noise,
+            arrival_steps=[0.0] * 6)
+    finally:
+        serve._sync, serve.time = real_sync, time
+    res_b = ResilienceConfig(faults=FaultConfig(seed=3, poison_tick=4))
+    server = serve.DiceServer(cfg, DiceConfig.dice(), params=params,
+                              mesh=mesh, resilience=res_b)
+    out_b, st_b = serve.serve_continuous(
+        server, [serve.Request(i % 4, i) for i in range(4)], max_batch=4,
+        num_steps=4, seed=0, noise=noise, arrival_steps=[0.0, 0.0, 0.0, 2.0])
+    keep = ("demotions", "demotion_ticks", "watchdog_breaches",
+            "quarantined", "requeued", "shed", "ticks")
+    return _every_rank(({k: st_a[k] for k in keep}, sorted(out_a),
+                        {k: st_b[k] for k in keep}, sorted(out_b))), out_b

@@ -83,6 +83,29 @@ non-zero and no phase's failure is caught:
      for bit; a codec-error limit that demotes the codec at the first plan
      boundary after a coded tick.  Every run's launch counts are set to 0
      before it and held to its plans (the rebuilt ones after a demotion).
+ 10. main path 6: DistriFusion, the hierarchical mesh and expert
+     placement.  (a) The 4-layer DiT of phase 8 on the CPU (plain versions)
+     and on the card (kernels), to TOL_F32: ``rf_sample`` with
+     ``patch_parallel_ndev`` 2 and 4 under sync, and ``patch_compose`` at 2
+     under dice + int8.  (b) Phase 5's XL weights, 8 requests, f32: sync
+     (10 steps), DistriFusion (``patch_parallel_ndev=8`` under sync, the
+     reference benchmark's baseline, 10 steps, 448 flash launches a step)
+     and the composed run under dice + int8 (4 steps) in one call: s/step,
+     the stale K/V footprint, peak memory.  (c) gloo ranks sharing the
+     card: the 4-layer DiT over ep2 x dp2 (five schedules, blocking and
+     ring) against the single-process card run, and over ep2 x patch2 and
+     ep2 x dp2 x patch2 against the single-process ``patch_compose`` run,
+     to TOL_F32; XL width (depth cut to MESH_XL_LAYERS) over ep2 x dp2 and
+     ep2 x patch2, dice + int8, 4 steps.  (d) XL width (MESH_XL_LAYERS
+     layers) at ep=2 with the routers biased toward one expert: sync over
+     the greedy placement (one replicated expert) of the identity layout's
+     histogram against identity, samples to TOL_F32, per-rank dispatch
+     bytes the plan's (scaled by ``cap_scale``), ``expert_ffn`` launches
+     with the replica calls; then phase 7b's mix through
+     ``serve_continuous`` with online greedy placement (re-shards, step
+     keys, requests/s).  Every run's launches are held to its plans.
+     The mesh runs' times are ranks time-slicing one card over a
+     host-staged wire, not a deployment's.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -129,6 +152,9 @@ CONT_REQUESTS, CONT_SLOTS, CONT_EVERY = 24, 8, 2   # 7b: 4 requests every 2 tick
 DIT_KERNELS = ("expert_ffn", "flash_attention", "residual_int8")
 EP = 2                                    # phase 8: ranks sharing the one card
 EP_TIMEOUT_S = 600                        # per spawn: collectives and reports
+MESH_XL_LAYERS = 8                        # phase 10c/10d: XL width, depth cut
+PLACE_REQUESTS = 4                        # 10d: 2 a rank at capacity_factor 8
+PLACE_BIAS = 1.5                          # 10d: router bias toward expert 5
 
 
 def log(msg: str) -> None:
@@ -527,20 +553,24 @@ def _perturb(params, gen, scale=0.05):
     return params
 
 
-def planned_launches(plans, passes: int, ranks: int = 1):
-    """Kernel launches a sequence of step plans implies (on each rank of an
-    ep mesh of ``ranks``): per pass and layer one flash attention and one
-    expert FFN (two for a staggered half-batch layer; on the ring one per
-    chunk, ``ranks`` a call); a codec'd action quantizes its dispatch
-    payload, and an interweaved one with a cache its combine payload too
-    (the int8 codec through ``residual_int8``; top-k is plain PyTorch)."""
+def planned_launches(plans, passes: int, ranks: int = 1, patch_ndev: int = 0):
+    """Kernel launches a sequence of step plans implies (on each rank of a
+    mesh whose ep axis has ``ranks``): per pass and layer one flash
+    attention (``patch_ndev`` under the replicated patch simulation: one a
+    simulated device) and one expert FFN (two for a staggered half-batch
+    layer; on the ring one per chunk, ``ranks`` a call; one more a call
+    for a placement's replicated experts); a codec'd action quantizes its
+    dispatch payload, and an interweaved one with a cache its combine
+    payload too (the int8 codec through ``residual_int8``; top-k is plain
+    PyTorch)."""
     n = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
          "rwkv6_scan": 0}
     for plan in plans:
         for a in plan.actions:
-            n["flash_attention"] += passes
+            n["flash_attention"] += passes * max(1, patch_ndev)
+            replica = int(a.placement is not None and bool(a.placement.replicated))
             n["expert_ffn"] += passes * (2 if a.mode == "staggered" else 1) \
-                * (ranks if a.overlap else 1)
+                * ((ranks if a.overlap else 1) + replica)
             if a.codec is not None and a.codec.kind == "int8_residual":
                 n["residual_int8"] += passes * (
                     1 + int(a.mode == "interweaved" and a.want_cache))
@@ -1453,6 +1483,454 @@ def phase_ep(rows):
         c["expert_ffn"] for c in blocking]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: DistriFusion, the hierarchical mesh and expert placement (the
+# functions named _hier_* and _place_* run in spawned ranks, so they live
+# at the top level)
+# ---------------------------------------------------------------------------
+def _tf32_off():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _sample(params, cfg, dcfg, noise, classes, steps, **kw):
+    """``rf_sample`` with the launch counts set to 0 just before it; returns
+    (samples, stats, counts, wall s/step between synchronisations)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sampling.rectified_flow import rf_sample
+    on_card = noise.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    x, st = rf_sample(params, cfg, dcfg, num_steps=steps, classes=classes,
+                      noise=noise, **kw)
+    if on_card:
+        torch.cuda.synchronize()
+    return x, st, dict(ops.LAUNCHES), (time.perf_counter() - t0) / steps
+
+
+def _check_launches(label, counts, want, coded: bool):
+    needed = DIT_KERNELS if coded else DIT_KERNELS[:2]
+    if counts != want or min(counts[k] for k in needed) <= 0:
+        raise AssertionError(f"{label}: launches {counts} differ from the plan's {want}")
+
+
+def _patch_runs():
+    """10a's runs: (label, DiceConfig, patch_parallel_ndev, patch_compose)."""
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.core.schedules import DiceConfig
+    int8 = CompressConfig("int8_residual")
+    return [("distrifusion n_dev=2 sync", DiceConfig.sync_ep(), 2, False),
+            ("distrifusion n_dev=4 sync", DiceConfig.sync_ep(), 4, False),
+            ("patch_compose n_dev=2 dice+int8", DiceConfig.dice(compress=int8), 2, True)]
+
+
+def phase_patch_tiny():
+    """10a: displaced patch attention in place, the 4-layer DiT on the CPU
+    (plain versions) and on the card (kernels); returns the card's samples."""
+    import torch
+    from repro_torch.core import plan as plan_lib
+    cfg, params, reqs, noise = _tiny4()
+    classes = torch.tensor([r.class_id for r in reqs])
+    p_gpu = _to(params, "cuda")
+    out = {}
+    for label, dcfg, n_dev, compose in _patch_runs():
+        kw = dict(patch_parallel_ndev=n_dev, patch_compose=compose, guidance=1.5)
+        x_cpu = _sample(params, cfg, dcfg, noise, classes, TINY_STEPS, **kw)[0]
+        x, st, counts, _ = _sample(p_gpu, cfg, dcfg, noise.cuda(), classes.cuda(),
+                                   TINY_STEPS, **kw)
+        splan = plan_lib.compile_step_plans(dcfg, cfg.num_layers, TINY_STEPS,
+                                            experts_per_token=cfg.experts_per_token)
+        want = planned_launches(splan.steps, passes=2, patch_ndev=n_dev)
+        compare(f"10a tiny {label}, cuda kernels vs cpu plain", x.cpu(), x_cpu, TOL_F32)
+        log(f"    launches {counts}, planned {want}; buffer_bytes {st['buffer_bytes'][-1]:.0f}")
+        _check_launches(f"10a {label}", counts, want, dcfg.compress is not None)
+        out[label] = x.cpu()
+    return out
+
+
+def _owner_flash_row():
+    """``flash_attention`` at a DistriFusion owner's shape (n_dev = 8: 32
+    of 256 queries, a strided view, the output written into a view of the
+    whole) against its plain version; times and the table row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import device_ms, time_ms
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, S, H, Dh, Sq = 8, 256, 16, 72, 32
+    q, k, v = (torch.randn((B, S, H, Dh), generator=gen, device="cuda")
+               for _ in range(3))
+    qo, out = q[:, :Sq], torch.empty_like(q)
+    got = ops.flash_attention(qo, k, v, out=out[:, :Sq])
+    err = compare("10b flash at a DistriFusion owner's shape (Sq=32 of S=256, strided q, "
+                  "written into a view)", got, ref.flash_attention_ref(qo, k, v), TOL_F32)
+    ms = time_ms(lambda: ops.flash_attention(qo, k, v, out=out[:, :Sq]), 50)
+    dev = device_ms(lambda: ops.flash_attention(qo, k, v, out=out[:, :Sq]), 50)
+    plain = time_ms(lambda: ref.flash_attention_ref(qo, k, v), 50)
+    qt, kt, vt = (a.transpose(1, 2) for a in (qo, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50)
+    flops = 4.0 * B * H * Sq * S * Dh
+    nbytes = 4.0 * (2 * B * Sq * H * Dh + 2 * B * S * H * Dh)
+    b_ms, _ = bound(flops, nbytes)
+    tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    log(f"  10b flash at the owner's shape: kernel {ms:.4f} ms (device alone {dev:.4f} ms), "
+        f"plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound "
+        f"{tc_ms:.4f} ms ({tc_by}, 3xTF32)")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=err,
+                ms=ms, device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=tc_ms,
+                bound_by=tc_by, fp32_bound_ms=b_ms, library_ms=lib,
+                shape="B=8 Sq=32 Sk=256 H=16 Dh=72 f32 (a DistriFusion owner at n_dev=8)")
+
+
+def phase_distrifusion(rows, phase5):
+    """10b: DistriFusion at full XL depth and width (phase 5's weights, 8
+    requests, f32) beside sync in the same call, then the composed run."""
+    import torch
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.schedules import DiceConfig
+    owner = _owner_flash_row()
+    server = _xl_server(DiceConfig.sync_ep())
+    cfg = server.cfg
+    noise = torch.randn((XL_REQUESTS, cfg.patch_tokens, cfg.in_channels),
+                        generator=torch.Generator(device="cuda").manual_seed(11),
+                        device="cuda")
+    classes = torch.tensor([(37 * i) % cfg.num_classes for i in range(XL_REQUESTS)],
+                           device="cuda")
+    int8 = CompressConfig("int8_residual")
+    runs = [("sync", DiceConfig.sync_ep(), XL_STEPS, {}),
+            ("distrifusion n_dev=8 sync", DiceConfig.sync_ep(), XL_STEPS,
+             dict(patch_parallel_ndev=8)),
+            ("patch_compose n_dev=2 dice+int8", DiceConfig.dice(compress=int8), 4,
+             dict(patch_parallel_ndev=2, patch_compose=True))]
+    _sample(server.params, cfg, DiceConfig.sync_ep(), noise, classes, 1,
+            patch_parallel_ndev=8)                         # warm-up
+    out = {}
+    for label, dcfg, steps, kw in runs:
+        torch.cuda.reset_peak_memory_stats()
+        x, st, counts, s_step = _sample(server.params, cfg, dcfg, noise, classes,
+                                        steps, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        splan = plan_lib.compile_step_plans(dcfg, cfg.num_layers, steps,
+                                            experts_per_token=cfg.experts_per_token)
+        want = planned_launches(splan.steps, passes=2,
+                                patch_ndev=kw.get("patch_parallel_ndev", 0))
+        finite = bool(torch.isfinite(x).all())
+        log(f"  10b XL {label}, {XL_REQUESTS} requests x {steps} steps: {s_step:.4f} "
+            f"s/step, buffer_bytes {st['buffer_bytes'][-1]:.0f}, peak memory "
+            f"{peak:.3f} GiB, finite {finite}, std {float(x.std()):.6f}, launches "
+            f"{counts} ({counts['flash_attention'] // steps} flash a step), planned {want}")
+        if not finite or tuple(x.shape) != (XL_REQUESTS, cfg.patch_tokens, cfg.in_channels):
+            raise AssertionError(f"10b {label}: samples not finite or misshapen")
+        _check_launches(f"10b {label}", counts, want, dcfg.compress is not None)
+        out[label] = (s_step, st["buffer_bytes"][-1], peak, counts)
+    df = out["distrifusion n_dev=8 sync"]
+    if df[3]["flash_attention"] != cfg.num_layers * 8 * 2 * XL_STEPS:
+        raise AssertionError("10b: flash launches are not layers x 8 x 2 passes x steps")
+    log(f"  10b s/step in this call: distrifusion {df[0]:.4f}, sync {out['sync'][0]:.4f} "
+        f"({(df[0] / out['sync'][0] - 1) * 100:+.2f}%); phase 5 dice+int8 {phase5[1]:.4f}. "
+        f"Stale K/V footprint (DistriFusion) {df[1] / 1e9:.4f} GB; composed dice+int8 "
+        f"(DICE's caches + K/V) {out['patch_compose n_dev=2 dice+int8'][1] / 1e9:.4f} GB")
+    for name in DIT_KERNELS[:2]:
+        rows[name]["launches_distrifusion"] = df[3][name]
+    rows["flash_attention distrifusion owner"] = dict(
+        owner, launches=df[3]["flash_attention"])
+    del server
+    torch.cuda.empty_cache()
+
+
+def _mesh_generate(server, reqs, steps, label, **kw):
+    """One ``generate`` over the server's mesh with this rank's launch
+    counts set to 0 before and held to its plan after."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    x, st = server.generate(reqs, num_steps=steps, **kw)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    want = planned_launches(server.plan(steps).steps, passes=2, ranks=server.n_ep)
+    _check_launches(f"{label} rank {server.mesh.rank}", counts, want,
+                    server.dcfg.compress is not None)
+    return x, st, counts
+
+
+def _hier_tiny(mesh, runs):
+    """The 4-layer DiT over ``mesh`` for each (label, DiceConfig) at
+    guidance 1.5; returns {label: (samples, s/step, counts of every rank)}."""
+    from repro_torch.launch.serve import DiceServer
+    cfg, params, reqs, noise = _tiny4()
+    out = {}
+    for label, dcfg in runs:
+        server = DiceServer(cfg, dcfg, params=params, mesh=mesh)
+        x, st, counts = _mesh_generate(server, reqs, TINY_STEPS, f"10c {label}",
+                                       noise=noise, guidance=1.5)
+        out[label] = (x, st["wall_s_per_step"], _every_rank(counts))
+    return out
+
+
+def _hier_xl(mesh):
+    """XL width at MESH_XL_LAYERS layers, dice + int8, 8 requests x 4 steps
+    over ``mesh``; the rank's numbers gathered from every rank."""
+    import torch
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.configs.dit_moe_xl import config
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch.serve import DiceServer, Request
+    cfg = config().replace(num_layers=MESH_XL_LAYERS)
+    t0 = time.perf_counter()
+    server = DiceServer(cfg, DiceConfig.dice(compress=CompressConfig("int8_residual")),
+                        mesh=mesh, seed=0)
+    _perturb(server.params, torch.Generator(device=mesh.device).manual_seed(99))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+            for i in range(XL_REQUESTS)]
+    server.generate(reqs, num_steps=1)                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    x, st, counts = _mesh_generate(server, reqs, 4, f"10c XL {mesh.shape}")
+    patch = mesh.shape.get("patch", 1)
+    # one all-gather of (B_loc, T_loc, 2, KVH, Dh) f32 a layer and pass
+    gather = (cfg.num_layers * 2 * (XL_REQUESTS // mesh.lanes) * cfg.patch_tokens * 2
+              * cfg.num_kv_heads * cfg.head_dim * 4) if patch > 1 else 0
+    res = dict(shape=dict(mesh.shape), backend=st["backend"],
+               s_per_step=_every_rank(st["wall_s_per_step"]),
+               dispatch=st["dispatch_bytes_per_step"], gather_bytes=gather,
+               buffer_bytes=st["buffer_bytes"], init_s=_every_rank(init_s),
+               peak_gib=_every_rank(torch.cuda.max_memory_allocated() / 2**30),
+               counts=_every_rank(counts), finite=bool(torch.isfinite(x).all()),
+               out_shape=tuple(x.shape))
+    del server
+    torch.cuda.empty_cache()
+    return res
+
+
+def _hier_job(mesh, runs_dp_ep, runs_patch):
+    """10c in each of 4 ranks: the 4-layer DiT over ep2 x dp2 (this spawn's
+    mesh) and over ep2 x patch2 (built here on the same 4 ranks), then XL
+    width over both."""
+    from repro_torch.launch import mesh as mesh_lib
+    _tf32_off()
+    patch_mesh = mesh_lib.make_mesh(ep=2, patch=2, backend="gloo", device="cuda")
+    tiny = {"ep2xdp2": _hier_tiny(mesh, runs_dp_ep),
+            "ep2xpatch2": _hier_tiny(patch_mesh, runs_patch)}
+    return tiny, [_hier_xl(mesh), _hier_xl(patch_mesh)]
+
+
+def _hier8_job(mesh, runs_patch):
+    """10c in each of 8 ranks: the 4-layer DiT over ep2 x dp2 x patch2."""
+    _tf32_off()
+    return _hier_tiny(mesh, runs_patch)
+
+
+def phase_hier(rows, patch_single):
+    """10c: the hierarchical mesh on the one card, gloo ranks sharing it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import DiceServer
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q = torch.randn((4, 128, 16, 72), generator=gen, device="cuda")
+    k, v = (torch.randn((4, 256, 16, 72), generator=gen, device="cuda") for _ in range(2))
+    compare("10c flash at an ep2 x patch2 rank's XL shape (T_loc=128 queries, 256 keys)",
+            ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v), TOL_F32)
+    cfg, params, reqs, noise = _tiny4()
+    schedules = {k: v for k, v in _tiny_schedules().items()
+                 if k in ("sync", "displaced", "interweaved", "selective", "dice")}
+    p_gpu = _to(params, "cuda")
+    single = {}
+    for label, dcfg in schedules.items():
+        server = DiceServer(cfg, dcfg, params=p_gpu, device="cuda")
+        single[label] = server.generate(reqs, num_steps=TINY_STEPS, noise=noise,
+                                        guidance=1.5)[0].cpu()
+    runs_dp_ep = [(f"{label} {engine}", dataclasses.replace(dcfg, overlap=engine))
+                  for label, dcfg in schedules.items() for engine in ("blocking", "ring")]
+    compose_label, compose_dcfg, _, _ = _patch_runs()[2]
+    runs_patch = [("dice+int8", compose_dcfg)]
+    t0 = time.perf_counter()
+    (tiny, xl), totals = mesh_lib.spawn(_hier_job, 4, dp=2, backend="gloo",
+                                        device="cuda", timeout_s=EP_TIMEOUT_S,
+                                        args=(runs_dp_ep, runs_patch))
+    spawn4 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiny8, _ = mesh_lib.spawn(_hier8_job, 8, dp=2, patch=2, backend="gloo",
+                              device="cuda", timeout_s=EP_TIMEOUT_S, args=(runs_patch,))
+    spawn8 = time.perf_counter() - t0
+    for label in schedules:
+        for engine in ("blocking", "ring"):
+            x, s_step, counts = tiny["ep2xdp2"][f"{label} {engine}"]
+            compare(f"10c ep2xdp2 gloo tiny {label} {engine}, vs the single-process "
+                    f"card run", x, single[label], TOL_F32)
+            log(f"    launches per rank {counts}; {s_step:.4f} s/step")
+    for shape, res in (("ep2xpatch2", tiny["ep2xpatch2"]), ("ep2xdp2xpatch2", tiny8)):
+        x, s_step, counts = res["dice+int8"]
+        compare(f"10c {shape} gloo tiny dice+int8, vs the single-process "
+                f"patch_compose card run", x, patch_single[compose_label], TOL_F32)
+        log(f"    launches per rank {counts}; {s_step:.4f} s/step")
+    for r in xl:
+        log(f"  10c XL width ({MESH_XL_LAYERS} of 28 layers) {r['shape']} {r['backend']} "
+            f"(4 ranks sharing one card, host-staged wire), dice+int8, {XL_REQUESTS} "
+            f"requests x 4 steps: s/step per rank {[round(s, 4) for s in r['s_per_step']]}, "
+            f"per-rank dispatch bytes by step {[int(b) for b in r['dispatch']]}, patch "
+            f"all-gather bytes a step per rank (from the shapes) {r['gather_bytes']}, "
+            f"buffer_bytes {r['buffer_bytes']:.0f}, peak memory per rank "
+            f"{[round(g, 3) for g in r['peak_gib']]} GiB, init per rank "
+            f"{[round(t, 2) for t in r['init_s']]} s, finite {r['finite']}, shape "
+            f"{r['out_shape']}; launches per rank {r['counts']}")
+        if not r["finite"] or r["out_shape"] != (XL_REQUESTS, 256, 16):
+            raise AssertionError(f"10c XL {r['shape']}: samples not finite or misshapen")
+    log(f"  10c spawns: 4 ranks {spawn4:.1f} s (launch totals {totals}), 8 ranks "
+        f"{spawn8:.1f} s.  Ranks time-slicing one card over a host-staged wire: not "
+        f"a deployment's numbers.")
+    for name in DIT_KERNELS:
+        rows[name]["launches_hier_per_rank"] = [c[name] for c in xl[0]["counts"]]
+
+
+def _place_job(mesh, bias):
+    """10d in each of 2 ranks, XL width at MESH_XL_LAYERS layers with every
+    router biased by ``bias``: sync over the identity layout, then over the
+    greedy placement (one replicated expert) of the identity layout's
+    served-pair histogram, at capacity_factor 8 so that neither layout
+    drops a pair; then phase 7b's mix through serve_continuous with online
+    greedy placement."""
+    import torch
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.configs.dit_moe_xl import config
+    from repro_torch.core import placement as placement_lib
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import DiceServer, Request, serve_continuous
+    _tf32_off()
+    cfg = config().replace(num_layers=MESH_XL_LAYERS, capacity_factor=8.0)
+    server = DiceServer(cfg, DiceConfig.sync_ep(), mesh=mesh, seed=0)
+    _perturb(server.params, torch.Generator(device=mesh.device).manual_seed(99))
+    for blk in server.params["blocks"]:
+        blk["moe"]["router_bias"] = torch.as_tensor(bias, device=mesh.device)
+    reqs = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+            for i in range(PLACE_REQUESTS)]
+    noise = torch.randn((PLACE_REQUESTS, cfg.patch_tokens, cfg.in_channels),
+                        generator=torch.Generator(device="cuda").manual_seed(12),
+                        device="cuda")
+    server.generate(reqs, num_steps=1, noise=noise)        # warm-up
+    x_id, st_id, c_id = _mesh_generate(server, reqs, 4, "10d identity", noise=noise)
+    # the identity layout's served-pair histogram, as the online engine
+    # accumulates it (a warm-up no drift check reaches)
+    probe = DiceServer(cfg, DiceConfig.sync_ep(), params=server.params, mesh=mesh,
+                       placement=placement_lib.PlacementConfig(
+                           mode="greedy", warmup_ticks=10**6))
+    shares = serve_continuous(probe, reqs, max_batch=PLACE_REQUESTS, num_steps=4,
+                              seed=0)[1]["routing_shares"]
+    placements = placement_lib.greedy_placements(shares, mesh.size, replicate_top=1)
+    placed = DiceServer(cfg, dataclasses.replace(DiceConfig.sync_ep(),
+                                                 placements=placements),
+                        params=server.params, mesh=mesh)
+    t0 = time.perf_counter()
+    placed.generate(reqs, num_steps=1, noise=noise)        # re-lays-out, warms up
+    relayout_s = time.perf_counter() - t0
+    x_pl, st_pl, c_pl = _mesh_generate(placed, reqs, 4, "10d greedy", noise=noise)
+    diff = (x_pl - x_id).abs()
+    plan = placed.plan(4).steps[0]
+    tokens = PLACE_REQUESTS // mesh.size * cfg.patch_tokens
+    res = dict(shares=[[round(v, 4) for v in row] for row in shares],
+               placements=[(p.perm, p.replicated, p.cap_scale) for p in placements],
+               err=float(diff.max()),
+               ok=bool((diff <= TOL_F32["atol"] + TOL_F32["rtol"] * x_id.abs()).all()),
+               relayout_s=relayout_s, s_id=st_id["wall_s_per_step"],
+               s_pl=st_pl["wall_s_per_step"], bytes_id=st_id["dispatch_bytes_per_step"],
+               bytes_pl=st_pl["dispatch_bytes_per_step"],
+               want_bytes=sum(a.dispatch_bytes(tokens, cfg) for a in plan.actions),
+               counts_id=_every_rank(c_id), counts_pl=_every_rank(c_pl))
+    del placed, probe
+    torch.cuda.empty_cache()
+
+    # phase 7b's mix with online greedy placement, at the config's capacity
+    online = DiceServer(cfg.replace(capacity_factor=1.25),
+                        DiceConfig.dice(compress=CompressConfig("int8_residual")),
+                        params=server.params, mesh=mesh,
+                        placement=placement_lib.PlacementConfig(mode="greedy",
+                                                                replicate_top=1))
+    reqs = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+            for i in range(CONT_REQUESTS)]
+    arrivals = [float(CONT_EVERY * (i // 4)) for i in range(CONT_REQUESTS)]
+    ops.reset_launches()
+    out, st = serve_continuous(online, reqs, max_batch=CONT_SLOTS,
+                               num_steps=XL_STEPS, seed=0, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    _check_launches(f"10d continuous rank {mesh.rank}", counts,
+                    planned_launches(st["tick_plans"], passes=2, ranks=mesh.size),
+                    True)
+    if sorted(out) != list(range(CONT_REQUESTS)) or not all(
+            bool(torch.isfinite(x).all()) for x in out.values()):
+        raise AssertionError("10d continuous: samples missing or not finite")
+    res["continuous"] = {k: st[k] for k in (
+        "ticks", "wall_s", "wall_s_per_tick", "placement_reshards",
+        "placement_wire_scale", "step_keys", "num_plan_variants", "hist_updates",
+        "dispatch_bytes_total", "backend")}
+    res["continuous"]["counts"] = _every_rank(counts)
+    return res
+
+
+def phase_placement(rows):
+    """10d: expert placement at ep=2 over gloo (see _place_job)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    # the replica call's shape: one replicated expert, a buffer for every
+    # pair of a rank's 2 requests (512 tokens x top-2)
+    args = _expert_inputs(torch.Generator(device="cuda").manual_seed(15), 1, 1024,
+                          1152, 4608, torch.float32)
+    compare("10d expert_ffn at the replica call's shape (E=1 C=1024 d=1152 f=4608)",
+            ops.expert_ffn(*args), ref.expert_ffn_ref(*args), TOL_F32)
+    del args
+    bias = np.zeros(8, np.float32)
+    bias[5] = PLACE_BIAS
+    t0 = time.perf_counter()
+    res, totals = mesh_lib.spawn(_place_job, EP, backend="gloo", device="cuda",
+                                 timeout_s=EP_TIMEOUT_S, args=(bias,))
+    log(f"  10d XL width ({MESH_XL_LAYERS} of 28 layers, capacity_factor 8) ep=2 gloo, "
+        f"routers biased +{PLACE_BIAS} toward expert 5: identity layout's shares by "
+        f"layer {res['shares']}; greedy placements (perm, replicated, cap_scale) "
+        f"{res['placements']}")
+    log(f"  10d sync {PLACE_REQUESTS} requests x 4 steps: identity {res['s_id']:.4f} "
+        f"s/step, greedy {res['s_pl']:.4f} s/step (re-layout and a 1-step warm-up "
+        f"{res['relayout_s']:.2f} s); placed vs identity samples max abs diff "
+        f"{res['err']:.3e} (tol rtol=1e-4 atol=1e-4) {'ok' if res['ok'] else 'FAIL'}; "
+        f"per-rank dispatch bytes by step identity {[int(b) for b in res['bytes_id']]}, "
+        f"greedy {[int(b) for b in res['bytes_pl']]} (planned {res['want_bytes']}); "
+        f"launches per rank identity {res['counts_id']}, greedy {res['counts_pl']}")
+    if not res["ok"]:
+        raise AssertionError("10d: placed samples differ from the identity layout's")
+    if res["bytes_pl"] != [float(res["want_bytes"])] * 4 or \
+            not res["bytes_pl"][0] < res["bytes_id"][0]:
+        raise AssertionError("10d: the placed wire bytes are not the plan's")
+    replicas = sum(1 for _, rep, _ in res["placements"] if rep)
+    if [c["expert_ffn"] for c in res["counts_pl"]] != [
+            c["expert_ffn"] + 2 * 4 * replicas for c in res["counts_id"]]:
+        raise AssertionError("10d: expert_ffn launches miss the replica calls")
+    c = res["continuous"]
+    log(f"  10d serve_continuous, phase 7b's mix ({CONT_REQUESTS} requests, "
+        f"{CONT_SLOTS} slots, dice+int8, capacity_factor 1.25), --placement greedy "
+        f"--replicate-top 1, {c['backend']}: re-shards {c['placement_reshards']}, "
+        f"planned wire scale {c['placement_wire_scale']:.4f}, histogram updates "
+        f"{c['hist_updates']}, step keys {c['step_keys']} of {c['num_plan_variants']} "
+        f"plan variants, ticks {c['ticks']}, wall {c['wall_s']:.4f} s "
+        f"({c['wall_s_per_tick']:.4f} s/tick, {CONT_REQUESTS / c['wall_s']:.4f} "
+        f"requests/s); launches per rank {c['counts']} (held to the ticks' plans)")
+    if c["placement_reshards"] < 1 or c["step_keys"] > c["num_plan_variants"]:
+        raise AssertionError("10d continuous: no re-shard, or more step keys than "
+                             "plan variants")
+    log(f"  10d spawn {time.perf_counter() - t0:.1f} s, launch totals per rank {totals}")
+    rows["expert_ffn"]["launches_placed_per_rank"] = [
+        c["expert_ffn"] for c in res["counts_pl"]]
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -1484,8 +1962,15 @@ def main() -> int:
     with phase("9 main path 5 (checkpoint, telemetry, top-k codec, resilience; "
                "DiT-MoE-XL width)"):
         phase_main5(phase5)
+    with phase("10 main path 6 (DistriFusion at XL, the dp x ep x patch mesh, "
+               "expert placement)"):
+        patch_single = phase_patch_tiny()
+        phase_distrifusion(rows, phase5)
+        phase_hier(rows, patch_single)
+        phase_placement(rows)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
-            "launches_ep2_per_rank", "max_abs_err", "ms",
+            "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
+            "launches_placed_per_rank", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "fp32_bound_ms",
             "device_ms",
             "events_ms", "shape")

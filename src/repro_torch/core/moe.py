@@ -12,10 +12,12 @@ The dispatch path is sort-based, never materialising (T, E, C) one-hots:
   6. over an ep mesh, the combine all-to-all back; then the score-weighted
      un-permute (combine).
 
-Under a mesh (:class:`~repro_torch.launch.mesh.EPMesh`) ``x`` is the
-rank's token shard, the ``experts_*`` params its expert shard, and the
-capacity a per-rank capacity; ``overlap`` swaps the two all-to-alls for
-the ring engine of :mod:`repro_torch.core.overlap`.
+Under a mesh (:class:`~repro_torch.launch.mesh.EPMesh`, the ranks of one
+ep group) ``x`` is the rank's token shard, the ``experts_*`` params its
+expert shard, and the capacity a per-rank capacity; ``overlap`` swaps the
+two all-to-alls for the ring engine of :mod:`repro_torch.core.overlap`.
+A ``placement`` (:mod:`repro_torch.core.placement`) reorders the dispatch
+buffer's experts and serves the pairs of replicated experts locally.
 
 ``fresh_mask`` / ``h_cache`` implement Conditional Communication: masked
 pairs are not dispatched (they take no buffer capacity) and their
@@ -29,6 +31,7 @@ dropped pairs go to one extra dump row that is cut off.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -256,6 +259,7 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
                 codec: Optional[codec_lib.CodecSpec] = None,
                 dispatch_base: Optional[torch.Tensor] = None,
                 mesh=None, overlap: bool = False,
+                hop_schedule=None, placement=None,
                 obs: Optional[obs_telemetry.ObsConfig] = None,
                 resilience: Optional[fault_lib.ResilienceConfig] = None,
                 fault_salt: int = 0, fault_key: Optional[int] = None,
@@ -269,13 +273,25 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     all-to-all as (n, e_loc, C, d), the local experts compute
     (e_loc, n * C, d), and the combine all-to-all brings the outputs back
     (cast to ``x.dtype`` first).  ``overlap`` runs the ring engine instead,
-    its hops in the natural order.  ``aux.dispatch_bytes`` is the
-    per-rank one-way payload; ``aux.hops`` / ``aux.hop_bytes`` the ring's
-    hop count and per-hop bytes (0 on the blocking path).  Under a mesh
-    ``aux.lb_loss`` is None and ``aux.lb_terms`` holds the local means:
-    the caller reduces them over the ranks once for all layers
+    its hops in ``hop_schedule``'s order (default the natural one).
+    ``aux.dispatch_bytes`` is the per-rank one-way payload; ``aux.hops`` /
+    ``aux.hop_bytes`` the ring's hop count and per-hop bytes (0 on the
+    blocking path).  ``aux.lb_terms`` holds the local means of the
+    load-balance loss; under a mesh ``aux.lb_loss`` is None and the caller
+    reduces the terms over the ranks once for all layers
     (:func:`repro_torch.models.dit_moe.dit_forward`) or calls
     :func:`load_balance_loss` with the mesh.
+
+    ``placement`` (not the identity): the dispatch buffer holds experts in
+    the placement's device-major wire order, which the ``experts_*`` stacks
+    must follow (:func:`repro_torch.core.placement.place_moe_params`, or
+    :func:`repro_torch.common.sharding.place_experts` over a mesh), and
+    pairs routed to a replicated expert never enter it: they go to a local
+    buffer served by the ``experts_*_rep`` stacks in one more
+    ``expert_ffn`` call.  The default capacity is scaled by the
+    placement's ``cap_scale`` (a planned one comes scaled from
+    ``LayerAction.dispatch_capacity``).  ``counts`` and ``served_counts``
+    stay in expert-id space.
 
     With ``codec`` the dispatch payload is encoded against
     ``dispatch_base`` (zeros if None) and its reconstruction returned as
@@ -306,9 +322,24 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     T, d = x.shape
     E = cfg.num_experts
     probs, scores, idx = route(p, x, cfg)
+    pl = placement if placement is not None and not placement.is_identity \
+        else None
     if capacity is None:
         capacity = default_capacity(T, cfg)
-    plan = make_plan(idx, E, capacity, fresh_mask=fresh_mask)
+        if pl is not None:
+            capacity = pl.scaled_capacity(capacity)
+    # placement: replicated pairs leave the wire; the rest scatter at the
+    # placement's wire positions, so each rank's chunk holds its experts
+    rep_mask = None
+    wire_fresh, wire_idx = fresh_mask, idx
+    if pl is not None:
+        inv_perm, rep_ids, pos_of = placement_index(pl, x.device)
+        if pl.replicated:
+            rep_mask = (idx[..., None] == rep_ids).any(-1)
+            wire_fresh = ~rep_mask if fresh_mask is None \
+                else fresh_mask & ~rep_mask
+        wire_idx = inv_perm[idx]
+    plan = make_plan(wire_idx, E, capacity, fresh_mask=wire_fresh)
     x_wire = x
     if codec is not None:
         base = dispatch_base if dispatch_base is not None \
@@ -332,13 +363,38 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     buf = dispatch(x_wire, plan, E, capacity)
     n = 1 if mesh is None else mesh.size
     ring = bool(overlap and n > 1)
+    loc_plan = loc_out = None
+    if rep_mask is not None:
+        # replica-served pairs: the same wire payload into a local
+        # (R, C_loc, d) buffer whose capacity covers every pair (the hot
+        # experts' headroom the scaled wire buffer gave away)
+        R = len(pl.replicated)
+        loc_cap = -(-(T * idx.shape[1]) // 8) * 8
+        loc_fresh = rep_mask if fresh_mask is None else fresh_mask & rep_mask
+        loc_plan = make_plan(pos_of[idx], R, loc_cap, fresh_mask=loc_fresh)
+        loc_out = ops.expert_ffn(
+            dispatch(x_wire, loc_plan, R, loc_cap), p["experts_gate_rep"],
+            p["experts_up_rep"], p["experts_down_rep"], act=cfg.act)
     if mesh is None:
         buf_out = expert_ffn(p, buf, act=cfg.act)
     else:
         buf_out = _ep_exchange(p, buf, cfg, mesh, ring=ring,
-                               wire_dtype=x.dtype)
-    y, pair_vals, pair_keep = combine(buf_out, plan, scores, T,
-                                      h_cache=h_cache, fresh_mask=fresh_mask)
+                               wire_dtype=x.dtype, hop_schedule=hop_schedule)
+    if rep_mask is not None:
+        # merge wire and replica outputs per pair, then apply the cache as
+        # ``combine`` does: the identity layout's values for every pair
+        _, wire_vals, wire_keep = combine(buf_out, plan, scores, T)
+        _, loc_vals, loc_keep = combine(loc_out, loc_plan, scores, T)
+        pair_vals = torch.where(rep_mask[..., None], loc_vals, wire_vals)
+        pair_keep = torch.where(rep_mask, loc_keep, wire_keep)
+        if h_cache is not None and fresh_mask is not None:
+            pair_vals = torch.where(fresh_mask[..., None], pair_vals,
+                                    h_cache.to(pair_vals.dtype))
+        y = weighted_sum(scores, pair_vals)
+    else:
+        y, pair_vals, pair_keep = combine(buf_out, plan, scores, T,
+                                          h_cache=h_cache,
+                                          fresh_mask=fresh_mask)
     # fresh-kept pairs still hold the raw wire value here: the telemetry
     # measures the combine residual on them, before the codec and before
     # any corruption
@@ -380,7 +436,13 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     if cfg.num_shared_experts:
         y = y + shared_expert(p, x, act=cfg.act).to(y.dtype)
 
-    counts = plan.counts
+    counts = plan.counts                       # wire space == expert space
+    if pl is not None:
+        flat_e = idx.reshape(-1)
+        if fresh_mask is not None:
+            flat_e = torch.where(fresh_mask.reshape(-1), flat_e,
+                                 torch.full_like(flat_e, E))
+        counts = histogram(flat_e, E + 1)[:E]
     served_counts = histogram(idx.reshape(-1), E,
                               weights=pair_keep.reshape(-1))
     dispatched = counts.sum().to(torch.float32)
@@ -399,8 +461,10 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
             pair_vals=pair_vals_fresh, recon=recon, pair_keep=pair_keep,
             fresh_mask=fresh_mask, h_cache=h_cache,
             dropped_frac=dropped_frac)
+    terms = lb_terms(probs, idx, E)
     aux = MoEAux(
-        lb_loss=None if mesh is not None else load_balance_loss(probs, idx, E),
+        lb_loss=None if mesh is not None
+        else lb_from_terms(terms, idx.shape[1]),
         dropped_frac=dropped_frac,
         dispatch_bytes=E * capacity * per_row,
         pair_vals=pair_vals if keep_pairs else None,
@@ -412,11 +476,25 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
         served_counts=served_counts,
         hops=2 * (n - 1) if ring else 0,
         hop_bytes=(E // n) * capacity * per_row if ring else 0,
-        lb_terms=lb_terms(probs, idx, E) if mesh is not None else None,
+        lb_terms=terms,
         telemetry=telemetry,
         fault_events=fe,
     )
     return y.to(x.dtype), aux
+
+
+@functools.lru_cache(maxsize=256)
+def placement_index(pl, device: torch.device):
+    """(expert -> wire position, replicated ids, expert -> replica row
+    with R for the others) of a placement, as tensors on ``device``, made
+    once: built per call they would be copied from the host every layer,
+    and such a copy waits for the stream."""
+    E, R = pl.num_experts, len(pl.replicated)
+    pos_of = [R] * E
+    for j, e in enumerate(pl.replicated):
+        pos_of[e] = j
+    return tuple(torch.tensor(v, dtype=torch.int64, device=device)
+                 for v in (pl.inv_perm(), pl.replicated, pos_of))
 
 
 def _fault_mask(given: Optional[FaultMasks], which: str, faults, rate_field,
@@ -433,7 +511,7 @@ def _fault_mask(given: Optional[FaultMasks], which: str, faults, rate_field,
 
 
 def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,
-                 wire_dtype) -> torch.Tensor:
+                 wire_dtype, hop_schedule=None) -> torch.Tensor:
     """(E, C, d) dispatch buffer -> the (E, C, d) expert outputs of its
     rows, the experts spread over the ranks of ``mesh``."""
     E, C, d = buf.shape
@@ -444,7 +522,8 @@ def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,
             f"for expert parallelism (expert paging, which lifts this in the "
             f"reference, is not ported: ROADMAP A.9)")
     e_loc = E // n
-    local = {k: v for k, v in p.items() if k.startswith("experts_")}
+    local = {k: v for k, v in p.items()
+             if k.startswith("experts_") and not k.endswith("_rep")}
     if local["experts_gate"].shape[0] != e_loc:
         raise ValueError(
             f"the params hold {local['experts_gate'].shape[0]} experts, not "
@@ -454,7 +533,7 @@ def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,
     if ring:
         out = overlap_lib.ring_expert_exchange(
             chunks, lambda c: expert_ffn(local, c, act=cfg.act), mesh=mesh,
-            wire_dtype=wire_dtype)
+            wire_dtype=wire_dtype, hop_schedule=hop_schedule)
         return out.reshape(E, C, d)
     b = mesh.all_to_all(chunks)            # piece j: rank j's rows for us
     b = b.transpose(0, 1).reshape(e_loc, n * C, d)

@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 from repro_torch.compress.codecs import CodecSpec
 from repro_torch.core import conditional
 from repro_torch.core.moe import default_capacity
+from repro_torch.core.placement import Placement
 from repro_torch.core.selective import sync_layer_mask
 
 
@@ -57,9 +58,16 @@ class LayerAction:
         (:mod:`repro_torch.core.overlap`) instead of two all-to-alls; the
         samplers normalize it away where no ep mesh of more than one rank
         backs the run (:func:`normalize_overlap`)
-    placement / paging / prefetch / resident
-        the reference's placement and paging fields.  The port never sets
-        them (ROADMAP A.9); they stay so plans compare field-equal.
+    placement
+        this layer's expert layout (:class:`~repro_torch.core.placement.Placement`):
+        the dispatch buffer's expert order, the replicas served locally
+        off the wire, and the capacity scale.  The expert params must be
+        laid out to match (:func:`repro_torch.common.sharding.place_experts`).
+        An identity placement normalizes to ``None``.
+    paging / prefetch / resident
+        the reference's expert-paging fields, kept so plans compare
+        field-equal.  Paging is not ported (ROADMAP A.9): a ``paging``
+        raises, and ``prefetch`` / ``resident`` normalize to ``None``.
     """
     mode: str = "sync"
     store_y: bool = False
@@ -70,7 +78,7 @@ class LayerAction:
     codec: Optional[CodecSpec] = None
     store_base: bool = False
     overlap: bool = False
-    placement: Optional[Any] = None
+    placement: Optional[Placement] = None
     paging: Optional[Any] = None
     prefetch: Optional[int] = None
     resident: Optional[Tuple[int, ...]] = None
@@ -84,9 +92,11 @@ class LayerAction:
             raise ValueError("staggered mode does not support a wire codec "
                              "(half-batch payloads have no per-batch "
                              "residual base)")
-        if self.placement is not None or self.paging is not None:
-            raise NotImplementedError("expert placement and paging are not "
-                                      "ported yet")
+        if self.placement is not None and self.placement.is_identity:
+            object.__setattr__(self, "placement", None)
+        if self.paging is not None:
+            raise NotImplementedError("expert paging is not ported yet "
+                                      "(ROADMAP A.9)")
         object.__setattr__(self, "prefetch", None)
         object.__setattr__(self, "resident", None)
 
@@ -126,8 +136,12 @@ class LayerAction:
         """Per-expert dispatch-buffer capacity, sized from the tokens of
         this call (a rank's shard over an ep mesh): a Conditional-
         Communication light step (``effective_k < K``) genuinely shrinks
-        the buffer."""
-        return default_capacity(num_local_tokens, cfg, k=self.effective_k)
+        the buffer, and a placement with replicas scales it by its
+        ``cap_scale``."""
+        cap = default_capacity(num_local_tokens, cfg, k=self.effective_k)
+        if self.placement is not None:
+            cap = self.placement.scaled_capacity(cap)
+        return cap
 
     def dispatch_bytes(self, num_local_tokens: int, cfg, *,
                        itemsize: int = 4) -> int:
@@ -254,12 +268,30 @@ def normalize_hop_schedule(hop_schedule, n_dev: int):
     return sched
 
 
+def placements_of(dcfg) -> Optional[Tuple[Optional[Placement], ...]]:
+    """The per-layer expert placements of ``dcfg``, or None."""
+    return getattr(dcfg, "placements", None)
+
+
+def normalize_placement(dcfg, n_dev: int):
+    """Strip ``dcfg.placements`` when no ep mesh of more than one rank
+    backs the run (``n_dev`` its ep size, 1 without one): there every
+    expert is local, the params stay in their original layout, and plans
+    stay equal to an unplaced config's."""
+    if n_dev > 1 or placements_of(dcfg) is None:
+        return dcfg
+    return dataclasses.replace(dcfg, placements=None)
+
+
 def placement_wire_scale(dcfg) -> float:
-    """Mean planned capacity scale over layers, by which expert placement
-    shrinks every capacity-sized wire payload.  Always 1.0 here: the
-    port's ``DiceConfig`` refuses placements (ROADMAP A.9)."""
-    del dcfg
-    return 1.0
+    """Mean planned capacity scale over layers (1.0 without placements),
+    by which expert placement shrinks every capacity-sized wire payload;
+    the serving latency model scales its all-to-all volume by it."""
+    placements = placements_of(dcfg)
+    if not placements:
+        return 1.0
+    return sum(p.cap_scale if p is not None else 1.0
+               for p in placements) / len(placements)
 
 
 def codec_spec_of(dcfg) -> Optional[CodecSpec]:
@@ -270,12 +302,23 @@ def codec_spec_of(dcfg) -> Optional[CodecSpec]:
 def plan_for_step(dcfg, num_moe_layers: int, step_idx: int, *,
                   experts_per_token: int) -> StepPlan:
     """One step's plan via the registered planner for ``dcfg.schedule``;
-    a ring-overlap config stamps ``overlap`` on every action."""
+    a ring-overlap config stamps ``overlap`` on every action, and a
+    ``dcfg.placements`` tuple each layer's placement (identity entries
+    normalize back to ``None``)."""
     planner = get_planner(dcfg.schedule)
     plan = planner(dcfg, num_moe_layers, step_idx, experts_per_token)
     if overlap_of(dcfg) and not all(a.overlap for a in plan.actions):
         plan = dataclasses.replace(plan, actions=tuple(
             dataclasses.replace(a, overlap=True) for a in plan.actions))
+    placements = placements_of(dcfg)
+    if placements is not None:
+        if len(placements) != len(plan.actions):
+            raise ValueError(
+                f"dcfg.placements has {len(placements)} entries for "
+                f"{len(plan.actions)} MoE layers")
+        plan = dataclasses.replace(plan, actions=tuple(
+            dataclasses.replace(a, placement=pl)
+            for a, pl in zip(plan.actions, placements)))
     return plan
 
 

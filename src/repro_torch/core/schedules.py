@@ -8,17 +8,21 @@ port of ``repro.core.schedules``.
 
 ``resilience`` carries the degradation ladder
 (:class:`~repro_torch.resilience.faults.ResilienceConfig`), normalized on
-construction so an inert one is ``None``.  ``placements`` and ``paging``
-are kept so a config carries the same fields as the reference; the port
-runs neither yet (ROADMAP A.9) and raises if one is set.
+construction so an inert one is ``None``.  ``placements`` carries one
+:class:`~repro_torch.core.placement.Placement` per MoE layer (the plan
+compiler stamps them onto the actions; the entry points strip them where
+no ep mesh of more than one rank runs).  ``paging`` is kept so a config
+carries the same fields as the reference; expert paging is not ported
+(ROADMAP A.9) and a set ``paging`` raises.
 """
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Any, Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 from repro_torch.compress.codecs import CompressConfig
+from repro_torch.core.placement import Placement
 from repro_torch.resilience.faults import (ResilienceConfig,
                                            normalize_resilience)
 
@@ -48,8 +52,10 @@ class DiceConfig:
     # -- execution level: "blocking" | "ring" (the ring runs over an ep mesh
     # of more than one rank; normalized to "blocking" elsewhere)
     overlap: str = "blocking"
-    # -- not ported yet: expert placement and paging (ROADMAP A.9) ----------
-    placements: Optional[Any] = None
+    # -- expert level: one placement per MoE layer (None: the original
+    # layout); the caller's expert params are re-laid-out to match
+    placements: Optional[Tuple[Optional[Placement], ...]] = None
+    # -- not ported yet: expert paging (ROADMAP A.9) -------------------------
     paging: Optional[Any] = None
     # -- resilience level: fault injection + the degradation ladder; the
     # planner ignores it, so plans and variants are untouched
@@ -59,12 +65,16 @@ class DiceConfig:
         if self.overlap not in ("blocking", "ring"):
             raise ValueError(f"overlap must be 'blocking' or 'ring', got "
                              f"{self.overlap!r}")
-        for name in ("placements", "paging"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"DiceConfig.{name} is not ported yet (ROADMAP A.9): "
-                    f"the PyTorch port runs without expert placement and "
-                    f"paging")
+        if self.paging is not None:
+            raise NotImplementedError(
+                "DiceConfig.paging is not ported yet (ROADMAP A.9): the "
+                "PyTorch port runs without expert paging")
+        if self.placements is not None:
+            if any(p is not None and not isinstance(p, Placement)
+                   for p in self.placements):
+                raise TypeError("DiceConfig.placements must hold Placement "
+                                "or None entries")
+            object.__setattr__(self, "placements", tuple(self.placements))
         if self.resilience is not None and \
                 not isinstance(self.resilience, ResilienceConfig):
             raise TypeError(f"DiceConfig.resilience must be a "

@@ -15,9 +15,9 @@ loop:
 :class:`~repro_torch.core.plan.LayerAction`.  Like the reference it builds
 a new state object each call and never writes a buffer in place.
 
-Over an expert-parallel mesh every buffer holds the rank's token rows
-only: the state follows the batch shard, as the reference's
-``state_specs`` shard the leading token dim over ``ep``.
+Over a mesh every buffer holds the rank's token rows only, batch-major:
+its lane's batch rows (``dp x ep``) and, on a patch axis, its patch's
+tokens of each, as the reference's ``state_specs`` shard them.
 """
 from __future__ import annotations
 
@@ -120,13 +120,15 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                        generator: Optional[torch.Generator] = None,
                        slot_fresh: Optional[torch.Tensor] = None,
                        consume_mask: Optional[torch.Tensor] = None,
-                       mesh=None, obs=None, resilience=None,
-                       layer_idx: int = 0, fault_key: Optional[int] = None):
+                       mesh=None, hop_schedule=None, obs=None,
+                       resilience=None, layer_idx: int = 0,
+                       fault_key: Optional[int] = None):
     """Execute one MoE layer under a planned :class:`LayerAction`.
 
     x: (T, d) flat tokens (the rank's shard over an ep ``mesh``, whose
-    all-to-alls or ring, per ``action.overlap``, :func:`moe_forward`
-    runs).  ``generator`` feeds the "random" conditional-communication
+    all-to-alls or ring, per ``action.overlap`` and in ``hop_schedule``'s
+    order, :func:`moe_forward` runs; ``action.placement`` lays out its
+    experts).  ``generator`` feeds the "random" conditional-communication
     policy; over a mesh the caller gives each rank its own (the reference
     folds the device index into the key), so each token shard draws its
     own mask.  ``slot_fresh`` (T,) / ``consume_mask`` (T, K)
@@ -156,7 +158,9 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
         return moe_forward(p, inp, cfg, capacity=capacity, fresh_mask=m,
                            h_cache=cache, want_pair_vals=want_cache,
                            codec=action.codec, dispatch_base=state.c_base,
-                           mesh=mesh, overlap=action.overlap, obs=obs,
+                           mesh=mesh, overlap=action.overlap,
+                           hop_schedule=hop_schedule,
+                           placement=action.placement, obs=obs,
                            resilience=resilience, fault_salt=layer_idx,
                            fault_key=fault_key)
 

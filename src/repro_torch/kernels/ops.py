@@ -99,12 +99,23 @@ def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, Dh); k, v (B, Sk, KVH, Dh) -> (B, Sq, H, Dh), read
-    through strides (the head dim must be contiguous)."""
+    through strides (the head dim must be contiguous).  ``out``, a
+    (B, Sq, H, Dh) tensor or view with a contiguous head dim, receives the
+    result in place of a new tensor (the kernel writes through its
+    strides)."""
+    if out is not None and (tuple(out.shape) != tuple(q.shape)
+                            or out.dtype != q.dtype or out.device != q.device
+                            or out.stride(-1) != 1):
+        raise ValueError(f"flash_attention: out {tuple(out.shape)} "
+                         f"{out.dtype} must match q {tuple(q.shape)} "
+                         f"{q.dtype} on its device, head dim contiguous")
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+        o = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
+        return o if out is None else out.copy_(o)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     code = _check_cuda("flash_attention", (q, k, v))
@@ -127,7 +138,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name}'s head dim must be "
                              f"contiguous")
     lib = library()
-    o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device) \
+        if out is None else out
     err = lib.dice_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, Sq, Sk, H, KVH, Dh,

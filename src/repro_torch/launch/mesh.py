@@ -1,11 +1,24 @@
-"""Expert-parallel mesh over ``torch.distributed`` (port of the flat
-``("ep",)`` part of ``repro.launch.mesh``).
+"""The serving mesh over ``torch.distributed`` (port of
+``repro.launch.mesh``): the flat ``("ep",)`` mesh and the hierarchical
+``dp x ep x patch`` one.
 
 The reference runs one controller over ``n`` devices and ``shard_map``\\ s
-each step over ``make_ep_mesh(n)``.  The port runs one process per ep
-rank: every rank executes the same program on its slice of the batch and
-of the expert stacks, and the dispatch/combine exchanges are collectives
-over the mesh's process group.  :func:`spawn` starts the ranks.
+each step over its mesh.  The port runs one process per rank: every rank
+executes the same program on its slice of the batch, of the image tokens
+and of the expert stacks, and the exchanges are collectives over process
+groups.  :func:`spawn` starts the ranks.  The axes, outermost first:
+
+* ``dp``: data-parallel replica groups; the batch shards over ``dp x ep``
+  and every expert shard is held once per group;
+* ``ep``: expert parallelism; the dispatch/combine all-to-alls (or the
+  ring) run over this axis only, within each ``(dp, patch)`` slice;
+* ``patch``: DistriFusion's patch parallelism; the image tokens shard
+  over it, and each attention layer all-gathers its fresh K/V on it.
+
+World ranks are laid out ``dp``-major, then ``ep``, then ``patch``.  Axes
+of size 1 drop out: :func:`make_mesh` with ``dp = patch = 1`` builds the
+flat :class:`EPMesh` it always did, and any other shape a
+:class:`HierMesh`.
 
 The backend is the caller's choice, never this module's:
 
@@ -18,8 +31,6 @@ The backend is the caller's choice, never this module's:
   address"), so :meth:`EPMesh.exchange` copies each message through a
   pinned host buffer on that pairing.
 
-The ``dp`` and ``patch`` axes of the reference's hierarchical mesh are not
-ported (ROADMAP A.9): :func:`make_mesh` refuses them.
 """
 from __future__ import annotations
 
@@ -28,7 +39,7 @@ import queue as queue_lib
 import socket
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -38,6 +49,8 @@ import torch.distributed as dist
 from repro_torch.common.device import resolve_device
 
 BACKENDS = ("nccl", "gloo")
+# hierarchical axis order, outermost first
+MESH_AXES = ("dp", "ep", "patch")
 # a collective that waits longer than this raises instead of hanging
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -63,6 +76,32 @@ class EPMesh:
         """Point-to-point messages go through pinned host buffers: gloo's
         send/recv read host memory only."""
         return self.backend == "gloo" and self.device.type == "cuda"
+
+    # -- the view every mesh gives (see HierMesh) --------------------------
+    def rank_in(self, axis: str) -> int:
+        return self.rank if axis == "ep" else 0
+
+    @property
+    def world_size(self) -> int:
+        return self.size
+
+    @property
+    def lanes(self) -> int:
+        """Batch shards: one per rank."""
+        return self.size
+
+    @property
+    def lane(self) -> int:
+        return self.rank
+
+    @property
+    def ep_mesh(self) -> "EPMesh":
+        """The mesh the MoE exchanges run over: this one."""
+        return self
+
+    def gather_samples(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's batch rows, in rank order."""
+        return self.all_gather(x)
 
     # -- collectives -------------------------------------------------------
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -128,6 +167,116 @@ class EPMesh:
         return wait
 
 
+@dataclass(frozen=True)
+class HierMesh:
+    """One rank's view of the hierarchical ``dp x ep x patch`` mesh.
+
+    ``rank`` is the world rank, ``(dp_i * ep + ep_i) * patch + patch_i``.
+    ``groups`` holds this rank's process group of each axis of size > 1
+    (its ``ep`` group: same dp and patch; its ``patch`` group: same dp
+    and ep; its ``dp`` group: same ep and patch) and, with ``dp > 1``,
+    ``inner``: the ``ep x patch`` ranks of its replica group.
+    ``axis_names``, ``shape`` and :meth:`rank_in` mirror the reference's
+    mesh, where axes of size 1 are absent."""
+    rank: int
+    dp: int
+    ep: int
+    patch: int
+    backend: str
+    device: torch.device
+    groups: Dict[str, Any] = field(default_factory=dict, compare=False)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(a for a in MESH_AXES if getattr(self, a) > 1) or ("ep",)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {a: getattr(self, a) for a in self.axis_names}
+
+    def rank_in(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 for an absent axis)."""
+        if axis == "dp":
+            return self.rank // (self.ep * self.patch)
+        if axis == "ep":
+            return (self.rank // self.patch) % self.ep
+        if axis == "patch":
+            return self.rank % self.patch
+        return 0
+
+    @property
+    def world_size(self) -> int:
+        return self.dp * self.ep * self.patch
+
+    @property
+    def lanes(self) -> int:
+        """Batch shards: the batch splits over ``dp x ep``."""
+        return self.dp * self.ep
+
+    @property
+    def lane(self) -> int:
+        return self.rank_in("dp") * self.ep + self.rank_in("ep")
+
+    @property
+    def patch_size(self) -> int:
+        return self.patch
+
+    @property
+    def stages_p2p(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    @property
+    def ep_mesh(self) -> Optional[EPMesh]:
+        """The rank's ep group as an :class:`EPMesh` (what the MoE
+        exchanges run over), None when ``ep == 1``."""
+        if self.ep == 1:
+            return None
+        return EPMesh(group=self.groups["ep"], rank=self.rank_in("ep"),
+                      size=self.ep, backend=self.backend, device=self.device)
+
+    def all_reduce_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Mean of ``t`` over every rank: over the replica group first,
+        then over ``dp``, so that dp replicas holding identical values give
+        exactly the ``dp = 1`` mean (``(x + x) / 2 == x``)."""
+        out = t.contiguous().clone()
+        inner = self.world_size // self.dp
+        if inner > 1:
+            dist.all_reduce(out, group=self.groups.get("inner"))
+            out = out / inner
+        if self.dp > 1:
+            dist.all_reduce(out, group=self.groups["dp"])
+            out = out / self.dp
+        return out
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``t`` over every rank."""
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX)
+        return out
+
+    def patch_all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The patch group's ``t`` stacked along dim 0, in patch order."""
+        return _all_gather(t, self.patch, self.groups.get("patch"))
+
+    def gather_samples(self, x: torch.Tensor) -> torch.Tensor:
+        """(B_loc, T_loc, ...) shards of every rank -> the whole
+        (B, T, ...) batch: batch rows in lane order, tokens in patch
+        order (one all-gather over the world)."""
+        g = _all_gather(x, self.world_size, None)
+        g = g.reshape((self.lanes, self.patch) + tuple(x.shape))
+        g = g.transpose(1, 2)                   # (lanes, B_loc, patch, T_loc)
+        return g.reshape((self.lanes * x.shape[0], self.patch * x.shape[1])
+                         + tuple(x.shape[2:]))
+
+
+def _all_gather(t: torch.Tensor, n: int, group) -> torch.Tensor:
+    t = t.contiguous()
+    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
 def host_copy(t: torch.Tensor) -> torch.Tensor:
     """``t`` copied into a pinned host buffer (waits for ``t``'s
     producer)."""
@@ -177,19 +326,61 @@ def rank_device(backend: str, rank: int, size: int,
 
 
 def make_mesh(*, ep: int = 1, dp: int = 1, patch: int = 1, backend: str,
-              device: Optional[Union[str, torch.device]] = None) -> EPMesh:
-    """Validated mesh factory.  Only the flat ``("ep",)`` mesh is ported;
-    ``dp > 1`` or ``patch > 1`` raise ``NotImplementedError``."""
+              device: Optional[Union[str, torch.device]] = None
+              ) -> Union[EPMesh, HierMesh]:
+    """This rank's mesh of ``dp x ep x patch`` ranks over the default
+    process group, which must hold exactly that many.  ``dp = patch = 1``
+    gives the flat :class:`EPMesh` of :func:`make_ep_mesh`; any other shape
+    a :class:`HierMesh`, whose process groups every rank creates in the
+    same order (``new_group`` is collective over the world)."""
     for name, size in (("dp", dp), ("ep", ep), ("patch", patch)):
         if not isinstance(size, int) or size < 1:
             raise ValueError(f"{name}={size!r}: axis sizes must be integers "
                              f">= 1")
-    if dp > 1 or patch > 1:
-        raise NotImplementedError(
-            f"mesh dp={dp} x ep={ep} x patch={patch}: the dp and patch axes "
-            f"of the hierarchical mesh are not ported yet (ROADMAP A.9); the "
-            f"port runs the flat ('ep',) mesh")
-    return make_ep_mesh(ep, backend=backend, device=device)
+    if dp == 1 and patch == 1:
+        return make_ep_mesh(ep, backend=backend, device=device)
+    want = dp * ep * patch
+    live = dist.is_initialized()
+    rank = dist.get_rank() if live else 0
+    dev = rank_device(backend, rank, want, device)
+    if not live:
+        raise RuntimeError("make_mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group, or "
+                           "repro_torch.launch.mesh.spawn)")
+    world = dist.get_world_size()
+    if want != world:
+        raise ValueError(f"mesh dp={dp} x ep={ep} x patch={patch} = {want} "
+                         f"ranks must equal the world size {world}: the "
+                         f"port's mesh is one process per rank")
+    if dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
+                         f"not the requested {backend!r}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+    def at(d, e, p):
+        return (d * ep + e) * patch + p
+
+    layouts = {
+        "ep": [[at(d, e, p) for e in range(ep)]
+               for d in range(dp) for p in range(patch)],
+        "patch": [[at(d, e, p) for p in range(patch)]
+                  for d in range(dp) for e in range(ep)],
+        "dp": [[at(d, e, p) for d in range(dp)]
+               for e in range(ep) for p in range(patch)],
+        "inner": [[at(d, e, p) for e in range(ep) for p in range(patch)]
+                  for d in range(dp)] if dp > 1 else [],
+    }
+    groups = {}
+    for axis, members in layouts.items():
+        for ranks in members:
+            if len(ranks) < 2:
+                continue
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = g
+    return HierMesh(rank=rank, dp=dp, ep=ep, patch=patch, backend=backend,
+                    device=dev, groups=groups)
 
 
 def make_ep_mesh(ep: int = 0, *, backend: str,
@@ -220,7 +411,7 @@ def make_ep_mesh(ep: int = 0, *, backend: str,
                   device=dev)
 
 
-def axis_size(mesh: Optional[EPMesh], name: str) -> int:
+def axis_size(mesh, name: str) -> int:
     """Size of a named axis, 1 when absent."""
     if mesh is None or name not in mesh.axis_names:
         return 1
@@ -248,10 +439,12 @@ def _to_cpu(obj):
 
 
 def _rank_main(fn, args, rank: int, size: int, backend: str, device,
-               port: int, timeout_s: float, threads: int, results) -> None:
-    """Body of one spawned rank: init the process group, build the mesh,
-    run ``fn(mesh, *args)`` with the launch counts set to 0, and report
-    (rank 0's result, this rank's counts) or the traceback."""
+               port: int, timeout_s: float, threads: int, results,
+               dp: int = 1, patch: int = 1) -> None:
+    """Body of one spawned rank: init the process group, build the
+    ``dp x ep x patch`` mesh, run ``fn(mesh, *args)`` with the launch
+    counts set to 0, and report (rank 0's result, this rank's counts) or
+    the traceback."""
     from repro_torch.kernels import ops
     try:
         if threads:
@@ -259,7 +452,8 @@ def _rank_main(fn, args, rank: int, size: int, backend: str, device,
         dist.init_process_group(
             backend, init_method=f"tcp://127.0.0.1:{port}", world_size=size,
             rank=rank, timeout=timedelta(seconds=timeout_s))
-        mesh = make_ep_mesh(size, backend=backend, device=device)
+        mesh = make_mesh(ep=size // (dp * patch), dp=dp, patch=patch,
+                         backend=backend, device=device)
         ops.reset_launches()
         out = fn(mesh, *args)
         if mesh.device.type == "cuda":
@@ -277,8 +471,11 @@ def _rank_main(fn, args, rank: int, size: int, backend: str, device,
 def spawn(fn: Callable, n: int, *, backend: str,
           device: Optional[Union[str, torch.device]] = None,
           args: Sequence = (), timeout_s: float = DEFAULT_TIMEOUT_S,
-          threads: int = 1) -> Tuple[Any, List[Dict[str, int]]]:
-    """Run ``fn(mesh, *args)`` in ``n`` spawned ranks over ``backend``.
+          threads: int = 1, dp: int = 1, patch: int = 1
+          ) -> Tuple[Any, List[Dict[str, int]]]:
+    """Run ``fn(mesh, *args)`` in ``n`` spawned ranks over ``backend``, on
+    the mesh ``dp x (n / (dp * patch)) x patch`` (the flat ep mesh by
+    default).
 
     ``fn`` must be importable (a module-level function) and ``args``
     picklable.  Each rank sets ``torch.set_num_threads(threads)`` (0
@@ -289,6 +486,9 @@ def spawn(fn: Callable, n: int, *, backend: str,
     failed, hung or died.  Returns (rank 0's result with its tensors on the
     CPU, every rank's ``kernels.ops.LAUNCHES`` counts over ``fn``)."""
     import torch.multiprocessing as mp
+    if n % (dp * patch):
+        raise ValueError(f"{n} ranks do not split into dp={dp} x patch="
+                         f"{patch} groups")
     for r in range(n):                 # fail here, before any rank starts
         rank_device(backend, r, n, device)
     ctx = mp.get_context("spawn")
@@ -297,7 +497,7 @@ def spawn(fn: Callable, n: int, *, backend: str,
     dev = None if device is None else str(device)
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, tuple(args), r, n, backend, dev, port,
-                               timeout_s, threads, results))
+                               timeout_s, threads, results, dp, patch))
              for r in range(n)]
     for p in procs:
         p.start()

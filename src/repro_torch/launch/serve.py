@@ -18,21 +18,30 @@ roofline terms, not a measurement, and named ``..._paper8``.
       --max-batch 8 --requests 24 --steps 10 --no-tiny
   PYTHONPATH=src python -m repro_torch.launch.serve --ep 2 --backend gloo \\
       --overlap ring --requests 8 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --ep 2 --dp 2 --patch 2 \\
+      --backend gloo --device cpu --requests 8 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --ep 2 --backend gloo \\
+      --continuous --placement greedy --replicate-top 1 --requests 12
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --obs \\
       --continuous --max-batch 2 --requests 3 --faults seed=7,poison_tick=2
 
-With a mesh (``DiceServer(mesh=...)``, or ``--ep N`` which spawns N ranks)
-every engine runs expert-parallel: one process per ep rank, each holding
-its slice of the batch and of the experts, with the dispatch and combine
-exchanges as all-to-alls or as the ring (``overlap``).  ``nccl`` needs a
-card per rank; ``gloo`` runs on the CPU or with ranks sharing one card.
+With a mesh (``DiceServer(mesh=...)``, or ``--ep N --dp D --patch P``,
+which spawn ``D x N x P`` ranks) every engine runs over it: one process per
+rank, each holding its slice of the batch (over ``dp x ep``), of the image
+tokens (over ``patch``: ``generate`` only) and of the experts (over
+``ep``), with the dispatch and combine exchanges as all-to-alls or as the
+ring (``overlap``), whose hops follow the host topology
+(``devices_per_host``).  ``nccl`` needs a card per rank; ``gloo`` runs on
+the CPU or with ranks sharing one card.  A placement config
+(``--placement greedy``) makes :func:`serve_continuous` re-lay-out the
+experts when the routing histogram drifts.
 
 ``obs`` adds the per-layer staleness telemetry and measured step wall
 times to the registry; ``resilience`` (``--faults``) the seeded wire
 faults, the guards and the ladder of :func:`serve_continuous` (watchdog
 demotion, quarantine, bounded admission); ``--ckpt`` serves weights from
-a checkpoint file in the reference's format.  Expert paging, online
-placement and the dp and patch mesh axes (ROADMAP A.9) are not ported.
+a checkpoint file in the reference's format.  Expert paging (ROADMAP
+A.9) is not ported.
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from repro_torch.compress.codecs import CODEC_KINDS, CompressConfig
 from repro_torch.configs.dit_moe_xl import config as xl_config, tiny
 from repro_torch.core import conditional
 from repro_torch.core import overlap as overlap_lib
+from repro_torch.core import placement as placement_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
 from repro_torch.core.moe import refuse_router_jitter
@@ -381,8 +391,9 @@ def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
 # engine
 # ---------------------------------------------------------------------------
 class DiceServer:
-    """Serves DiT-MoE requests on one device, or as one rank of an
-    expert-parallel ``mesh`` (:class:`~repro_torch.launch.mesh.EPMesh`).
+    """Serves DiT-MoE requests on one device, or as one rank of a
+    ``mesh`` (:func:`~repro_torch.launch.mesh.make_mesh`: the flat ep mesh
+    or the hierarchical ``dp x ep x patch`` one).
 
     ``params`` defaults to a random init from ``seed`` drawn on the device
     (over a mesh only the rank's experts are kept, layer by layer, so no
@@ -391,6 +402,14 @@ class DiceServer:
     config; the exchange engine is ``dcfg.overlap``.
     ``n_dev`` is the device count of the modeled deployment (default: the
     mesh's ep size, else 8) and enters the latency model only.
+    ``devices_per_host`` declares a two-tier fabric: the ring then runs
+    the topology-aware hop order
+    (:func:`~repro_torch.core.overlap.ring_hop_schedule`) and the latency
+    model prices host-crossing hops at ``inter_host_bw``.  ``placement``
+    (a :class:`~repro_torch.core.placement.PlacementConfig`) in
+    ``"greedy"`` mode makes :func:`serve_continuous` re-lay-out the
+    experts when the routing histogram drifts; ``dcfg.placements`` set by
+    the caller apply in every engine.
     ``metrics`` is the registry the serving loops fold their registries
     into; ``tracer`` (a :class:`~repro_torch.obs.StepTracer`) records host
     phases (made for an enabled ``obs`` when not given).  ``obs`` adds the
@@ -407,7 +426,10 @@ class DiceServer:
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[StepTracer] = None,
                  obs: Optional[ObsConfig] = None,
-                 resilience: Optional[fault_lib.ResilienceConfig] = None):
+                 resilience: Optional[fault_lib.ResilienceConfig] = None,
+                 devices_per_host: int = 0,
+                 inter_host_bw: Optional[float] = None,
+                 placement: Optional[placement_lib.PlacementConfig] = None):
         refuse_router_jitter(cfg)
         if mesh is not None:
             _check_mesh(mesh)
@@ -416,8 +438,9 @@ class DiceServer:
                 dcfg, compress=None if compress.codec == "none" else compress)
         if resilience is not None:
             dcfg = dataclasses.replace(dcfg, resilience=resilience)
+        n_ep = mesh_lib.axis_size(mesh, "ep")
         if n_dev is None:
-            n_dev = mesh.size if mesh is not None else 8
+            n_dev = n_ep if mesh is not None else 8
         if n_dev < 1:
             raise ValueError(f"n_dev must be >= 1, got {n_dev}")
         if mesh is None:
@@ -434,6 +457,18 @@ class DiceServer:
         self.dcfg = dcfg
         self.n_dev = n_dev
         self.mesh = mesh
+        self.devices_per_host = devices_per_host
+        self.inter_host_bw = inter_host_bw
+        self.placement = placement
+        # the ring's hop order on a two-tier fabric: cheap intra-host
+        # shifts first (a permutation of the shifts: the same numbers)
+        self.hop_schedule = None
+        if (plan_lib.overlap_of(dcfg) and n_ep > 1
+                and 0 < devices_per_host < n_ep
+                and n_ep % devices_per_host == 0):
+            self.hop_schedule = plan_lib.normalize_hop_schedule(
+                overlap_lib.ring_hop_schedule(
+                    n_ep, devices_per_host=devices_per_host), n_ep)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.obs = obs if obs is not None else ObsConfig()
         self.tracer = tracer if tracer is not None or not self.obs.enabled \
@@ -446,23 +481,43 @@ class DiceServer:
         elif mesh is not None:
             params = shard_lib.ep_shard_params(params, mesh)
         self.params = params
+        self._placed = None
 
     @property
     def n_ep(self) -> int:
-        return self.mesh.size if self.mesh is not None else 1
+        return mesh_lib.axis_size(self.mesh, "ep")
+
+    def params_for(self, placements):
+        """The params laid out under ``placements`` over the mesh's ep
+        groups (:func:`~repro_torch.common.sharding.place_experts`, an
+        all-gather of each placed layer's experts), kept for the last
+        placements asked for, so a run re-lays-out the experts once and not
+        per ``generate``; the server's own params where there is nothing to
+        lay out."""
+        if placements is None or self.n_ep <= 1:
+            return self.params
+        if self._placed is None or self._placed[0] != placements:
+            self._placed = None             # free the old layout first
+            self._placed = (placements, shard_lib.place_experts(
+                self.params, placements, self.mesh))
+        return self._placed[1]
 
     def plan(self, num_steps: int) -> plan_lib.SchedulePlan:
         """The schedule plan a ``generate`` call will run."""
+        dcfg = plan_lib.normalize_overlap(self.dcfg, self.n_ep)
         return plan_lib.compile_step_plans(
-            plan_lib.normalize_overlap(self.dcfg, self.n_ep),
+            plan_lib.normalize_placement(dcfg, self.n_ep),
             self.cfg.num_layers, num_steps,
             experts_per_token=self.cfg.experts_per_token)
 
-    def latency(self, local_batch: int) -> dict:
-        """:func:`modeled_step_latency` of this server's deployment."""
-        return modeled_step_latency(self.cfg, self.dcfg,
+    def latency(self, local_batch: int, dcfg=None) -> dict:
+        """:func:`modeled_step_latency` of this server's deployment (under
+        ``dcfg``, default the server's)."""
+        return modeled_step_latency(self.cfg, dcfg or self.dcfg,
                                     n_dev=self.n_dev,
-                                    local_batch=max(1, local_batch))
+                                    local_batch=max(1, local_batch),
+                                    devices_per_host=self.devices_per_host,
+                                    inter_host_bw=self.inter_host_bw)
 
     def generate(self, requests: List[Request], *, num_steps: int = 20,
                  guidance: float = 1.5, noise: Optional[torch.Tensor] = None,
@@ -486,11 +541,15 @@ class DiceServer:
         before = dict(ops.LAUNCHES)
         _sync(self.device)
         t0 = time.perf_counter()
-        samples, stats = rf_sample(self.params, self.cfg, self.dcfg,
-                                   num_steps=num_steps, classes=classes,
-                                   noise=noise, generator=generator,
-                                   guidance=guidance, mesh=self.mesh,
-                                   obs=self.obs)
+        placements = plan_lib.placements_of(
+            plan_lib.normalize_placement(self.dcfg, self.n_ep))
+        samples, stats = rf_sample(self.params_for(placements), self.cfg,
+                                   self.dcfg, num_steps=num_steps,
+                                   classes=classes, noise=noise,
+                                   generator=generator, guidance=guidance,
+                                   mesh=self.mesh, obs=self.obs,
+                                   hop_schedule=self.hop_schedule,
+                                   params_placed=True)
         _sync(self.device)
         wall = time.perf_counter() - t0
         lat = self.latency(len(requests) // self.n_dev)
@@ -532,18 +591,18 @@ class DiceServer:
 
 
 def _check_mesh(mesh) -> None:
-    if not isinstance(mesh, mesh_lib.EPMesh):
-        raise TypeError(f"mesh must be a repro_torch.launch.mesh.EPMesh, got "
-                        f"{type(mesh).__name__}")
+    if not isinstance(mesh, (mesh_lib.EPMesh, mesh_lib.HierMesh)):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.EPMesh or "
+                        f"HierMesh, got {type(mesh).__name__}")
 
 
 def _where(device: torch.device, mesh) -> dict:
     """The summary keys naming where a run ran: the device, and over a
-    mesh its ep size and backend."""
+    mesh its axis sizes and backend."""
     out = {"device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu")}
     if mesh is not None:
-        out.update(ep=mesh.size, backend=mesh.backend)
+        out.update(mesh.shape, backend=mesh.backend)
     return out
 
 
@@ -667,14 +726,27 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     the CPU when it completes, which is when its end-to-end latency is
     read.  Returns ({rid: sample on the CPU}, stats).
 
-    ``mesh`` (default: the server's) runs every tick expert-parallel: each
-    rank holds ``max_batch / n`` consecutive slots (their latents, per-slot
-    tensors and staleness rows), while admission and the tick's plan are
-    decided on the host from the same queue and counters, identically on
-    every rank.  A finished slot's sample is gathered from its rank, so
+    ``mesh`` (default: the server's) runs every tick over the mesh: each
+    rank holds ``max_batch / lanes`` consecutive slots of its ``dp x ep``
+    lane (their latents, per-slot tensors and staleness rows), while
+    admission and the tick's plan are decided on the host from the same
+    queue and counters, identically on every rank.  A ``patch`` axis is
+    refused, as in the reference: slot surgery assumes batch-only
+    sharding.  A finished slot's sample is gathered from its rank, so
     every rank returns every sample.  Over a mesh a "random" policy draws
     a steady tick's masks from ``(seed, tick, rank)``, one per token
     shard, and a slotted tick's from ``(seed, tick)`` over all slots.
+
+    Online placement (``server.placement`` in ``"greedy"`` mode, over an ep
+    axis of more than one rank): each tick's served-pair histogram (the
+    mean over the ranks) feeds a
+    :class:`~repro_torch.core.placement.RoutingHistogram`; at plan-aligned
+    ticks after ``warmup_ticks`` observed ticks, a drift of the EMA past
+    ``drift_threshold`` from the shares of the live placement re-plans
+    the layout greedily and rebuilds the step function on re-laid-out
+    experts (``dice_placement_reshards_total``).  The staleness buffers
+    follow tokens, not experts, and carry over.  The histograms reach the
+    host in one copy at those ticks only.
 
     With ``server.obs`` enabled each tick's wall time (after a device
     synchronisation) and telemetry block go to the registry.  With a
@@ -697,10 +769,17 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         if server.mesh is not None and mesh is not server.mesh:
             raise ValueError("serve_continuous: mesh differs from the "
                              "server's mesh")
+    if mesh is not None and "patch" in mesh.axis_names:
+        raise ValueError(
+            "continuous batching does not compose with a 'patch' mesh axis "
+            "(slot surgery assumes batch-only sharding); use "
+            "DiceServer.generate on patch meshes")
     cfg = server.cfg
     dev = server.device if mesh is None else mesh.device
-    n_ep = mesh.size if mesh is not None else 1
+    n_ep = mesh_lib.axis_size(mesh, "ep")
+    lanes = mesh.lanes if mesh is not None else 1
     dcfg = plan_lib.normalize_overlap(server.dcfg, n_ep)
+    dcfg = plan_lib.normalize_placement(dcfg, n_ep)
     reg = MetricsRegistry()
     lab = {"schedule": plan_lib.schedule_name(dcfg.schedule),
            "engine": "continuous"}
@@ -712,9 +791,9 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     ctrl = degrade_lib.DegradationController(res) if res is not None else None
     quarantine = res is not None and res.quarantine
     B, Tp, k_exp = max_batch, cfg.patch_tokens, cfg.experts_per_token
-    if B % n_ep:
-        raise ValueError(f"max_batch={B} must divide over the {n_ep}-way "
-                         f"'ep' mesh axis")
+    if B % lanes:
+        raise ValueError(f"max_batch={B} must divide over the {lanes} "
+                         f"dp x ep lanes of the mesh")
     own = shard_lib.local_rows(B, mesh)       # the slots this rank holds
     B_loc = own.stop - own.start
     dt = 1.0 / num_steps
@@ -727,9 +806,15 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                 dcfg, cfg.num_layers, num_steps, experts_per_token=k_exp)
             merge_plan = plan_lib.slotted_merge_plan(
                 dcfg, cfg.num_layers, experts_per_token=k_exp)
-            rf_step = make_rf_step(server.params, cfg, dt=dt,
-                                   guidance=guidance, mesh=mesh,
-                                   obs=server.obs, resilience=res)
+            # the server keeps its mesh's placed params; another mesh's
+            # step lays them out itself
+            params, placements = server.params, plan_lib.placements_of(dcfg)
+            if mesh is server.mesh:
+                params, placements = server.params_for(placements), None
+            rf_step = make_rf_step(params, cfg, dt=dt, guidance=guidance,
+                                   mesh=mesh, obs=server.obs, resilience=res,
+                                   placements=placements,
+                                   hop_schedule=server.hop_schedule)
         period = plan_lib.steady_period(dcfg, cfg.num_layers,
                                         experts_per_token=k_exp)
         return (splan, merge_plan, rf_step, period,
@@ -740,6 +825,16 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         build(dcfg)
     step_keys = 0
     random_policy = dcfg.cond_comm and dcfg.cond_policy == "random"
+    # online placement: the histogram of served pairs (fed at the drift
+    # checks from the ticks' device tensors) and the shares the live
+    # placement was planned from
+    pcfg = server.placement
+    place_online = pcfg is not None and pcfg.mode == "greedy" and n_ep > 1
+    hist = placement_lib.RoutingHistogram(
+        cfg.num_layers, cfg.num_experts,
+        decay=pcfg.ema_decay if pcfg is not None else 0.9)
+    pending_counts = []
+    placed_shares = None
 
     def planned_init():
         return stale_lib.init_planned_states(
@@ -813,6 +908,35 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                 reg.counter("dice_demotions_total",
                             "watchdog variant demotions",
                             {**lab, "kind": kind}).inc()
+
+        # ---- drift-triggered re-shard at plan-aligned ticks: every slot is
+        # at a cycle boundary, and the staleness rows follow tokens
+        if place_online and tick % period == 0 and pending_counts:
+            for c in torch.stack(pending_counts).to("cpu").numpy():
+                hist.update(c)
+            pending_counts = []
+            if hist.updates >= pcfg.warmup_ticks:
+                base = (placed_shares if placed_shares is not None
+                        else np.full((cfg.num_layers, cfg.num_experts),
+                                     1.0 / cfg.num_experts))
+                if placement_lib.drift(base, hist.shares) > \
+                        pcfg.drift_threshold:
+                    new_pl = placement_lib.greedy_placements(
+                        hist.shares, n_ep, replicate_top=pcfg.replicate_top)
+                    if all(p.is_identity for p in new_pl):
+                        new_pl = None
+                    if new_pl != plan_lib.placements_of(dcfg):
+                        if tracer is not None:
+                            tracer.instant("placement_reshard",
+                                           args={"tick": tick})
+                        step_keys = max(step_keys, len(rf_step.keys))
+                        dcfg = dataclasses.replace(dcfg, placements=new_pl)
+                        splan, merge_plan, rf_step, period, \
+                            merge_wants_cache, variant_of = build(dcfg)
+                        reg.counter("dice_placement_reshards_total",
+                                    "drift-triggered expert re-layouts",
+                                    lab).inc()
+                    placed_shares = hist.shares
 
         # ---- admission at plan-aligned ticks ------------------------------
         if tick % period == 0:
@@ -903,10 +1027,12 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         t_tick = time.perf_counter()
         with _span(tracer, "tick", "step",
                    {"tick": tick, "slotted": slotted}):
-            x, states, states_u, aux = rf_step(
+            x, states, states_u, _, _, aux = rf_step(
                 x, classes, states, states_u, t, plan=plan,
                 slotted=slotted, slot_fresh=slot_fresh,
                 consume_mask=consume, generator=gen, tick=tick)
+            if place_online:
+                pending_counts.append(aux["expert_counts"])
             if (fplan is not None and plan_lib.overlap_of(dcfg)
                     and fplan.hop_delay(tick)):
                 # an injected slow ring hop, gated on the live engine:
@@ -1017,7 +1143,7 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
                         for s in slots)
         # every slot's latents, gathered from their ranks when one finishes
         x_all = x if mesh is None or not finishing else \
-            mesh.all_gather(x)
+            mesh.gather_samples(x)
         for i, slot in enumerate(slots):
             if not slot.active:
                 continue
@@ -1037,8 +1163,13 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         tick += 1
     _sync(dev)
     wall = time.perf_counter() - t0
+    if pending_counts:
+        for c in torch.stack(pending_counts).to("cpu").numpy():
+            hist.update(c)
 
-    lat = server.latency(B // server.n_dev)
+    # the modeled deployment, with the placements the run ended on
+    lat = server.latency(B // server.n_dev, dataclasses.replace(
+        server.dcfg, placements=plan_lib.placements_of(dcfg)))
     reg.gauge("dice_step_keys", "(plan, slotted) keys the step fn ran",
               lab).set_max(max(step_keys, len(rf_step.keys)))
     reg.gauge("dice_plan_variants", "StepPlan variants",
@@ -1072,7 +1203,13 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
         "tick_variants": tick_variants,
         "tick_plans": tick_plans,
         "kernel_launches": _launches_since(before),
+        "placement_reshards": int(_count(
+            reg, "dice_placement_reshards_total", lab)),
+        "placement_wire_scale": plan_lib.placement_wire_scale(dcfg),
     }
+    if place_online:
+        stats["routing_shares"] = hist.shares.tolist()
+        stats["hist_updates"] = hist.updates
     if res is not None:
         stats.update({
             "quarantined": int(_count(reg, "dice_quarantined_slots_total",
@@ -1158,6 +1295,32 @@ def main(argv=None):
                     help="run expert-parallel over N spawned ranks, one "
                          "process each (needs --backend); 0 = one process "
                          "without a mesh")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel replica groups of the dp x ep x "
+                         "patch mesh: the batch shards over dp x ep, each "
+                         "group holds the experts once (needs --backend)")
+    ap.add_argument("--patch", type=int, default=1,
+                    help="patch-parallel split of the image tokens: "
+                         "displaced patch attention runs sharded, one K/V "
+                         "all-gather per layer (fixed batches only; needs "
+                         "--backend)")
+    ap.add_argument("--devices-per-host", type=int, default=0,
+                    help="two-tier fabric: devices per host (0 = flat).  "
+                         "The ring then orders its hops intra-host first "
+                         "and the latency model prices host-crossing hops "
+                         "at --inter-host-bw")
+    ap.add_argument("--inter-host-bw", type=float, default=0.2e9,
+                    help="inter-host trunk bandwidth in B/s for the "
+                         "two-tier latency model (default 0.2 GB/s)")
+    ap.add_argument("--placement", choices=("identity", "greedy"),
+                    default="identity",
+                    help="expert placement: 'greedy' makes the continuous "
+                         "engine accumulate a routing histogram and re-lay-"
+                         "out the experts (affinity bin-pack, hot-expert "
+                         "replicas) when it drifts")
+    ap.add_argument("--replicate-top", type=int, default=0,
+                    help="hottest experts replicated on every rank (served "
+                         "locally, off the wire); 0 disables")
     ap.add_argument("--backend", choices=list(mesh_lib.BACKENDS),
                     default=None,
                     help="torch.distributed backend of the ep mesh: nccl "
@@ -1198,17 +1361,30 @@ def main(argv=None):
                          "tune the degradation ladder.  'off' disables; "
                          "the paging keys need expert paging (ROADMAP A.9)")
     args = ap.parse_args(argv)
-    if args.ep < 0:
-        ap.error("--ep must be >= 0")
-    if args.ep and args.backend is None:
-        ap.error("--ep needs --backend (nccl: one card per rank; gloo: the "
-                 "CPU, or ranks sharing one card)")
-    if not args.ep:
+    if args.ep < 0 or args.dp < 1 or args.patch < 1:
+        ap.error("--ep must be >= 0, --dp and --patch >= 1")
+    meshed = bool(args.ep) or args.dp > 1 or args.patch > 1
+    if meshed and args.backend is None:
+        ap.error("--ep, --dp and --patch need --backend (nccl: one card per "
+                 "rank; gloo: the CPU, or ranks sharing one card)")
+    lanes = max(1, args.ep) * args.dp
+    if args.continuous:
+        if args.patch > 1:
+            ap.error("--continuous does not compose with --patch (slot "
+                     "surgery assumes batch-only sharding)")
+        if args.max_batch % lanes:
+            ap.error(f"--max-batch {args.max_batch} must divide over the "
+                     f"{lanes} dp x ep lanes")
+    elif args.requests % lanes:
+        ap.error(f"--requests {args.requests} must divide over the {lanes} "
+                 f"dp x ep lanes")
+    if not meshed:
         _serve_cli(args)
         return
-    _, counts = mesh_lib.spawn(_serve_cli_rank, args.ep,
-                               backend=args.backend, device=args.device,
-                               args=(args,))
+    _, counts = mesh_lib.spawn(_serve_cli_rank,
+                               lanes * args.patch, dp=args.dp,
+                               patch=args.patch, backend=args.backend,
+                               device=args.device, args=(args,))
     for r, c in enumerate(counts):
         print(f"  rank {r} kernel launches {c}")
 
@@ -1240,7 +1416,12 @@ def _serve_cli(args, mesh=None) -> None:
                         compress=CompressConfig(codec=args.codec,
                                                 topk_frac=args.topk_frac),
                         obs=ObsConfig(enabled=obs_on),
-                        resilience=resilience)
+                        resilience=resilience,
+                        devices_per_host=args.devices_per_host,
+                        inter_host_bw=args.inter_host_bw,
+                        placement=placement_lib.PlacementConfig(
+                            mode=args.placement,
+                            replicate_top=args.replicate_top))
     reqs = [Request(class_id=i % cfg.num_classes, rid=i)
             for i in range(args.requests)]
     splan = server.plan(args.steps)
@@ -1256,9 +1437,16 @@ def _serve_cli(args, mesh=None) -> None:
            + (f" (fault seed {resilience.faults.seed})"
               if resilience.faults is not None else "")
            if server.dcfg.resilience is not None else "")
-        + (f", expert-parallel over {mesh.size} ranks ({mesh.backend}, "
-           f"{plan_lib.normalize_overlap(server.dcfg, mesh.size).overlap})"
-           if mesh is not None else ""))
+        + (f", expert-parallel over {mesh.world_size} ranks ({mesh.backend}, "
+           f"{plan_lib.normalize_overlap(server.dcfg, server.n_ep).overlap})"
+           + (", mesh " + " x ".join(f"{n}-way {a}"
+                                     for a, n in mesh.shape.items())
+              if isinstance(mesh, mesh_lib.HierMesh) else "")
+           if mesh is not None else "")
+        + (f", ring hops {server.hop_schedule}"
+           if server.hop_schedule is not None else "")
+        + (f", placement {args.placement} (replicate top "
+           f"{args.replicate_top})" if args.placement != "identity" else ""))
     say(f"step plan: {splan.num_variants} variants for "
         f"{splan.num_steps} steps "
         f"({[len(splan.steps_of_variant(v)) for v in range(splan.num_variants)]}"
@@ -1278,6 +1466,9 @@ def _serve_cli(args, mesh=None) -> None:
         stats["tick_variants"] = (f"{len(stats['tick_variants'])} ticks, "
                                   f"{len(set(stats['tick_variants']))} keys")
         del stats["tick_plans"]
+        if "routing_shares" in stats:
+            shares = np.asarray(stats.pop("routing_shares"))
+            stats["max_routing_share"] = float(shares.max())
     else:
         samples, stats = server.generate(reqs, num_steps=args.steps,
                                          guidance=args.guidance)

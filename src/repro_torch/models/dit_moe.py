@@ -5,10 +5,12 @@ adaLN-zero DiT blocks, an MoE FFN with top-k routed experts plus shared
 experts, class-conditional with a null class for CFG.  The forward pass
 takes per-MoE-layer staleness state (:mod:`repro_torch.core.staleness`)
 and a precompiled :class:`~repro_torch.core.plan.StepPlan`, so one
-implementation serves every schedule, on one device or on one rank of an
-expert-parallel mesh, with the staleness telemetry (``obs``) and the wire
-faults and guards of the resilience ladder.  Patch parallelism and expert
-paging are not ported yet (ROADMAP A.9).
+implementation serves every schedule, on one device or on one rank of a
+``dp x ep x patch`` mesh, with the staleness telemetry (``obs``) and the
+wire faults and guards of the resilience ladder.  DistriFusion's displaced
+patch parallelism (``patch_parallel_ndev``, or a mesh's ``patch`` axis)
+threads attention K/V states instead (:mod:`repro_torch.core.patch_parallel`).
+Expert paging is not ported yet (ROADMAP A.9).
 
 Params are a plain dict in the JAX package's tree layout and (in, out)
 weight orientation; :mod:`repro_torch.bridge` carries a JAX tree over.
@@ -24,6 +26,9 @@ import torch.nn.functional as F
 from repro_torch.core import moe as moe_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
+from repro_torch.core.patch_parallel import (PatchParallelState,
+                                             displaced_patch_attention,
+                                             sharded_patch_attention)
 from repro_torch.models import layers as L
 from repro_torch.obs import telemetry as obs_telemetry
 
@@ -126,8 +131,11 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 slot_fresh: Optional[torch.Tensor] = None,
                 consume_mask: Optional[torch.Tensor] = None,
-                mesh=None, obs=None, resilience=None,
-                fault_key: Optional[int] = None):
+                mesh=None, hop_schedule=None, obs=None, resilience=None,
+                fault_key: Optional[int] = None,
+                patch_states: Optional[Dict[int, PatchParallelState]] = None,
+                patch_parallel_ndev: int = 0, patch_compose: bool = False,
+                patch_fresh=None):
     """Velocity prediction.
 
     x: (B, T, C_in) latents; t: (B,) times; y: (B,) class ids
@@ -136,12 +144,26 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     ``slot_fresh`` (B*T,) / ``consume_mask`` (B*T, K) are the continuous
     engine's per-slot warmup-replay selectors, passed to every MoE layer.
 
-    Over an ep ``mesh`` the batch is the rank's shard and the MoE layers
-    exchange tokens with the other ranks.  The token means of the aux
-    (``lb_loss``, ``dropped_frac``, ``expert_counts``) are then averaged
-    over the ranks in one all-reduce of one stacked tensor per call, and
+    Over a ``mesh`` x is the rank's (B_loc, T_loc, C_in) block: its lane's
+    batch rows and, on a ``patch`` axis, its patch's tokens (``pos_embed``
+    is sliced at the patch offset).  The MoE layers exchange tokens over
+    the rank's ep group (``mesh.ep_mesh``; locally without one), in
+    ``hop_schedule``'s order on the ring.  The token means of the aux
+    (``lb_loss``, ``dropped_frac``, ``expert_counts``) are averaged over
+    every rank in one all-reduce of one stacked tensor per call, and
     ``buffer_bytes`` counts every rank's buffers, while ``dispatch_bytes``
     stays the per-rank payload.
+
+    Patch parallelism, in three forms: ``patch_parallel_ndev`` alone is the
+    replicated DistriFusion simulation (displaced patch attention, the MoE
+    run locally and fresh, no staleness state); with ``patch_compose`` the
+    same attention composed with the schedule's MoE path, the one-device
+    numerics reference of the sharded axis; a mesh ``patch`` axis runs
+    :func:`~repro_torch.core.patch_parallel.sharded_patch_attention`, with
+    ``patch_fresh`` ((B_loc,) bools) selecting all-fresh K/V rows (the
+    simulation does not run over a mesh: ``RFStep`` refuses it).
+    ``patch_states`` holds the layers' K/V buffers; ``buffer_bytes`` counts
+    them too.
 
     An enabled ``obs`` adds ``aux["telemetry"]``, the (L, NUM_FIELDS)
     staleness block stacked on the device (the shard mean over a mesh,
@@ -149,16 +171,24 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     range.  ``resilience`` adds ``aux["fault_events"]``, the
     (NUM_FAULT_EVENTS,) counts summed over layers (and over ranks);
     ``fault_key`` is the pass's corruption-mask coordinate.  Returns (v,
-    new_states, aux dict)."""
+    new_states, new_patch_states, aux dict)."""
     B, T, _ = x.shape
     d = cfg.d_model
-    h = x @ params["patch_embed"] + params["pos_embed"][None]
+    ep_mesh = mesh.ep_mesh if mesh is not None else None
+    sharded_patch = mesh is not None and "patch" in mesh.axis_names
+    pos_embed = params["pos_embed"]
+    if sharded_patch:
+        off = mesh.rank_in("patch") * T
+        pos_embed = pos_embed[off:off + T]
+    h = x @ params["patch_embed"] + pos_embed[None]
     temb = timestep_embedding(t) @ params["t_mlp1"]
     temb = F.silu(temb) @ params["t_mlp2"]
     c = temb + params["class_embed"][y.long()]      # (B, d)
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
 
     new_states: Dict[int, stale_lib.MoELayerState] = {}
+    new_patch: Dict[int, PatchParallelState] = {}
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lbs, drops, served, terms, telems = [], [], [], [], []
     fault_events = None
     total_dispatch_bytes = 0
@@ -170,16 +200,43 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
         s1, sc1, g1, s2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
 
         hn = _modulate(L.rmsnorm(blk["ln1"], h, eps=cfg.norm_eps), s1, sc1)
-        attn, _ = L.attn_apply(blk["attn"], hn, positions, cfg, causal=False)
+        if patch_parallel_ndev or sharded_patch:
+            a = blk["attn"]
+            q = (hn @ a["wq"]).reshape(B, T, H, Dh)
+            k = (hn @ a["wk"]).reshape(B, T, KVH, Dh)
+            v = (hn @ a["wv"]).reshape(B, T, KVH, Dh)
+            pstate = (patch_states or {}).get(i, PatchParallelState())
+            if sharded_patch:
+                attn, new_patch[i] = sharded_patch_attention(
+                    q, k, v, pstate, mesh=mesh, fresh=patch_fresh)
+            else:
+                attn, new_patch[i] = displaced_patch_attention(
+                    q, k, v, pstate, n_dev=patch_parallel_ndev,
+                    warmup=plan.is_warmup)
+            attn = attn.reshape(B, T, H * Dh) @ a["wo"]
+        else:
+            attn, _ = L.attn_apply(blk["attn"], hn, positions, cfg,
+                                   causal=False)
         h = h + g1[:, None, :] * attn
 
         hn = _modulate(L.rmsnorm(blk["ln2"], h, eps=cfg.norm_eps), s2, sc2)
-        with obs_telemetry.scope(obs, f"moe_l{i:02d}_{plan.actions[i].mode}"):
-            moe_out, new_st, aux = stale_lib.apply_layer_action(
-                blk["moe"], hn.reshape(B * T, d), cfg, plan.actions[i],
-                states[i], generator=generator, slot_fresh=slot_fresh,
-                consume_mask=consume_mask, mesh=mesh, obs=obs,
-                resilience=resilience, layer_idx=i, fault_key=fault_key)
+        tokens = hn.reshape(B * T, d)
+        if patch_parallel_ndev and not patch_compose:
+            # DistriFusion replicates the model: the MoE runs locally, fresh
+            with obs_telemetry.scope(obs, f"moe_l{i:02d}_distrifusion"):
+                moe_out, aux = moe_lib.moe_forward(
+                    blk["moe"], tokens, cfg, obs=obs, resilience=resilience,
+                    fault_salt=i, fault_key=fault_key)
+            new_st = stale_lib.MoELayerState()
+        else:
+            with obs_telemetry.scope(
+                    obs, f"moe_l{i:02d}_{plan.actions[i].mode}"):
+                moe_out, new_st, aux = stale_lib.apply_layer_action(
+                    blk["moe"], tokens, cfg, plan.actions[i], states[i],
+                    generator=generator, slot_fresh=slot_fresh,
+                    consume_mask=consume_mask, mesh=ep_mesh,
+                    hop_schedule=hop_schedule, obs=obs,
+                    resilience=resilience, layer_idx=i, fault_key=fault_key)
         new_states[i] = new_st
         lbs.append(aux.lb_loss)
         terms.append(aux.lb_terms)
@@ -202,7 +259,8 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     counts = torch.stack(served)                       # (L, E)
     telemetry = torch.stack(telems) if obs is not None and obs.enabled \
         else None                                     # (L, NUM_FIELDS)
-    buffer_bytes = stale_lib.state_bytes(new_states)
+    buffer_bytes = stale_lib.state_bytes(new_states) \
+        + sum(p.bytes() for p in new_patch.values())
     if mesh is not None:
         # one all-reduce for the step's token means: the lb terms of every
         # MoE call, the drop fractions, the served-pair histogram, the
@@ -225,8 +283,8 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                 telemetry.shape)
             at += telemetry.numel()
         if fault_events is not None:
-            fault_events = torch.round(flat[at:] * mesh.size)
-        buffer_bytes *= mesh.size
+            fault_events = torch.round(flat[at:] * mesh.world_size)
+        buffer_bytes *= mesh.world_size
     aux_out = {
         "lb_loss": sum(lbs) / cfg.num_layers,
         "dispatch_bytes": total_dispatch_bytes,
@@ -241,4 +299,4 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
         aux_out["telemetry"] = telemetry
     if fault_events is not None:
         aux_out["fault_events"] = fault_events
-    return v, new_states, aux_out
+    return v, new_states, new_patch, aux_out

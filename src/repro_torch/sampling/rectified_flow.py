@@ -9,10 +9,12 @@ function with the step's plan.  PyTorch runs eagerly, so there is no
 compile cache: the step function records the ``(plan, slotted)`` keys it
 ran, which is what a later CUDA-graph capture per key would hold.
 
-Over an expert-parallel mesh (``mesh=``, an
-:class:`~repro_torch.launch.mesh.EPMesh`) every rank runs the same loop on
-its slice of the batch and of the experts: the counterpart of the
-reference's ``shard_map``-ped step over ``make_ep_mesh(n)``.
+Over a mesh (``mesh=``, from :func:`repro_torch.launch.mesh.make_mesh`)
+every rank runs the same loop on its slice of the batch, of the image
+tokens and of the experts: the counterpart of the reference's
+``shard_map``-ped step over its ``dp x ep x patch`` mesh.  Without one,
+``patch_parallel_ndev`` runs the DistriFusion baseline, the replicated
+simulation of displaced patch parallelism.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import torch
 from repro_torch.common import sharding as shard_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
+from repro_torch.core.patch_parallel import PatchParallelState
+from repro_torch.launch.mesh import axis_size as mesh_axis
 from repro_torch.core.moe import refuse_router_jitter
 from repro_torch.models.dit_moe import dit_forward
 from repro_torch.resilience import faults as fault_lib
@@ -35,17 +39,23 @@ def _euler_step(params, cfg, x, classes, states, states_u, t, *,
                 generator: Optional[torch.Generator] = None,
                 slot_fresh: Optional[torch.Tensor] = None,
                 consume_mask: Optional[torch.Tensor] = None,
-                mesh=None, obs=None, resilience=None,
-                tick: Optional[int] = None):
+                mesh=None, hop_schedule=None, obs=None, resilience=None,
+                tick: Optional[int] = None, patch_states=None,
+                patch_states_u=None, patch_parallel_ndev: int = 0,
+                patch_compose: bool = False, patch_fresh=None):
     """One CFG-guided Euler step: a conditional and a null-class
-    ``dit_forward`` pass, each with its own staleness state and both with
-    the same per-slot selectors.  ``obs`` instruments the conditional pass
-    only (the other's aux is dropped); ``resilience`` runs in both, each
-    pass drawing its corruption masks from ``(tick, pass, rank)``.
-    Returns (x_next, new_states, new_states_u, aux of the conditional
-    pass)."""
+    ``dit_forward`` pass, each with its own staleness state and patch
+    K/V state, and both with the same per-slot selectors.  ``obs``
+    instruments the conditional pass only (the other's aux is dropped);
+    ``resilience`` runs in both, each pass drawing its corruption masks
+    from ``(tick, pass, rank)``.  Returns (x_next, new_states,
+    new_states_u, new_patch_states, new_patch_states_u, aux of the
+    conditional pass)."""
     kw = dict(plan=plan, generator=generator, slot_fresh=slot_fresh,
-              consume_mask=consume_mask, mesh=mesh, resilience=resilience)
+              consume_mask=consume_mask, mesh=mesh,
+              hop_schedule=hop_schedule, resilience=resilience,
+              patch_parallel_ndev=patch_parallel_ndev,
+              patch_compose=patch_compose, patch_fresh=patch_fresh)
 
     def key(pass_):
         if resilience is None or resilience.faults is None or tick is None:
@@ -53,16 +63,18 @@ def _euler_step(params, cfg, x, classes, states, states_u, t, *,
         return fault_lib.fault_key(tick, pass_,
                                    None if mesh is None else mesh.rank)
 
-    v_c, ns, aux = dit_forward(params, x, t, classes, cfg, states, obs=obs,
-                               fault_key=key(0), **kw)
+    v_c, ns, nps, aux = dit_forward(params, x, t, classes, cfg, states,
+                                    obs=obs, fault_key=key(0),
+                                    patch_states=patch_states, **kw)
     if guidance != 1.0:
         null = torch.full_like(classes, cfg.num_classes)
-        v_u, nsu, _ = dit_forward(params, x, t, null, cfg, states_u,
-                                  fault_key=key(1), **kw)
+        v_u, nsu, npsu, _ = dit_forward(params, x, t, null, cfg, states_u,
+                                        fault_key=key(1),
+                                        patch_states=patch_states_u, **kw)
         v = v_u + guidance * (v_c - v_u)
     else:
-        v, nsu = v_c, states_u
-    return x + dt * v, ns, nsu, aux
+        v, nsu, npsu = v_c, states_u, patch_states_u
+    return x + dt * v, ns, nsu, nps, npsu, aux
 
 
 class RFStep:
@@ -71,8 +83,9 @@ class RFStep:
 
         rf_step(x, classes, states, states_u, t, *, plan, slotted=False,
                 slot_fresh=None, consume_mask=None, generator=None,
-                tick=None)
-            -> (x_next, states, states_u, aux)
+                tick=None, patch_states=None, patch_states_u=None,
+                patch_fresh=None)
+            -> (x_next, states, states_u, patch_states, patch_states_u, aux)
 
     ``slotted=True`` is the continuous engine's mixed warmup/steady tick:
     ``slot_fresh`` (B*T,) marks tokens of slots replaying warmup and
@@ -86,8 +99,14 @@ class RFStep:
     mesh too.
 
     With ``mesh`` the step runs on this rank's shard: ``x``, ``classes``,
-    the states and the selectors hold its rows, and ``params`` are
-    sharded here (:func:`~repro_torch.common.sharding.ep_shard_params`).
+    the states and the selectors hold its rows (and its patch's tokens),
+    and ``params`` are sharded here
+    (:func:`~repro_torch.common.sharding.ep_shard_params`), then, for
+    ``placements``, re-laid-out over the rank's ep group
+    (:func:`~repro_torch.common.sharding.place_experts`).  The ring runs
+    its hops in ``hop_schedule``'s order.  ``patch_parallel_ndev`` /
+    ``patch_compose`` select the replicated patch simulation (no mesh);
+    on a patch mesh ``patch_fresh`` selects all-fresh K/V rows.
 
     ``obs`` and ``resilience`` are fixed for the function's life, as the
     reference's closure constants: an enabled ``obs`` adds
@@ -96,14 +115,26 @@ class RFStep:
     """
 
     def __init__(self, params, cfg, *, dt: float, guidance: float = 1.5,
-                 mesh=None, obs=None, resilience=None):
+                 mesh=None, obs=None, resilience=None, placements=None,
+                 hop_schedule=None, patch_parallel_ndev: int = 0,
+                 patch_compose: bool = False):
         refuse_router_jitter(cfg)
         if mesh is not None:
+            if patch_parallel_ndev:
+                raise ValueError("the replicated patch-parallel simulation "
+                                 "does not run over a mesh; build the mesh "
+                                 "with a 'patch' axis instead")
             shard_lib.expert_slice(cfg.num_experts, mesh)    # E % n check
+            shard_lib.local_tokens(cfg.patch_tokens, mesh)  # T % patch
             params = shard_lib.ep_shard_params(params, mesh)
+            if placements is not None:
+                params = shard_lib.place_experts(params, placements, mesh)
         self.params, self.cfg = params, cfg
         self.dt, self.guidance = dt, guidance
         self.mesh = mesh
+        self.hop_schedule = hop_schedule
+        self.patch = dict(patch_parallel_ndev=patch_parallel_ndev,
+                          patch_compose=patch_compose)
         self.obs, self.resilience = obs, resilience
         self.keys = set()
 
@@ -112,24 +143,34 @@ class RFStep:
                  slot_fresh: Optional[torch.Tensor] = None,
                  consume_mask: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 tick: Optional[int] = None):
+                 tick: Optional[int] = None, patch_states=None,
+                 patch_states_u=None, patch_fresh=None):
         self.keys.add((plan, bool(slotted)))
         return _euler_step(self.params, self.cfg, x, classes, states,
                            states_u, t, plan=plan, dt=self.dt,
                            guidance=self.guidance, generator=generator,
                            slot_fresh=slot_fresh if slotted else None,
                            consume_mask=consume_mask if slotted else None,
-                           mesh=self.mesh, obs=self.obs,
-                           resilience=self.resilience, tick=tick)
+                           mesh=self.mesh, hop_schedule=self.hop_schedule,
+                           obs=self.obs, resilience=self.resilience,
+                           tick=tick, patch_states=patch_states,
+                           patch_states_u=patch_states_u,
+                           patch_fresh=patch_fresh, **self.patch)
 
 
 def make_rf_step(params, cfg, *, dt: float, guidance: float = 1.5,
-                 mesh=None, obs=None, resilience=None) -> RFStep:
+                 mesh=None, obs=None, resilience=None, placements=None,
+                 hop_schedule=None, patch_parallel_ndev: int = 0,
+                 patch_compose: bool = False) -> RFStep:
     """The per-step function behind :func:`rf_sample` (see :class:`RFStep`).
     Raises for ``cfg.router_jitter > 0`` (JAX PRNG keys cannot be replayed
-    in torch) and, with ``mesh``, for experts that do not divide over it."""
+    in torch) and, with ``mesh``, for experts or image tokens that do not
+    divide over it."""
     return RFStep(params, cfg, dt=dt, guidance=guidance, mesh=mesh, obs=obs,
-                  resilience=resilience)
+                  resilience=resilience, placements=placements,
+                  hop_schedule=hop_schedule,
+                  patch_parallel_ndev=patch_parallel_ndev,
+                  patch_compose=patch_compose)
 
 
 def rank_generator(generator: Optional[torch.Generator], mesh
@@ -154,7 +195,9 @@ def fold_seed(seed: int, n: int) -> int:
 def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
               noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              guidance: float = 1.5, mesh=None, obs=None):
+              guidance: float = 1.5, mesh=None, obs=None,
+              patch_parallel_ndev: int = 0, patch_compose: bool = False,
+              hop_schedule=None, params_placed: bool = False):
     """Generate latents (B, T, C) for ``classes`` under a schedule.
 
     The initial noise is ``noise`` when given (the tests pass the JAX
@@ -164,13 +207,27 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
     bytes, ring hops and hop bytes, drop fractions, ``num_plan_variants``
     and ``step_keys`` (distinct step keys run).
 
-    With an ep ``mesh`` every rank calls this with the same global
-    ``classes`` and noise and keeps its rows of both
-    (:func:`~repro_torch.common.sharding.ep_place_batch`); the batch must
-    divide over the mesh.  ``dispatch_bytes`` is then the per-rank wire
-    payload, ``buffer_bytes`` the whole mesh's, and the samples are
-    gathered back to every rank.  A "random" policy draws each rank's
-    masks from a generator seeded from (``generator``'s seed, rank).
+    ``patch_parallel_ndev`` (no mesh) runs DistriFusion's displaced patch
+    attention over that many simulated devices: with the MoE run locally
+    and fresh (the reference benchmark's ``distrifusion`` baseline under
+    ``DiceConfig.sync_ep()``), or with ``patch_compose`` composed with the
+    schedule's MoE path.  Conditional and unconditional passes keep their
+    own K/V buffers, which ``buffer_bytes`` counts.
+
+    With a ``mesh`` every rank calls this with the same global ``classes``
+    and noise and keeps its block of both: its lane's batch rows
+    (``dp x ep``) and its patch's tokens
+    (:func:`~repro_torch.common.sharding.hier_place_tokens`); the batch
+    must divide over the lanes.  ``dispatch_bytes`` is then the per-rank
+    wire payload, ``buffer_bytes`` the whole mesh's, and the samples are
+    gathered back to every rank.  ``dcfg.placements`` lay out the experts
+    over the ep groups (dropped without an ep axis of more than one rank),
+    from ``params`` in the original layout unless ``params_placed`` says
+    they are laid out already (:meth:`DiceServer.params_for` keeps them);
+    ``hop_schedule`` orders the ring's hops.  On a patch axis each step
+    tells the attention which rows take all-fresh K/V (step 0 and warm-up
+    steps).  A "random" policy draws each rank's masks from a generator
+    seeded from (``generator``'s seed, world rank).
 
     An enabled ``obs`` also records, per step, the wall time until its
     (L, NUM_FIELDS) telemetry block reached the host in one copy, and the
@@ -182,11 +239,9 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
     """
     device = classes.device if mesh is None else mesh.device
     B = classes.shape[0]
-    n_ep = mesh.size if mesh is not None else 1
-    if B % n_ep:
-        raise ValueError(f"batch {B} must divide over the {n_ep}-way 'ep' "
-                         f"mesh axis")
+    n_ep = mesh_axis(mesh, "ep")
     dcfg = plan_lib.normalize_overlap(dcfg, n_ep)
+    dcfg = plan_lib.normalize_placement(dcfg, n_ep)
     if noise is not None:
         x = noise.to(device=device, dtype=torch.float32)
     elif generator is not None:
@@ -197,14 +252,18 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
         raise ValueError("rf_sample needs noise= or generator=")
     obs_on = obs is not None and obs.enabled
     res = fault_lib.resilience_of(dcfg)
-    rf_step = make_rf_step(params, cfg, dt=1.0 / num_steps,
-                           guidance=guidance, mesh=mesh, obs=obs,
-                           resilience=res)
+    sharded_patch = mesh is not None and "patch" in mesh.axis_names
     if mesh is not None:
-        x = shard_lib.ep_place_batch(x, mesh)
-        classes = shard_lib.ep_place_batch(classes, mesh)
+        classes = shard_lib.hier_place_batch(classes, mesh)  # B % lanes
+        x = shard_lib.hier_place_tokens(x, mesh)
         generator = rank_generator(generator, mesh)
-    B_loc = x.shape[0]
+    rf_step = make_rf_step(
+        params, cfg, dt=1.0 / num_steps, guidance=guidance, mesh=mesh,
+        obs=obs, resilience=res,
+        placements=None if params_placed else plan_lib.placements_of(dcfg),
+        hop_schedule=plan_lib.normalize_hop_schedule(hop_schedule, n_ep),
+        patch_parallel_ndev=patch_parallel_ndev, patch_compose=patch_compose)
+    B_loc, T_loc = x.shape[0], x.shape[1]
     dt = 1.0 / num_steps
     splan = plan_lib.compile_step_plans(
         dcfg, cfg.num_layers, num_steps,
@@ -212,11 +271,22 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
 
     def planned_init():
         return stale_lib.init_planned_states(
-            splan, num_tokens=B_loc * cfg.patch_tokens, d_model=cfg.d_model,
+            splan, num_tokens=B_loc * T_loc, d_model=cfg.d_model,
             k=cfg.experts_per_token, dtype=x.dtype, device=device)
 
-    states = planned_init()
-    states_u = planned_init()
+    def patch_init():
+        # full-sequence K/V per rank (DistriFusion's memory cost), zeros
+        # that no row reads before patch_fresh stops selecting fresh K/V
+        if not sharded_patch:
+            return {}
+        shape = (B_loc, cfg.patch_tokens, cfg.num_kv_heads, cfg.head_dim)
+        return {i: PatchParallelState(
+            k_prev=torch.zeros(shape, dtype=x.dtype, device=device),
+            v_prev=torch.zeros(shape, dtype=x.dtype, device=device))
+            for i in range(cfg.num_layers)}
+
+    states, states_u = planned_init(), planned_init()
+    pstates, pstates_u = patch_init(), patch_init()
     stats = {"dispatch_bytes": [], "raw_bytes": [], "buffer_bytes": [],
              "hops": [], "hop_bytes": [], "dropped_frac": []}
     if obs_on:
@@ -224,10 +294,15 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
     fe_sum = None
     for s in range(num_steps):
         t = torch.full((B_loc,), s * dt, dtype=torch.float32, device=device)
+        pf = None
+        if sharded_patch:
+            pf = torch.full((B_loc,), s == 0 or splan.steps[s].is_warmup,
+                            dtype=torch.bool, device=device)
         t0 = time.perf_counter()
-        x, states, states_u, aux = rf_step(x, classes, states, states_u, t,
-                                           plan=splan.steps[s],
-                                           generator=generator, tick=s)
+        x, states, states_u, pstates, pstates_u, aux = rf_step(
+            x, classes, states, states_u, t, plan=splan.steps[s],
+            generator=generator, tick=s, patch_states=pstates,
+            patch_states_u=pstates_u, patch_fresh=pf)
         if obs_on:
             tel = aux["telemetry"].to("cpu").numpy()   # waits for the step
             stats["step_wall_s"].append(time.perf_counter() - t0)
@@ -249,5 +324,5 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
     stats["num_plan_variants"] = splan.num_variants
     stats["step_keys"] = len(rf_step.keys)
     if mesh is not None:
-        x = mesh.all_gather(x)
+        x = mesh.gather_samples(x)
     return x, stats

@@ -449,3 +449,117 @@ def test_gloo_transports_take_cuda_tensors(gen):
                                    timeout_s=120)
     for r, ok in enumerate(every_rank):
         assert all(ok.values()), (r, ok)
+
+
+def _plain_displaced(q, k, v, k_prev, v_prev, n_dev):
+    """The owner-p math of displaced patch attention, one plain attention
+    call per owner over the whole query range, each owner's rows kept."""
+    from repro_torch.core.patch_parallel import shard_owner
+    S = q.shape[1]
+    owner = shard_owner(S, n_dev, device=q.device)
+    out = torch.empty_like(q)
+    for p in range(n_dev):
+        sel = (owner == p)[None, :, None, None]
+        o = ref.flash_attention_ref(q, torch.where(sel, k, k_prev),
+                                    torch.where(sel, v, v_prev))
+        out[:, owner == p] = o[:, owner == p]
+    return out
+
+
+@pytest.mark.parametrize("n_dev", [2, 4, 8])
+def test_displaced_patch_attention_through_the_kernel(gen, n_dev):
+    """DistriFusion's replicated simulation at XL's shapes (B 8, S 256, 16
+    heads x 72): n_dev flash launches of S / n_dev queries against the
+    spliced stale K/V, against the plain per-owner math."""
+    from repro_torch.core.patch_parallel import (PatchParallelState,
+                                                 displaced_patch_attention)
+    B, S, H, Dh = 8, 256, 16, 72
+    q, k, v, kp, vp = (torch.randn((B, S, H, Dh), generator=gen, device="cuda")
+                       for _ in range(5))
+    before = ops.LAUNCHES["flash_attention"]
+    out, new = displaced_patch_attention(q, k, v, PatchParallelState(kp, vp),
+                                         n_dev=n_dev, warmup=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + n_dev
+    _close(out, _plain_displaced(q, k, v, kp, vp, n_dev), torch.float32)
+    assert new.k_prev is k and new.v_prev is v
+    warm, _ = displaced_patch_attention(q, k, v, PatchParallelState(kp, vp),
+                                        n_dev=n_dev, warmup=True)
+    _close(warm, ref.flash_attention_ref(q, k, v), torch.float32)
+
+
+class _OnePatchGroup:
+    """Rank ``p`` of a patch axis whose all-gather returns every rank's
+    stacked K/V shards (given), as the mesh's gloo group would."""
+
+    def __init__(self, p, P, shards):
+        self.p, self.patch_size, self.shards = p, P, shards
+
+    def rank_in(self, axis):
+        return self.p if axis == "patch" else 0
+
+    def patch_all_gather(self, t):
+        return torch.cat(self.shards)
+
+
+@pytest.mark.parametrize("P", [2, 4, 8])
+def test_sharded_patch_attention_through_the_kernel(gen, P):
+    """One rank's sharded patch attention at XL's shapes: T_loc = S / P
+    queries against S keys in one launch, rows mixed fresh and stale,
+    against the plain per-owner math of the displaced simulation."""
+    from repro_torch.core.patch_parallel import (PatchParallelState,
+                                                 sharded_patch_attention)
+    B, S, H, Dh = 8, 256, 16, 72
+    q, k, v, kp, vp = (torch.randn((B, S, H, Dh), generator=gen, device="cuda")
+                       for _ in range(5))
+    fresh = torch.arange(B, device="cuda") % 3 == 0
+    want_stale = _plain_displaced(q, k, v, kp, vp, P)
+    want_fresh = ref.flash_attention_ref(q, k, v)
+    T = S // P
+    shards = [torch.stack([a, b], dim=2) for a, b in
+              zip(k.split(T, 1), v.split(T, 1))]
+    for p in range(P):
+        rows = slice(p * T, (p + 1) * T)
+        before = ops.LAUNCHES["flash_attention"]
+        out, new = sharded_patch_attention(
+            q[:, rows], k[:, rows], v[:, rows], PatchParallelState(kp, vp),
+            mesh=_OnePatchGroup(p, P, shards), fresh=fresh)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == before + 1
+        want = torch.where(fresh[:, None, None, None], want_fresh[:, rows],
+                           want_stale[:, rows])
+        _close(out, want, torch.float32)
+        assert torch.equal(new.k_prev, k) and torch.equal(new.v_prev, v)
+
+
+def test_placement_replicas_run_through_expert_ffn(gen):
+    """A placed MoE layer on the card: the wire buffer and the replicas'
+    local buffer each go through the expert_ffn kernel (two launches), and
+    the output equals the unplaced layer's and the plain versions'."""
+    from repro_torch.configs.dit_moe_xl import config
+    from repro_torch.core import moe
+    from repro_torch.core.placement import Placement, place_moe_params
+    cfg = config().replace(num_shared_experts=0)
+    d, E, f = cfg.d_model, cfg.num_experts, cfg.expert_d_ff
+    kw = dict(generator=gen, device="cuda")
+    p = {"router": torch.randn((d, E), **kw) / math.sqrt(d),
+         "experts_gate": torch.randn((E, d, f), **kw) / math.sqrt(d),
+         "experts_up": torch.randn((E, d, f), **kw) / math.sqrt(d),
+         "experts_down": torch.randn((E, f, d), **kw) / math.sqrt(f),
+         "router_bias": torch.zeros(E, device="cuda").index_fill_(0, torch.tensor(
+             [5], device="cuda"), 1.5)}
+    x = torch.randn((512, d), **kw)
+    pl = Placement(perm=(3, 1, 0, 2, 5, 4, 7, 6), replicated=(5,), cap_scale=0.5)
+    placed = place_moe_params(p, pl)
+    before = ops.LAUNCHES["expert_ffn"]
+    y_pl, aux_pl = moe.moe_forward(placed, x, cfg, placement=pl,
+                                   capacity=pl.scaled_capacity(1024))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["expert_ffn"] == before + 2
+    y, aux = moe.moe_forward(p, x, cfg, capacity=1024)
+    _close(y_pl, y, torch.float32)
+    assert torch.equal(aux_pl.served_counts, aux.served_counts)
+    cpu = {k: t.cpu() for k, t in placed.items()}
+    y_cpu, _ = moe.moe_forward(cpu, x.cpu(), cfg, placement=pl,
+                               capacity=pl.scaled_capacity(1024))
+    _close(y_pl.cpu(), y_cpu, torch.float32)

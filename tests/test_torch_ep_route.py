@@ -134,8 +134,13 @@ def test_make_ep_mesh_refuses_nccl_on_a_shared_card():
 @pytest.mark.parametrize("axes", [dict(dp=2), dict(patch=2),
                                   dict(ep=2, dp=2, patch=2)])
 def test_make_mesh_refuses_dp_and_patch(axes):
-    with pytest.raises(NotImplementedError, match="A.9"):
+    """The dp and patch axes are built now (tests/test_torch_hier_mesh.py);
+    what is still refused is a mesh without its ranks: no process group,
+    or NCCL ranks that would share a card."""
+    with pytest.raises(RuntimeError, match="process group"):
         mesh_lib.make_mesh(backend="gloo", device="cpu", **axes)
+    with pytest.raises(ValueError, match="one card per rank"):
+        mesh_lib.make_mesh(backend="nccl", device="cuda", **axes)
 
 
 def test_make_mesh_validates_sizes_and_needs_a_process_group():

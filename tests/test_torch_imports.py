@@ -96,9 +96,12 @@ SERVING_MODULES = ("repro_torch.core.overlap", "repro_torch.launch.serve",
                    "repro_torch.resilience.faults",
                    "repro_torch.resilience.degrade",
                    "repro_torch.checkpoint.io",
-                   "repro_torch.checkpoint.msgpack_lite")
+                   "repro_torch.checkpoint.msgpack_lite",
+                   "repro_torch.core.patch_parallel",
+                   "repro_torch.core.placement")
 # pure-Python modules of the JAX package the port keeps a copy of
-COPIES = ("obs/metrics.py", "obs/trace.py", "resilience/recovery.py")
+COPIES = ("obs/metrics.py", "obs/trace.py", "resilience/recovery.py",
+          "core/placement.py")
 
 
 @pytest.mark.parametrize("module", SERVING_MODULES)

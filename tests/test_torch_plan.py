@@ -23,6 +23,7 @@ from repro_torch.compress.codecs import CompressConfig
 from repro_torch.configs import dit_moe_xl as configs
 from repro_torch.core import conditional, plan as plan_lib, selective
 from repro_torch.core.moe import default_capacity
+from repro_torch.core.placement import Placement
 from repro_torch.core.schedules import DiceConfig
 
 SCHEDULES = ("sync", "displaced", "interweaved", "dice", "staggered_batch")
@@ -152,10 +153,16 @@ def test_model_configs_field_equal(name):
 
 
 def test_unported_config_fields_raise():
-    with pytest.raises(NotImplementedError):
+    """Paging is still refused; a placement is carried (identity ones
+    normalize away), so only paging raises."""
+    with pytest.raises(NotImplementedError, match="A.9"):
         DiceConfig(paging=object())
-    with pytest.raises(NotImplementedError):
-        plan_lib.LayerAction(placement=object())
+    with pytest.raises(NotImplementedError, match="A.9"):
+        plan_lib.LayerAction(paging=object())
+    pl = Placement(perm=(1, 0, 2, 3), replicated=(0,), cap_scale=0.5)
+    assert plan_lib.LayerAction(placement=pl).placement == pl
+    assert plan_lib.LayerAction(placement=Placement.identity(4)) == \
+        plan_lib.LayerAction()
     with pytest.raises(ValueError):
         plan_lib.LayerAction(mode="staggered",
                              codec=CompressConfig("int8_residual").spec())

@@ -47,6 +47,7 @@ from repro_torch.configs import dit_moe_xl as configs
 from repro_torch.core import conditional, overlap, plan as plan_lib
 from repro_torch.core import staleness as stale_lib
 from repro_torch.core.moe import default_capacity
+from repro_torch.core.placement import Placement
 from repro_torch.core.schedules import DiceConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
@@ -569,13 +570,21 @@ def test_request_noise_is_the_same_on_every_call_and_slot():
 def test_unported_serving_paths_raise(port_params):
     server = serve.DiceServer(_cfg(), DiceConfig.dice(), params=port_params,
                               device="cpu")
-    # a mesh is served now (tests/test_torch_ep_serve.py), but only the
-    # port's own expert-parallel mesh
+    # a mesh is served now (tests/test_torch_ep_serve.py,
+    # tests/test_torch_hier_mesh.py), but only the port's own meshes
     with pytest.raises(TypeError, match="EPMesh"):
         serve.serve_continuous(server, [serve.Request(1, 0)], mesh=object())
-    for field, item in (("placements", "A.9"), ("paging", "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            DiceConfig(**{field: object()})
+    # placements are served now (tests/test_torch_placement.py): without
+    # an ep mesh they are dropped and the samples are the unplaced ones;
+    # paging still waits
+    pl = Placement(perm=(1, 0, 2, 3, 4, 5, 6, 7), replicated=(1,))
+    placed = serve.DiceServer(
+        _cfg(), dataclasses.replace(DiceConfig.dice(),
+                                    placements=(pl,) * _cfg().num_layers),
+        params=port_params, device="cpu")
+    assert placed.plan(4) == server.plan(4)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        DiceConfig(paging=object())
     # resilience is served now (tests/test_torch_faults.py); its paging
     # rungs still wait for expert paging
     with pytest.raises(ValueError, match="A.9"):

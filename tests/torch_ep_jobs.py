@@ -1,7 +1,7 @@
-"""What each rank of the port's expert-parallel tests runs.
+"""What each rank of the port's mesh tests runs.
 
-``repro_torch.launch.mesh.spawn`` starts one process per ep rank and
-calls one of these functions in each with the rank's mesh; the functions
+``repro_torch.launch.mesh.spawn`` starts one process per rank and calls
+one of these functions in each with the rank's mesh; the functions
 must be importable by name, so they live here and not in the test
 modules (which import JAX: the ranks import only torch and the port).
 Each returns what rank 0 reports to the test; what must hold on every
@@ -30,7 +30,7 @@ def _every_rank(value):
     return out
 
 
-def sample_runs(mesh, tree, runs, noise, classes):
+def sample_runs(mesh, tree, runs, noise, classes, guidance=1.0):
     """``rf_sample`` over the mesh for each ``(label, cfg, dcfg)`` of
     ``runs``, on the params of the numpy ``tree``.  Returns {label:
     (samples, stats, step keys of every rank)}."""
@@ -39,9 +39,85 @@ def sample_runs(mesh, tree, runs, noise, classes):
     for label, cfg, dcfg in runs:
         x, st = rf_sample(params, cfg, dcfg, num_steps=STEPS,
                           classes=torch.as_tensor(classes),
-                          noise=torch.as_tensor(noise), guidance=1.0,
+                          noise=torch.as_tensor(noise), guidance=guidance,
                           mesh=mesh)
         out[label] = (x, st, _every_rank(st["step_keys"]))
+    return out
+
+
+def mesh_layout(mesh, x):
+    """Each rank's coordinates on the mesh, and whether its collectives
+    give their expected values: the mean over every rank, the patch
+    group's all-gather, and ``gather_samples`` of this rank's block of the
+    global (B, T, C) ``x`` (its lane's rows, its patch's tokens).  Also
+    whether ``make_mesh`` refuses a shape other than the world's."""
+    from repro_torch.launch import mesh as mesh_lib
+    x = torch.as_tensor(x)
+    block = shard_lib.hier_place_tokens(x, mesh)
+    n = mesh.world_size
+    mean = mesh.all_reduce_mean(torch.tensor([float(mesh.rank)]))
+    ok = {"gather_samples": torch.equal(mesh.gather_samples(block), x),
+          "mean": float(mean) == (n - 1) / 2}
+    if "patch" in mesh.axis_names:
+        g = mesh.patch_all_gather(torch.tensor([float(mesh.rank)]))
+        base = mesh.rank - mesh.rank_in("patch")
+        ok["patch_all_gather"] = g.tolist() == [
+            float(base + p) for p in range(mesh.shape["patch"])]
+    try:
+        mesh_lib.make_mesh(ep=n, dp=2, backend="gloo", device="cpu")
+        ok["refuses_other_shapes"] = False
+    except ValueError:
+        ok["refuses_other_shapes"] = True
+    coords = {a: mesh.rank_in(a) for a in ("dp", "ep", "patch")}
+    return _every_rank((mesh.rank, mesh.axis_names, dict(mesh.shape),
+                        coords, mesh.lane, ok))
+
+
+def dp_invariance(mesh, probs, idx, counts):
+    """``load_balance_loss`` over the mesh on this rank's ep shard of
+    (probs, idx), and the mean over the ranks of its ep shard's expert
+    counts, as bytes: every dp replica holds the same rows."""
+    from repro_torch.launch import mesh as mesh_lib
+    n = mesh_lib.axis_size(mesh, "ep")
+    e = mesh.rank_in("ep")
+    probs, idx, counts = (torch.as_tensor(a) for a in (probs, idx, counts))
+    rows = probs.shape[0] // n
+    mine = slice(e * rows, (e + 1) * rows)
+    lb = moe_lib.load_balance_loss(probs[mine], idx[mine], probs.shape[1],
+                                   mesh=mesh)
+    cnt = mesh.all_reduce_mean(counts[e])
+    return _every_rank((lb.numpy().tobytes(), cnt.numpy().tobytes()))
+
+
+def patch_continuous_refused(mesh, tree, cfg):
+    """``serve_continuous`` on a patch mesh: the message it raises."""
+    params = bridge.from_jax_params(tree, device="cpu")
+    server = serve.DiceServer(cfg, DiceConfig.dice(), params=params,
+                              mesh=mesh)
+    try:
+        serve.serve_continuous(server, [serve.Request(1, 0)], max_batch=4,
+                               num_steps=2)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def topology_ring(mesh, tree, cfg, noise, classes, devices_per_host):
+    """``DiceServer.generate`` with the ring in the topology-aware hop
+    order (``devices_per_host``) and with blocking all-to-alls: the hop
+    order and both samples."""
+    from repro_torch.compress.codecs import CompressConfig
+    params = bridge.from_jax_params(tree, device="cpu")
+    reqs = [serve.Request(int(c), i) for i, c in enumerate(classes)]
+    out = {}
+    for overlap in ("ring", "blocking"):
+        server = serve.DiceServer(
+            cfg, DiceConfig.dice(overlap=overlap), params=params, mesh=mesh,
+            compress=CompressConfig("int8_residual"),
+            devices_per_host=devices_per_host)
+        x, st = server.generate(reqs, num_steps=STEPS,
+                                noise=torch.as_tensor(noise))
+        out[overlap] = (server.hop_schedule, x, st["ring_hops"])
     return out
 
 
@@ -213,3 +289,28 @@ def fault_ladder(mesh, tree, cfg, noise):
             "quarantined", "requeued", "shed", "ticks")
     return _every_rank(({k: st_a[k] for k in keep}, sorted(out_a),
                         {k: st_b[k] for k in keep}, sorted(out_b))), out_b
+
+
+def online_placement(mesh, tree, cfg, bias, noise, steps):
+    """``serve_continuous`` over the mesh with the routers biased by
+    ``bias`` (one expert hot), once with online greedy placement (one
+    replicated expert, a short warm-up and a low drift threshold) and once
+    without.  Returns ((samples, stats) greedy, (samples, stats)
+    identity, the greedy run's step keys on every rank)."""
+    from repro_torch.core.placement import PlacementConfig
+    params = bridge.from_jax_params(tree, device="cpu")
+    for blk in params["blocks"]:
+        blk["moe"]["router_bias"] = torch.as_tensor(bias)
+    reqs = [serve.Request(i % 4, i) for i in range(8)]
+    out = []
+    for pcfg in (PlacementConfig(mode="greedy", replicate_top=1,
+                                 warmup_ticks=2, drift_threshold=0.05),
+                 None):
+        server = serve.DiceServer(cfg, DiceConfig.dice(), params=params,
+                                  mesh=mesh, placement=pcfg)
+        got, stats = serve.serve_continuous(
+            server, reqs, max_batch=2, num_steps=steps, seed=0, noise=noise,
+            arrival_steps=[0.0, 0.0, 2.0, 2.0, 4.0, 4.0, 6.0, 6.0])
+        stats = {k: v for k, v in stats.items() if k != "tick_plans"}
+        out.append((got, stats))
+    return out[0], out[1], _every_rank(out[0][1]["step_keys"])

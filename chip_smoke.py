@@ -106,6 +106,31 @@ non-zero and no phase's failure is caught:
      keys, requests/s).  Every run's launches are held to its plans.
      The mesh runs' times are ranks time-slicing one card over a
      host-staged wire, not a deployment's.
+ 11. main path 7: expert paging and DiT-MoE-G (its kernels' shapes are
+     held and timed at the end of phase 3, lines ``3G``: ``expert_ffn``
+     (8, 320, 1408, 5632) f32, an ep=2 rank at refresh; ``flash_attention``
+     (4, 256, 16, 88) f32 beside ``scaled_dot_product_attention``, the
+     Dh <= 128 instance with its ptxas line; ``residual_int8`` at a rank's
+     1024 and 2048 rows x 1408).  (a) The 4-layer DiT of phase 8 over 4 gloo ranks sharing the
+     card, paged at the auto budget, for the five schedules, against the
+     CPU's plain single-process run (TOL_F32) and bit for bit against the
+     resident ep=4 run; E = 6 over 4 ranks (E_pad 8) against its
+     single-process run; launches held to the plans.  (b) DiT-MoE-G at
+     full width, depth cut to MESH_XL_LAYERS, 8 requests, ep=2 over two
+     gloo ranks sharing the card, dice + int8, 4 steps, blocking and
+     ring, paged (depth 1, the pool pinned in host memory, copies on a
+     copy stream) and resident: paged samples bit-identical to resident,
+     s/step, transfers and GB a step, the realized peak against the
+     budget, ``max_memory_allocated`` per rank (paged below resident),
+     pinned bytes and MemAvailable, and one traced paged step: the pool's
+     copies, their GB/s and the share of their time a kernel ran beside
+     them; then a probe of the card's copy engine (a 761 MB pinned copy
+     beside 10 ``expert_ffn`` calls, alone and in both ranks at once; a
+     16 MB copy each way issued just after it), which is why the pool
+     queues its copies 32 MB at a time.  (c) On (b)'s pool: ``paging_err=0.3`` (samples bit-identical,
+     the fault counts), ``paging_delay=0.5:0.01`` (s/step), and
+     ``check_ring_lowering`` on a profiled ring step at ep=2.  Every line
+     carries the card's name and power limit.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1239,7 +1264,7 @@ def phase_main5(phase5):
 # spawned ranks: spawn imports this script again as a module, so they live
 # at its top level)
 # ---------------------------------------------------------------------------
-def _tiny4():
+def _tiny4(num_experts: int = 8):
     """Phase 7a's 4-layer DiT (capacity_factor 8.0, so no dispatch
     overflows) from seed 99 on the CPU, its 8 requests and their noise."""
     import torch
@@ -1247,7 +1272,8 @@ def _tiny4():
     from repro_torch.launch.serve import Request, request_noise
     from repro_torch.models.dit_moe import init_dit
     cfg = tiny().replace(num_layers=4, d_model=64, moe_d_ff=64, d_ff=256,
-                         patch_tokens=16, capacity_factor=8.0)
+                         patch_tokens=16, capacity_factor=8.0,
+                         num_experts=num_experts)
     gen = torch.Generator(device="cpu").manual_seed(99)
     params = _perturb(init_dit(cfg, generator=gen), gen)
     reqs = [Request(class_id=(3 * i) % cfg.num_classes, rid=i) for i in range(8)]
@@ -1931,6 +1957,477 @@ def phase_placement(rows):
         c["expert_ffn"] for c in res["counts_pl"]]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: expert paging and DiT-MoE-G (the functions named _paged_* and
+# _g_* run in spawned ranks, so they live at the top level)
+# ---------------------------------------------------------------------------
+G_LAYERS = MESH_XL_LAYERS                 # 11b: G width, depth cut (the time limit)
+G_STEPS = 4
+G_FAULTS = "seed=3,paging_err=0.3"
+G_DELAY = "seed=3,paging_delay=0.5:0.01"
+PAGING_STATS = ("paged_transfers", "paged_bytes_in", "peak_resident_expert_bytes",
+                "expert_hbm_budget")
+
+
+def _paged_tiny(mesh, runs):
+    """11a in each of 4 ranks: the 4-layer DiT over the mesh for each
+    (label, DiceConfig, expert count), resident (where the experts divide
+    over the ranks) and paged at the auto budget; returns {(label, paged):
+    (samples, paging stats, launch counts of every rank)}."""
+    from repro_torch.core.paging import PagingSpec
+    from repro_torch.launch.serve import DiceServer
+    _tf32_off()
+    out = {}
+    for label, dcfg, num_experts in runs:
+        cfg, params, reqs, noise = _tiny4(num_experts)
+        for paged in (False, True) if num_experts % mesh.size == 0 else (True,):
+            d = dataclasses.replace(dcfg, paging=PagingSpec(budget_bytes=0)) \
+                if paged else dcfg
+            server = DiceServer(cfg, d, params=params, mesh=mesh)
+            x, st, counts = _mesh_generate(
+                server, reqs, TINY_STEPS,
+                f"11a {label} {'paged' if paged else 'resident'}", noise=noise)
+            out[label, paged] = (x, {k: st[k] for k in PAGING_STATS if k in st},
+                                 _every_rank(counts))
+    return out
+
+
+def phase_paged_tiny(smi):
+    """11a: the 4-layer DiT paged over 4 gloo ranks sharing the card."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.serve import DiceServer
+    schedules = {k: v for k, v in _tiny_schedules().items()
+                 if k in ("sync", "displaced", "interweaved", "selective", "dice")}
+    runs = [(label, dcfg, 8) for label, dcfg in schedules.items()]
+    runs.append(("dice E=6", schedules["dice"], 6))
+    single = {}
+    for label, dcfg, num_experts in runs:
+        cfg, params, reqs, noise = _tiny4(num_experts)
+        single[label] = DiceServer(cfg, dcfg, params=params, device="cpu").generate(
+            reqs, num_steps=TINY_STEPS, noise=noise)[0]
+    t0 = time.perf_counter()
+    res, totals = mesh_lib.spawn(_paged_tiny, 4, backend="gloo", device="cuda",
+                                 timeout_s=EP_TIMEOUT_S, args=(runs,))
+    for label, _, num_experts in runs:
+        x, st, counts = res[label, True]
+        compare(f"11a [{smi}] paged ep=4 gloo tiny {label} (E={num_experts}, "
+                f"E_pad 8), cuda kernels vs the cpu plain single-process run",
+                x, single[label], TOL_F32)
+        same = None
+        if (label, False) in res:
+            same = torch.equal(x, res[label, False][0])
+        log(f"    paged stats {st}; paged == resident ep=4 bit for bit: {same}; "
+            f"launches per rank {counts}")
+        if same is False:
+            raise AssertionError(f"11a {label}: paged samples differ from resident")
+        if not (0 < st["peak_resident_expert_bytes"] <= st["expert_hbm_budget"]
+                and st["paged_transfers"] > 0):
+            raise AssertionError(f"11a {label}: the realized peak exceeds the budget")
+    log(f"  11a spawn of 4 ranks {time.perf_counter() - t0:.1f} s, launch totals {totals}")
+
+
+def _mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def _copy_overlap(server, reqs, noise):
+    """One paged step traced with device activity: the pool's host-to-device
+    copies (the stream that spent the most time on them) against this
+    rank's kernels: copies, ms, GB, GB/s while copying, and the share of
+    copy time during which one of the rank's kernels ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        server.generate(reqs, num_steps=1, noise=noise)
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+    streams = {}
+    for e in cuda:
+        if "HtoD" in e.name():
+            streams.setdefault(e.device_resource_id(), []).append(e)
+    if not streams:
+        raise AssertionError("11b: the trace holds no host-to-device copy")
+    copies = max(streams.values(), key=lambda es: sum(e.duration_ns() for e in es))
+    spans = sorted((e.start_ns(), e.end_ns()) for e in cuda
+                   if not e.name().startswith(("Memcpy", "Memset")))
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    copy_ns = sum(e.duration_ns() for e in copies)
+    overlap_ns = sum(max(0, min(e.end_ns(), b) - max(e.start_ns(), a))
+                     for e in copies for a, b in merged)
+    # where the trace does not record the bytes, count them from the pool's
+    # geometry: a fetch copies each of its 3 leaves in PACE_BYTES pieces
+    from repro_torch.core.paging import PACE_BYTES
+    shard = server.expert_pool.layer_shard_bytes(0)
+    pieces = 3 * -(-(shard // 3) // PACE_BYTES)
+    nbytes = sum(e.nbytes() for e in copies) or len(copies) // pieces * shard
+    return dict(copies=len(copies), copy_ms=copy_ns / 1e6, gb=nbytes / 1e9,
+                gbps=nbytes / max(copy_ns, 1), overlap=overlap_ns / max(copy_ns, 1),
+                kernels=len(spans), other_htod=sum(len(v) for v in streams.values())
+                - len(copies))
+
+
+def _overlap_probe(shard_bytes: int, iters: int = 10, barrier=None):
+    """Whether the card runs a host-to-device copy beside kernels: ms of
+    one layer shard's worth (``shard_bytes``) copied from pinned memory on
+    a side stream, of ``iters`` ``expert_ffn`` calls at a G ep=2 rank's
+    refresh shape on the current stream, and of both issued together
+    (wall time between synchronisations; with ``barrier``, every rank
+    starts each measurement together); then whether a 16 MB copy issued
+    just after the big one waits for it."""
+    import torch
+    from repro_torch.kernels import ops
+    host = torch.empty(shard_bytes // 4, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty_like(host, device="cuda")
+    args = _expert_inputs(torch.Generator(device="cuda").manual_seed(23), 8, 320,
+                          1408, 5632, torch.float32)
+    side = torch.cuda.Stream()
+
+    def copy():
+        with torch.cuda.stream(side):
+            dev.copy_(host, non_blocking=True)
+
+    def compute():
+        for _ in range(iters):
+            ops.expert_ffn(*args)
+
+    def timed(*fns):
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    small = torch.empty(4 << 20, dtype=torch.float32, device="cuda")
+    small_host = torch.empty(small.shape, dtype=torch.float32, pin_memory=True)
+
+    def d2h_behind_copy():
+        # a 16 MB device-to-host copy issued just after the big
+        # host-to-device one, on the current stream: ms until it is done
+        copy()
+        t0 = time.perf_counter()
+        small_host.copy_(small, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def h2d_behind_copy():
+        # the same for a 16 MB host-to-device copy (a gloo exchange's
+        # received payload goes to the card this way)
+        copy()
+        t0 = time.perf_counter()
+        small.copy_(small_host, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def alone(dst, src):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    timed(copy, compute)                                # warm-up
+    alone(small_host, small)
+    return dict(copy_ms=timed(copy), compute_ms=timed(compute),
+                both_ms=timed(copy, compute), d2h_ms=alone(small_host, small),
+                d2h_behind_copy_ms=d2h_behind_copy(),
+                h2d_ms=alone(small, small_host),
+                h2d_behind_copy_ms=h2d_behind_copy())
+
+
+def _g_job(mesh, model: str = "dit-moe-g", layers: int = G_LAYERS):
+    """11b and 11c in each of 2 ranks sharing the card: DiT-MoE-G at full
+    width, ``layers`` deep, paged (depth 1, auto budget) and resident."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.compress.codecs import CompressConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import paging
+    from repro_torch.core.schedules import DiceConfig
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.serve import DiceServer, Request
+    from repro_torch.resilience.faults import FaultPlan, parse_resilience
+    _tf32_off()
+    cfg = get_config(model).replace(num_layers=layers)
+    dcfg = DiceConfig.dice(compress=CompressConfig("int8_residual"))
+    spec = paging.PagingSpec(budget_bytes=0, depth=1)
+    reqs = [Request(class_id=(37 * i) % cfg.num_classes, rid=i)
+            for i in range(XL_REQUESTS)]
+    noise = torch.randn((XL_REQUESTS, cfg.patch_tokens, cfg.in_channels),
+                        generator=torch.Generator(device=mesh.device).manual_seed(21),
+                        device=mesh.device)
+    res = {}
+
+    def build(paged):
+        t0 = time.perf_counter()
+        server = DiceServer(cfg, dcfg, mesh=mesh, seed=0,
+                            paging=spec if paged else None)
+        _perturb(server.params, torch.Generator(device=mesh.device).manual_seed(99))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        ring = DiceServer(cfg, dataclasses.replace(server.dcfg, overlap="ring"),
+                          params=server.params, mesh=mesh,
+                          expert_pool=server.expert_pool)
+        server.generate(reqs, num_steps=1, noise=noise)      # warm-up
+        return server, ring, init_s
+
+    def run(server, label, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        x, st, counts = _mesh_generate(server, reqs, G_STEPS, f"11b G {label}",
+                                       noise=noise, **kw)
+        return dict(x=x.cpu(), s_per_step=st["wall_s_per_step"],
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    counts=counts, dispatch=st["dispatch_bytes_per_step"],
+                    hops=st["ring_hops"],
+                    **{k: st[k] for k in PAGING_STATS if k in st})
+
+    paged, paged_ring, res["init_paged_s"] = build(True)
+    pool = paged.expert_pool
+    if mesh.device.type == "cuda":
+        # both ranks at once: a copy beside kernels on a card two
+        # processes share
+        res["probe"] = _overlap_probe(pool.layer_shard_bytes(0),
+                                      barrier=torch.distributed.barrier)
+    res["pinned_bytes"] = pool.total_host_bytes()
+    res["budget"] = paging.paging_of(paged.dcfg).budget_bytes
+    res["layer_shard_bytes"] = pool.layer_shard_bytes(0)
+    res["mem_available_gib"] = _mem_available_gib()
+    res["paged"] = run(paged, "paged blocking")
+    res["paged ring"] = run(paged_ring, "paged ring")
+    res["trace"] = _copy_overlap(paged, reqs, noise)
+    # 11c: the paging rungs on the same pool, then the ring-lowering check
+    for key, fspec in (("faults", G_FAULTS), ("delay", G_DELAY)):
+        rcfg = parse_resilience(fspec)
+        server = DiceServer(cfg, paged.dcfg, params=paged.params, mesh=mesh,
+                            expert_pool=pool, resilience=rcfg)
+        r = run(server, f"paged {fspec}")
+        r.update(paging.ledger_totals(pool, mesh.ep_mesh),
+                 equal=torch.equal(r.pop("x"), res["paged"]["x"]))
+        if key == "delay":
+            fp = FaultPlan(rcfg.faults)
+            r["delays"] = sum(fp.paging_delay(layer, mesh.rank, s, 0)
+                              for layer in range(cfg.num_layers)
+                              for s in range(1, 2 * G_STEPS + 1))
+        res[key] = r
+    pool.set_resilience(None)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        paged_ring.generate(reqs, num_steps=1, noise=noise)
+    res["ring_lowering"] = hlo_cost.check_ring_lowering(
+        prof, n_dev=mesh.size, moe_layer_calls=2 * cfg.num_layers)
+    del paged, paged_ring, server, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident, resident_ring, res["init_resident_s"] = build(False)
+    res["resident"] = run(resident, "resident blocking")
+    res["resident ring"] = run(resident_ring, "resident ring")
+    del resident, resident_ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    for engine in ("", " ring"):
+        res["equal" + engine] = torch.equal(res["paged" + engine]["x"],
+                                            res["resident" + engine]["x"])
+    x = res["paged"]["x"]
+    res["finite"], res["shape"] = bool(torch.isfinite(x).all()), tuple(x.shape)
+    for r in [res[k] for k in ("paged", "paged ring", "resident", "resident ring",
+                               "faults", "delay")]:
+        r.pop("x", None)
+    return _every_rank(res)
+
+
+def phase_g_paging(rows, smi):
+    """11b and 11c: DiT-MoE-G width, paged against resident at ep=2."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    ranks, totals = mesh_lib.spawn(_g_job, EP, backend="gloo", device="cuda",
+                                   timeout_s=EP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    per = lambda key, field: [r[key][field] for r in ranks]  # noqa: E731
+    steps = G_STEPS
+    for engine in ("", " ring"):
+        p, q = r0["paged" + engine], r0["resident" + engine]
+        log(f"  11b [{smi}] DiT-MoE-G width ({G_LAYERS} of 40 layers), dice+int8, "
+            f"{XL_REQUESTS} requests x {steps} steps, ep=2 gloo sharing the card,"
+            f"{engine or ' blocking'}: paged (depth 1) {per('paged' + engine, 's_per_step')} "
+            f"s/step per rank against resident {per('resident' + engine, 's_per_step')}; "
+            f"paged samples == resident bit for bit: {r0['equal' + engine]}; "
+            f"paged_transfers {p['paged_transfers']} ({p['paged_transfers'] / steps:.0f} "
+            f"a step over both ranks), {p['paged_bytes_in'] / steps / 1e9:.4f} GB a step; "
+            f"peak resident expert bytes {p['peak_resident_expert_bytes']} <= budget "
+            f"{p['expert_hbm_budget']}; max_memory_allocated per rank paged "
+            f"{[round(g, 3) for g in per('paged' + engine, 'peak_gib')]} GiB, resident "
+            f"{[round(g, 3) for g in per('resident' + engine, 'peak_gib')]} GiB; "
+            f"ring hops {p['hops']}; launches per rank {per('paged' + engine, 'counts')}")
+        if not r0["equal" + engine]:
+            raise AssertionError(f"11b{engine}: paged samples differ from resident")
+        if not 0 < p["peak_resident_expert_bytes"] <= p["expert_hbm_budget"]:
+            raise AssertionError("11b: the realized peak exceeds the budget")
+        if not all(a < b for a, b in zip(per("paged" + engine, "peak_gib"),
+                                          per("resident" + engine, "peak_gib"))):
+            raise AssertionError("11b: paging did not lower max_memory_allocated")
+    tr = [r["trace"] for r in ranks]
+    log(f"  11b [{smi}] one traced paged step per rank: pool copies "
+        f"{[t['copies'] for t in tr]} ({[round(t['gb'], 4) for t in tr]} GB, "
+        f"{[round(t['copy_ms'], 3) for t in tr]} ms of copying: "
+        f"{[round(t['gbps'], 3) for t in tr]} GB/s), share of copy time with a kernel "
+        f"of the rank running {[round(t['overlap'], 4) for t in tr]}, kernels "
+        f"{[t['kernels'] for t in tr]}, other HtoD copies {[t['other_htod'] for t in tr]}")
+    if not all(t["overlap"] > 0 for t in tr):
+        raise AssertionError("11b: the pool's copies overlap no kernel")
+    probe = _overlap_probe(r0["layer_shard_bytes"])
+    import ctypes
+    cudart = ctypes.CDLL("/usr/local/cuda/lib64/libcudart.so")
+    engines = ctypes.c_int(-1)
+    cudart.cudaDeviceGetAttribute(ctypes.byref(engines), 40, 0)  # AsyncEngineCount
+    log(f"  11b [{smi}] a {r0['layer_shard_bytes']} B pinned copy on a side stream "
+        f"beside 10 expert_ffn calls (8, 320, 1408, 5632): one process alone on the "
+        f"card: copy {probe['copy_ms']:.3f} ms, kernels {probe['compute_ms']:.3f} ms, "
+        f"both {probe['both_ms']:.3f} ms; a 16 MB device-to-host copy alone "
+        f"{probe['d2h_ms']:.3f} ms, issued just after the big copy "
+        f"{probe['d2h_behind_copy_ms']:.3f} ms; a 16 MB host-to-device copy alone "
+        f"{probe['h2d_ms']:.3f} ms, just after the big copy "
+        f"{probe['h2d_behind_copy_ms']:.3f} ms; the card's async copy engines "
+        f"{engines.value}; each of 2 ranks at once: "
+        f"{[{k: round(v, 3) for k, v in r['probe'].items()} for r in ranks]}")
+    log(f"  11b [{smi}] per rank: pinned host bytes {[r['pinned_bytes'] for r in ranks]}, "
+        f"MemAvailable {[round(r['mem_available_gib'], 2) for r in ranks]} GiB, layer "
+        f"shard {r0['layer_shard_bytes']} B, budget {r0['budget']} B, init paged "
+        f"{[round(r['init_paged_s'], 2) for r in ranks]} s, resident "
+        f"{[round(r['init_resident_s'], 2) for r in ranks]} s; samples finite "
+        f"{r0['finite']}, shape {r0['shape']}")
+    g = get_config("dit-moe-g")
+    if not r0["finite"] or r0["shape"] != (XL_REQUESTS, g.patch_tokens, g.in_channels):
+        raise AssertionError("11b: G samples not finite or misshapen")
+    f, d = r0["faults"], r0["delay"]
+    log(f"  11c [{smi}] {G_FAULTS}: samples == clean paged run {f['equal']}, fetch "
+        f"errors {f['fetch_errors']}, retries {f['fetch_retries']}, stale fallbacks "
+        f"{f['stale_fallbacks']}, transfers {f['transfers']}, "
+        f"{per('faults', 's_per_step')} s/step")
+    log(f"  11c [{smi}] {G_DELAY}: samples == clean {d['equal']}, delayed fetches per "
+        f"rank {per('delay', 'delays')} (10 ms each, on the kernel-issuing thread), "
+        f"{per('delay', 's_per_step')} s/step against {per('paged', 's_per_step')} clean")
+    if not (f["equal"] and d["equal"] and f["fetch_errors"] > 0):
+        raise AssertionError("11c: the paging rungs changed the samples or injected nothing")
+    log(f"  11c [{smi}] check_ring_lowering on a profiled ring step at ep=2 "
+        f"({G_LAYERS} layers x 2 passes): {r0['ring_lowering']} on every rank "
+        f"{all(r['ring_lowering'] == r0['ring_lowering'] for r in ranks)}")
+    log(f"  11b/11c spawn {spawn_s:.1f} s, launch totals per rank {totals}")
+    launches = r0["paged"]["counts"]
+    for key in ("expert_ffn G", "flash_attention G", "residual_int8 G"):
+        rows[key]["launches"] = launches[rows[key]["name"]]
+        rows[key]["launches_ep2_per_rank"] = [
+            c[rows[key]["name"]] for c in per("paged", "counts")]
+
+
+def phase_g_kernels(rows, smi):
+    """Phase 3's last part: the three DiT kernels at DiT-MoE-G's shapes (the
+    shapes phase 11b runs) against their plain versions, timed as the rest
+    of phase 3; fills ``rows`` (phase 11b adds their launches)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.timing import device_ms, rotating, time_ms
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    # expert_ffn at an ep=2 rank's refresh shape: 8 local experts, 2 x 160 rows
+    E, C, d, f = 8, 320, 1408, 5632
+    args = _expert_inputs(gen, E, C, d, f, torch.float32)
+    err = compare(f"3G [{smi}] expert_ffn E={E} C={C} d={d} f={f} f32 silu "
+                  f"(a G ep=2 rank at refresh)", ops.expert_ffn(*args),
+                  ref.expert_ffn_ref(*args), TOL_F32)
+    ms = time_ms(lambda: ops.expert_ffn(*args), 10)
+    dev = device_ms(lambda: ops.expert_ffn(*args), 10)
+    plain = time_ms(lambda: ref.expert_ffn_ref(*args), 10)
+    x, wg, wu, wd = args
+    h = torch.randn((E, C, f), device="cuda")
+    yard = time_ms(lambda: (torch.bmm(x, wg), torch.bmm(x, wu), torch.bmm(h, wd)), 10)
+    del x, wg, wu, wd, h, args
+    flops = 6.0 * E * C * d * f
+    nbytes = 4.0 * (2 * E * C * d + 3 * E * d * f)
+    b_ms, b_by = bound(flops, nbytes)
+    tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    log(f"  3G [{smi}] expert_ffn G: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s; "
+        f"device alone {dev:.4f} ms), plain {plain:.4f} ms, three-bmm yardstick "
+        f"{yard:.4f} ms, bound {tc_ms:.4f} ms ({tc_by}, 3xTF32), FP32 bound {b_ms:.4f} ms "
+        f"({b_by}); library: none")
+    rows["expert_ffn G"] = dict(
+        name="expert_ffn", route="cuda", source="src/repro_torch/csrc/expert_ffn.cu",
+        replaces="src/repro/kernels/expert_ffn.py:69", max_abs_err=err, ms=ms,
+        device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by,
+        fp32_bound_ms=b_ms, library_ms=None, yardstick_ms=yard,
+        shape="E=8 C=320 d=1408 f=5632 f32 silu (a DiT-MoE-G ep=2 rank at refresh)")
+    # flash_attention at G's head dim 88: the NT = 16 instance (Dh <= 128)
+    B, S, H, Dh = 4, 256, 16, 88
+    q, k, v = (torch.randn((B, S, H, Dh), generator=gen, device="cuda") for _ in range(3))
+    err = compare(f"3G [{smi}] flash B={B} S={S} H={H} Dh={Dh} f32 (G's heads, an "
+                  f"ep=2 rank's 4 requests)", ops.flash_attention(q, k, v),
+                  ref.flash_attention_ref(q, k, v), TOL_F32)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 50)
+    dev = device_ms(lambda: ops.flash_attention(q, k, v), 50)
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), 50)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50)
+    flops = 4.0 * B * H * S * S * Dh
+    nbytes = 4.0 * 4 * B * S * H * Dh
+    b_ms, _ = bound(flops, nbytes)
+    tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    regs = [line for line in build.ptxas_report() if line.startswith("flash<")
+            and ", 16>" in line]
+    log(f"  3G [{smi}] flash G: kernel {ms:.4f} ms (device alone {dev:.4f} ms), plain "
+        f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, bound {tc_ms:.4f} ms "
+        f"({tc_by}, 3xTF32), FP32 bound {b_ms:.4f} ms; the NT=16 instance's ptxas: {regs}")
+    rows["flash_attention G"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=err, ms=ms,
+        device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by,
+        fp32_bound_ms=b_ms, library_ms=lib,
+        shape="B=4 S=256 H=16 Dh=88 f32 non-causal (DiT-MoE-G, an ep=2 rank)")
+    del q, k, v, qt, kt, vt
+    # residual_int8 at G's rows: a rank's 1024 dispatch and 2048 combine rows
+    for N in (1024, 2048):
+        value, base = _int8_inputs(gen, N, 1408, torch.float32)
+        qk, sk, rk = ops.residual_int8(value, base)
+        qp, sp, rp = ref.residual_int8_ref(value, base)
+        torch.cuda.synchronize()
+        if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
+            raise AssertionError("3G: residual_int8 q or scale differ at G's width")
+        err = compare(f"3G [{smi}] residual_int8 recon N={N} d=1408 f32", rk, rp,
+                      dict(rtol=1e-6, atol=1e-6))
+    sets = [_int8_inputs(gen, N, 1408, torch.float32) for _ in range(20)]
+    dev = device_ms(rotating(ops.residual_int8, sets), 300)
+    events = time_ms(rotating(ops.residual_int8, sets), 300)
+    plain = time_ms(rotating(ref.residual_int8_ref, sets), 30)
+    nbytes = N * 1408 * (3 * 4 + 1) + N * 4
+    b_ms, b_by = bound(6.0 * N * 1408, nbytes)
+    log(f"  3G [{smi}] residual_int8 G N={N} d=1408 f32: device {dev:.4f} ms "
+        f"({100 * b_ms / dev:.1f}% of bound), events {events:.4f} ms, plain {plain:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), library: none")
+    rows["residual_int8 G"] = dict(
+        name="residual_int8", route="cuda", source="src/repro_torch/csrc/residual_int8.cu",
+        replaces="src/repro/kernels/residual_codec.py:44", max_abs_err=err, ms=dev,
+        device_ms=dev, events_ms=events, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, shape="N=2048 d=1408 f32 (a DiT-MoE-G ep=2 rank's combine rows)")
+    del sets
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -1946,6 +2443,7 @@ def main() -> int:
         phase_build()
     with phase("3 kernels vs plain versions"):
         rows = phase_kernels()
+        phase_g_kernels(rows, smi)
     with phase("4 kernels in place (tiny DiT and smoke RWKV-6, cpu vs cuda)"):
         phase_tiny()
         phase_smoke_lm()
@@ -1968,6 +2466,10 @@ def main() -> int:
         phase_distrifusion(rows, phase5)
         phase_hier(rows, patch_single)
         phase_placement(rows)
+    with phase("11 main path 7 (expert paging: the 4-layer DiT over 4 ranks, "
+               "DiT-MoE-G width at ep=2)"):
+        phase_paged_tiny(smi)
+        phase_g_paging(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "max_abs_err", "ms",

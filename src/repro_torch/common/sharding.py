@@ -67,8 +67,9 @@ def expert_slice(num_experts: int, mesh) -> slice:
     if num_experts % n:
         raise ValueError(
             f"num_experts={num_experts} must divide over the {n}-way "
-            f"'ep' mesh axis for expert parallelism (expert paging, which "
-            f"lifts this in the reference, is not ported: ROADMAP A.9)")
+            f"'ep' mesh axis for expert parallelism, or enable expert "
+            f"paging (DiceConfig.paging), whose pool pads the wire so any "
+            f"expert count serves on any mesh")
     e_loc = num_experts // n
     return slice(i * e_loc, (i + 1) * e_loc)
 

@@ -1,4 +1,5 @@
-"""Config registry of the port: the configs it can run so far.
+"""Config registry of the port: the configs it can run so far, DiT-MoE-XL
+and DiT-MoE-G (the paper's two models) and rwkv6-3b.
 
 ``get_config`` / ``get_smoke`` take the JAX package's registry names; a
 name the JAX package has but the port does not yet raises and points at
@@ -8,6 +9,7 @@ from importlib import import_module
 
 _MODULES = {
     "dit-moe-xl": "dit_moe_xl",
+    "dit-moe-g": "dit_moe_g",
     "rwkv6-3b": "rwkv6_3b",
 }
 

@@ -18,6 +18,8 @@ expert shard, and the capacity a per-rank capacity; ``overlap`` swaps the
 two all-to-alls for the ring engine of :mod:`repro_torch.core.overlap`.
 A ``placement`` (:mod:`repro_torch.core.placement`) reorders the dispatch
 buffer's experts and serves the pairs of replicated experts locally.
+``num_wire_experts`` widens the wire to expert paging's padded expert
+count (:mod:`repro_torch.core.paging`): phantom experts no token reaches.
 
 ``fresh_mask`` / ``h_cache`` implement Conditional Communication: masked
 pairs are not dispatched (they take no buffer capacity) and their
@@ -57,7 +59,7 @@ def default_capacity(num_tokens: int, cfg, *, k: Optional[int] = None,
 # routing + dispatch plan
 # ---------------------------------------------------------------------------
 class DispatchPlan(NamedTuple):
-    slot: torch.Tensor        # (T*K,) destination slot e*C+pos, == E*C if dropped
+    slot: torch.Tensor        # (T*K,) destination slot e*C+pos, == S*C if dropped
     t_sorted: torch.Tensor    # (T*K,) source token per sorted pair
     inv_order: torch.Tensor   # (T*K,) unsort permutation
     keep: torch.Tensor        # (T*K,) bool, sorted order
@@ -98,17 +100,22 @@ def route(p, x: torch.Tensor, cfg):
 
 
 def make_plan(idx: torch.Tensor, E: int, capacity: int,
-              fresh_mask: Optional[torch.Tensor] = None) -> DispatchPlan:
+              fresh_mask: Optional[torch.Tensor] = None,
+              num_slots: Optional[int] = None) -> DispatchPlan:
     """Sort-based dispatch plan.  idx: (T, K) expert ids.  Stale pairs
-    (``fresh_mask`` False) go to a virtual expert ``E`` that sorts after
-    every real one and never enters the buffer."""
+    (``fresh_mask`` False) go to a virtual expert that sorts after every
+    real one and never enters the buffer.  ``num_slots`` is the dispatch
+    buffer's expert dimension where it is wider than the routable ``E``
+    (expert paging's padded wire): the drop slot moves past the padded
+    buffer, so dropped pairs stay out of phantom rows.  Default ``E``."""
+    S = E if num_slots is None else num_slots
     T, K = idx.shape
     dev = idx.device
     flat_e = idx.reshape(-1)
     flat_t = torch.arange(T, device=dev).repeat_interleave(K)
     if fresh_mask is not None:
         flat_e = torch.where(fresh_mask.reshape(-1), flat_e,
-                             torch.full_like(flat_e, E))
+                             torch.full_like(flat_e, S))
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
     t_sorted = flat_t[order]
@@ -117,7 +124,7 @@ def make_plan(idx: torch.Tensor, E: int, capacity: int,
     pos = torch.arange(T * K, device=dev) - starts[e_sorted.clamp(0, E - 1)]
     keep = (pos < capacity) & (e_sorted < E)
     slot = torch.where(keep, e_sorted * capacity + pos,
-                       torch.full_like(pos, E * capacity))
+                       torch.full_like(pos, S * capacity))
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(T * K, device=dev)
     return DispatchPlan(slot=slot, t_sorted=t_sorted, inv_order=inv_order,
@@ -263,7 +270,8 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
                 obs: Optional[obs_telemetry.ObsConfig] = None,
                 resilience: Optional[fault_lib.ResilienceConfig] = None,
                 fault_salt: int = 0, fault_key: Optional[int] = None,
-                fault_masks: Optional[FaultMasks] = None):
+                fault_masks: Optional[FaultMasks] = None,
+                num_wire_experts: Optional[int] = None):
     """MoE layer forward.  x: (T, d) flat tokens (the rank's shard under
     ``mesh``).
 
@@ -292,6 +300,15 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     placement's ``cap_scale`` (a planned one comes scaled from
     ``LayerAction.dispatch_capacity``).  ``counts`` and ``served_counts``
     stay in expert-id space.
+
+    ``num_wire_experts`` (over a mesh): the expert dimension ``S`` of the
+    dispatch buffer, the wire and the ``experts_*`` stacks when expert
+    paging pads them past ``cfg.num_experts`` with zero-weight phantom
+    experts (the next multiple of the ep size), so any expert count serves
+    on any mesh.  Routing stays over the real ``E``, so phantom rows carry
+    no token; the buffers, ring chunks and byte counts grow by ``S / E``.
+    With ``S == E`` (or ``None``) every path is the unpadded one.  It
+    cannot compose with a placement.
 
     With ``codec`` the dispatch payload is encoded against
     ``dispatch_base`` (zeros if None) and its reconstruction returned as
@@ -324,6 +341,15 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
     probs, scores, idx = route(p, x, cfg)
     pl = placement if placement is not None and not placement.is_identity \
         else None
+    S = E                   # the wire/dispatch-buffer expert dimension
+    if num_wire_experts is not None and mesh is not None:
+        if num_wire_experts < E:
+            raise ValueError(
+                f"num_wire_experts={num_wire_experts} < num_experts={E}")
+        if pl is not None and num_wire_experts != E:
+            raise ValueError("a padded wire (expert paging) cannot compose "
+                             "with an expert placement")
+        S = num_wire_experts
     if capacity is None:
         capacity = default_capacity(T, cfg)
         if pl is not None:
@@ -339,7 +365,8 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
             wire_fresh = ~rep_mask if fresh_mask is None \
                 else fresh_mask & ~rep_mask
         wire_idx = inv_perm[idx]
-    plan = make_plan(wire_idx, E, capacity, fresh_mask=wire_fresh)
+    plan = make_plan(wire_idx, E, capacity, fresh_mask=wire_fresh,
+                     num_slots=S)
     x_wire = x
     if codec is not None:
         base = dispatch_base if dispatch_base is not None \
@@ -360,7 +387,7 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
         fe[fault_lib.FE_GUARDED_DISPATCH] += (~row_ok).sum()
         fb = base if codec is not None else torch.zeros_like(x_wire)
         x_wire = torch.where(row_ok[:, None], x_wire, fb)
-    buf = dispatch(x_wire, plan, E, capacity)
+    buf = dispatch(x_wire, plan, S, capacity)
     n = 1 if mesh is None else mesh.size
     ring = bool(overlap and n > 1)
     loc_plan = loc_out = None
@@ -466,16 +493,16 @@ def moe_forward(p, x: torch.Tensor, cfg, *,
         lb_loss=None if mesh is not None
         else lb_from_terms(terms, idx.shape[1]),
         dropped_frac=dropped_frac,
-        dispatch_bytes=E * capacity * per_row,
+        dispatch_bytes=S * capacity * per_row,
         pair_vals=pair_vals if keep_pairs else None,
         scores=scores if keep_pairs else None,
         pair_keep=pair_keep if keep_pairs else None,
-        raw_dispatch_bytes=E * capacity * d * itemsize,
+        raw_dispatch_bytes=S * capacity * d * itemsize,
         wire_payload=x_wire if codec is not None else None,
         counts=counts,
         served_counts=served_counts,
         hops=2 * (n - 1) if ring else 0,
-        hop_bytes=(E // n) * capacity * per_row if ring else 0,
+        hop_bytes=(S // n) * capacity * per_row if ring else 0,
         lb_terms=terms,
         telemetry=telemetry,
         fault_events=fe,
@@ -512,15 +539,17 @@ def _fault_mask(given: Optional[FaultMasks], which: str, faults, rate_field,
 
 def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,
                  wire_dtype, hop_schedule=None) -> torch.Tensor:
-    """(E, C, d) dispatch buffer -> the (E, C, d) expert outputs of its
-    rows, the experts spread over the ranks of ``mesh``."""
+    """(S, C, d) dispatch buffer -> the (S, C, d) expert outputs of its
+    rows, the experts (``S``: the real ones, or paging's padded set) spread
+    over the ranks of ``mesh``."""
     E, C, d = buf.shape
     n = mesh.size
     if E % n:
         raise ValueError(
             f"num_experts={E} must divide over the {n}-way 'ep' mesh axis "
-            f"for expert parallelism (expert paging, which lifts this in the "
-            f"reference, is not ported: ROADMAP A.9)")
+            f"for expert parallelism, or enable expert paging "
+            f"(DiceConfig.paging), whose pool pads the wire to the next "
+            f"multiple so any expert count serves on any mesh")
     e_loc = E // n
     local = {k: v for k, v in p.items()
              if k.startswith("experts_") and not k.endswith("_rep")}
@@ -528,7 +557,8 @@ def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,
         raise ValueError(
             f"the params hold {local['experts_gate'].shape[0]} experts, not "
             f"this rank's {e_loc}: shard them with "
-            f"repro_torch.common.sharding.ep_shard_params")
+            f"repro_torch.common.sharding.ep_shard_params, or page them "
+            f"(repro_torch.core.paging)")
     chunks = buf.reshape(n, e_loc, C, d)
     if ring:
         out = overlap_lib.ring_expert_exchange(

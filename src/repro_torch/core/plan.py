@@ -18,11 +18,15 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from repro_torch.compress.codecs import CodecSpec
 from repro_torch.core import conditional
 from repro_torch.core.moe import default_capacity
+# normalize_paging is served from here, beside normalize_overlap and
+# normalize_placement, as in the reference
+from repro_torch.core.paging import (PagingSpec, normalize_paging,  # noqa: F401
+                                     paging_of)
 from repro_torch.core.placement import Placement
 from repro_torch.core.selective import sync_layer_mask
 
@@ -65,9 +69,14 @@ class LayerAction:
         laid out to match (:func:`repro_torch.common.sharding.place_experts`).
         An identity placement normalizes to ``None``.
     paging / prefetch / resident
-        the reference's expert-paging fields, kept so plans compare
-        field-equal.  Paging is not ported (ROADMAP A.9): a ``paging``
-        raises, and ``prefetch`` / ``resident`` normalize to ``None``.
+        expert paging (:mod:`repro_torch.core.paging`): with a
+        :class:`~repro_torch.core.paging.PagingSpec` stamped, this layer's
+        routed-expert shards come from the host pool instead of the params.
+        ``prefetch`` is the MoE layer whose shards this layer fetches ahead
+        (``i + depth``, ``None`` at the tail) and ``resident`` the planned
+        residency window the budget is validated against.  Without a spec
+        both normalize to ``None``, so unpaged plans equal the historical
+        ones; paging and a placement on one layer raise.
     """
     mode: str = "sync"
     store_y: bool = False
@@ -79,7 +88,7 @@ class LayerAction:
     store_base: bool = False
     overlap: bool = False
     placement: Optional[Placement] = None
-    paging: Optional[Any] = None
+    paging: Optional[PagingSpec] = None
     prefetch: Optional[int] = None
     resident: Optional[Tuple[int, ...]] = None
 
@@ -94,11 +103,19 @@ class LayerAction:
                              "residual base)")
         if self.placement is not None and self.placement.is_identity:
             object.__setattr__(self, "placement", None)
-        if self.paging is not None:
-            raise NotImplementedError("expert paging is not ported yet "
-                                      "(ROADMAP A.9)")
-        object.__setattr__(self, "prefetch", None)
-        object.__setattr__(self, "resident", None)
+        if self.paging is None:
+            object.__setattr__(self, "prefetch", None)
+            object.__setattr__(self, "resident", None)
+        else:
+            if self.placement is not None:
+                raise ValueError(
+                    "expert paging and affinity placement are mutually "
+                    "exclusive on one layer: the pool serves shards in the "
+                    "canonical expert order, a placement permutes them "
+                    "(page OR place, not both)")
+            if self.resident is not None:
+                object.__setattr__(self, "resident",
+                                   tuple(int(i) for i in self.resident))
 
     # -- buffer read/write accounting ----------------------------------------
     @property
@@ -302,9 +319,11 @@ def codec_spec_of(dcfg) -> Optional[CodecSpec]:
 def plan_for_step(dcfg, num_moe_layers: int, step_idx: int, *,
                   experts_per_token: int) -> StepPlan:
     """One step's plan via the registered planner for ``dcfg.schedule``;
-    a ring-overlap config stamps ``overlap`` on every action, and a
+    a ring-overlap config stamps ``overlap`` on every action, a
     ``dcfg.placements`` tuple each layer's placement (identity entries
-    normalize back to ``None``)."""
+    normalize back to ``None``), and a ``dcfg.paging`` spec each layer's
+    paging, prefetch (``i + depth`` while ``< L``) and residency window
+    (``i .. i + depth``)."""
     planner = get_planner(dcfg.schedule)
     plan = planner(dcfg, num_moe_layers, step_idx, experts_per_token)
     if overlap_of(dcfg) and not all(a.overlap for a in plan.actions):
@@ -319,6 +338,20 @@ def plan_for_step(dcfg, num_moe_layers: int, step_idx: int, *,
         plan = dataclasses.replace(plan, actions=tuple(
             dataclasses.replace(a, placement=pl)
             for a, pl in zip(plan.actions, placements)))
+    pspec = paging_of(dcfg)
+    if pspec is not None:
+        if placements is not None:
+            raise ValueError(
+                "dcfg.paging and dcfg.placements are mutually exclusive: "
+                "the pool serves shards in the canonical expert order, a "
+                "placement permutes them")
+        L = len(plan.actions)
+        plan = dataclasses.replace(plan, actions=tuple(
+            dataclasses.replace(
+                a, paging=pspec,
+                prefetch=(i + pspec.depth) if i + pspec.depth < L else None,
+                resident=tuple(range(i, min(i + pspec.depth + 1, L))))
+            for i, a in enumerate(plan.actions)))
     return plan
 
 

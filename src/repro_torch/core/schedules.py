@@ -11,17 +11,20 @@ port of ``repro.core.schedules``.
 construction so an inert one is ``None``.  ``placements`` carries one
 :class:`~repro_torch.core.placement.Placement` per MoE layer (the plan
 compiler stamps them onto the actions; the entry points strip them where
-no ep mesh of more than one rank runs).  ``paging`` is kept so a config
-carries the same fields as the reference; expert paging is not ported
-(ROADMAP A.9) and a set ``paging`` raises.
+no ep mesh of more than one rank runs).  ``paging`` carries the expert
+paging spec (:class:`~repro_torch.core.paging.PagingSpec`), which the
+plan compiler stamps onto every action; the entry points strip it where
+no ep mesh of more than one rank runs
+(:func:`~repro_torch.core.paging.normalize_paging`).
 """
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 from repro_torch.compress.codecs import CompressConfig
+from repro_torch.core.paging import PagingSpec
 from repro_torch.core.placement import Placement
 from repro_torch.resilience.faults import (ResilienceConfig,
                                            normalize_resilience)
@@ -55,8 +58,8 @@ class DiceConfig:
     # -- expert level: one placement per MoE layer (None: the original
     # layout); the caller's expert params are re-laid-out to match
     placements: Optional[Tuple[Optional[Placement], ...]] = None
-    # -- not ported yet: expert paging (ROADMAP A.9) -------------------------
-    paging: Optional[Any] = None
+    # -- memory level: expert paging (a host pool, planned prefetch) ----------
+    paging: Optional[PagingSpec] = None
     # -- resilience level: fault injection + the degradation ladder; the
     # planner ignores it, so plans and variants are untouched
     resilience: Optional[ResilienceConfig] = None
@@ -65,10 +68,10 @@ class DiceConfig:
         if self.overlap not in ("blocking", "ring"):
             raise ValueError(f"overlap must be 'blocking' or 'ring', got "
                              f"{self.overlap!r}")
-        if self.paging is not None:
-            raise NotImplementedError(
-                "DiceConfig.paging is not ported yet (ROADMAP A.9): the "
-                "PyTorch port runs without expert paging")
+        if self.paging is not None and \
+                not isinstance(self.paging, PagingSpec):
+            raise TypeError(f"DiceConfig.paging must be a PagingSpec, got "
+                            f"{type(self.paging).__name__}")
         if self.placements is not None:
             if any(p is not None and not isinstance(p, Placement)
                    for p in self.placements):

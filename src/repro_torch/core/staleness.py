@@ -122,7 +122,8 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                        consume_mask: Optional[torch.Tensor] = None,
                        mesh=None, hop_schedule=None, obs=None,
                        resilience=None, layer_idx: int = 0,
-                       fault_key: Optional[int] = None):
+                       fault_key: Optional[int] = None,
+                       num_wire_experts: Optional[int] = None):
     """Execute one MoE layer under a planned :class:`LayerAction`.
 
     x: (T, d) flat tokens (the rank's shard over an ep ``mesh``, whose
@@ -140,7 +141,9 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
     uniform-batch path.  ``obs`` / ``resilience`` go down to
     :func:`moe_forward` with the layer index as the fault salt (and
     ``fault_key``); the action's staleness age is
-    stamped into ``aux.telemetry``.  Returns (y, new_state, aux)."""
+    stamped into ``aux.telemetry``.  ``num_wire_experts`` is expert
+    paging's padded wire (see :func:`moe_forward`).  Returns (y,
+    new_state, aux)."""
     mask = None
     if action.mask_policy is not None:
         mask = conditional.policy_mask(action.mask_policy, x.shape[0],
@@ -162,7 +165,8 @@ def apply_layer_action(p, x: torch.Tensor, cfg, action: LayerAction,
                            hop_schedule=hop_schedule,
                            placement=action.placement, obs=obs,
                            resilience=resilience, fault_salt=layer_idx,
-                           fault_key=fault_key)
+                           fault_key=fault_key,
+                           num_wire_experts=num_wire_experts)
 
     def stamped(aux):
         return obs_telemetry.stamp_age(aux, action, obs)

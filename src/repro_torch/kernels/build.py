@@ -31,7 +31,7 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("expert_ffn.cu", "flash_attention.cu", "residual_int8.cu",
-           "rwkv6_scan.cu")
+           "rwkv6_scan.cu", "paced_copy.cu")
 HEADERS = ("common.cuh", "tf32_mma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,6 +47,7 @@ SIGNATURES = {
     + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _I, _P],
     "dice_residual_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dice_rwkv6_scan": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I] * 4 + [_P],
+    "dice_paced_copy": [_P, _P, _L, _L, _I, _P],
 }
 
 # seconds the last build took in this process (0.0 when the library was

@@ -24,6 +24,8 @@ roofline terms, not a measurement, and named ``..._paper8``.
       --continuous --placement greedy --replicate-top 1 --requests 12
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --obs \\
       --continuous --max-batch 2 --requests 3 --faults seed=7,poison_tick=2
+  PYTHONPATH=src python -m repro_torch.launch.serve --ep 4 --backend gloo \\
+      --device cpu --paging on --faults paging_err=0.3 --requests 4
 
 With a mesh (``DiceServer(mesh=...)``, or ``--ep N --dp D --patch P``,
 which spawn ``D x N x P`` ranks) every engine runs over it: one process per
@@ -39,9 +41,11 @@ experts when the routing histogram drifts.
 ``obs`` adds the per-layer staleness telemetry and measured step wall
 times to the registry; ``resilience`` (``--faults``) the seeded wire
 faults, the guards and the ladder of :func:`serve_continuous` (watchdog
-demotion, quarantine, bounded admission); ``--ckpt`` serves weights from
-a checkpoint file in the reference's format.  Expert paging (ROADMAP
-A.9) is not ported.
+demotion, quarantine, bounded admission, and with paging the fetch
+retries and the stale fallback); ``--ckpt`` serves weights from a
+checkpoint file in the reference's format.  ``--paging on`` over an ep
+mesh keeps each rank's routed experts in a pinned host pool and fetches
+one layer's shard ahead of use (:mod:`repro_torch.core.paging`).
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ from repro_torch.compress.codecs import CODEC_KINDS, CompressConfig
 from repro_torch.configs.dit_moe_xl import config as xl_config, tiny
 from repro_torch.core import conditional
 from repro_torch.core import overlap as overlap_lib
+from repro_torch.core import paging as paging_lib
 from repro_torch.core import placement as placement_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
@@ -300,6 +305,35 @@ def _publish_batch(reg: MetricsRegistry, stats: dict, lab: dict) -> None:
     reg.counter("dice_wall_seconds_total",
                 "measured wall seconds on the device", lab).inc(
                     stats["wall_s"])
+    _publish_paging(reg, stats, lab)
+
+
+def _publish_paging(reg: MetricsRegistry, stats: dict, lab: dict) -> None:
+    """The expert-paging series of a run's summary, where it paged."""
+    if "paged_transfers" in stats:
+        reg.counter("dice_paged_transfers_total",
+                    "expert-pool host->device fetches",
+                    lab).inc(stats["paged_transfers"])
+        reg.counter("dice_paged_bytes_in_total",
+                    "expert-pool host->device bytes",
+                    lab).inc(stats["paged_bytes_in"])
+    if stats.get("peak_resident_expert_bytes") is not None:
+        reg.gauge("dice_peak_resident_expert_bytes",
+                  "realized per-device expert-residency peak",
+                  lab).set_max(stats["peak_resident_expert_bytes"])
+    if stats.get("expert_hbm_budget") is not None:
+        reg.gauge("dice_expert_hbm_budget_bytes",
+                  "per-device resident-expert byte budget",
+                  lab).set_max(stats["expert_hbm_budget"])
+    for key, name, help_ in (
+            ("paging_fetch_errors", "dice_paging_fetch_errors_total",
+             "failed expert-shard fetch attempts"),
+            ("paging_fetch_retries", "dice_paging_fetch_retries_total",
+             "expert-shard fetch re-attempts"),
+            ("paging_stale_fallbacks", "dice_paging_stale_fallbacks_total",
+             "fetches served from the stale resident shard")):
+        if key in stats:
+            reg.counter(name, help_, lab).inc(stats[key])
 
 
 def _publish_telemetry_step(reg: MetricsRegistry, tel, lab: dict) -> None:
@@ -343,7 +377,7 @@ def _count(reg: MetricsRegistry, name: str, labels: dict) -> float:
 def _registry_view(reg: MetricsRegistry, lab: dict) -> dict:
     """The ``serve_queue`` summary, computed from the registry."""
     e2e = reg.histogram("dice_request_e2e_seconds", labels=lab)
-    return {
+    view = {
         "batches": int(reg.value("dice_batches_total", lab)),
         "padded": int(reg.value("dice_padded_requests_total", lab)),
         "modeled_step_s_paper8": reg.histogram("dice_modeled_step_seconds",
@@ -362,6 +396,17 @@ def _registry_view(reg: MetricsRegistry, lab: dict) -> dict:
         "wall_s": reg.value("dice_wall_seconds_total", lab),
         "e2e_s": e2e.snap(),
     }
+    if reg.get("dice_paged_transfers_total", lab) is not None:
+        view["paged_transfers"] = int(
+            reg.value("dice_paged_transfers_total", lab))
+        view["paged_bytes_in"] = int(
+            reg.value("dice_paged_bytes_in_total", lab))
+    for key, name in (("peak_resident_expert_bytes",
+                       "dice_peak_resident_expert_bytes"),
+                      ("expert_hbm_budget", "dice_expert_hbm_budget_bytes")):
+        if reg.get(name, lab) is not None:
+            view[key] = int(reg.value(name, lab))
+    return view
 
 
 def write_metrics(registry: MetricsRegistry, path: str) -> None:
@@ -416,7 +461,15 @@ class DiceServer:
     staleness telemetry and measured step times; ``resilience`` (a
     :class:`~repro_torch.resilience.faults.ResilienceConfig`) is stamped on
     the schedule config, normalized (an inert one is dropped, so the
-    samples stay those without it)."""
+    samples stay those without it).
+
+    ``paging`` (a :class:`~repro_torch.core.paging.PagingSpec`) over an ep
+    mesh of more than one rank moves the rank's routed-expert rows into a
+    pinned host pool (``expert_pool``, built from the params when not
+    given) before the params are sharded, so the full expert set is never
+    placed on the card; the budget's auto value resolves here, and the
+    pool's retry and fallback policy follows ``resilience``.  Paging and
+    online greedy placement exclude each other."""
 
     def __init__(self, cfg, dcfg: DiceConfig, *, params=None, seed: int = 0,
                  device: Optional[str] = None,
@@ -429,13 +482,17 @@ class DiceServer:
                  resilience: Optional[fault_lib.ResilienceConfig] = None,
                  devices_per_host: int = 0,
                  inter_host_bw: Optional[float] = None,
-                 placement: Optional[placement_lib.PlacementConfig] = None):
+                 placement: Optional[placement_lib.PlacementConfig] = None,
+                 paging: Optional[paging_lib.PagingSpec] = None,
+                 expert_pool: Optional[paging_lib.ExpertPool] = None):
         refuse_router_jitter(cfg)
         if mesh is not None:
             _check_mesh(mesh)
         if compress is not None:
             dcfg = dataclasses.replace(
                 dcfg, compress=None if compress.codec == "none" else compress)
+        if paging is not None:
+            dcfg = dataclasses.replace(dcfg, paging=paging)
         if resilience is not None:
             dcfg = dataclasses.replace(dcfg, resilience=resilience)
         n_ep = mesh_lib.axis_size(mesh, "ep")
@@ -473,12 +530,45 @@ class DiceServer:
         self.obs = obs if obs is not None else ObsConfig()
         self.tracer = tracer if tracer is not None or not self.obs.enabled \
             else StepTracer()
+        paged = paging_lib.paging_of(dcfg) is not None and n_ep > 1
+        if paged and placement is not None and placement.mode == "greedy":
+            raise ValueError(
+                "expert paging and online affinity placement are mutually "
+                "exclusive: the pool serves per-layer shards in canonical "
+                "expert order")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_dit(cfg, generator=gen, experts=None if mesh is None
-                              else shard_lib.expert_slice(cfg.num_experts,
-                                                          mesh))
-        elif mesh is not None:
+            rows = None
+            if mesh is not None:
+                rows = paging_lib.expert_rows(
+                    cfg.num_experts, n_ep, mesh.rank_in("ep")) if paged \
+                    else shard_lib.expert_slice(cfg.num_experts, mesh)
+            params = init_dit(cfg, generator=gen, experts=rows)
+        self.expert_pool = expert_pool
+        if paged:
+            # the rank's expert rows go to the pinned host pool before the
+            # params are sharded; the device stacks are freed with the strip
+            if expert_pool is None and paging_lib.has_expert_leaves(params):
+                self.expert_pool = paging_lib.pool_from_params(
+                    params, n_dev=n_ep, rank=mesh.rank_in("ep"),
+                    device=self.device)
+            if self.expert_pool is None:
+                raise ValueError(
+                    "paging is configured but params carry no expert "
+                    "leaves and no expert_pool was provided")
+            if self.expert_pool.n_dev != n_ep:
+                raise ValueError(
+                    f"expert pool is sharded for {self.expert_pool.n_dev} "
+                    f"devices but the serving mesh has a {n_ep}-way ep axis")
+            self.dcfg = dcfg = paging_lib.resolve_budget(dcfg,
+                                                         self.expert_pool)
+            params = paging_lib.strip_expert_params(params)
+        if self.expert_pool is not None:
+            # the pool's retry/fallback policy and seeded fetch faults
+            # follow the server's config; its fetch spans go to the tracer
+            self.expert_pool.set_resilience(fault_lib.resilience_of(dcfg))
+            self.expert_pool.tracer = self.tracer
+        if mesh is not None:
             params = shard_lib.ep_shard_params(params, mesh)
         self.params = params
         self._placed = None
@@ -505,6 +595,7 @@ class DiceServer:
     def plan(self, num_steps: int) -> plan_lib.SchedulePlan:
         """The schedule plan a ``generate`` call will run."""
         dcfg = plan_lib.normalize_overlap(self.dcfg, self.n_ep)
+        dcfg = plan_lib.normalize_paging(dcfg, self.n_ep)
         return plan_lib.compile_step_plans(
             plan_lib.normalize_placement(dcfg, self.n_ep),
             self.cfg.num_layers, num_steps,
@@ -549,7 +640,8 @@ class DiceServer:
                                    generator=generator, guidance=guidance,
                                    mesh=self.mesh, obs=self.obs,
                                    hop_schedule=self.hop_schedule,
-                                   params_placed=True)
+                                   params_placed=True,
+                                   expert_pool=self.expert_pool)
         _sync(self.device)
         wall = time.perf_counter() - t0
         lat = self.latency(len(requests) // self.n_dev)
@@ -567,6 +659,9 @@ class DiceServer:
             "num_plan_variants": stats["num_plan_variants"],
             "step_keys": stats["step_keys"],
             "kernel_launches": _launches_since(before),
+            **{k: stats[k] for k in ("paged_transfers", "paged_bytes_in",
+                                     "peak_resident_expert_bytes",
+                                     "expert_hbm_budget") if k in stats},
         }
         if "telemetry" in stats:
             result["telemetry"] = stats["telemetry"]
@@ -762,6 +857,14 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     tick's telemetry, fault counts and lane flags reach the host in one
     copy.  Over a mesh one small all-reduce (max) per tick agrees on the
     wall time and the lane flags, so every rank takes the same decisions.
+
+    A paging server (``DiceServer(paging=...)`` over an ep mesh of more
+    than one rank) runs every tick on its pool: the pool's counts start
+    from 0, every plan's residency windows are checked against the budget
+    before the first tick, and the stats add the pool's transfers, bytes,
+    peak and budget (and, with a resilience config, its fetch errors,
+    retries and stale fallbacks), summed (the peak: maxed) over the ep
+    ranks.
     """
     mesh = mesh if mesh is not None else server.mesh
     if mesh is not None:
@@ -780,6 +883,15 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     lanes = mesh.lanes if mesh is not None else 1
     dcfg = plan_lib.normalize_overlap(server.dcfg, n_ep)
     dcfg = plan_lib.normalize_placement(dcfg, n_ep)
+    dcfg = plan_lib.normalize_paging(dcfg, n_ep)
+    pool = None
+    if paging_lib.paging_of(dcfg) is not None:
+        pool = server.expert_pool
+        if pool is None:
+            raise ValueError("paging is planned but the server holds no "
+                             "expert pool (construct DiceServer with "
+                             "paging= on an ep mesh of more than one rank)")
+        pool.reset_stats()
     reg = MetricsRegistry()
     lab = {"schedule": plan_lib.schedule_name(dcfg.schedule),
            "engine": "continuous"}
@@ -811,10 +923,15 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
             params, placements = server.params, plan_lib.placements_of(dcfg)
             if mesh is server.mesh:
                 params, placements = server.params_for(placements), None
+            if pool is not None:
+                # every planned residency window must fit the budget
+                pool.validate_plan(splan)
+                pool.begin_run(paging_lib.paging_of(dcfg).depth)
             rf_step = make_rf_step(params, cfg, dt=dt, guidance=guidance,
                                    mesh=mesh, obs=server.obs, resilience=res,
                                    placements=placements,
-                                   hop_schedule=server.hop_schedule)
+                                   hop_schedule=server.hop_schedule,
+                                   expert_pool=pool)
         period = plan_lib.steady_period(dcfg, cfg.num_layers,
                                         experts_per_token=k_exp)
         return (splan, merge_plan, rf_step, period,
@@ -1210,6 +1327,18 @@ def serve_continuous(server: DiceServer, requests: List[Request], *,
     if place_online:
         stats["routing_shares"] = hist.shares.tolist()
         stats["hist_updates"] = hist.updates
+    if pool is not None:
+        tot = paging_lib.ledger_totals(pool, mesh.ep_mesh)
+        paged = {"paged_transfers": tot["transfers"],
+                 "paged_bytes_in": tot["bytes_transferred"],
+                 "peak_resident_expert_bytes": tot["peak_resident_bytes"],
+                 "expert_hbm_budget": paging_lib.paging_of(dcfg).budget_bytes}
+        if res is not None:
+            paged.update(paging_fetch_errors=tot["fetch_errors"],
+                         paging_fetch_retries=tot["fetch_retries"],
+                         paging_stale_fallbacks=tot["stale_fallbacks"])
+        _publish_paging(reg, paged, lab)
+        stats.update(paged)
     if res is not None:
         stats.update({
             "quarantined": int(_count(reg, "dice_quarantined_slots_total",
@@ -1321,6 +1450,21 @@ def main(argv=None):
     ap.add_argument("--replicate-top", type=int, default=0,
                     help="hottest experts replicated on every rank (served "
                          "locally, off the wire); 0 disables")
+    ap.add_argument("--paging", choices=["off", "on"], default="off",
+                    help="expert paging: keep each rank's routed experts in "
+                         "pinned host memory and fetch one MoE layer's "
+                         "shard ahead of use on a copy stream (needs --ep > "
+                         "1; also lifts the experts %% ep == 0 restriction "
+                         "with zero phantom experts)")
+    ap.add_argument("--expert-hbm-budget", type=int, default=0,
+                    help="per-device byte budget for resident routed-expert "
+                         "shards under --paging on: 0 (default) resolves to "
+                         "the tightest feasible window, negative means "
+                         "unbounded")
+    ap.add_argument("--paging-depth", type=int, default=1,
+                    help="prefetch distance in MoE layers: layer i fetches "
+                         "layer i + depth, so the copy runs behind the "
+                         "layers in between")
     ap.add_argument("--backend", choices=list(mesh_lib.BACKENDS),
                     default=None,
                     help="torch.distributed backend of the ep mesh: nccl "
@@ -1357,9 +1501,11 @@ def main(argv=None):
                          "hop_delay=0.5:0.01,queue=16'.  Fault keys inject "
                          "seeded failures; policy keys (guards, quarantine, "
                          "demote_after, step_deadline_factor, "
-                         "codec_err_limit, queue, admit_deadline, requeues) "
-                         "tune the degradation ladder.  'off' disables; "
-                         "the paging keys need expert paging (ROADMAP A.9)")
+                         "codec_err_limit, queue, admit_deadline, requeues, "
+                         "and under --paging on: paging_err, "
+                         "paging_delay=rate:seconds, retries, backoff, "
+                         "fetch_deadline, stale_fallback) tune the "
+                         "degradation ladder.  'off' disables")
     args = ap.parse_args(argv)
     if args.ep < 0 or args.dp < 1 or args.patch < 1:
         ap.error("--ep must be >= 0, --dp and --patch >= 1")
@@ -1402,14 +1548,28 @@ def _serve_cli(args, mesh=None) -> None:
                                overlap=args.overlap)
     obs_on = bool(args.obs or args.trace_out or args.metrics_out)
     resilience = fault_lib.parse_resilience(args.faults)
-    params = None
+    paging = None
+    if args.paging == "on":
+        paging = paging_lib.PagingSpec(
+            budget_bytes=(None if args.expert_hbm_budget < 0
+                          else args.expert_hbm_budget),
+            depth=args.paging_depth)
+    params = expert_pool = None
     if args.ckpt:
         # the like tree holds shapes only; each rank keeps its experts
         dev = resolve_device(args.device) if mesh is None else mesh.device
-        params = load_checkpoint(
-            args.ckpt, init_dit(cfg, generator=None), device=dev,
-            experts=None if mesh is None
-            else shard_lib.expert_slice(cfg.num_experts, mesh))
+        like = init_dit(cfg, generator=None)
+        if paging is not None and args.ep > 1:
+            # streamed straight into the paging split: the rank's expert
+            # rows into its host pool, the rest onto the device
+            params, expert_pool = paging_lib.load_pooled_checkpoint(
+                args.ckpt, like, n_dev=args.ep, rank=mesh.rank_in("ep"),
+                device=dev)
+        else:
+            params = load_checkpoint(
+                args.ckpt, like, device=dev,
+                experts=None if mesh is None
+                else shard_lib.expert_slice(cfg.num_experts, mesh))
     server = DiceServer(cfg, dcfg, params=params, seed=args.seed,
                         device=None if mesh is not None else args.device,
                         n_dev=args.n_dev, mesh=mesh,
@@ -1421,7 +1581,8 @@ def _serve_cli(args, mesh=None) -> None:
                         inter_host_bw=args.inter_host_bw,
                         placement=placement_lib.PlacementConfig(
                             mode=args.placement,
-                            replicate_top=args.replicate_top))
+                            replicate_top=args.replicate_top),
+                        paging=paging, expert_pool=expert_pool)
     reqs = [Request(class_id=i % cfg.num_classes, rid=i)
             for i in range(args.requests)]
     splan = server.plan(args.steps)
@@ -1446,7 +1607,10 @@ def _serve_cli(args, mesh=None) -> None:
         + (f", ring hops {server.hop_schedule}"
            if server.hop_schedule is not None else "")
         + (f", placement {args.placement} (replicate top "
-           f"{args.replicate_top})" if args.placement != "identity" else ""))
+           f"{args.replicate_top})" if args.placement != "identity" else "")
+        + (f", expert paging (depth {args.paging_depth}, budget "
+           f"{paging_lib.paging_of(server.dcfg).budget_bytes} bytes/rank)"
+           if server.expert_pool is not None else ""))
     say(f"step plan: {splan.num_variants} variants for "
         f"{splan.num_steps} steps "
         f"({[len(splan.steps_of_variant(v)) for v in range(splan.num_variants)]}"

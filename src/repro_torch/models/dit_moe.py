@@ -10,7 +10,8 @@ implementation serves every schedule, on one device or on one rank of a
 wire faults and guards of the resilience ladder.  DistriFusion's displaced
 patch parallelism (``patch_parallel_ndev``, or a mesh's ``patch`` axis)
 threads attention K/V states instead (:mod:`repro_torch.core.patch_parallel`).
-Expert paging is not ported yet (ROADMAP A.9).
+Under expert paging the routed-expert shards come from a host pool
+(:mod:`repro_torch.core.paging`), fetched one or more layers ahead.
 
 Params are a plain dict in the JAX package's tree layout and (in, out)
 weight orientation; :mod:`repro_torch.bridge` carries a JAX tree over.
@@ -135,7 +136,7 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                 fault_key: Optional[int] = None,
                 patch_states: Optional[Dict[int, PatchParallelState]] = None,
                 patch_parallel_ndev: int = 0, patch_compose: bool = False,
-                patch_fresh=None):
+                patch_fresh=None, expert_pool=None):
     """Velocity prediction.
 
     x: (B, T, C_in) latents; t: (B,) times; y: (B,) class ids
@@ -170,11 +171,33 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     in the same all-reduce), and names each layer's action in a profiler
     range.  ``resilience`` adds ``aux["fault_events"]``, the
     (NUM_FAULT_EVENTS,) counts summed over layers (and over ranks);
-    ``fault_key`` is the pass's corruption-mask coordinate.  Returns (v,
+    ``fault_key`` is the pass's corruption-mask coordinate.
+
+    ``expert_pool`` (:class:`~repro_torch.core.paging.ExpertPool`) backs a
+    plan whose actions carry a paging spec: ``params`` hold no ``experts_*``
+    stacks (:func:`~repro_torch.core.paging.strip_expert_params`), and
+    before layer ``i``'s attention the pool fetches layer ``i``'s shard (a
+    no-op past layer 0: the previous layer prefetched it) and the plan's
+    ``prefetch``, so the copy runs behind the attention and the wire.  The
+    MoE runs on the pool's padded wire (``e_loc x ep``), waits for its
+    shard's copy first and marks the slot free after.  Returns (v,
     new_states, new_patch_states, aux dict)."""
+    ep_mesh = mesh.ep_mesh if mesh is not None else None
+    paged = any(a.paging is not None for a in plan.actions)
+    if paged and expert_pool is None:
+        raise ValueError("the plan carries expert paging but no expert_pool "
+                         "was provided (pass a repro_torch.core.paging."
+                         "ExpertPool, or normalize the config with "
+                         "normalize_paging)")
+    if paged and ep_mesh is None:
+        raise ValueError("expert paging needs a live ep mesh axis")
+    fetched = {}
+
+    def ensure_fetched(j: int):
+        if j not in fetched:
+            fetched[j] = expert_pool.fetch(j, ep_mesh.rank)
     B, T, _ = x.shape
     d = cfg.d_model
-    ep_mesh = mesh.ep_mesh if mesh is not None else None
     sharded_patch = mesh is not None and "patch" in mesh.axis_names
     pos_embed = params["pos_embed"]
     if sharded_patch:
@@ -196,6 +219,13 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     ring_hops = 0
     total_hop_bytes = 0
     for i, blk in enumerate(params["blocks"]):
+        action = plan.actions[i]
+        if paged and action.paging is not None:
+            # this layer's fetch and the depth-ahead prefetch go on the copy
+            # stream before the attention, so the copies run behind it
+            ensure_fetched(i)
+            if action.prefetch is not None:
+                ensure_fetched(action.prefetch)
         mod = F.silu(c) @ blk["adaln"]              # (B, 6d)
         s1, sc1, g1, s2, sc2, g2 = torch.chunk(mod, 6, dim=-1)
 
@@ -229,14 +259,21 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
                     fault_salt=i, fault_key=fault_key)
             new_st = stale_lib.MoELayerState()
         else:
-            with obs_telemetry.scope(
-                    obs, f"moe_l{i:02d}_{plan.actions[i].mode}"):
+            moe_p, wire_E, slot = blk["moe"], None, None
+            if paged and action.paging is not None:
+                slot = fetched.pop(i)
+                moe_p = dict(moe_p, **slot.acquire())
+                wire_E = expert_pool.e_loc * ep_mesh.size
+            with obs_telemetry.scope(obs, f"moe_l{i:02d}_{action.mode}"):
                 moe_out, new_st, aux = stale_lib.apply_layer_action(
-                    blk["moe"], tokens, cfg, plan.actions[i], states[i],
+                    moe_p, tokens, cfg, action, states[i],
                     generator=generator, slot_fresh=slot_fresh,
                     consume_mask=consume_mask, mesh=ep_mesh,
                     hop_schedule=hop_schedule, obs=obs,
-                    resilience=resilience, layer_idx=i, fault_key=fault_key)
+                    resilience=resilience, layer_idx=i, fault_key=fault_key,
+                    num_wire_experts=wire_E)
+            if slot is not None:
+                slot.release()
         new_states[i] = new_st
         lbs.append(aux.lb_loss)
         terms.append(aux.lb_terms)

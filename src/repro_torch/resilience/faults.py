@@ -24,8 +24,10 @@ per-pass ``fault_key`` (:func:`fault_key`: tick, CFG pass, rank).
 ``moe_forward`` also takes the masks as inputs, so the reference's masks
 can be replayed.
 
-The paging rungs (fetch errors and delays, retries, the stale fallback)
-need expert paging (ROADMAP A.9): a config or spec that sets them raises.
+The paging rungs (fetch errors and delays, retries with backoff under a
+deadline, the stale fallback) are served by
+:meth:`repro_torch.core.paging.ExpertPool.fetch`, which rolls them per
+``(layer, dev, fetch-seq, attempt)`` as the reference does.
 """
 import dataclasses
 import hashlib
@@ -114,10 +116,9 @@ def resilience_of(dcfg) -> Optional[ResilienceConfig]:
 def normalize_resilience(
         res: Optional[ResilienceConfig]) -> Optional[ResilienceConfig]:
     """Strip inert configs so "resilience off" is structurally ``None``
-    (the path without it, bit for bit); raise for the paging rungs."""
+    (the path without it, bit for bit)."""
     if res is None:
         return None
-    refuse_paging(res)
     if res.faults is not None and not res.faults.enabled:
         res = dataclasses.replace(res, faults=None)
     inert = (res.faults is None and not res.guards and not res.quarantine
@@ -125,27 +126,6 @@ def normalize_resilience(
              and res.admission_deadline_steps <= 0
              and res.codec_error_limit <= 0 and res.step_deadline_s <= 0)
     return None if inert else res
-
-
-_PAGING_DEFAULTS = {f.name: f.default
-                    for f in dataclasses.fields(ResilienceConfig)
-                    if f.name in ("paging_retries", "paging_backoff_s",
-                                  "paging_deadline_s", "stale_fallback")}
-
-
-def refuse_paging(res: ResilienceConfig) -> None:
-    """Raise for the paging rungs: fetch faults and a retry or fallback
-    policy other than the default need expert paging (ROADMAP A.9), which
-    the port does not run; they are never ignored."""
-    f = res.faults
-    set_ = [k for k, v in _PAGING_DEFAULTS.items() if getattr(res, k) != v]
-    if f is not None:
-        set_ += [k for k in ("paging_error_rate", "paging_delay_rate")
-                 if getattr(f, k) > 0]
-    if set_:
-        raise ValueError(
-            f"resilience {set_}: the paging rungs need expert paging, which "
-            f"the port does not run yet (ROADMAP A.9)")
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +153,17 @@ class FaultPlan:
 
     def roll(self, *parts) -> float:
         return _roll(self.cfg.seed, *parts)
+
+    def paging_error(self, layer: int, dev: int, seq: int,
+                     attempt: int) -> bool:
+        r = self.cfg.paging_error_rate
+        return r > 0 and self.roll("paging_err", layer, dev, seq, attempt) < r
+
+    def paging_delay(self, layer: int, dev: int, seq: int,
+                     attempt: int) -> bool:
+        r = self.cfg.paging_delay_rate
+        return r > 0 and self.roll("paging_delay", layer, dev, seq,
+                                   attempt) < r
 
     def hop_delay(self, tick: int) -> bool:
         r = self.cfg.hop_delay_rate
@@ -243,6 +234,7 @@ def bursty_arrivals(n: int, rate: float, burst_size: int,
 
 _FAULT_KEYS = {
     "seed": ("seed", int),
+    "paging_err": ("paging_error_rate", float),
     "corrupt": ("corrupt_combine_rate", float),
     "corrupt_dispatch": ("corrupt_dispatch_rate", float),
     "poison_tick": ("poison_tick", int),
@@ -266,21 +258,15 @@ _RES_KEYS = {
 }
 
 
-_PAGING_KEYS = ("paging_err", "paging_delay", "retries", "backoff",
-                "fetch_deadline", "stale_fallback")
-
-
 def parse_resilience(spec: Optional[str]) -> Optional[ResilienceConfig]:
     """Parse a ``--faults`` CLI spec into a :class:`ResilienceConfig`.
 
     Comma-separated ``key=value`` pairs, e.g.::
 
-        seed=7,corrupt=0.05,hop_delay=0.5:0.01,queue=16
+        seed=7,corrupt=0.05,paging_err=0.3,hop_delay=0.5:0.01,queue=16
 
-    ``hop_delay`` takes ``rate:seconds``.  ``off`` / empty returns None
-    (resilience entirely disabled).  The paging keys (``paging_err``,
-    ``paging_delay``, ``retries``, ``backoff``, ``fetch_deadline``,
-    ``stale_fallback``) raise: they need expert paging (ROADMAP A.9)."""
+    ``hop_delay`` / ``paging_delay`` take ``rate:seconds``.  ``off`` /
+    empty returns None (resilience entirely disabled)."""
     if spec is None or spec.strip() in ("", "off", "none"):
         return None
     faults: dict = {}
@@ -294,11 +280,7 @@ def parse_resilience(spec: Optional[str]) -> Optional[ResilienceConfig]:
         k, v = item.split("=", 1)
         k = k.strip()
         v = v.strip()
-        if k in _PAGING_KEYS:
-            raise ValueError(
-                f"--faults key {k!r} sets a paging rung, which needs expert "
-                f"paging, not ported yet (ROADMAP A.9)")
-        if k == "hop_delay":
+        if k == "hop_delay" or k == "paging_delay":
             rate, _, secs = v.partition(":")
             faults[f"{k}_rate"] = float(rate)
             if secs:
@@ -312,7 +294,7 @@ def parse_resilience(spec: Optional[str]) -> Optional[ResilienceConfig]:
         else:
             raise ValueError(
                 f"unknown --faults key {k!r} (known: "
-                f"{sorted(_FAULT_KEYS) + sorted(_RES_KEYS) + ['hop_delay']})")
+                f"{sorted(_FAULT_KEYS) + sorted(_RES_KEYS) + ['hop_delay', 'paging_delay']})")
     fcfg = FaultConfig(**faults) if faults else None
     if fcfg is not None and not fcfg.enabled:
         fcfg = None

@@ -14,7 +14,10 @@ every rank runs the same loop on its slice of the batch, of the image
 tokens and of the experts: the counterpart of the reference's
 ``shard_map``-ped step over its ``dp x ep x patch`` mesh.  Without one,
 ``patch_parallel_ndev`` runs the DistriFusion baseline, the replicated
-simulation of displaced patch parallelism.
+simulation of displaced patch parallelism.  A paging config over an ep
+mesh of more than one rank serves the routed experts from a host pool
+(:mod:`repro_torch.core.paging`) that the sampler builds from the params
+(or is given) and strips from them.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.common import sharding as shard_lib
+from repro_torch.core import paging as paging_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
 from repro_torch.core.patch_parallel import PatchParallelState
@@ -42,7 +46,8 @@ def _euler_step(params, cfg, x, classes, states, states_u, t, *,
                 mesh=None, hop_schedule=None, obs=None, resilience=None,
                 tick: Optional[int] = None, patch_states=None,
                 patch_states_u=None, patch_parallel_ndev: int = 0,
-                patch_compose: bool = False, patch_fresh=None):
+                patch_compose: bool = False, patch_fresh=None,
+                expert_pool=None):
     """One CFG-guided Euler step: a conditional and a null-class
     ``dit_forward`` pass, each with its own staleness state and patch
     K/V state, and both with the same per-slot selectors.  ``obs``
@@ -55,7 +60,8 @@ def _euler_step(params, cfg, x, classes, states, states_u, t, *,
               consume_mask=consume_mask, mesh=mesh,
               hop_schedule=hop_schedule, resilience=resilience,
               patch_parallel_ndev=patch_parallel_ndev,
-              patch_compose=patch_compose, patch_fresh=patch_fresh)
+              patch_compose=patch_compose, patch_fresh=patch_fresh,
+              expert_pool=expert_pool)
 
     def key(pass_):
         if resilience is None or resilience.faults is None or tick is None:
@@ -112,19 +118,31 @@ class RFStep:
     reference's closure constants: an enabled ``obs`` adds
     ``aux["telemetry"]``, a resilience config ``aux["fault_events"]``, and
     ``tick`` seeds the step's corruption masks.
+
+    ``expert_pool`` (:class:`~repro_torch.core.paging.ExpertPool`, over an
+    ep axis of more than one rank) serves the routed experts of a plan
+    that pages: the params lose their expert stacks before they are
+    sharded, so the experts need not divide over the mesh.
     """
 
     def __init__(self, params, cfg, *, dt: float, guidance: float = 1.5,
                  mesh=None, obs=None, resilience=None, placements=None,
                  hop_schedule=None, patch_parallel_ndev: int = 0,
-                 patch_compose: bool = False):
+                 patch_compose: bool = False, expert_pool=None):
         refuse_router_jitter(cfg)
+        self.expert_pool = expert_pool
+        if expert_pool is not None:
+            if mesh_axis(mesh, "ep") <= 1:
+                raise ValueError("expert paging needs an ep mesh of more "
+                                 "than one rank")
+            params = paging_lib.strip_expert_params(params)
         if mesh is not None:
             if patch_parallel_ndev:
                 raise ValueError("the replicated patch-parallel simulation "
                                  "does not run over a mesh; build the mesh "
                                  "with a 'patch' axis instead")
-            shard_lib.expert_slice(cfg.num_experts, mesh)    # E % n check
+            if self.expert_pool is None:
+                shard_lib.expert_slice(cfg.num_experts, mesh)  # E % n check
             shard_lib.local_tokens(cfg.patch_tokens, mesh)  # T % patch
             params = shard_lib.ep_shard_params(params, mesh)
             if placements is not None:
@@ -155,22 +173,24 @@ class RFStep:
                            obs=self.obs, resilience=self.resilience,
                            tick=tick, patch_states=patch_states,
                            patch_states_u=patch_states_u,
-                           patch_fresh=patch_fresh, **self.patch)
+                           patch_fresh=patch_fresh,
+                           expert_pool=self.expert_pool, **self.patch)
 
 
 def make_rf_step(params, cfg, *, dt: float, guidance: float = 1.5,
                  mesh=None, obs=None, resilience=None, placements=None,
                  hop_schedule=None, patch_parallel_ndev: int = 0,
-                 patch_compose: bool = False) -> RFStep:
+                 patch_compose: bool = False,
+                 expert_pool=None) -> RFStep:
     """The per-step function behind :func:`rf_sample` (see :class:`RFStep`).
     Raises for ``cfg.router_jitter > 0`` (JAX PRNG keys cannot be replayed
-    in torch) and, with ``mesh``, for experts or image tokens that do not
-    divide over it."""
+    in torch) and, with ``mesh``, for experts (unless paged) or image
+    tokens that do not divide over it."""
     return RFStep(params, cfg, dt=dt, guidance=guidance, mesh=mesh, obs=obs,
                   resilience=resilience, placements=placements,
                   hop_schedule=hop_schedule,
                   patch_parallel_ndev=patch_parallel_ndev,
-                  patch_compose=patch_compose)
+                  patch_compose=patch_compose, expert_pool=expert_pool)
 
 
 def rank_generator(generator: Optional[torch.Generator], mesh
@@ -197,7 +217,8 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
               generator: Optional[torch.Generator] = None,
               guidance: float = 1.5, mesh=None, obs=None,
               patch_parallel_ndev: int = 0, patch_compose: bool = False,
-              hop_schedule=None, params_placed: bool = False):
+              hop_schedule=None, params_placed: bool = False,
+              expert_pool=None):
     """Generate latents (B, T, C) for ``classes`` under a schedule.
 
     The initial noise is ``noise`` when given (the tests pass the JAX
@@ -236,12 +257,35 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
     ``dcfg.resilience`` adds ``stats["fault_events"]``, the counts summed
     over steps (conditional pass).  Step ``s`` draws its corruption masks
     from ``(s, pass, rank)``.
+
+    ``dcfg.paging`` over an ep axis of more than one rank (dropped
+    elsewhere, so the samples are the resident ones) serves the experts
+    from ``expert_pool``, built from ``params`` when not given (this rank's
+    rows, pinned on a card); the auto budget resolves against it, every
+    planned residency window is checked against the budget before the
+    first step, and the pool's counts start from 0.  ``stats`` then holds
+    ``paged_transfers``, ``paged_bytes_in`` (summed over the ep ranks),
+    ``peak_resident_expert_bytes`` (their max) and ``expert_hbm_budget``:
+    the reference's single pool's numbers.
     """
     device = classes.device if mesh is None else mesh.device
     B = classes.shape[0]
     n_ep = mesh_axis(mesh, "ep")
     dcfg = plan_lib.normalize_overlap(dcfg, n_ep)
     dcfg = plan_lib.normalize_placement(dcfg, n_ep)
+    dcfg = plan_lib.normalize_paging(dcfg, n_ep)
+    if paging_lib.paging_of(dcfg) is None:
+        expert_pool = None
+    else:
+        if expert_pool is None:
+            if not paging_lib.has_expert_leaves(params):
+                raise ValueError("paging is planned but params carry no "
+                                 "expert leaves and no expert_pool was "
+                                 "provided")
+            expert_pool = paging_lib.pool_from_params(
+                params, n_dev=n_ep, rank=mesh.rank_in("ep"), device=device)
+        dcfg = paging_lib.resolve_budget(dcfg, expert_pool)
+        expert_pool.reset_stats()
     if noise is not None:
         x = noise.to(device=device, dtype=torch.float32)
     elif generator is not None:
@@ -262,12 +306,19 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
         obs=obs, resilience=res,
         placements=None if params_placed else plan_lib.placements_of(dcfg),
         hop_schedule=plan_lib.normalize_hop_schedule(hop_schedule, n_ep),
-        patch_parallel_ndev=patch_parallel_ndev, patch_compose=patch_compose)
+        patch_parallel_ndev=patch_parallel_ndev, patch_compose=patch_compose,
+        expert_pool=expert_pool)
     B_loc, T_loc = x.shape[0], x.shape[1]
     dt = 1.0 / num_steps
     splan = plan_lib.compile_step_plans(
         dcfg, cfg.num_layers, num_steps,
         experts_per_token=cfg.experts_per_token)
+    pool = rf_step.expert_pool
+    if pool is not None:
+        # every planned residency window must fit the budget: fail here,
+        # before the first step
+        pool.validate_plan(splan)
+        pool.begin_run(paging_lib.paging_of(dcfg).depth)
 
     def planned_init():
         return stale_lib.init_planned_states(
@@ -323,6 +374,12 @@ def rf_sample(params, cfg, dcfg, *, num_steps: int, classes: torch.Tensor,
             else fe_sum.to("cpu").numpy().astype(np.float64))
     stats["num_plan_variants"] = splan.num_variants
     stats["step_keys"] = len(rf_step.keys)
+    if pool is not None:
+        tot = paging_lib.ledger_totals(pool, mesh.ep_mesh)
+        stats["paged_transfers"] = tot["transfers"]
+        stats["paged_bytes_in"] = tot["bytes_transferred"]
+        stats["peak_resident_expert_bytes"] = tot["peak_resident_bytes"]
+        stats["expert_hbm_budget"] = paging_lib.paging_of(dcfg).budget_bytes
     if mesh is not None:
         x = mesh.gather_samples(x)
     return x, stats

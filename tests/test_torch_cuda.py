@@ -563,3 +563,36 @@ def test_placement_replicas_run_through_expert_ffn(gen):
     y_cpu, _ = moe.moe_forward(cpu, x.cpu(), cfg, placement=pl,
                                capacity=pl.scaled_capacity(1024))
     _close(y_pl.cpu(), y_cpu, torch.float32)
+
+
+@pytest.mark.parametrize("e,d,f", [(6, 64, 96), (8, 1408, 5632)])
+def test_paged_fetch_copies_each_shard_through_its_slot(gen, e, d, f):
+    """Expert paging on the card: a pool of every rank's rows (pinned),
+    fetched layer by layer through 2 slots by the copy thread's paced
+    copies (a 3 x 32 MB leaf at G's width needs several pieces), gives the
+    host rows bit for bit after the consumer's wait, phantom rows zero;
+    a slot's next copy waits for its last reader."""
+    from repro_torch.core.paging import PACE_BYTES, ExpertPool
+    layers = {i: {"experts_gate": torch.randn((e, d, f), generator=gen,
+                                              device="cuda").cpu(),
+                  "experts_up": torch.randn((e, d, f), generator=gen,
+                                            device="cuda").cpu(),
+                  "experts_down": torch.randn((e, f, d), generator=gen,
+                                              device="cuda").cpu()}
+              for i in range(3)}
+    pool = ExpertPool(layers, n_dev=4, device="cuda")
+    pool.begin_run(1)
+    assert pool.layer_shard_bytes(0) // 3 > PACE_BYTES or d < 1408
+    for layer in (0, 1, 2, 0):
+        for j in range(4):
+            slot = pool.fetch(layer, j)
+            got = slot.acquire()
+            # a kernel that reads the slot before its release
+            total = sum(v.sum() for v in got.values())
+            slot.release()
+            torch.cuda.synchronize()
+            for k, v in pool.shard(layer, j).items():
+                assert torch.equal(got[k].cpu(), v)
+            assert bool(torch.isfinite(total))
+    assert pool.transfers == 16 and pool.peak_resident_bytes == \
+        2 * pool.layer_shard_bytes(0)

@@ -194,12 +194,24 @@ def test_parse_and_normalize_resilience_equal_the_reference(spec):
 @pytest.mark.parametrize("spec", ["paging_err=0.3", "paging_delay=0.5:0.01",
                                   "retries=3", "stale_fallback=0"])
 def test_paging_rungs_raise_naming_a9(spec):
-    jax_faults.parse_resilience(spec)           # the reference serves them
-    with pytest.raises(ValueError, match="A.9"):
-        faults.parse_resilience(spec)
-    with pytest.raises(ValueError, match="A.9"):
-        DiceConfig(resilience=faults.ResilienceConfig(
-            faults=faults.FaultConfig(paging_error_rate=0.3)))
+    """The paging rungs, once refused, parse and normalize like
+    ``jax_faults.parse_resilience``, ride on a DiceConfig, and roll the
+    reference's paging faults (tests/test_torch_paging.py serves them)."""
+    as_dict = lambda c: None if c is None else dataclasses.asdict(c)  # noqa: E731
+    mine, ref = faults.parse_resilience(spec), jax_faults.parse_resilience(spec)
+    assert as_dict(mine) == as_dict(ref)
+    assert as_dict(faults.normalize_resilience(mine)) == \
+        as_dict(jax_faults.normalize_resilience(ref))
+    assert DiceConfig(resilience=mine).resilience == \
+        faults.normalize_resilience(mine)
+    if mine.faults is not None:
+        plan, ref_plan = faults.FaultPlan(mine.faults), \
+            jax_faults.FaultPlan(ref.faults)
+        coords = [(l, j, s, a) for l in range(3) for j in range(4)
+                  for s in (1, 2) for a in range(3)]
+        for kind in ("paging_error", "paging_delay"):
+            assert [getattr(plan, kind)(*c) for c in coords] == \
+                [getattr(ref_plan, kind)(*c) for c in coords]
 
 
 @pytest.mark.parametrize("burst", [0, 1, 3, 8])

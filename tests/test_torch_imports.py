@@ -40,6 +40,16 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("rel", ["core/paging.py", "launch/hlo_cost.py",
+                                 "configs/dit_moe_g.py"])
+def test_the_paging_slice_modules_are_checked(rel):
+    """Expert paging, the ring-lowering check and DiT-MoE-G are among the
+    sources checked above, and import neither JAX nor the JAX package."""
+    path = PORT / rel
+    assert path in _sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     env.pop("PYTHONSTARTUP", None)

@@ -153,12 +153,36 @@ def test_model_configs_field_equal(name):
 
 
 def test_unported_config_fields_raise():
-    """Paging is still refused; a placement is carried (identity ones
-    normalize away), so only paging raises."""
-    with pytest.raises(NotImplementedError, match="A.9"):
+    """Paging is served now: its stamps (paging, prefetch, resident) equal
+    the reference's, field for field, and a paging spec together with a
+    placement raises in both; a placement is carried (identity ones
+    normalize away); a paging value that is not a PagingSpec raises."""
+    from repro.core.paging import PagingSpec as JaxPaging
+    from repro_torch.core.paging import PagingSpec
+    with pytest.raises(TypeError, match="PagingSpec"):
         DiceConfig(paging=object())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        plan_lib.LayerAction(paging=object())
+    for name in SCHEDULES:
+        for depth in (1, 2):
+            mine, ref = _dcfgs(name, "none")
+            mine = dataclasses.replace(
+                mine, paging=PagingSpec(budget_bytes=123, depth=depth))
+            ref = dataclasses.replace(
+                ref, paging=JaxPaging(budget_bytes=123, depth=depth))
+            for step in range(4):
+                pm = plan_lib.plan_for_step(mine, 4, step, experts_per_token=2)
+                pr = jax_plan.plan_for_step(ref, 4, step, experts_per_token=2)
+                for am, ar in zip(pm.actions, pr.actions):
+                    fm, fr = _action_fields(am), _action_fields(ar)
+                    assert dataclasses.asdict(fm.pop("paging")) == \
+                        dataclasses.asdict(fr.pop("paging"))
+                    assert fm == fr
+    pl = Placement(perm=(1, 0, 2, 3), replicated=(0,), cap_scale=0.5)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        plan_lib.LayerAction(paging=PagingSpec(), placement=pl)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        plan_lib.plan_for_step(dataclasses.replace(
+            DiceConfig.sync_ep(), paging=PagingSpec(), placements=(pl,) * 2),
+            2, 0, experts_per_token=2)
     pl = Placement(perm=(1, 0, 2, 3), replicated=(0,), cap_scale=0.5)
     assert plan_lib.LayerAction(placement=pl).placement == pl
     assert plan_lib.LayerAction(placement=Placement.identity(4)) == \

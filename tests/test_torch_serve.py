@@ -576,20 +576,24 @@ def test_unported_serving_paths_raise(port_params):
         serve.serve_continuous(server, [serve.Request(1, 0)], mesh=object())
     # placements are served now (tests/test_torch_placement.py): without
     # an ep mesh they are dropped and the samples are the unplaced ones;
-    # paging still waits
+    # so is paging (tests/test_torch_paging.py): without an ep mesh the
+    # experts stay resident, the plans and samples are the unpaged ones
     pl = Placement(perm=(1, 0, 2, 3, 4, 5, 6, 7), replicated=(1,))
     placed = serve.DiceServer(
         _cfg(), dataclasses.replace(DiceConfig.dice(),
                                     placements=(pl,) * _cfg().num_layers),
         params=port_params, device="cpu")
     assert placed.plan(4) == server.plan(4)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        DiceConfig(paging=object())
-    # resilience is served now (tests/test_torch_faults.py); its paging
-    # rungs still wait for expert paging
-    with pytest.raises(ValueError, match="A.9"):
-        DiceConfig(resilience=ResilienceConfig(
+    from repro_torch.core.paging import PagingSpec
+    paged = serve.DiceServer(
+        _cfg(), DiceConfig.dice(), params=port_params, device="cpu",
+        paging=PagingSpec(budget_bytes=0), resilience=ResilienceConfig(
             faults=FaultConfig(paging_error_rate=0.1)))
+    assert paged.expert_pool is None and paged.plan(4) == server.plan(4)
+    reqs = [serve.Request(class_id=c, rid=i) for i, c in enumerate((1, 3))]
+    x, st = paged.generate(reqs, num_steps=2)
+    assert torch.equal(x, server.generate(reqs, num_steps=2)[0])
+    assert "paged_transfers" not in st
     with pytest.raises(ValueError):
         serve.DiceServer(_cfg(), DiceConfig.dice(), params=port_params,
                          device="cpu", n_dev=0)

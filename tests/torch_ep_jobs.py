@@ -314,3 +314,110 @@ def online_placement(mesh, tree, cfg, bias, noise, steps):
         stats = {k: v for k, v in stats.items() if k != "tick_plans"}
         out.append((got, stats))
     return out[0], out[1], _every_rank(out[0][1]["step_keys"])
+
+
+def paging_runs(mesh, trees, runs, noise, classes, fault_specs,
+                serve_cfg):
+    """Expert paging over the mesh.  ``runs``: (label, tree key, cfg,
+    dcfg) for ``rf_sample`` (a run that raises ``ValueError`` records its
+    message instead); then, on ``trees["e8"]``, ``DiceServer.generate``
+    under each ``--faults`` spec of ``fault_specs`` with paging at the auto
+    budget (samples and the pool's counts summed over the ranks), the
+    greedy-placement refusal, and ``serve_continuous`` of 3 requests on
+    ``serve_cfg`` with the registry's paging series.  Returns {label:
+    (samples, stats, step keys of every rank) or the message}."""
+    from repro_torch.core import paging
+    from repro_torch.core.placement import PlacementConfig
+    from repro_torch.resilience.faults import parse_resilience
+    params = {k: bridge.from_jax_params(t, device="cpu")
+              for k, t in trees.items()}
+    out = {}
+    for label, key, cfg, dcfg in runs:
+        try:
+            x, st = rf_sample(params[key], cfg, dcfg, num_steps=STEPS,
+                              classes=torch.as_tensor(classes),
+                              noise=torch.as_tensor(noise), guidance=1.0,
+                              mesh=mesh)
+        except ValueError as e:
+            out[label] = str(e)
+            continue
+        out[label] = (x, st, _every_rank(st["step_keys"]))
+    cfg = runs[0][2]
+    reqs = [serve.Request(int(c), i) for i, c in enumerate(classes)]
+    spec = paging.PagingSpec(budget_bytes=0)
+    for fspec in fault_specs:
+        server = serve.DiceServer(cfg, DiceConfig.dice(), params=params["e8"],
+                                  mesh=mesh, paging=spec,
+                                  resilience=parse_resilience(fspec))
+        x, st = server.generate(reqs, num_steps=STEPS, guidance=1.0,
+                                noise=torch.as_tensor(noise))
+        out[fspec] = (x, paging.ledger_totals(server.expert_pool,
+                                              mesh.ep_mesh))
+    try:
+        serve.DiceServer(cfg, DiceConfig.dice(), params=params["e8"],
+                         mesh=mesh, paging=spec,
+                         placement=PlacementConfig(mode="greedy"))
+    except ValueError as e:
+        out["greedy"] = str(e)
+    server = serve.DiceServer(serve_cfg, DiceConfig.dice(),
+                              params=params["e8"], mesh=mesh, paging=spec,
+                              resilience=parse_resilience(fault_specs[0]))
+    got, st = serve.serve_continuous(
+        server, reqs[:3], max_batch=4, num_steps=STEPS, seed=0, guidance=1.0,
+        noise={r.rid: noise[r.rid] for r in reqs[:3]},
+        arrival_steps=[0.0, 0.0, 2.0])
+    series = {n: server.metrics.value(n, {"schedule": "dice",
+                                          "engine": "continuous"})
+              for n in ("dice_paged_transfers_total",
+                        "dice_paged_bytes_in_total",
+                        "dice_peak_resident_expert_bytes",
+                        "dice_expert_hbm_budget_bytes",
+                        "dice_paging_fetch_errors_total",
+                        "dice_paging_fetch_retries_total",
+                        "dice_paging_stale_fallbacks_total")}
+    out["continuous"] = (got, {k: v for k, v in st.items()
+                               if k != "tick_plans"}, series)
+    return out
+
+
+def ring_step_collectives(mesh, tree, cfg, runs, noise, classes):
+    """One profiled step of each plan variant of each (label, dcfg,
+    guidance) of ``runs`` over the mesh: the c10d collectives it issued
+    (``launch.hlo_cost.collective_counts``), and what
+    ``check_ring_lowering`` made of it (its counts, or its message).
+    Returns {label: [(moe layer calls, counts, check result), ...]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core import staleness as stale_lib
+    from repro_torch.launch import hlo_cost
+    from repro_torch.sampling.rectified_flow import make_rf_step
+    params = bridge.from_jax_params(tree, device="cpu")
+    x = shard_lib.hier_place_tokens(torch.as_tensor(noise), mesh)
+    cls = shard_lib.hier_place_batch(torch.as_tensor(classes), mesh)
+    out = {}
+    for label, dcfg, guidance in runs:
+        splan = plan_lib.compile_step_plans(
+            dcfg, cfg.num_layers, STEPS,
+            experts_per_token=cfg.experts_per_token)
+        step = make_rf_step(params, cfg, dt=1.0 / STEPS, guidance=guidance,
+                            mesh=mesh)
+        res = []
+        for plan in splan.variants:
+            states = [stale_lib.init_planned_states(
+                splan, num_tokens=x.shape[0] * x.shape[1],
+                d_model=cfg.d_model, k=cfg.experts_per_token)
+                for _ in range(2)]
+            t = torch.zeros((x.shape[0],))
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                step(x, cls, *states, t, plan=plan)
+            calls = cfg.num_layers * (2 if guidance != 1.0 else 1) * max(
+                2 if a.mode == "staggered" else 1 for a in plan.actions)
+            try:
+                got = hlo_cost.check_ring_lowering(
+                    prof, n_dev=mesh.size, moe_layer_calls=calls)
+            except ValueError as e:
+                got = str(e)
+            res.append((calls, hlo_cost.collective_counts(prof), got))
+        out[label] = res
+    return _every_rank(out)

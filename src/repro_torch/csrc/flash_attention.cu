@@ -47,6 +47,12 @@
 //   - The register tiles are sized by a template argument NT (8-wide Dh
 //     tiles: 4, 9, 16 or 32), so the O accumulator never spills to local
 //     memory; Dh = 72 runs at NT = 9 with no padding tile.
+//   - An optional f32 (B, H, Sq) output lse receives each row's log-sum-
+//     exp of the scaled logits, m + log(l), for the backward kernel
+//     (flash_attention_bwd.cu).  It is stored where the epilogue
+//     normalises by l, by the lane of each quad that holds t = 0; with a
+//     null pointer the kernel computes and writes exactly what it did
+//     without it.
 #include <type_traits>
 
 #include "common.cuh"
@@ -117,7 +123,8 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long ss, in
 template <typename T, int NT>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
+             const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+             int Sq, int Sk, int H,
              int KVH, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
              int causal, int has_window, int window, int has_softcap,
              float softcap, float scale, int aligned) {
@@ -275,6 +282,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int pq = q0 + row + r * 8;
+      if (pq < Sq) lse[(size_t)bh * Sq + pq] = m[r] + logf(l[r]);
+    }
+  }
   T* ob = o + b * os.b + hh * os.h;
 #pragma unroll
   for (int n = 0; n < NT; ++n)
@@ -288,7 +302,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NT>
-cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                       int Sq, int Sk, int H, int KVH, int Dh, Strides qs, Strides ks,
                       Strides vs, Strides os, int causal, int has_window, int window,
                       int has_softcap, float softcap, cudaStream_t stream) {
@@ -306,20 +320,20 @@ cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, int 
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_kernel<T, NT><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal, has_window,
+      static_cast<T*>(o), lse, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal, has_window,
       window, has_softcap, softcap, (float)(1.0 / sqrt((double)Dh)), aligned);
   return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Sq, int Sk, int H, int KVH, int Dh, Strides qs, Strides ks,
                    Strides vs, Strides os, int causal, int has_window, int window,
                    int has_softcap, float softcap, cudaStream_t stream) {
   const int nd = (Dh + 7) / 8;
   auto run = [&](auto kernel_nt) {
     constexpr int NT = decltype(kernel_nt)::value;
-    return launch_nt<T, NT>(q, k, v, o, B, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
+    return launch_nt<T, NT>(q, k, v, o, lse, B, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
                             has_window, window, has_softcap, softcap, stream);
   };
   if (nd <= 4) return run(std::integral_constant<int, 4>{});
@@ -332,9 +346,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace dice
 
 // Strides are in elements: *_sb, *_ss, *_sh for the batch, sequence and head
-// dims of each tensor.  dtype: 0 f32, 1 bf16.  Returns cudaGetLastError().
+// dims of each tensor.  lse: null, or f32 (B, H, Sq) contiguous for the rows'
+// log-sum-exp.  dtype: 0 f32, 1 bf16.  Returns cudaGetLastError().
 extern "C" int dice_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq, int Sk,
     int H, int KVH, int Dh, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int causal,
@@ -347,10 +362,12 @@ extern "C" int dice_flash_attention(
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dice::kF32)
-    err = dice::launch<float>(q, k, v, o, B, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
+    err = dice::launch<float>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH, Dh, qs,
+                              ks, vs, os, causal,
                               has_window, window, has_softcap, softcap, s);
   else
-    err = dice::launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KVH, Dh, qs, ks, vs, os,
+    err = dice::launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH,
+                                      Dh, qs, ks, vs, os,
                                       causal, has_window, window, has_softcap, softcap, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -10,6 +10,13 @@ if ``cudaGetLastError`` reports a fault.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count), so a run can show that its path went through the kernels.
+
+Training: ``expert_ffn`` and ``flash_attention`` go through the
+``torch.autograd.Function``s :class:`ExpertFFNFn` and
+:class:`FlashAttentionFn` when grad is enabled and an input requires it;
+their backward runs the backward kernels (``expert_ffn_bwd``,
+``flash_attention_bwd``) on the card and their plain versions on the CPU.
+Otherwise the forward path is the serving one, unchanged.
 """
 from __future__ import annotations
 
@@ -22,11 +29,13 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import library
 
 LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
-                            "residual_int8": 0, "rwkv6_scan": 0}
+                            "residual_int8": 0, "rwkv6_scan": 0,
+                            "expert_ffn_bwd": 0, "flash_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
 MAX_HEAD_DIM = 256
+MAX_BWD_HEAD_DIM = 128
 RWKV6_HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -61,9 +70,36 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
-    """buf (E, C, d); w_gate/w_up (E, d, f); w_down (E, f, d) -> (E, C, d)."""
+    """buf (E, C, d); w_gate/w_up (E, d, f); w_down (E, f, d) -> (E, C, d).
+    With grad enabled and an input that requires it, through
+    :class:`ExpertFFNFn`."""
+    if _needs_grad(buf, w_gate, w_up, w_down):
+        return ExpertFFNFn.apply(buf, w_gate, w_up, w_down, act)
+    return _expert_ffn_fwd(buf, w_gate, w_up, w_down, act)
+
+
+def _check_expert_shapes(name, buf, w_gate, w_up, w_down):
+    if buf.dim() != 3 or w_gate.dim() != 3:
+        raise ValueError(f"{name}: buf and weights must be 3-D")
+    E, C, d = buf.shape
+    f = w_gate.shape[-1]
+    if (tuple(w_gate.shape) != (E, d, f) or tuple(w_up.shape) != (E, d, f)
+            or tuple(w_down.shape) != (E, f, d)):
+        raise ValueError(f"{name}: shapes {tuple(buf.shape)}, "
+                         f"{tuple(w_gate.shape)}, {tuple(w_up.shape)}, "
+                         f"{tuple(w_down.shape)} do not agree")
+    if f > 65535 * 64 or d > 65535 * 128:
+        raise ValueError(f"{name}: widths d={d}, f={f} exceed the grid")
+    return E, C, d, f
+
+
+def _expert_ffn_fwd(buf, w_gate, w_up, w_down, act):
     if buf.device.type == "cpu":
         return ref.expert_ffn_ref(buf, w_gate, w_up, w_down, act=act)
     if buf.device.type != "cuda":
@@ -71,20 +107,10 @@ def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     if act not in _ACTS:
         raise ValueError(f"expert_ffn: unknown activation {act!r}")
     code = _check_cuda("expert_ffn", (buf, w_gate, w_up, w_down))
-    if buf.dim() != 3 or w_gate.dim() != 3:
-        raise ValueError("expert_ffn: buf and weights must be 3-D")
-    E, C, d = buf.shape
-    f = w_gate.shape[-1]
-    if (tuple(w_gate.shape) != (E, d, f) or tuple(w_up.shape) != (E, d, f)
-            or tuple(w_down.shape) != (E, f, d)):
-        raise ValueError(f"expert_ffn: shapes {tuple(buf.shape)}, "
-                         f"{tuple(w_gate.shape)}, {tuple(w_up.shape)}, "
-                         f"{tuple(w_down.shape)} do not agree")
+    E, C, d, f = _check_expert_shapes("expert_ffn", buf, w_gate, w_up, w_down)
     for t in (buf, w_gate, w_up, w_down):
         if not t.is_contiguous():
             raise ValueError("expert_ffn: inputs must be contiguous")
-    if f > 65535 * 64 or d > 65535 * 128:
-        raise ValueError(f"expert_ffn: widths d={d}, f={f} exceed the grid")
     lib = library()
     h = torch.empty((E, C, f), dtype=torch.float32, device=buf.device)
     out = torch.empty_like(buf)
@@ -105,7 +131,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through strides (the head dim must be contiguous).  ``out``, a
     (B, Sq, H, Dh) tensor or view with a contiguous head dim, receives the
     result in place of a new tensor (the kernel writes through its
-    strides)."""
+    strides).  With grad enabled and an input that requires it, through
+    :class:`FlashAttentionFn` (``out`` then raises)."""
+    if _needs_grad(q, k, v):
+        if out is not None:
+            raise ValueError("flash_attention: out= cannot be combined with "
+                             "grad (autograd needs a fresh output)")
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+    return _flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                softcap=softcap, out=out)[0]
+
+
+def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
+                         out=None, want_lse: bool = False):
+    """(o, lse): ``lse`` is the (B, H, Sq) f32 row log-sum-exp of the
+    scaled logits when ``want_lse`` (unmasked, no softcap, H == KVH only),
+    else None.  The kernel's output is the same with or without it."""
     if out is not None and (tuple(out.shape) != tuple(q.shape)
                             or out.dtype != q.dtype or out.device != q.device
                             or out.stride(-1) != 1):
@@ -115,7 +156,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         o = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
-        return o if out is None else out.copy_(o)
+        lse = ref.attention_lse_ref(q, k) if want_lse else None
+        return (o if out is None else out.copy_(o)), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     code = _check_cuda("flash_attention", (q, k, v))
@@ -140,8 +182,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = library()
     o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device) \
         if out is None else out
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if want_lse else None
     err = lib.dice_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
         B, Sq, Sk, H, KVH, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         int(causal), int(window is not None),
@@ -151,7 +196,159 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code, q.device.index or 0, _stream(q.device))
     _raise_on("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
-    return o
+    return o, lse
+
+
+# ---------------------------------------------------------------------------
+# backward kernels and the autograd wiring
+# ---------------------------------------------------------------------------
+def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
+                   w_up: torch.Tensor, w_down: torch.Tensor, dy: torch.Tensor,
+                   *, act: str = "silu"):
+    """Gradients of :func:`expert_ffn` for the output gradient ``dy``
+    (E, C, d): (dX, dWg, dWu, dWd).  On the card f32 only (the forward's
+    ``G`` and ``U`` are recomputed inside; bf16 training is not ported:
+    ROADMAP.md A)."""
+    if buf.device.type == "cpu":
+        return ref.expert_ffn_bwd_ref(buf, w_gate, w_up, w_down, dy, act=act)
+    if buf.device.type != "cuda":
+        raise ValueError(f"expert_ffn_bwd: unsupported device {buf.device}")
+    if act not in _ACTS:
+        raise ValueError(f"expert_ffn_bwd: unknown activation {act!r}")
+    _check_cuda("expert_ffn_bwd", (buf, w_gate, w_up, w_down, dy))
+    if buf.dtype != torch.float32:
+        raise NotImplementedError(
+            f"expert_ffn_bwd: {buf.dtype} is not ported (the backward kernel "
+            f"is f32; bf16 training is queued in ROADMAP.md A)")
+    E, C, d, f = _check_expert_shapes("expert_ffn_bwd", buf, w_gate, w_up,
+                                      w_down)
+    if tuple(dy.shape) != (E, C, d):
+        raise ValueError(f"expert_ffn_bwd: dy {tuple(dy.shape)} is not "
+                         f"{(E, C, d)}")
+    for t in (buf, w_gate, w_up, w_down, dy):
+        if not t.is_contiguous():
+            raise ValueError("expert_ffn_bwd: inputs must be contiguous")
+    lib = library()
+    kw = dict(dtype=torch.float32, device=buf.device)
+    scratch = torch.empty((3, E, C, f), **kw)       # G, U, H (then dG, dU)
+    dx = torch.empty((E, C, d), **kw)
+    dwg = torch.empty((E, d, f), **kw)
+    dwu = torch.empty((E, d, f), **kw)
+    dwd = torch.empty((E, f, d), **kw)
+    err = lib.dice_expert_ffn_bwd(
+        buf.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+        dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(), dwg.data_ptr(),
+        dwu.data_ptr(), dwd.data_ptr(), E, C, d, f, _ACTS[act],
+        buf.device.index or 0, _stream(buf.device))
+    _raise_on("expert_ffn_bwd", err)
+    LAUNCHES["expert_ffn_bwd"] += 1
+    return dx, dwg, dwu, dwd
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` from its output
+    ``o``, its row log-sum-exp ``lse`` (B, H, Sq) f32 and the output
+    gradient ``do``.  Unmasked, no softcap, H == KVH and f32 only, on the
+    card and on the CPU alike: anything else raises NotImplementedError
+    (queued for the LM families' training, ROADMAP.md A)."""
+    missing = [name for name, on in (
+        ("causal", causal), ("window", window is not None),
+        ("softcap", softcap is not None),
+        ("GQA (H != KVH)", q.dim() == 4 and k.dim() == 4
+         and q.shape[2] != k.shape[2]),
+        ("bf16", q.dtype != torch.float32)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"flash_attention backward: {', '.join(missing)} not ported "
+            f"(queued with the LM families' training, ROADMAP.md A)")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    _check_cuda("flash_attention_bwd", (q, k, v, o, do))
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    if (tuple(k.shape) != (B, Sk, H, Dh) or tuple(v.shape) != tuple(k.shape)
+            or tuple(o.shape) != tuple(q.shape)
+            or tuple(do.shape) != tuple(q.shape)):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"o {tuple(o.shape)}, do {tuple(do.shape)} do not "
+                         f"agree")
+    if not 0 < Dh <= MAX_BWD_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head_dim {Dh} not in "
+            f"[1, {MAX_BWD_HEAD_DIM}] (ROADMAP.md A)")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 "
+                         f"{(B, H, Sq)} on {q.device}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention_bwd: B*H={B * H} exceeds the grid")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name}'s head dim must "
+                             f"be contiguous")
+    lib = library()
+    kw = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Sq, H, Dh), **kw)
+    dk = torch.empty((B, Sk, H, Dh), **kw)
+    dv = torch.empty((B, Sk, H, Dh), **kw)
+    delta = torch.empty((B, H, Sq), **kw)          # rowsum(dO * O)
+    err = lib.dice_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Dh,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], q.device.index or 0, _stream(q.device))
+    _raise_on("flash_attention_bwd", err)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class ExpertFFNFn(torch.autograd.Function):
+    """``expert_ffn`` with its backward: the forward kernel and the
+    ``expert_ffn_bwd`` kernel on the card, both plain versions on the CPU.
+    Saves only the inputs; the backward recomputes ``G`` and ``U``."""
+
+    @staticmethod
+    def forward(ctx, buf, w_gate, w_up, w_down, act):
+        ctx.act = act
+        ctx.save_for_backward(buf, w_gate, w_up, w_down)
+        return _expert_ffn_fwd(buf, w_gate, w_up, w_down, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        buf, w_gate, w_up, w_down = ctx.saved_tensors
+        grads = expert_ffn_bwd(buf, w_gate, w_up, w_down, dy.contiguous(),
+                               act=ctx.act)
+        return (*grads, None)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with its backward: the forward kernel (which
+    then also stores the row log-sum-exp) and the ``flash_attention_bwd``
+    kernel on the card, the plain versions on the CPU.  Saves q, k, v, the
+    output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        plain = (not causal and window is None and softcap is None
+                 and q.shape[2] == k.shape[2])
+        o, lse = _flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                      softcap=softcap, want_lse=plain)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 def residual_int8(value: torch.Tensor, base: torch.Tensor, *,

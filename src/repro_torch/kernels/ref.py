@@ -1,9 +1,16 @@
-"""Plain PyTorch versions of the four CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 They compute the same functions as the kernels under ``csrc/`` and as the
 JAX package's oracles in ``repro.kernels.ref`` / ``repro.compress.ref``.
 The kernel wrappers in :mod:`repro_torch.kernels.ops` run them for tensors
 on the CPU; on the card they are what each kernel is held against.
+
+The two backward versions (``expert_ffn_bwd_ref``,
+``flash_attention_bwd_ref``) write the gradients' formulas out, as the
+backward kernels compute them; they do not call autograd on the forward.
+The JAX package has no backward kernel (it trains through XLA's autodiff
+of ``repro.kernels.ref``), so ``jax.vjp`` of its oracles is what the
+tests hold them against.
 """
 from __future__ import annotations
 
@@ -27,6 +34,19 @@ def act_fn(act: str):
     raise ValueError(f"unknown activation {act!r}")
 
 
+def act_grad(act: str, g: torch.Tensor) -> torch.Tensor:
+    """d act(g) / dg for :func:`act_fn`'s activations."""
+    if act == "silu":
+        s = torch.sigmoid(g)
+        return s * (1.0 + g * (1.0 - s))
+    if act == "gelu":
+        k = math.sqrt(2.0 / math.pi)
+        th = torch.tanh(k * (g + 0.044715 * g * g * g))
+        return 0.5 * (1.0 + th) \
+            + 0.5 * g * (1.0 - th * th) * k * (1.0 + 3 * 0.044715 * g * g)
+    raise ValueError(f"unknown activation {act!r}")
+
+
 def expert_ffn_ref(buf, w_gate, w_up, w_down, *, act: str = "silu"):
     """Grouped gated MLP over per-expert token buffers, f32 accumulate.
 
@@ -37,6 +57,35 @@ def expert_ffn_ref(buf, w_gate, w_up, w_down, *, act: str = "silu"):
     u = torch.matmul(x, w_up.to(torch.float32))
     out = torch.matmul(g * u, w_down.to(torch.float32))
     return out.to(buf.dtype)
+
+
+def expert_ffn_bwd_ref(buf, w_gate, w_up, w_down, dy, *, act: str = "silu"):
+    """Gradients of :func:`expert_ffn_ref` for the output gradient ``dy``
+    (E, C, d), in f32: with ``G = X Wg``, ``U = X Wu``,
+    ``H = act(G) U`` and ``Y = H Wd``::
+
+        dH = dY Wd^T,  dG = dH U act'(G),  dU = dH act(G)
+        dWd = H^T dY,  dX = dG Wg^T + dU Wu^T,  dWg = X^T dG,  dWu = X^T dU
+
+    Returns (dX, dWg, dWu, dWd), each in its input's dtype."""
+    x = buf.to(torch.float32)
+    wg, wu, wd = (w.to(torch.float32) for w in (w_gate, w_up, w_down))
+    dy = dy.to(torch.float32)
+    g = torch.matmul(x, wg)
+    u = torch.matmul(x, wu)
+    a = act_fn(act)(g)
+    h = a * u
+    dh = torch.matmul(dy, wd.transpose(1, 2))
+    dg = dh * u * act_grad(act, g)
+    du = dh * a
+    dwd = torch.matmul(h.transpose(1, 2), dy)
+    dx = torch.matmul(torch.cat([dg, du], -1),
+                      torch.cat([wg, wu], -1).transpose(1, 2))
+    xt = x.transpose(1, 2)
+    dwg = torch.matmul(xt, dg)
+    dwu = torch.matmul(xt, du)
+    return (dx.to(buf.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype),
+            dwd.to(w_down.dtype))
 
 
 def attention_mask(Sq: int, Sk: int, *, causal: bool, window,
@@ -75,6 +124,38 @@ def flash_attention_ref(q, k, v, *, causal: bool = False, window=None,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     return out.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def attention_lse_ref(q, k):
+    """(B, H, Sq) f32 row log-sum-exp of the scaled logits ``q k^T /
+    sqrt(Dh)`` (no mask, no softcap, H == KVH): what the flash kernel
+    stores beside its output for the backward."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(q.shape[-1])
+    return torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do):
+    """Gradients of unmasked attention (H == KVH, no softcap) in the
+    recompute form of the backward kernel: with ``scale = 1/sqrt(Dh)``,
+    ``P = exp(q k^T scale - lse)`` and ``D = rowsum(dO * O)``::
+
+        dV = P^T dO,  dS = P (dO V^T - D),  dQ = dS K scale,
+        dK = dS^T Q scale
+
+    q, k, v, o, do (B, S, H, Dh); lse (B, H, Sq).  Returns (dq, dk, dv)
+    in q's dtype, computed in f32."""
+    q32, k32, v32, o32, do32 = (a.to(torch.float32) for a in (q, k, v, o, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    p = torch.exp(s - lse.to(torch.float32)[..., None])
+    dd = (do32 * o32).sum(-1).transpose(1, 2)                   # (B, H, Sq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    ds = p * (dp - dd[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def residual_int8_ref(value, base, *, eps: float = INT8_EPS):

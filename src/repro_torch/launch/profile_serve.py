@@ -32,9 +32,17 @@ from repro_torch.obs import ObsConfig
 # substrings of the port's kernel symbols (csrc/*.cu) -> wrapper name
 OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
                "flash_kernel": "flash_attention",
+               "bwd_gemm_kernel": "expert_ffn_bwd",
+               "flash_bwd_": "flash_attention_bwd",
                "residual_int8_kernel": "residual_int8",
                "residual_int8_loop_kernel": "residual_int8",
                "rwkv6_scan_kernel": "rwkv6_scan"}
+
+
+# named ranges, which a trace also lists on the device as the span of the
+# kernels launched inside them: --obs's per-layer ranges and
+# rf_train_step's parts (launch/profile_train.py)
+RANGES = ("moe_l", "rf_train_step.")
 
 
 def kernel_group(name: str) -> str:
@@ -52,7 +60,7 @@ def kernel_groups(prof):
     total device us, {group: [device us, launches]})."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("moe_l")]   # --obs's ranges
+               and not e.key.startswith(RANGES)]
     groups = {}
     for e in kernels:
         g = groups.setdefault(kernel_group(e.key), [0.0, 0])

@@ -3,6 +3,7 @@ a ``torch.profiler`` trace."""
 from __future__ import annotations
 
 import itertools
+from typing import Optional
 
 import torch
 
@@ -34,7 +35,7 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, launches_per_call: Optional[int] = None) -> float:
     """Mean device time per call of ``fn``: the durations of the CUDA
     kernels in a ``torch.profiler`` trace of ``iters`` calls (after a
     warm-up call), averaged over the launches the trace holds, times the
@@ -43,7 +44,9 @@ def device_ms(fn, iters: int) -> float:
     launches is not counted, so a kernel shorter than its wrapper's host
     path is timed as itself.  ``fn`` should launch only the kernels to be
     timed (a wrapper's ``torch.empty`` launches none); raises if the trace
-    holds no device time."""
+    holds no device time, and, given ``launches_per_call``, if it holds
+    another number of launches than ``iters`` times that (a trace that
+    dropped kernels would give a wrong mean)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -54,6 +57,9 @@ def device_ms(fn, iters: int) -> float:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     launches = sum(e.count for e in kernels)
+    if launches_per_call is not None and launches != iters * launches_per_call:
+        raise RuntimeError(f"device_ms: {launches} kernel launches traced for "
+                           f"{iters} calls of {launches_per_call}")
     per_call = round(launches / iters)
     if per_call < 1:
         raise RuntimeError(f"device_ms: {launches} kernel launches traced for "

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.core import moe as moe_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import staleness as stale_lib
+from repro_torch.core.schedules import DiceConfig
 from repro_torch.core.patch_parallel import (PatchParallelState,
                                              displaced_patch_attention,
                                              sharded_patch_attention)
@@ -337,3 +338,21 @@ def dit_forward(params, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
     if fault_events is not None:
         aux_out["fault_events"] = fault_events
     return v, new_states, new_patch, aux_out
+
+
+# ---------------------------------------------------------------------------
+# training-mode forward (synchronous, differentiable)
+# ---------------------------------------------------------------------------
+def dit_train_forward(params, x: torch.Tensor, t: torch.Tensor,
+                      y: torch.Tensor, cfg):
+    """The training forward, as the reference's ``dit_train_forward``: step
+    0 of the synchronous schedule (``DiceConfig.sync_ep()``), fresh layer
+    states, no generator, no mesh, telemetry and resilience off.  Every
+    operation on the way is differentiable: the kernels go through their
+    autograd Functions when grad is on, and ``aux["lb_loss"]`` carries its
+    gradient through the router's mean probabilities.  Returns (v, aux)."""
+    plan = plan_lib.plan_for_step(DiceConfig.sync_ep(), cfg.num_layers, 0,
+                                  experts_per_token=cfg.experts_per_token)
+    states = {i: stale_lib.MoELayerState() for i in range(cfg.num_layers)}
+    v, _, _, aux = dit_forward(params, x, t, y, cfg, states, plan=plan)
+    return v, aux

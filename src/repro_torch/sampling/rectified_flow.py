@@ -1,8 +1,9 @@
-"""Rectified Flow sampling for DiT-MoE (port of the sampling half of
+"""Rectified Flow training and sampling for DiT-MoE (port of
 ``repro.sampling.rectified_flow``).
 
 x_t = t * x1 + (1 - t) * x0 with x0 ~ N(0, I); the model predicts the
 velocity v = x1 - x0, and sampling is Euler integration from t=0 to t=1.
+
 ``compile_step_plans`` buckets the run's steps into a few plan variants
 (warmup-sync / refresh / light for DICE); the loop calls one per-step
 function with the step's plan.  PyTorch runs eagerly, so there is no
@@ -18,6 +19,12 @@ simulation of displaced patch parallelism.  A paging config over an ep
 mesh of more than one rank serves the routed experts from a host pool
 (:mod:`repro_torch.core.paging`) that the sampler builds from the params
 (or is given) and strips from them.
+
+Training (``rf_loss``, ``rf_train_step``) takes the reference's three
+random draws (``t``, ``x0`` and the class-drop mask) as inputs, since JAX
+PRNG keys cannot be replayed in torch: the tests hand over the
+reference's, the port's own runs draw them with :func:`rf_draws` from a
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.io import unflatten
 from repro_torch.common import sharding as shard_lib
 from repro_torch.core import paging as paging_lib
 from repro_torch.core import plan as plan_lib
@@ -34,8 +42,76 @@ from repro_torch.core import staleness as stale_lib
 from repro_torch.core.patch_parallel import PatchParallelState
 from repro_torch.launch.mesh import axis_size as mesh_axis
 from repro_torch.core.moe import refuse_router_jitter
-from repro_torch.models.dit_moe import dit_forward
+from repro_torch.models.dit_moe import dit_forward, dit_train_forward
+from repro_torch.optim.adamw import (adamw_update, clip_by_global_norm,
+                                     cosine_schedule, tree_leaves, tree_map)
 from repro_torch.resilience import faults as fault_lib
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+CFG_DROP_PROB = 0.1          # class dropout for classifier-free guidance
+
+
+def rf_draws(generator: torch.Generator, batch: int, shape,
+             device=None) -> dict:
+    """The three random inputs of :func:`rf_loss`, drawn from
+    ``generator`` as the reference draws them: ``t`` (batch,) ~ U[0, 1),
+    ``x0`` of ``shape`` ~ N(0, I) and ``drop`` (batch,) bools that are
+    True with probability 0.1; on ``device`` (the generator's unless
+    given)."""
+    kw = dict(generator=generator, device=generator.device)
+    t = torch.rand((batch,), **kw)
+    x0 = torch.randn(tuple(shape), **kw)
+    drop = torch.rand((batch,), **kw) < CFG_DROP_PROB
+    return {k: v.to(device) if device is not None else v
+            for k, v in (("t", t), ("x0", x0), ("drop", drop))}
+
+
+def rf_loss(params, batch, cfg, *, t: torch.Tensor, x0: torch.Tensor,
+            drop: torch.Tensor, lb_weight: float = 0.01):
+    """Rectified-flow loss on ``batch`` ({latents (B, T, C), classes
+    (B,)}): the velocity MSE plus ``lb_weight`` times the load-balance
+    loss; a ``drop`` row trains the null class.  Returns (loss,
+    {mse, lb})."""
+    x1, y = batch["latents"], batch["classes"]
+    xt = t[:, None, None] * x1 + (1 - t)[:, None, None] * x0
+    y_in = torch.where(drop, torch.full_like(y, cfg.num_classes), y)
+    v, aux = dit_train_forward(params, xt, t, y_in, cfg)
+    mse = torch.mean(torch.square(v - (x1 - x0)))
+    return mse + lb_weight * aux["lb_loss"], {"mse": mse, "lb": aux["lb_loss"]}
+
+
+def rf_train_step(params, opt_state, batch, cfg, *, draws: dict):
+    """One training step, as the reference's: the gradients of
+    :func:`rf_loss` (``draws`` from :func:`rf_draws` or the reference),
+    clipped to global norm 1.0, and AdamW at ``cosine_schedule(step,
+    base_lr=1e-3, warmup=20, total=2000)``.  ``params`` and the moments
+    are updated in place; the metrics (``loss``, ``mse``, ``lb``,
+    ``grad_norm``, ``lr``) stay 0-d device tensors, so the step never
+    waits for the card.  Returns (params, opt_state, metrics)."""
+    rng = torch.profiler.record_function   # named ranges for profile_train
+    with torch.enable_grad():
+        # leaves that require grad, sharing the params' storage; the
+        # params themselves stay plain tensors, so serving from them
+        # later takes the kernels' no-grad path
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with rng("rf_train_step.forward"):
+            loss, metrics = rf_loss(live, batch, cfg, **draws)
+        leaves = tree_leaves(live)
+        with rng("rf_train_step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with rng("rf_train_step.optimizer"):
+        grads = unflatten(params, [torch.zeros_like(p) if g is None else g
+                                   for g, p in zip(grads, leaves)])
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        lr = cosine_schedule(opt_state.step, base_lr=1e-3, warmup=20,
+                             total=2000)
+        params, opt_state = adamw_update(grads, opt_state, params, lr=lr)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics.update(loss=loss.detach(), grad_norm=gnorm, lr=lr)
+    return params, opt_state, metrics
 
 
 def _euler_step(params, cfg, x, classes, states, states_u, t, *,

@@ -596,3 +596,83 @@ def test_paged_fetch_copies_each_shard_through_its_slot(gen, e, d, f):
             assert bool(torch.isfinite(total))
     assert pool.transfers == 16 and pool.peak_resident_bytes == \
         2 * pool.layer_shard_bytes(0)
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels and their autograd wiring
+# ---------------------------------------------------------------------------
+def _close_sum(got, want, n):
+    """f32 sums of ``n`` products on the tensor cores: mma.sync's f32
+    accumulation drifts from an f32 FMA loop the more the longer the sum,
+    so the atol is TOL's plus max(1e-4, n 2^-24) of the largest value (as
+    chip_smoke.py's ``compare_sum``)."""
+    scale = float(want.abs().max())
+    atol = 1e-4 + max(1e-4, n * 2.0 ** -24) * scale
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("E,C,d,f", [(2, 16, 64, 128), (2, 136, 72, 100),
+                                     (3, 129, 64, 768), (8, 640, 1152, 4608)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_expert_ffn_bwd_kernel(gen, E, C, d, f, act):
+    x, wg, wu, wd = _expert_inputs(gen, E, C, d, f, torch.float32)
+    x[:, C // 2:] = 0.0                     # empty capacity rows
+    dy = torch.randn((E, C, d), generator=gen, device="cuda")
+    dy[:, C // 2:] = 0.0
+    got = _launched("expert_ffn_bwd",
+                    lambda: ops.expert_ffn_bwd(x, wg, wu, wd, dy, act=act))
+    want = ref.expert_ffn_bwd_ref(x, wg, wu, wd, dy, act=act)
+    for g, w, n in zip(got, want, (2 * f + d, C + d, C + d, C + d)):
+        _close_sum(g, w, n)
+    assert not bool(got[0][:, C // 2:].any())
+    again = ops.expert_ffn_bwd(x, wg, wu, wd, dy, act=act)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Dh", [(2, 64, 64, 4, 24), (2, 65, 257, 4, 72),
+                                          (1, 40, 70, 2, 128), (4, 256, 256, 16, 88)])
+def test_flash_attention_bwd_kernel(gen, B, Sq, Sk, H, Dh):
+    q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda")
+    k, v = (torch.randn((B, Sk, H, Dh), generator=gen, device="cuda") for _ in range(2))
+    do = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda")
+    o0 = ops.flash_attention(q, k, v)
+    o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
+    assert torch.equal(o, o0)               # the lse store changes nothing
+    _close(lse, ref.attention_lse_ref(q, k), torch.float32)
+    got = _launched("flash_attention_bwd",
+                    lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)
+    again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_autograd_goes_through_the_backward_kernels(gen):
+    x, wg, wu, wd = (t.requires_grad_() for t in
+                     _expert_inputs(gen, 2, 40, 64, 96, torch.float32))
+    before = dict(ops.LAUNCHES)
+    y = ops.expert_ffn(x, wg, wu, wd)
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, [x, wg, wu, wd], dy)
+    want = ref.expert_ffn_bwd_ref(x.detach(), wg.detach(), wu.detach(), wd.detach(), dy)
+    for g, w in zip(got, want):
+        _close_sum(g, w, 2 * 96 + 64)
+    q, k, v = (torch.randn((2, 64, 4, 72), generator=gen, device="cuda").requires_grad_()
+               for _ in range(3))
+    o = ops.flash_attention(q, k, v)
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, [q, k, v], do)
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o.detach(),
+                                       ref.attention_lse_ref(q.detach(), k.detach()), do)
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)
+    torch.cuda.synchronize()
+    for name in ("expert_ffn", "flash_attention", "expert_ffn_bwd", "flash_attention_bwd"):
+        assert ops.LAUNCHES[name] == before[name] + 1, name
+    with pytest.raises(NotImplementedError):
+        ops.expert_ffn_bwd(*(t.detach().bfloat16() for t in (x, wg, wu, wd)),
+                           dy.bfloat16())
+    with pytest.raises(NotImplementedError):
+        o = ops.flash_attention(q, k, v, causal=True)
+        o.sum().backward()

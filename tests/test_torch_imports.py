@@ -50,6 +50,17 @@ def test_the_paging_slice_modules_are_checked(rel):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("rel", ["optim/adamw.py", "metrics/fid_proxy.py",
+                                 "launch/train.py", "data/synthetic.py"])
+def test_the_training_slice_modules_are_checked(rel):
+    """The optimizer, the FID proxy, the train CLI and the synthetic latents
+    are among the sources checked above, and import neither JAX nor the
+    JAX package."""
+    path = PORT / rel
+    assert path in _sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     env.pop("PYTHONSTARTUP", None)

@@ -136,15 +136,21 @@ non-zero and no phase's failure is caught:
 
  12. main path 8: training.  (a) At the end of phase 3 (lines ``3B``),
      where the profiler still traces every launch: the two backward
-     kernels against their plain versions: ``expert_ffn_bwd`` at XL's (8, 640, 1152, 4608) and
+     kernels (``expert_ffn_bwd`` on 3xTF32 ``wgmma``, five launches;
+     ``flash_attention_bwd`` on 3xTF32 ``mma.sync``, two; the SASS of
+     each holds its tensor-core instructions) against their plain
+     versions: ``expert_ffn_bwd`` at XL's (8, 640, 1152, 4608) and
      G's (8, 320, 1408, 5632) f32 and at a capacity and widths off its
-     tiles, with empty capacity rows; ``flash_attention_bwd`` at (8, 256,
+     tiles (odd d and f through zero-padded copies), with empty capacity
+     rows; ``flash_attention_bwd`` at (8, 256,
      16, 72), (4, 256, 16, 88), Sq and Sk off its 64-row tiles, Dh 128 and
      24; the forward's optional ``lse`` output held to its plain version and
      the forward's output bit-identical with and without it; two runs bit
      for bit; a NaN row NaN where the plain version has it; events and
      device times against the bounds, the six-bmm yardstick and the
-     backward of ``scaled_dot_product_attention`` through autograd.  (b)
+     backward of ``scaled_dot_product_attention`` through autograd, and
+     each kernel's time over its yardstick's (rows from different cards
+     compare by that ratio).  (b)
      The 4-layer DiT of tests/test_system.py: step-0 gradients (adaLN
      perturbed) card vs CPU leaf by leaf to TOL_F32, then 30
      ``rf_train_step``s on the CPU (plain versions) and on the card
@@ -2467,6 +2473,8 @@ TRAIN_XL_LAYERS = 8                       # 12c: XL width, depth cut
 TRAIN_XL_BATCH = 8
 TRAIN_XL_TIMED = 4
 NO_PALLAS = "no Pallas kernel: XLA autodiff of repro.kernels.ref"
+FFN_BWD_LAUNCHES = 5      # expert_ffn_bwd: five wgmma passes a call
+FLASH_BWD_LAUNCHES = 2    # flash_attention_bwd: dQ (with D), then dK/dV
 
 
 def _train_tiny_cfg():
@@ -2548,7 +2556,8 @@ def phase_backward_kernels(rows, smi):
     for E, C, d, f, act, label in ((8, 640, 1152, 4608, "silu", "XL refresh"),
                                    (8, 320, 1408, 5632, "silu", "G ep=2 rank refresh"),
                                    (3, 129, 1152, 4608, "gelu", "C off the 128-row tile"),
-                                   (2, 136, 72, 100, "silu", "ragged d and f")):
+                                   (2, 136, 72, 100, "silu", "ragged d and f"),
+                                   (2, 40, 73, 97, "silu", "odd d and f: zero-padded copies")):
         x, wg, wu, wd = _expert_inputs(gen, E, C, d, f, torch.float32)
         x[:, C - C // 4:] = 0.0                   # empty capacity rows
         dy = torch.randn((E, C, d), generator=gen, device="cuda")
@@ -2593,7 +2602,7 @@ def phase_backward_kernels(rows, smi):
         x, wg, wu, wd, dy = args
         ms = time_ms(lambda: ops.expert_ffn_bwd(x, wg, wu, wd, dy), 10)
         dev = device_ms(lambda: ops.expert_ffn_bwd(x, wg, wu, wd, dy), 10,
-                        launches_per_call=5)
+                        launches_per_call=FFN_BWD_LAUNCHES)
         plain = time_ms(lambda: ref.expert_ffn_bwd_ref(x, wg, wu, wd, dy), 5)
         hh = torch.randn((E, C, f), device="cuda")
         wgt, wut, wdt = (w.transpose(1, 2) for w in (wg, wu, wd))
@@ -2608,15 +2617,16 @@ def phase_backward_kernels(rows, smi):
         b_ms, b_by = bound(flops, nbytes)
         tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
         log(f"  3B [{smi}] expert_ffn_bwd {shape}: kernel {ms:.4f} ms (device alone {dev:.4f} "
-            f"ms; 5 launches, the recompute of G and U included: {16.0 * E * C * d * f:.3e} "
-            f"FLOP done, {flops / ms / 1e9:.2f} TFLOP/s of the six products), plain {plain:.4f} "
-            f"ms, six-bmm yardstick {yard:.4f} ms, bound {tc_ms:.4f} ms ({tc_by}, six products "
-            f"at 3xTF32), FP32 bound {b_ms:.4f} ms; library: none")
+            f"ms; {FFN_BWD_LAUNCHES} wgmma launches, the recompute of G and U included: "
+            f"{16.0 * E * C * d * f:.3e} FLOP done, {flops / ms / 1e9:.2f} TFLOP/s of the six "
+            f"products), plain {plain:.4f} ms, six-bmm yardstick {yard:.4f} ms, kernel / "
+            f"yardstick {ms / yard:.3f}, bound {tc_ms:.4f} ms ({tc_by}, six products at "
+            f"3xTF32), FP32 bound {b_ms:.4f} ms; library: none")
         rows[key] = dict(
             name="expert_ffn_bwd", route="cuda", source="src/repro_torch/csrc/expert_ffn_bwd.cu",
             replaces=NO_PALLAS, launches=0, max_abs_err=err, ms=ms, device_ms=dev,
             events_ms=ms, plain_ms=plain, bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms,
-            library_ms=None, yardstick_ms=yard, shape=shape)
+            library_ms=None, yardstick_ms=yard, yardstick_ratio=ms / yard, shape=shape)
         del x, wg, wu, wd, dy
     # ---- flash_attention backward ----------------------------------------
     timed = {}
@@ -2654,11 +2664,17 @@ def phase_backward_kernels(rows, smi):
         f"plain version's {nan_same}")
     if not nan_same:
         raise AssertionError("flash_attention_bwd: NaN positions differ from the plain version")
-    # the five passes, and the flash instances of Dh 72 and 88 (DP 80, 96)
+    # the five wgmma passes, and the flash instances of Dh 72 and 88 (NT 9, 12)
     regs = [line for line in build.ptxas_report()
-            if line.startswith(("bwd_gemm", "flash_bwd_dkdv<5>", "flash_bwd_dq<5>",
-                                "flash_bwd_dkdv<6>", "flash_bwd_dq<6>"))]
+            if line.startswith(("bwd_wgmma", "flash_bwd_dkdv<9>", "flash_bwd_dq<9>",
+                                "flash_bwd_dkdv<12>", "flash_bwd_dq<12>"))]
     for line in regs:
+        log(f"  3B [{smi}] ptxas {line}")
+    # ptxas notes that it serialized wgmmas (C7511-C7515) in the port's build
+    serial = [line.strip() for line in (build.build_dir() / "build.log").read_text().splitlines()
+              if "wgmma.mma_async instructions are serialized" in line]
+    log(f"  3B [{smi}] ptxas notes of serialized wgmma: {len(serial)}")
+    for line in serial:
         log(f"  3B [{smi}] ptxas {line}")
     for (B, Dh), key, shape in (((8, 72), "flash_attention_bwd",
                                  "B=8 S=256 H=16 Dh=72 f32 (XL)"),
@@ -2668,7 +2684,7 @@ def phase_backward_kernels(rows, smi):
         S, H = q.shape[1], q.shape[2]
         ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do), 20)
         dev = device_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do), 20,
-                        launches_per_call=3)
+                        launches_per_call=FLASH_BWD_LAUNCHES)
         plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do), 20)
         qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt)
@@ -2679,16 +2695,30 @@ def phase_backward_kernels(rows, smi):
         b_ms, b_by = bound(flops, nbytes)
         tc_ms, tc_by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
         log(f"  3B [{smi}] flash_attention_bwd {shape}: kernel {ms:.4f} ms (device alone "
-            f"{dev:.4f} ms, 3 launches, FP32 CUDA cores), plain {plain:.4f} ms, backward of "
-            f"scaled_dot_product_attention through autograd {lib:.4f} ms, bound {tc_ms:.4f} ms "
-            f"({tc_by}, 3xTF32), FP32 bound {b_ms:.4f} ms ({b_by})")
+            f"{dev:.4f} ms, {FLASH_BWD_LAUNCHES} launches, 3xTF32 mma.sync), plain {plain:.4f} "
+            f"ms, backward of scaled_dot_product_attention through autograd {lib:.4f} ms, "
+            f"kernel / SDPA backward {ms / lib:.3f}, bound {tc_ms:.4f} ms ({tc_by}, 3xTF32), "
+            f"FP32 bound {b_ms:.4f} ms ({b_by})")
         rows[key] = dict(
             name="flash_attention_bwd", route="cuda",
             source="src/repro_torch/csrc/flash_attention_bwd.cu", replaces=NO_PALLAS,
             launches=0, max_abs_err=err, ms=ms, device_ms=dev, events_ms=ms, plain_ms=plain,
-            bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms, library_ms=lib, shape=shape)
+            bound_ms=tc_ms, bound_by=tc_by, fp32_bound_ms=b_ms, library_ms=lib,
+            yardstick_ratio=ms / lib, shape=shape)
         del qt, kt, vt, ot
     torch.cuda.synchronize()
+    # the products are on the tensor cores: wgmma (HGMMA) in every pass of
+    # expert_ffn_bwd, mma.sync (HMMA) in both flash_attention_bwd kernels
+    sass = build.sass_opcodes(("HGMMA", "HMMA", "FFMA"))
+    tensor = {k: v for k, v in sass.items() if "bwd" in k}
+    for name, counts in sorted(tensor.items()):
+        log(f"  3B [{smi}] sass {name}: {counts}")
+    wgmma_ok = [k for k in tensor if k.startswith("bwd_wgmma")]
+    hmma_ok = [k for k in tensor if k.startswith("flash_bwd")]
+    if (len(wgmma_ok) != 5 or not all(tensor[k]["HGMMA"] > 0 for k in wgmma_ok)
+            or not hmma_ok or not all(tensor[k]["HMMA"] > 0 for k in hmma_ok)):
+        raise AssertionError("backward kernels: a product is not on the tensor cores "
+                             f"(SASS opcode counts {tensor})")
 
 
 def phase_train_tiny(smi):
@@ -2923,7 +2953,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "fp32_bound_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",
+            "fp32_bound_ms",
             "device_ms",
             "events_ms", "shape")
     log(json.dumps({"kernels": [{k: rows[n][k] for k in keys if k in rows[n]}

@@ -10,34 +10,53 @@
 //
 // Bound: at DiT-MoE-XL refresh shapes (E=8, C=640, d=1152, f=4608) the six
 // products are 3.26e11 FLOP against 1.1 GB of operands and gradients, so
-// operations bound it (1.98 ms at 3xTF32 on the tensor cores, 4.87 ms on
-// the FP32 cores).  Every product is the forward's main loop
-// (expert_ffn_gemm.cuh: 3xTF32 mma.sync, 128 x 64/128 block tiles, a
-// 2-stage cp.async ring), with E in the grid's z.  The transposed operands
-// (Wd^T, Wg^T, Wu^T as B; H^T, X^T as A) are copied into shared memory as
-// they lie in device memory and read through transposed fragment offsets,
-// so no transposed copy is made.
+// operations bound it: 1.98 ms at 3xTF32 on the tensor cores, 4.87 ms on
+// the FP32 cores.  Only wgmma reaches the tensor cores' full rate, so every
+// product runs on the grouped 3xTF32 wgmma main loop of
+// expert_ffn_wgmma.cuh (TMA ring, one producer and two consumer
+// warpgroups, 128 x 128 block tiles; pass 0's two accumulators 128 x 64),
+// with E in the grid's z and the blocks of one expert's rows walked
+// columns first, so that a weight tile is read from device memory about
+// once.
+//
+// wgmma takes tf32 operands from shared memory only K-major, so each
+// product is oriented to read its B operand K-major as it lies, and A,
+// which comes from registers, in whatever layout it has.  The backward
+// chooses its own scratch layout to make that possible: G, U and H (then
+// dG and dU over G and U) are held transposed, (3, E, f, cp) with the
+// capacity dim C contiguous and padded to cp (a multiple of 4, for TMA's
+// 16-byte strides; columns past C are never read):
+//   pass  product (output)                    A (registers)   B (K-major)
+//   0     G^T = Wg^T X^T, U^T = Wu^T X^T      Wg^T, Wu^T      X (C x d)
+//         (f x C, K = d); H^T = act(G^T) U^T in the epilogue
+//   1     dH^T = Wd dY^T (f x C, K = d);      Wd              dY (C x d)
+//         the epilogue reads G^T, U^T and writes dG^T, dU^T over them
+//   2     dWd^T = dY^T H (d x f, K = C),      dY^T            H^T (f x C)
+//         stored into dWd (f x d): 8 lanes write 8 consecutive floats
+//   3     dX = dG Wg^T + dU Wu^T (C x d,      dG, then dU     Wg, then Wu
+//         K = 2f: one sum)                                    (d x f)
+//   4     dWg = X^T dG, dWu = X^T dU          X^T             dG^T, dU^T
+//         (d x f, K = C)                                      (f x C)
+// Wd is the only K-major A; the others are M-major and read as four
+// swizzled 32 x 32 boxes.  d and f must be multiples of 4 (TMA's 16-byte
+// strides): the wrapper (kernels/ops.py) stages zero-padded copies of
+// the operands for other widths.
 //
 // G and U are recomputed, not saved by the forward: the forward kernel and
 // its output stay as they were, and a layer holds no (E, C, f) tensor
-// between its forward and backward (3 x 94 MB a layer at XL, 2.3 GB over 8
-// layers).  The recompute costs two more products (1.09e11 FLOP, a third
-// of the six) and a transient f32 scratch of 3 x E x C x f the caller
-// allocates (G, U and H, then dG and dU in place of G and U).
+// between its forward and backward.  The recompute costs two more
+// products (1.09e11 FLOP, a third of the six) and the transient scratch.
 //
-// Five launches, in order (no atomics: every output element is written by
-// one thread once, so two runs agree bit for bit):
-//   0  G, U, H        gated: X @ [Wg | Wu], H = act(G) * U in the epilogue;
-//   1  dG, dU         dY @ Wd^T, with the gating fused into the epilogue
-//                     (reads G and U, writes dG and dU over them);
-//   2  dWd = H^T dY   A transposed;
-//   3  dX             dG @ Wg^T, then dU @ Wu^T into the same sums: one
-//                     reduction over the 2f columns;
-//   4  dWg, dWu       gated: X^T @ [dG | dU], A transposed.
-// Capacity rows that are dropped or empty are zero in X and get a zero dY
-// (combine gathers nothing from them), so they add exactly 0 to every
-// weight gradient.  Ragged C, d and f edges are masked as in the forward.
+// No atomics: every output element is summed by one thread's wgmmas in a
+// fixed order, so two runs agree bit for bit.  Capacity rows that are
+// dropped or empty are zero in X and get a zero dY (combine gathers
+// nothing from them), so they add exactly 0 to every weight gradient.
+// Ragged edges of C, d and f are zero-filled by TMA and masked in the
+// epilogues.
+#include <initializer_list>
+
 #include "expert_ffn_gemm.cuh"
+#include "expert_ffn_wgmma.cuh"
 
 namespace dice {
 namespace {
@@ -53,192 +72,298 @@ __device__ __forceinline__ float activation_grad(float g, int act) {
 }
 
 struct BwdArgs {
-  const float* x;
-  const float* wg;
-  const float* wu;
-  const float* wd;
-  const float* dy;
-  float* g;       // (E, C, f): G, then dG
-  float* u;       // (E, C, f): U, then dU
-  float* h;       // (E, C, f): H
+  float* s;       // scratch (3E, f, cp): G^T, U^T, H^T; then dG^T, dU^T
   float* dx;
   float* dwg;
   float* dwu;
   float* dwd;
-  int C, d, f, act;
-  int vec_x, vec_wgu, vec_wd, vec_dy, vec_scratch;
+  int E, C, d, f, cp, act;
 };
 
-// fn(r, c, v0, v1) for the outputs (r, c) and (r, c + 1) this thread holds
-// of a non-gated block tile (M x N output); the caller masks c + 1 >= N.
-template <int BN_, typename Fn>
-__device__ __forceinline__ void each_output(const float (&acc)[4][NJ][4], int M, int N,
-                                            Fn&& fn) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int r0 = blockIdx.x * BM + wm * 64 + (lane >> 2);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = blockIdx.y * BN_ + wn * 8 * NJ + j * 8 + 2 * (lane & 3);
-      if (c >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + i * 16 + half * 8;
-        if (r < M) fn(r, c, acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-    }
-}
-
-// fn(r, c, b0_0, b0_1, b1_0, b1_1) for a gated block tile: the outputs of
-// B0 and of B1 at (r, c) and (r, c + 1).
-template <int BN_, typename Fn>
-__device__ __forceinline__ void each_gated_output(const float (&acc)[4][NJ][4], int M, int N,
-                                                  Fn&& fn) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int r0 = blockIdx.x * BM + wm * 64 + (lane >> 2);
-  constexpr int U = NJ / 2;             // B1's tiles follow B0's
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < U; ++jj) {
-      const int c = blockIdx.y * BN_ + wn * 4 * NJ + jj * 8 + 2 * (lane & 3);
-      if (c >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + i * 16 + half * 8;
-        if (r < M)
-          fn(r, c, acc[i][jj][2 * half], acc[i][jj][2 * half + 1], acc[i][jj + U][2 * half],
-             acc[i][jj + U][2 * half + 1]);
-      }
-    }
-}
-
-using LGated = Layout<float, float, true>;
-using LGatedTA = Layout<float, float, true, true, false>;
-using LPlainTB = Layout<float, float, false, false, true>;
-using LPlainTA = Layout<float, float, false, true, false>;
+// the tensor maps of one pass: A operands a0 (a1), B operands b0 (b1)
+struct Maps {
+  CUtensorMap a0, a1, b0, b1;
+};
 
 template <int PASS>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS) bwd_gemm_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int e = blockIdx.z;
-  const int C = a.C, d = a.d, f = a.f;
-  const size_t cd = (size_t)C * d, df = (size_t)d * f, cf = (size_t)C * f;
-  const float* X = a.x + e * cd;
-  const float* dY = a.dy + e * cd;
-  float* G = a.g + e * cf;
-  float* Uu = a.u + e * cf;
-  float* Hh = a.h + e * cf;
-  float acc[4][NJ][4];
-  if constexpr (PASS == 0) {            // G, U, H
-    gemm_mainloop<float, float, true>(X, a.wg + e * df, a.wu + e * df, C, d, f, a.vec_x,
-                                      a.vec_wgu, smem, acc);
-    const bool even = f % 2 == 0;
-    each_gated_output<LGated::BN>(acc, C, f, [&](int r, int c, float g0, float g1, float u0,
-                                                 float u1) {
-      const size_t o = (size_t)r * f + c;
-      const bool pair = even && c + 1 < f, second = c + 1 < f;
-      store2(G + o, g0, g1, pair, second);
-      store2(Uu + o, u0, u1, pair, second);
-      store2(Hh + o, activation(g0, a.act) * u0, activation(g1, a.act) * u1, pair, second);
-    });
-  } else if constexpr (PASS == 1) {     // dH = dY Wd^T; dG, dU over G, U
-    gemm_mainloop<float, float, false, false, true>(dY, a.wd + e * df, nullptr, C, d, f,
-                                                    a.vec_dy, a.vec_wd, smem, acc);
-    each_output<LPlainTB::BN>(acc, C, f, [&](int r, int c, float v0, float v1) {
-      const float dh[2] = {v0, v1};
+struct PassCfg {                        // passes 2 and 3
+  using type = wg::Cfg<1, 1, 128, false>;
+};
+// Pass 0 holds two accumulators (G^T and U^T); at 64 columns they and the
+// A fragments of both weights fit the consumers' registers, at 128 they
+// spill.  DICE_BWD_GU_BN=128 builds the wider tile for comparison
+// (launch/kernel_variants.py).
+#ifndef DICE_BWD_GU_BN
+#define DICE_BWD_GU_BN 64
+#endif
+template <>
+struct PassCfg<0> {
+  using type = wg::Cfg<2, 1, DICE_BWD_GU_BN, false>;
+};
+template <>
+struct PassCfg<1> {
+  using type = wg::Cfg<1, 1, 128, true>;
+};
+template <>
+struct PassCfg<4> {
+  using type = wg::Cfg<1, 2, 64, false>;
+};
+
+// fn(r, c, i): this thread's outputs (r, c) and (r, c + 1) of the block
+// tile are acc[.][i] and acc[.][i + 1]
+template <int BN, typename Fn>
+__device__ __forceinline__ void each_pair(int wgi, int q, int g, int t, Fn&& fn) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (c + q >= f) break;
-        const size_t o = (size_t)r * f + c + q;
-        const float gv = G[o], uv = Uu[o];
-        G[o] = dh[q] * uv * activation_grad(gv, a.act);
-        Uu[o] = dh[q] * activation(gv, a.act);
-      }
-    });
-  } else if constexpr (PASS == 2) {     // dWd = H^T dY: (f x d)
-    gemm_mainloop<float, float, false, true, false>(Hh, dY, nullptr, f, C, d, a.vec_scratch,
-                                                    a.vec_dy, smem, acc);
-    float* dWd = a.dwd + e * df;
-    each_output<LPlainTA::BN>(acc, f, d, [&](int r, int c, float v0, float v1) {
-      store2(dWd + (size_t)r * d + c, v0, v1, d % 2 == 0 && c + 1 < d, c + 1 < d);
-    });
+  for (int i = 0; i < BN / 2; i += 2)
+    fn(64 * wgi + 16 * q + g + 8 * ((i >> 1) & 1), 8 * (i >> 2) + 2 * t, i);
+}
+
+template <int PASS>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+bwd_wgmma_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
+  using C = typename PassCfg<PASS>::type;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int e = blockIdx.z, E = a.E, f = a.f, d = a.d, Cc = a.C, cp = a.cp;
+  const int m0 = blockIdx.y * wg::BM, n0 = blockIdx.x * C::BN;
+  // four 32 x 32 boxes of an M-major A tile
+  auto load_a_mmajor = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int k0, int z) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wg::tma_load(dst + i * 4096, map, bar, m0 + 32 * i, k0, z);
+  };
+  const uint32_t b_at = C::NA * C::A_TILE;   // the B tiles' offset in a stage
+  float* Sg = a.s + (size_t)e * f * cp;              // G^T, then dG^T
+  float* Su = a.s + (size_t)(E + e) * f * cp;        // U^T, then dU^T
+  float* Sh = a.s + (size_t)(2 * E + e) * f * cp;    // H^T
+  if constexpr (PASS == 0) {            // G^T, U^T, H^T: (f x C)
+    wg::run<C>(
+        smem, (d + wg::BK - 1) / wg::BK,
+        [&](int kt, uint32_t st, uint32_t bar) {
+          load_a_mmajor(st, &maps.a0, bar, kt * wg::BK, e);
+          load_a_mmajor(st + C::A_TILE, &maps.a1, bar, kt * wg::BK, e);
+          wg::tma_load(st + b_at, &maps.b0, bar, kt * wg::BK, n0, e);
+        },
+        [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
+          each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
+            const int m = m0 + r, n = n0 + c;
+            if (m >= f || n >= Cc) return;
+            const size_t o = (size_t)m * cp + n;
+            const bool pair = n + 1 < Cc;
+            const float g0 = acc[0][i], g1 = acc[0][i + 1], u0 = acc[1][i], u1 = acc[1][i + 1];
+            store2(Sg + o, g0, g1, pair, pair);
+            store2(Su + o, u0, u1, pair, pair);
+            store2(Sh + o, activation(g0, a.act) * u0, activation(g1, a.act) * u1, pair, pair);
+          });
+        });
+  } else if constexpr (PASS == 1) {     // dH^T = Wd dY^T; dG^T, dU^T over G^T, U^T
+    wg::run<C>(
+        smem, (d + wg::BK - 1) / wg::BK,
+        [&](int kt, uint32_t st, uint32_t bar) {
+          wg::tma_load(st, &maps.a0, bar, kt * wg::BK, m0, e);
+          wg::tma_load(st + b_at, &maps.b0, bar, kt * wg::BK, n0, e);
+        },
+        [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
+          // half the tile at a time: its G and U are loaded before any
+          // store, which the compiler could not otherwise move them past
+          constexpr int HALF = C::BN / 4;
+#pragma unroll
+          for (int h0 = 0; h0 < C::BN / 2; h0 += HALF) {
+            float gv[HALF], uv[HALF];
+            each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
+              if (i < h0 || i >= h0 + HALF) return;
+              const int m = m0 + r, n = n0 + c;
+              const size_t o = (size_t)m * cp + n;
+              float2 gg = make_float2(0.0f, 0.0f), uu = gg;
+              if (m < f && n + 1 < Cc) {
+                gg = *reinterpret_cast<const float2*>(Sg + o);
+                uu = *reinterpret_cast<const float2*>(Su + o);
+              } else if (m < f && n < Cc) {
+                gg.x = Sg[o];
+                uu.x = Su[o];
+              }
+              gv[i - h0] = gg.x, gv[i - h0 + 1] = gg.y;
+              uv[i - h0] = uu.x, uv[i - h0 + 1] = uu.y;
+            });
+            each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
+              if (i < h0 || i >= h0 + HALF) return;
+              const int m = m0 + r, n = n0 + c;
+              if (m >= f || n >= Cc) return;
+              const size_t o = (size_t)m * cp + n;
+              const bool pair = n + 1 < Cc;
+              float dg[2], du[2];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float dh = acc[0][i + h], gq = gv[i - h0 + h], uq = uv[i - h0 + h];
+                dg[h] = dh * uq * activation_grad(gq, a.act);
+                du[h] = dh * activation(gq, a.act);
+              }
+              store2(Sg + o, dg[0], dg[1], pair, pair);
+              store2(Su + o, du[0], du[1], pair, pair);
+            });
+          }
+        });
+  } else if constexpr (PASS == 2) {     // dWd^T = dY^T H: (d x f), into dWd (f x d)
+    wg::run<C>(
+        smem, (Cc + wg::BK - 1) / wg::BK,
+        [&](int kt, uint32_t st, uint32_t bar) {
+          load_a_mmajor(st, &maps.a0, bar, kt * wg::BK, e);
+          wg::tma_load(st + b_at, &maps.b0, bar, kt * wg::BK, n0, 2 * E + e);
+        },
+        [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
+          float* dWd = a.dwd + (size_t)e * f * d;
+          each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
+            const int m = m0 + r, n = n0 + c;
+            if (m >= d) return;
+            if (n < f) dWd[(size_t)n * d + m] = acc[0][i];
+            if (n + 1 < f) dWd[(size_t)(n + 1) * d + m] = acc[0][i + 1];
+          });
+        });
   } else if constexpr (PASS == 3) {     // dX = dG Wg^T + dU Wu^T: (C x d)
-    gemm_mainloop<float, float, false, false, true>(G, a.wg + e * df, nullptr, C, f, d,
-                                                    a.vec_scratch, a.vec_wgu, smem, acc);
-    __syncthreads();                    // the second loop refills stage 0
-    gemm_mainloop<float, float, false, false, true, true>(Uu, a.wu + e * df, nullptr, C, f, d,
-                                                          a.vec_scratch, a.vec_wgu, smem, acc);
-    float* dX = a.dx + e * cd;
-    each_output<LPlainTB::BN>(acc, C, d, [&](int r, int c, float v0, float v1) {
-      store2(dX + (size_t)r * d + c, v0, v1, d % 2 == 0 && c + 1 < d, c + 1 < d);
-    });
+    const int kf = (f + wg::BK - 1) / wg::BK;
+    wg::run<C>(
+        smem, 2 * kf,
+        [&](int kt, uint32_t st, uint32_t bar) {
+          const int up = kt >= kf, k0 = (kt - up * kf) * wg::BK;
+          load_a_mmajor(st, &maps.a0, bar, k0, up * E + e);
+          wg::tma_load(st + b_at, up ? &maps.b1 : &maps.b0, bar, k0, n0, e);
+        },
+        [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
+          float* dX = a.dx + (size_t)e * Cc * d;
+          each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
+            const int m = m0 + r, n = n0 + c;
+            if (m >= Cc || n >= d) return;
+            const bool pair = n + 1 < d;
+            store2(dX + (size_t)m * d + n, acc[0][i], acc[0][i + 1], pair, pair);
+          });
+        });
   } else {                              // dWg = X^T dG, dWu = X^T dU: (d x f)
-    gemm_mainloop<float, float, true, true, false>(X, G, Uu, d, C, f, a.vec_x, a.vec_scratch,
-                                                   smem, acc);
-    float* dWg = a.dwg + e * df;
-    float* dWu = a.dwu + e * df;
-    const bool even = f % 2 == 0;
-    each_gated_output<LGatedTA::BN>(acc, d, f, [&](int r, int c, float g0, float g1, float u0,
-                                                   float u1) {
-      const size_t o = (size_t)r * f + c;
-      store2(dWg + o, g0, g1, even && c + 1 < f, c + 1 < f);
-      store2(dWu + o, u0, u1, even && c + 1 < f, c + 1 < f);
-    });
+    wg::run<C>(
+        smem, (Cc + wg::BK - 1) / wg::BK,
+        [&](int kt, uint32_t st, uint32_t bar) {
+          load_a_mmajor(st, &maps.a0, bar, kt * wg::BK, e);
+          wg::tma_load(st + b_at, &maps.b0, bar, kt * wg::BK, n0, e);
+          wg::tma_load(st + b_at + C::B_TILE, &maps.b0, bar, kt * wg::BK, n0, E + e);
+        },
+        [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
+          float* dWg = a.dwg + (size_t)e * d * f;
+          float* dWu = a.dwu + (size_t)e * d * f;
+          each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
+            const int m = m0 + r, n = n0 + c;
+            if (m >= d || n >= f) return;
+            const size_t o = (size_t)m * f + n;
+            const bool pair = n + 1 < f;
+            store2(dWg + o, acc[0][i], acc[0][i + 1], pair, pair);
+            store2(dWu + o, acc[1][i], acc[1][i + 1], pair, pair);
+          });
+        });
   }
 }
 
-template <int PASS, typename L>
-cudaError_t launch_pass(const BwdArgs& a, int M, int N, int E, cudaStream_t stream) {
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 3-D f32 tensor map (inner, rows, z) with row and z strides in elements,
+// boxes of bi x br x 1, 128-byte swizzle, zero fill out of bounds
+bool make_map(CUtensorMap* map, const float* base, long long inner, long long rows,
+              long long z, long long row_stride, long long z_stride, int bi, int br) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)z};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 4, (cuuint64_t)z_stride * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)bi, (cuuint32_t)br, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <int PASS>
+cudaError_t launch_pass(const Maps& maps, const BwdArgs& a, int M, int N, cudaStream_t stream) {
+  using C = typename PassCfg<PASS>::type;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_gemm_kernel<PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+      bwd_wgmma_kernel<PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + BM - 1) / BM, (N + L::BN - 1) / L::BN, E);
-  bwd_gemm_kernel<PASS><<<grid, NT, L::BYTES, stream>>>(a);
+  const dim3 grid((N + C::BN - 1) / C::BN, (M + wg::BM - 1) / wg::BM, a.E);
+  bwd_wgmma_kernel<PASS><<<grid, wg::THREADS, C::BYTES, stream>>>(maps, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace dice
 
-// scratch: f32 (3, E, C, f) the caller allocates (G, U, H); act: 0 silu,
-// 1 gelu.  Returns the first launch error, else cudaGetLastError().
-extern "C" int dice_expert_ffn_bwd(const void* x, const void* wg, const void* wu,
-                                   const void* wd, const void* dy, void* scratch, void* dx,
+// scratch: f32 (3, E, f, cp) the caller allocates (G^T, U^T, H^T), cp >= C
+// a multiple of 4; d and f multiples of 4; every pointer 16-byte aligned;
+// C > 0.  act: 0 silu, 1 gelu.  Returns cudaErrorInvalidValue for what it
+// does not take or a tensor map it cannot encode, else the first launch
+// error, else cudaGetLastError().
+extern "C" int dice_expert_ffn_bwd(const void* x, const void* w_g, const void* w_u,
+                                   const void* w_d, const void* dy, void* scratch, void* dx,
                                    void* dwg, void* dwu, void* dwd, int E, int C, int d,
-                                   int f, int act, int device, void* stream) {
+                                   int f, int cp, int act, int device, void* stream) {
   using namespace dice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (E <= 0 || d <= 0 || f <= 0) return (int)cudaGetLastError();
+  if (E <= 0 || C <= 0 || d <= 0 || f <= 0 || d % 4 || f % 4 || cp % 4 || cp < C)
+    return (int)cudaErrorInvalidValue;
+  for (const void* p : {x, w_g, w_u, w_d, dy, (const void*)scratch})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  const long long cd = (long long)C * d, df = (long long)d * f, fc = (long long)f * cp;
+  Maps m0{}, m1{}, m2{}, m3{}, m4{};
+  bool ok = true;
+  // A boxes: 32 x 32 (M-major) or 32 x 128 (K-major); B boxes: 32 x BN
+  const int bn0 = PassCfg<0>::type::BN, bn1 = PassCfg<1>::type::BN,
+            bn2 = PassCfg<2>::type::BN, bn3 = PassCfg<3>::type::BN,
+            bn4 = PassCfg<4>::type::BN;
+  // pass 0: A Wg^T, Wu^T (M-major boxes of f x d), B X (rows of C)
+  ok &= make_map(&m0.a0, F(w_g), f, d, E, f, df, 32, 32);
+  ok &= make_map(&m0.a1, F(w_u), f, d, E, f, df, 32, 32);
+  ok &= make_map(&m0.b0, F(x), d, C, E, d, cd, 32, bn0);
+  // pass 1: A Wd (K-major rows of f), B dY
+  ok &= make_map(&m1.a0, F(w_d), d, f, E, d, (long long)f * d, 32, wg::BM);
+  ok &= make_map(&m1.b0, F(dy), d, C, E, d, cd, 32, bn1);
+  // pass 2: A dY^T (M-major boxes of d x C), B H^T (rows of f, K = C)
+  ok &= make_map(&m2.a0, F(dy), d, C, E, d, cd, 32, 32);
+  ok &= make_map(&m2.b0, F(scratch), C, f, 3LL * E, cp, fc, 32, bn2);
+  // pass 3: A dG, dU (M-major boxes of C x f), B Wg, Wu (rows of d, K = f)
+  ok &= make_map(&m3.a0, F(scratch), C, f, 3LL * E, cp, fc, 32, 32);
+  ok &= make_map(&m3.b0, F(w_g), f, d, E, f, df, 32, bn3);
+  ok &= make_map(&m3.b1, F(w_u), f, d, E, f, df, 32, bn3);
+  // pass 4: A X^T (M-major boxes of d x C), B dG^T, dU^T (rows of f, K = C)
+  ok &= make_map(&m4.a0, F(x), d, C, E, d, cd, 32, 32);
+  ok &= make_map(&m4.b0, F(scratch), C, f, 3LL * E, cp, fc, 32, bn4);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{static_cast<float*>(scratch), static_cast<float*>(dx),
+                  static_cast<float*>(dwg),     static_cast<float*>(dwu),
+                  static_cast<float*>(dwd),     E, C, d, f, cp, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* sc = static_cast<float*>(scratch);
-  const size_t ecf = (size_t)E * C * f;
-  BwdArgs a{static_cast<const float*>(x),  static_cast<const float*>(wg),
-            static_cast<const float*>(wu), static_cast<const float*>(wd),
-            static_cast<const float*>(dy), sc,
-            sc + ecf,                      sc + 2 * ecf,
-            static_cast<float*>(dx),       static_cast<float*>(dwg),
-            static_cast<float*>(dwu),      static_cast<float*>(dwd),
-            C, d, f, act, 0, 0, 0, 0, 0};
-  a.vec_x = rows_16b_aligned(x, d * 4LL);
-  a.vec_dy = rows_16b_aligned(dy, d * 4LL);
-  a.vec_wgu = rows_16b_aligned(wg, f * 4LL) && rows_16b_aligned(wu, f * 4LL);
-  a.vec_wd = rows_16b_aligned(wd, d * 4LL);
-  a.vec_scratch = rows_16b_aligned(a.g, f * 4LL) && rows_16b_aligned(a.u, f * 4LL) &&
-                  rows_16b_aligned(a.h, f * 4LL);
-  if (C > 0) {
-    if ((err = launch_pass<0, LGated>(a, C, f, E, s)) != cudaSuccess) return (int)err;
-    if ((err = launch_pass<1, LPlainTB>(a, C, f, E, s)) != cudaSuccess) return (int)err;
-  }
-  // with C == 0 the weight gradients are zero: passes 2 and 4 sum no rows
-  if ((err = launch_pass<2, LPlainTA>(a, f, d, E, s)) != cudaSuccess) return (int)err;
-  if (C > 0) {
-    if ((err = launch_pass<3, LPlainTB>(a, C, d, E, s)) != cudaSuccess) return (int)err;
-  }
-  if ((err = launch_pass<4, LGatedTA>(a, d, f, E, s)) != cudaSuccess) return (int)err;
+  if ((err = launch_pass<0>(m0, a, f, C, s)) != cudaSuccess) return (int)err;
+  if ((err = launch_pass<1>(m1, a, f, C, s)) != cudaSuccess) return (int)err;
+  if ((err = launch_pass<2>(m2, a, d, f, s)) != cudaSuccess) return (int)err;
+  if ((err = launch_pass<3>(m3, a, C, d, s)) != cudaSuccess) return (int)err;
+  if ((err = launch_pass<4>(m4, a, d, f, s)) != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

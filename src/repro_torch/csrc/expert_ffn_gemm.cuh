@@ -1,21 +1,10 @@
-// The grouped GEMM main loop of the expert FFN kernels (expert_ffn.cu,
-// expert_ffn_bwd.cu): a block's 128 x BN tile of A (M x K) @ B (K x N) on
-// the tensor cores as 3xTF32 mma.sync m16n8k8 (tf32_mma.cuh), over a
-// 2-stage cp.async ring of A and B tiles in dynamic shared memory.  The
-// layout notes are in expert_ffn.cu.
-//
-// Operand layouts.  The forward reads A and B row-major.  The backward
-// also needs the transposed operands (dH = dY Wd^T, dX = dG Wg^T + dU Wu^T
-// read B^T; dWd = H^T dY, dWg = X^T dG read A^T).  A transposed operand is
-// copied into shared memory as it lies in device memory (16-byte cp.async
-// pieces along its contiguous dim), and only the fragment reads change:
-//   TRANS_A: A (M x K) is read from a row-major K x M source; its tile is
-//            held k-major, BK rows of BM + 32 / sizeof(T) elements, so the
-//            A fragment (rows g, columns t) reads t * LD + g: 32 banks;
-//   TRANS_B: B (K x N) is read from a row-major N x K source; its tile is
-//            held n-major, BN rows of BK + 16 / sizeof(T), so the B
-//            fragment (k = t, n = g) reads g * LD + t: 32 banks.
-// With both false every offset is the forward's.
+// The grouped GEMM main loop of the expert FFN forward (expert_ffn.cu): a
+// block's 128 x BN tile of A (M x K) @ B (K x N) on the tensor cores as
+// 3xTF32 mma.sync m16n8k8 (tf32_mma.cuh), over a 2-stage cp.async ring of
+// A and B tiles in dynamic shared memory, both read row-major.  The layout
+// notes are in expert_ffn.cu.  The backward (expert_ffn_bwd.cu) runs on
+// the wgmma main loop of expert_ffn_wgmma.cuh and shares only
+// activation() and store2() from here.
 #pragma once
 
 #include "common.cuh"
@@ -52,14 +41,14 @@ __device__ __forceinline__ float activation(float g, int act) {
 
 // Shared-memory layout of one pipeline stage: an A tile BM x BK and NB B
 // tiles BK x BN (NB = 2 for gate/up), rows padded as the notes say.
-template <typename TA, typename TB, bool GATED, bool TRANS_A = false, bool TRANS_B = false>
+template <typename TA, typename TB, bool GATED>
 struct Layout {
   static constexpr int NB = GATED ? 2 : 1;
   static constexpr int BN = (GATED ? 4 : 8) * NJ * WARPS_N;  // columns per B tile
-  static constexpr int LDA = TRANS_A ? BM + 32 / (int)sizeof(TA) : BK + 16 / (int)sizeof(TA);
-  static constexpr int LDB = TRANS_B ? BK + 16 / (int)sizeof(TB) : BN + 32 / (int)sizeof(TB);
-  static constexpr size_t A_BYTES = sizeof(TA) * (TRANS_A ? BK : BM) * LDA;
-  static constexpr size_t B_BYTES = sizeof(TB) * (TRANS_B ? BN : BK) * LDB;
+  static constexpr int LDA = BK + 16 / (int)sizeof(TA);
+  static constexpr int LDB = BN + 32 / (int)sizeof(TB);
+  static constexpr size_t A_BYTES = sizeof(TA) * BM * LDA;
+  static constexpr size_t B_BYTES = sizeof(TB) * BK * LDB;
   static constexpr size_t STAGE = A_BYTES + NB * B_BYTES;
   static constexpr size_t BYTES = STAGES * STAGE;
 };
@@ -94,21 +83,19 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, int rows
 // acc[i][j] = the (i, j) m16n8 tile of this warp's 64 x 8 NJ outputs of
 // A (M x K) @ B (K x N), over the block's tile (blockIdx.x rows, blockIdx.y
 // columns).  GATED: B0 gives tiles j < NJ / 2 and B1 tiles j >= NJ / 2 of
-// the same columns.  ACCUM: add to acc instead of starting from zero (the
-// caller synchronises the block between two calls).
-template <typename TA, typename TB, bool GATED, bool TRANS_A = false, bool TRANS_B = false,
-          bool ACCUM = false>
+// the same columns.
+template <typename TA, typename TB, bool GATED>
 __device__ __forceinline__ void gemm_mainloop(const TA* __restrict__ A,
                                               const TB* __restrict__ B0,
                                               const TB* __restrict__ B1, int M, int K,
                                               int N, bool vec_a, bool vec_b,
                                               unsigned char* smem, float (&acc)[4][NJ][4]) {
-  using L = Layout<TA, TB, GATED, TRANS_A, TRANS_B>;
+  using L = Layout<TA, TB, GATED>;
   constexpr bool SA = kSplit<TA>;
   constexpr bool SB = kSplit<TB>;
   // element strides of the m and k (A) and k and n (B) indices in a tile
-  constexpr int A_M = TRANS_A ? 1 : L::LDA, A_K = TRANS_A ? L::LDA : 1;
-  constexpr int B_K = TRANS_B ? 1 : L::LDB, B_N = TRANS_B ? L::LDB : 1;
+  constexpr int A_M = L::LDA, A_K = 1;
+  constexpr int B_K = L::LDB, B_N = 1;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * L::BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -119,29 +106,21 @@ __device__ __forceinline__ void gemm_mainloop(const TA* __restrict__ A,
   };
   const int ktiles = (K + BK - 1) / BK;
   auto load_b = [&](int s, int mat, const TB* B, int k0) {
-    if constexpr (TRANS_B)
-      load_tile<TB, L::BN, BK>(b_tile(s, mat), L::LDB, B, N, K, col0, k0, vec_b);
-    else
-      load_tile<TB, BK, L::BN>(b_tile(s, mat), L::LDB, B, K, N, k0, col0, vec_b);
+    load_tile<TB, BK, L::BN>(b_tile(s, mat), L::LDB, B, K, N, k0, col0, vec_b);
   };
   auto load_stage = [&](int s, int kt) {
     const int k0 = kt * BK;
-    if constexpr (TRANS_A)
-      load_tile<TA, BK, BM>(a_tile(s), L::LDA, A, K, M, k0, row0, vec_a);
-    else
-      load_tile<TA, BM, BK>(a_tile(s), L::LDA, A, M, K, row0, k0, vec_a);
+    load_tile<TA, BM, BK>(a_tile(s), L::LDA, A, M, K, row0, k0, vec_a);
     load_b(s, 0, B0, k0);
     if constexpr (GATED) load_b(s, 1, B1, k0);
   };
 
-  if constexpr (!ACCUM) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-  }
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {

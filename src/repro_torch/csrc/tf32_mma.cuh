@@ -19,6 +19,9 @@
 //   B (8 x 8, col):   b0 (k = t, n = g)  b1 (k = t + 4, n = g)
 //   C (16 x 8):       c0 (g, 2t)  c1 (g, 2t + 1)  c2 (g + 8, 2t)  c3 (g + 8, 2t + 1)
 //
+// FastFrag forms the same big part with two integer instructions (a cvt
+// is four) and truncates the small part; the backward kernels use it.
+//
 // A build with -DDICE_TF32_ONE_PASS keeps only the big part of an f32
 // operand: one TF32 pass, faster and not f32-accurate.  The port never
 // builds it; it measures what the split costs (launch/kernel_variants.py)
@@ -57,6 +60,30 @@ struct Frag {
     if constexpr (SPLIT) {
       big[i] = tf32_rna(x);
       small[i] = tf32_rna(x - __uint_as_float(big[i]));
+    } else {
+      big[i] = __float_as_uint(x);
+    }
+  }
+};
+
+// x ~ big + small, both exact tf32 values, in four instructions where
+// Frag's two cvt.rna.tf32.f32 and a subtraction take nine (a cvt
+// is four: it keeps NaN and Inf apart from the rounding).  big: x rounded
+// to 10 mantissa bits, ties away from zero, by adding half an ulp to the
+// bit pattern and clearing the low 13 bits, which is cvt.rna's result for
+// every finite x; small: x - big (exact) truncated to tf32, within 2^-21
+// of x - big relative to x.  A NaN x gives big = +-0 or NaN and small =
+// NaN (x - big is NaN, and truncation keeps a NaN's high mantissa bits),
+// an infinite x big = Inf and small = NaN, as the cvt split does, so a
+// NaN or Inf still reaches every product.
+template <bool SPLIT, int N>
+struct FastFrag {
+  uint32_t big[N];
+  uint32_t small[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    if constexpr (SPLIT) {
+      big[i] = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+      small[i] = __float_as_uint(x - __uint_as_float(big[i])) & 0xFFFFE000u;
     } else {
       big[i] = __float_as_uint(x);
     }

@@ -33,7 +33,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("expert_ffn.cu", "flash_attention.cu", "residual_int8.cu",
            "rwkv6_scan.cu", "paced_copy.cu", "expert_ffn_bwd.cu",
            "flash_attention_bwd.cu")
-HEADERS = ("common.cuh", "tf32_mma.cuh", "expert_ffn_gemm.cuh")
+HEADERS = ("common.cuh", "tf32_mma.cuh", "expert_ffn_gemm.cuh", "expert_ffn_wgmma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdice_kernels.so"
@@ -46,7 +46,7 @@ SIGNATURES = {
     "dice_expert_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dice_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _I, _P],
-    "dice_expert_ffn_bwd": [_P] * 10 + [_I] * 6 + [_P],
+    "dice_expert_ffn_bwd": [_P] * 10 + [_I] * 7 + [_P],
     "dice_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I, _P],
     "dice_residual_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dice_rwkv6_scan": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I] * 4 + [_P],
@@ -154,10 +154,40 @@ def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return lib
 
 
-_KERNEL = re.compile(r"(gate_up|down|bwd_gemm|flash_bwd_delta|flash_bwd_dkdv|flash_bwd_dq|flash"
+_KERNEL = re.compile(r"(gate_up|down|bwd_wgmma|flash_bwd_dkdv|flash_bwd_dq|flash"
                      r"|residual_int8_loop|residual_int8|rwkv6_scan)_kernel"
                      r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}   # mangled template arguments
+
+
+def _kernel_label(mangled: str) -> str:
+    m = _KERNEL.search(mangled)
+    return "" if m is None else (
+        f"{m[1]}<{', '.join(a for a in (_DTYPES.get(m[2]), m[3]) if a)}>")
+
+
+def sass_opcodes(opcodes: Tuple[str, ...],
+                 defines: Tuple[str, ...] = ()) -> Dict[str, Dict[str, int]]:
+    """How often each of ``opcodes`` (``HGMMA`` for wgmma, ``HMMA`` for
+    mma.sync, ``FFMA``) occurs in each kernel of a built library's SASS,
+    by ``cuobjdump -sass`` from the toolkit beside nvcc."""
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(build(defines))],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, check=True).stdout
+    pattern = re.compile(r"\b(" + "|".join(opcodes) + r")\b")
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            label = _kernel_label(line)
+            current = counts.setdefault(label, dict.fromkeys(opcodes, 0)) \
+                if label else None
+        elif current is not None:
+            m = pattern.search(line)
+            if m:
+                current[m[1]] += 1
+    return counts
 
 
 def ptxas_report(defines: Tuple[str, ...] = ()) -> List[str]:
@@ -167,9 +197,8 @@ def ptxas_report(defines: Tuple[str, ...] = ()) -> List[str]:
     lines, kernel = [], ""
     for line in (build_dir(defines) / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = _KERNEL.search(line)
-            kernel = "" if m is None else (
-                f"{m[1]}<{', '.join(a for a in (_DTYPES.get(m[2]), m[3]) if a)}>: ")
+            label = _kernel_label(line)
+            kernel = f"{label}: " if label else ""
         if "registers" in line or "spill" in line:
             lines.append(f"{kernel}{line.strip()}")
         elif line.startswith("=="):

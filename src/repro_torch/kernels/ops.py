@@ -20,9 +20,10 @@ Otherwise the forward path is the serving one, unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.compress.ref import INT8_EPS
 from repro_torch.kernels import ref
@@ -228,21 +229,74 @@ def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
     for t in (buf, w_gate, w_up, w_down, dy):
         if not t.is_contiguous():
             raise ValueError("expert_ffn_bwd: inputs must be contiguous")
-    lib = library()
     kw = dict(dtype=torch.float32, device=buf.device)
-    scratch = torch.empty((3, E, C, f), **kw)       # G, U, H (then dG, dU)
-    dx = torch.empty((E, C, d), **kw)
-    dwg = torch.empty((E, d, f), **kw)
-    dwu = torch.empty((E, d, f), **kw)
-    dwd = torch.empty((E, f, d), **kw)
+    if E == 0 or C == 0:                # no rows: zero gradients, no launch
+        return (torch.zeros((E, C, d), **kw), torch.zeros((E, d, f), **kw),
+                torch.zeros((E, d, f), **kw), torch.zeros((E, f, d), **kw))
+    lay = ffn_bwd_layout(E, C, d, f)
+    args = stage_ffn_bwd_inputs(lay, buf, w_gate, w_up, w_down, dy)
+    lib = library()
+    dp, fp = lay.d, lay.f
+    scratch = torch.empty(lay.scratch, **kw)     # G^T, U^T, H^T (then dG^T, dU^T)
+    dx = torch.empty((E, C, dp), **kw)
+    dwg = torch.empty((E, dp, fp), **kw)
+    dwu = torch.empty((E, dp, fp), **kw)
+    dwd = torch.empty((E, fp, dp), **kw)
     err = lib.dice_expert_ffn_bwd(
-        buf.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(), dwg.data_ptr(),
-        dwu.data_ptr(), dwd.data_ptr(), E, C, d, f, _ACTS[act],
-        buf.device.index or 0, _stream(buf.device))
+        *(t.data_ptr() for t in args), scratch.data_ptr(), dx.data_ptr(),
+        dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), E, C, dp, fp, lay.c,
+        _ACTS[act], buf.device.index or 0, _stream(buf.device))
     _raise_on("expert_ffn_bwd", err)
     LAUNCHES["expert_ffn_bwd"] += 1
-    return dx, dwg, dwu, dwd
+    return unstage_ffn_bwd_grads(lay, d, f, (dx, dwg, dwu, dwd))
+
+
+class FFNBwdLayout(NamedTuple):
+    """Widths the ``expert_ffn_bwd`` kernel runs at: d and f padded to
+    multiples of 4 (TMA's 16-byte row strides), the scratch's capacity
+    stride ``c`` (C padded to a multiple of 4) and the scratch's shape
+    (3, E, f, c): G, U and H held transposed, C contiguous.  ``staged``:
+    d or f was padded, so the wrapper runs on zero-padded copies."""
+    d: int
+    f: int
+    c: int
+    staged: bool
+    scratch: Tuple[int, int, int, int]
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def ffn_bwd_layout(E: int, C: int, d: int, f: int) -> FFNBwdLayout:
+    dp, fp, cp = _up4(d), _up4(f), _up4(C)
+    return FFNBwdLayout(dp, fp, cp, (dp, fp) != (d, f), (3, E, fp, cp))
+
+
+def stage_ffn_bwd_inputs(lay: FFNBwdLayout, buf, w_gate, w_up, w_down, dy):
+    """(buf, w_gate, w_up, w_down, dy) at the layout's widths: the inputs
+    themselves, or copies zero-padded in d and f.  Padded rows and
+    columns are zero, so G, U and H are zero there and every gradient
+    element inside (d, f) is what it is unpadded.  An input whose first
+    element is not 16-byte aligned (a view into a larger tensor), which
+    TMA cannot read, is copied."""
+    if not lay.staged:
+        return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (buf, w_gate, w_up, w_down, dy))
+    d, f = buf.shape[-1], w_gate.shape[-1]
+    pd, pf = lay.d - d, lay.f - f
+    return (F.pad(buf, (0, pd)), F.pad(w_gate, (0, pf, 0, pd)),
+            F.pad(w_up, (0, pf, 0, pd)), F.pad(w_down, (0, pd, 0, pf)),
+            F.pad(dy, (0, pd)))
+
+
+def unstage_ffn_bwd_grads(lay: FFNBwdLayout, d: int, f: int, grads):
+    """(dX, dWg, dWu, dWd) at the layout's widths cut back to (d, f)."""
+    if not lay.staged:
+        return tuple(grads)
+    dx, dwg, dwu, dwd = grads
+    return (dx[..., :d].contiguous(), dwg[:, :d, :f].contiguous(),
+            dwu[:, :d, :f].contiguous(), dwd[:, :f, :d].contiguous())
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,

@@ -2,8 +2,9 @@
 
 A variant is the kernel library built with ``-D`` macros that the sources
 read (``csrc/expert_ffn.cu``, ``csrc/flash_attention.cu``,
-``csrc/tf32_mma.cuh``, ``csrc/rwkv6_scan.cu`` and ``csrc/residual_int8.cu``
-name them): another tiling or tile size, the int8 codec's looping path for
+``csrc/tf32_mma.cuh``, ``csrc/rwkv6_scan.cu``, ``csrc/residual_int8.cu``,
+``csrc/expert_ffn_bwd.cu`` and ``csrc/flash_attention_bwd.cu`` name them):
+another tiling or tile size, the int8 codec's looping path for
 every row, or a diagnostic that shows what a part costs by leaving it out:
 one TF32 pass instead of the 3xTF32 split (fast, not f32-accurate), the
 scan without its row-group reduction or without widening its staged tiles
@@ -16,8 +17,9 @@ process::
     PYTHONPATH=src python -m repro_torch.launch.kernel_variants \\
         [--kernels rwkv6_scan,residual_int8]
 
-The two tensor-core kernels are timed with CUDA events (``time_ms``), the
-two short ones by their device time alone (``device_ms``; the int8 codec's
+The tensor-core kernels (the two forward and the two backward ones) are
+timed with CUDA events (``time_ms``), the two short ones by their device
+time alone (``device_ms``; the int8 codec's
 inputs rotate over three sets, 113 MB, so each call reads from HBM).
 Prints the card, ptxas's registers and spills of each variant's kernels at
 those shapes, then one line per round, shape and variant: ms, max abs error
@@ -38,7 +40,8 @@ from repro_torch.launch.timing import device_ms, rotating, time_ms
 
 TOL_F32 = dict(rtol=1e-4, atol=1e-4)
 TOL_SCAN = dict(rtol=1e-3, atol=1e-3)
-KERNELS = ("expert_ffn", "flash_attention", "rwkv6_scan", "residual_int8")
+KERNELS = ("expert_ffn", "flash_attention", "rwkv6_scan", "residual_int8",
+           "expert_ffn_bwd", "flash_attention_bwd")
 # name -> (the wrappers whose kernels it changes; -D macros)
 VARIANTS = {
     "committed": (KERNELS, ()),
@@ -47,7 +50,17 @@ VARIANTS = {
     "4 warps x 64 rows, 64-key tiles": (
         ("flash_attention",), ("DICE_FLASH_WARPS=4", "DICE_FLASH_KEYS=64")),
     "one TF32 pass (diagnostic, not f32-accurate)": (
-        ("expert_ffn", "flash_attention"), ("DICE_TF32_ONE_PASS",)),
+        ("expert_ffn", "flash_attention", "expert_ffn_bwd", "flash_attention_bwd"),
+        ("DICE_TF32_ONE_PASS",)),
+    "backward pass 0 at 128 columns": (("expert_ffn_bwd",), ("DICE_BWD_GU_BN=128",)),
+    "backward kernels with the cvt.rna split": (
+        ("expert_ffn_bwd", "flash_attention_bwd"), ("DICE_BWD_CVT_SPLIT",)),
+    "flash backward: 64-row streamed tiles": (
+        ("flash_attention_bwd",), ("DICE_FLASH_BWD_TILE=64",)),
+    "flash backward: 16-row streamed tiles": (
+        ("flash_attention_bwd",), ("DICE_FLASH_BWD_TILE=16",)),
+    "flash backward: 8 warps, 128 owned rows": (
+        ("flash_attention_bwd",), ("DICE_FLASH_BWD_WARPS=8",)),
     "4 row groups x 4 columns (16 x 4 patch, 2 warps)": (
         ("rwkv6_scan",), ("DICE_SCAN_ROW_GROUPS=4",)),
     "8 row groups x 8 columns (8 x 8 patch, 2 warps)": (
@@ -61,7 +74,8 @@ VARIANTS = {
     "int8 looping path for every row": (("residual_int8",), ("DICE_INT8_LOOP",)),
 }
 PTXAS_KERNELS = ("gate_up<f32", "down<f32", "flash<f32", "rwkv6_scan<64>",
-                 "residual_int8<f32, 9>", "residual_int8_loop<f32>")
+                 "residual_int8<f32, 9>", "residual_int8_loop<f32>", "bwd_wgmma",
+                 "flash_bwd_dq<9>", "flash_bwd_dkdv<9>")
 
 
 def _max_err(got, want, tol):
@@ -78,6 +92,22 @@ def _check_scan(want):
     def check(out):
         (e1, ok1), (e2, ok2) = (_max_err(o, w, TOL_SCAN) for o, w in zip(out, want))
         return max(e1, e2), ok1 and ok2
+    return check
+
+
+def _check_grads(want, sums):
+    """Each gradient to TOL_F32, with the atol of a tensor-core sum of
+    ``sums[i]`` products (chip_smoke.py's ``compare_sum``) where given."""
+    def check(out):
+        errs, oks = [], []
+        for o, w, n in zip(out, want, sums):
+            tol = dict(TOL_F32)
+            if n:
+                tol["atol"] += max(TOL_F32["rtol"], n * 2.0 ** -24) * float(w.abs().max())
+            err, ok = _max_err(o, w, tol)
+            errs.append(err)
+            oks.append(ok)
+        return max(errs), all(oks)
     return check
 
 
@@ -108,6 +138,24 @@ def cases(gen, kernels):
         call = lambda: ops.flash_attention(q, k, v)                  # noqa: E731
         yield ("flash_attention XL (8, 256, 16, 72) f32", "flash_attention", call,
                _check_tensor(ref.flash_attention_ref(q, k, v), TOL_F32),
+               lambda call=call: time_ms(call, 50))
+    if "expert_ffn_bwd" in kernels:
+        E, C, d, f = 8, 640, 1152, 4608
+        x = torch.randn((E, C, d), **kw)
+        wg, wu = (torch.randn((E, d, f), **kw) / math.sqrt(d) for _ in range(2))
+        wd = torch.randn((E, f, d), **kw) / math.sqrt(f)
+        dy = torch.randn((E, C, d), **kw)
+        call = lambda: ops.expert_ffn_bwd(x, wg, wu, wd, dy)          # noqa: E731
+        yield (f"expert_ffn_bwd XL refresh E={E} C={C} d={d} f={f} f32", "expert_ffn_bwd",
+               call, _check_grads(ref.expert_ffn_bwd_ref(x, wg, wu, wd, dy),
+                                  (2 * f + d, C + d, C + d, C + d)),
+               lambda call=call: time_ms(call, 10))
+    if "flash_attention_bwd" in kernels:
+        q, k, v, do = (torch.randn((8, 256, 16, 72), **kw) for _ in range(4))
+        o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
+        call = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do)   # noqa: E731
+        yield ("flash_attention_bwd XL (8, 256, 16, 72) f32", "flash_attention_bwd", call,
+               _check_grads(ref.flash_attention_bwd_ref(q, k, v, o, lse, do), (0, 0, 0)),
                lambda call=call: time_ms(call, 50))
     if "rwkv6_scan" in kernels:
         # decode rotates over 8 states (84 MB), as 32 layers' states would

@@ -35,31 +35,52 @@ def device_us(evt) -> float:
     return 0.0
 
 
-def device_ms(fn, iters: int, launches_per_call: Optional[int] = None) -> float:
+def _annotation(evt) -> bool:
+    """A range the trace lists on the device beside the kernels (the
+    schedule's ``ProfilerStep#`` step, a user's ``record_function``)."""
+    return bool(getattr(evt, "is_user_annotation", False)) or evt.key.startswith("ProfilerStep")
+
+
+def device_ms(fn, iters: int, launches_per_call: Optional[int] = None,
+              attempts: int = 3) -> float:
     """Mean device time per call of ``fn``: the durations of the CUDA
     kernels in a ``torch.profiler`` trace of ``iters`` calls (after a
-    warm-up call), averaged over the launches the trace holds, times the
+    warm-up call and a warm-up profiler step), averaged over the launches the trace holds, times the
     launches a call makes (the traced launches over ``iters``, rounded: the
     trace can miss a few of many short launches).  Host time between
     launches is not counted, so a kernel shorter than its wrapper's host
     path is timed as itself.  ``fn`` should launch only the kernels to be
     timed (a wrapper's ``torch.empty`` launches none); raises if the trace
-    holds no device time, and, given ``launches_per_call``, if it holds
-    another number of launches than ``iters`` times that (a trace that
-    dropped kernels would give a wrong mean)."""
+    holds no device time.  Given ``launches_per_call``, a trace that holds
+    another number of launches than ``iters`` times that is never
+    averaged (it dropped kernels, and its mean would be wrong): a fresh
+    trace is taken, up to ``attempts`` in all, and then it raises.  (In a
+    whole chip_smoke.py run a trace of 40 launches of 0.13-0.15 ms once
+    held 39.)"""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
+    for _ in range(attempts):
+        # one warm-up step, traced and dropped, then the iters calls: the
+        # tracer is already collecting when the timed calls begin
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
             fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    launches = sum(e.count for e in kernels)
-    if launches_per_call is not None and launches != iters * launches_per_call:
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not _annotation(e)]
+        launches = sum(e.count for e in kernels)
+        if launches_per_call is None or launches == iters * launches_per_call:
+            break
+    else:
         raise RuntimeError(f"device_ms: {launches} kernel launches traced for "
-                           f"{iters} calls of {launches_per_call}")
+                           f"{iters} calls of {launches_per_call}, {attempts} times")
     per_call = round(launches / iters)
     if per_call < 1:
         raise RuntimeError(f"device_ms: {launches} kernel launches traced for "

@@ -143,3 +143,31 @@ def test_ptxas_report_labels_each_kernel(fake_toolchain):
         "gate_up<f32>: ptxas info    : Used 255 registers, used 1 barriers",
         "== flash_attention.cu (rc 0)",
         "flash<bf16, 32>: ptxas info    : Used 252 registers, used 1 barriers"]
+
+
+SASS = """\
+\t\tFunction : _ZN4dice12_GLOBAL__N_116bwd_wgmma_kernelILi3EEEvNS0_4MapsENS0_7BwdArgsE
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0a40*/                   HGMMA.64x128x8.F32.TF32 R24, R152, gdesc[UR4], R24, gsb0 ;
+        /*0a50*/                   HGMMA.64x128x8.F32.TF32 R24, R156, gdesc[UR8], R24, gsb0 ;
+        /*0a60*/                   FFMA R3, R4, R5, R3 ;
+\t\tFunction : _ZN4dice12_GLOBAL__N_119flash_bwd_dkdv_kernelILi9EEEvPKfS3_S3_S3_S3_S3_PfS4_iiiiNS0_7StridesES5_S5_S5_fi
+        /*0100*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;
+        /*0110*/              @!P0 FFMA R3, R4, R5, R3 ;
+\t\tFunction : some_other_kernel
+        /*0100*/                   HMMA.1688.F32.TF32 R8, R12, R16, R8 ;
+"""
+
+
+def test_sass_opcodes_counts_each_kernels_tensor_core_instructions(fake_toolchain):
+    """The check that the backward kernels' products are on the tensor
+    cores reads cuobjdump's SASS: HGMMA (wgmma) and HMMA (mma.sync) lines
+    counted per kernel, labelled as ptxas_report labels them."""
+    cuobjdump = fake_toolchain / "cuobjdump"
+    listing = fake_toolchain / "sass.txt"
+    listing.write_text(SASS)
+    cuobjdump.write_text(f"#!{sys.executable}\nprint(open({str(listing)!r}).read())\n")
+    cuobjdump.chmod(0o755)
+    assert build.sass_opcodes(("HGMMA", "HMMA", "FFMA")) == {
+        "bwd_wgmma<3>": {"HGMMA": 2, "HMMA": 0, "FFMA": 1},
+        "flash_bwd_dkdv<9>": {"HGMMA": 0, "HMMA": 1, "FFMA": 1}}

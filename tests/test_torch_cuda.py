@@ -125,11 +125,41 @@ def test_flash_attention_reads_unaligned_rows(gen, dtype):
     _close(got, ref.flash_attention_ref(q, k, v, causal=True), dtype)
 
 
-@pytest.mark.parametrize("kernel", ["expert_ffn", "flash_attention"])
+@pytest.mark.parametrize("kernel", ["expert_ffn", "flash_attention", "expert_ffn_bwd",
+                                    "flash_attention_bwd"])
 def test_one_tf32_pass_misses_the_f32_tolerance(gen, monkeypatch, kernel):
     """The 3xTF32 split is what holds the f32 kernels to 1e-4: the same
     sources built with -DDICE_TF32_ONE_PASS (one TF32 pass a product) miss
-    it at the DiT-MoE-XL contraction lengths (d = 1152, f = 4608; Dh = 72)."""
+    it at the DiT-MoE-XL contraction lengths (d = 1152, f = 4608; Dh = 72).
+    The backward kernels are held as chip_smoke.py holds them: dWg (a sum
+    of C + d = 1,792 deep, XL refresh's) to compare_sum, the attention
+    gradients to TOL_F32."""
+    if kernel in ("expert_ffn_bwd", "flash_attention_bwd"):
+        if kernel == "expert_ffn_bwd":
+            x, wg, wu, wd = _expert_inputs(gen, 2, 640, 1152, 4608, torch.float32)
+            dy = torch.randn((2, 640, 1152), generator=gen, device="cuda")
+            args, pick = (x, wg, wu, wd, dy), 1
+            run, plain = ops.expert_ffn_bwd, ref.expert_ffn_bwd_ref
+
+            def close(g, w):
+                _close_sum(g, w, 640 + 1152)
+        else:
+            q, k, v, do = (torch.randn((2, 128, 4, 72), generator=gen, device="cuda")
+                           for _ in range(4))
+            o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
+            args, pick = (q, k, v, o, lse, do), 0
+            run, plain = ops.flash_attention_bwd, ref.flash_attention_bwd_ref
+
+            def close(g, w):
+                _close(g, w, torch.float32)
+        want = plain(*args)[pick]
+        close(_launched(kernel, lambda: run(*args))[pick], want)
+        one_pass = build.library(("DICE_TF32_ONE_PASS",))
+        monkeypatch.setattr(ops, "library", lambda: one_pass)
+        got = _launched(kernel, lambda: run(*args))[pick]
+        with pytest.raises(AssertionError):
+            close(got, want)
+        return
     if kernel == "expert_ffn":
         args = _expert_inputs(gen, 2, 64, 1152, 4608, torch.float32)
         run, plain = ops.expert_ffn, ref.expert_ffn_ref
@@ -612,7 +642,8 @@ def _close_sum(got, want, n):
 
 
 @pytest.mark.parametrize("E,C,d,f", [(2, 16, 64, 128), (2, 136, 72, 100),
-                                     (3, 129, 64, 768), (8, 640, 1152, 4608)])
+                                     (3, 129, 64, 768), (8, 640, 1152, 4608),
+                                     (2, 40, 73, 97)])
 @pytest.mark.parametrize("act", ["silu", "gelu"])
 def test_expert_ffn_bwd_kernel(gen, E, C, d, f, act):
     x, wg, wu, wd = _expert_inputs(gen, E, C, d, f, torch.float32)
@@ -627,6 +658,32 @@ def test_expert_ffn_bwd_kernel(gen, E, C, d, f, act):
     assert not bool(got[0][:, C // 2:].any())
     again = ops.expert_ffn_bwd(x, wg, wu, wd, dy, act=act)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_expert_ffn_bwd_reads_an_unaligned_base(gen):
+    """A contiguous view one float into its storage: staged as an aligned
+    copy for TMA, the gradients as for the tensor itself."""
+    x, wg, wu, wd = _expert_inputs(gen, 2, 40, 64, 96, torch.float32)
+    dy = torch.randn((2, 40, 64), generator=gen, device="cuda")
+    store = torch.zeros(x.numel() + 1, device="cuda")
+    store[1:] = x.reshape(-1)
+    xv = store[1:].view(x.shape)
+    assert xv.data_ptr() % 16 != 0
+    got = _launched("expert_ffn_bwd", lambda: ops.expert_ffn_bwd(xv, wg, wu, wd, dy))
+    want = ops.expert_ffn_bwd(x, wg, wu, wd, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_expert_ffn_bwd_without_rows_launches_nothing(gen):
+    """C = 0: zero weight gradients and an empty dX, no launch (TMA's
+    tensor maps take no empty dim)."""
+    x, wg, wu, wd = _expert_inputs(gen, 2, 0, 64, 96, torch.float32)
+    dy = torch.zeros((2, 0, 64), device="cuda")
+    before = ops.LAUNCHES["expert_ffn_bwd"]
+    dx, dwg, dwu, dwd = ops.expert_ffn_bwd(x, wg, wu, wd, dy)
+    assert ops.LAUNCHES["expert_ffn_bwd"] == before
+    assert dx.shape == (2, 0, 64)
+    assert not (dwg.any() or dwu.any() or dwd.any())
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,Dh", [(2, 64, 64, 4, 24), (2, 65, 257, 4, 72),

@@ -1,0 +1,75 @@
+"""``launch/timing.device_ms`` on the CPU, with a stand-in for the profiler.
+
+A trace that holds fewer launches than the calls made is never averaged: a
+fresh one is taken, and after ``attempts`` short traces the call raises.
+Each trace runs one warm-up step before the timed calls.
+The stand-in profiler hands out prepared traces; no card is needed.
+"""
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from repro_torch.launch import timing
+
+
+def _trace(counts_us):
+    """key_averages() of a trace: (launches, total device us) per kernel,
+    and the schedule's step as the device lists it (not a kernel)."""
+    step = SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, count=1,
+                           self_device_time_total=9e9, key="ProfilerStep*")
+    return [step] + [SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, count=n,
+                                     self_device_time_total=us, key=f"kernel{i}")
+                     for i, (n, us) in enumerate(counts_us)]
+
+
+@pytest.fixture
+def fake_profiler(monkeypatch):
+    traces = []
+
+    class Profile:
+        def __init__(self, activities, schedule):
+            self.events = traces.pop(0)
+            self.steps = 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def step(self):
+            self.steps += 1
+
+        def key_averages(self):
+            assert self.steps == 2               # the warm-up step, then the timed one
+            return self.events
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    return traces
+
+
+def test_a_short_trace_is_retaken_not_averaged(fake_profiler):
+    # 20 calls of 2 kernels: the first trace dropped one launch
+    fake_profiler += [_trace([(19, 1900.0), (20, 3000.0)]),
+                      _trace([(20, 2000.0), (20, 3000.0)])]
+    calls = []
+    ms = timing.device_ms(lambda: calls.append(1), 20, launches_per_call=2)
+    assert ms == pytest.approx((2000.0 + 3000.0) / 1e3 / 40 * 2)
+    assert len(calls) == 1 + 2 * (1 + 20)    # warm-up, then two traces of 1 + 20
+    assert not fake_profiler
+
+
+def test_only_short_traces_raise(fake_profiler):
+    fake_profiler += [_trace([(39, 3900.0)]) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="39 kernel launches traced for 20 calls of 2, "
+                                           "3 times"):
+        timing.device_ms(lambda: None, 20, launches_per_call=2)
+
+
+def test_without_a_launch_count_the_first_trace_is_used(fake_profiler):
+    fake_profiler += [_trace([(30, 3000.0)]), _trace([(40, 1.0)])]
+    # 30 launches over 20 calls round to 2 a call
+    assert timing.device_ms(lambda: None, 20) == pytest.approx(3000.0 / 1e3 / 30 * 2)
+    assert len(fake_profiler) == 1

@@ -25,7 +25,8 @@ non-zero and no phase's failure is caught:
      over several sets where one would fit in L2.  ``rwkv6_scan`` has a
      row for prefill and one for decode, each with its own launches.
      Last come the DiT kernels at DiT-MoE-G's shapes (lines ``3G``, phase
-     11) and the two backward kernels (lines ``3B``, phase 12a);
+     11), the two DiT backward kernels (lines ``3B``, phase 12a) and the
+     RWKV-6 recurrence's backward (lines ``3B``, phase 13a);
   4. kernels in place: the tiny DiT served on the CPU (plain versions)
      and on the card (kernels) from the same weights and noise, 6 steps
      so that a light step's codec'd expert outputs reach the sample; the
@@ -165,6 +166,26 @@ non-zero and no phase's failure is caught:
      sync, displaced, interweaved and deep-sync DICE: paired MSE and the
      FID proxy against sync, interweaved < displaced and deep <= 1.05 x
      interweaved.
+ 13. main path 9: RWKV-6 training.  (a) At the end of phase 3 (lines
+     ``3B``): ``rwkv6_scan_bwd`` (three passes in one launch, then du's sum
+     over the batch) against its plain version at rwkv6-3b's training
+     shape (8, 40, 128, 64) bf16 with and without a final-state gradient,
+     its prefill shape (T = 2048), f32, DK 16/32/128, T = 1 and T = 45
+     (off the 16-step tile), decays drawn over [-6, 2]; two runs bit for
+     bit; a NaN in r NaN where the plain version has it; its device and
+     events time against the bound and beside the forward kernel's device
+     time at the same shape (``bwd_over_fwd``: the ratio compares across
+     cards); no single library call computes it.  (b) The smoke RWKV-6 (2
+     layers, d 128): f32 step-0 gradients card vs CPU leaf by leaf, then
+     30 ``lm_train_step``s on the CPU (plain versions) and on the card
+     (kernels) from the same weights and batches, f32 (losses within 1e-3)
+     and bf16 (within TOL_LM_BF16_LOSS), launches held to one
+     ``rwkv6_scan`` and one ``rwkv6_scan_bwd`` a layer and step.  (c)
+     rwkv6-3b at full width and depth, bf16 params and f32 moments, batch
+     8 x 128: a warm-up step and 4 timed steps (s/train-step,
+     ``max_memory_allocated``, losses and grad norms finite, launches held
+     to 32 of each scan kernel a step); then a prefill on the trained
+     params, bit for bit against the same prefill with grad disabled.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -623,7 +644,8 @@ def planned_launches(plans, passes: int, ranks: int = 1, patch_ndev: int = 0):
     payload too (the int8 codec through ``residual_int8``; top-k is plain
     PyTorch)."""
     n = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
-         "rwkv6_scan": 0, "expert_ffn_bwd": 0, "flash_attention_bwd": 0}
+         "rwkv6_scan": 0, "expert_ffn_bwd": 0, "flash_attention_bwd": 0,
+         "rwkv6_scan_bwd": 0}
     for plan in plans:
         for a in plan.actions:
             n["flash_attention"] += passes * max(1, patch_ndev)
@@ -848,7 +870,7 @@ def phase_lm(rows):
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"expert_ffn": 0, "flash_attention": 0, "residual_int8": 0,
             "rwkv6_scan": cfg.num_layers * (1 + LM_DECODE), "expert_ffn_bwd": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "rwkv6_scan_bwd": 0}
     log(f"  prefill {LM_BATCH} x {LM_PROMPT}: {prefill_s:.4f} s, "
         f"{LM_BATCH * LM_PROMPT / prefill_s:.1f} tokens/s")
     log(f"  decode {LM_DECODE} steps x {LM_BATCH}: {1e3 * decode_s / LM_DECODE:.4f} "
@@ -2902,6 +2924,300 @@ def phase_train_quality(cfg, params, smi):
         raise AssertionError("12d: the staleness quality ordering does not hold")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: RWKV-6 training (the recurrence's backward kernel, the smoke
+# model cpu vs card, rwkv6-3b at full width and depth)
+# ---------------------------------------------------------------------------
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 128     # 13c: the reference CLI's defaults
+LM_TRAIN_TIMED = 4
+LM_SMOKE_STEPS, LM_SMOKE_BATCH, LM_SMOKE_SEQ = 30, 2, 32   # 13b
+# 13b's bf16 run: the card's and the CPU's bf16 products round about 0.02%
+# of their outputs apart, and the bf16 updates then round apart at a few
+# elements; the CPU test holds the port to the reference's printed bf16
+# losses at 2e-3 (observed 8.3e-4), so card vs CPU in bf16 is held to 1e-2
+TOL_LM_BF16_LOSS = 1e-2
+SCAN_BWD_LAUNCHES = 2     # rwkv6_scan_bwd: the three passes, then du's sum over b
+SCAN_BWD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+SCAN_BWD_REPLACES = ("no Pallas kernel: XLA autodiff of the jnp scan of "
+                     "src/repro/models/rwkv6.py:143 (_time_mix_scan)")
+
+
+def _scan_bwd_inputs(gen, B, H, T, DK, dtype, permuted=False):
+    """r/k/v/u in ``dtype``, logw = -exp(decay) with decay uniform over
+    [-6, 2] (w from 6e-4 to 0.9975), s0 0.1 x normal, dout normal, dS_T
+    0.5 x normal.  ``permuted``: (B, T, H, DK) tensors permuted to
+    (B, H, T, DK), as the model hands them over."""
+    import torch
+    kw = dict(generator=gen, device="cuda")
+    shape = (B, T, H, DK) if permuted else (B, H, T, DK)
+
+    def draw(x):
+        return x.permute(0, 2, 1, 3) if permuted else x
+    r, k, v = (draw(torch.randn(shape, **kw)).to(dtype) for _ in range(3))
+    logw = draw(-torch.exp(torch.rand(shape, **kw) * 8.0 - 6.0))
+    dout = draw(torch.randn(shape, **kw))
+    u = (0.5 + 0.1 * torch.randn((H, DK), **kw)).to(dtype)
+    s0 = 0.1 * torch.randn((B, H, DK, DK), **kw)
+    dS = 0.5 * torch.randn((B, H, DK, DK), **kw)
+    return (r, k, v, logw, u, s0), dout, dS
+
+
+def compare_scan_bwd(tag: str, got, want, n: int) -> float:
+    """(dr, dk, dv, dlogw, du, ds0) against the plain version's: an f32
+    output by ``compare_sum`` over ``n`` terms (dlogw is a running sum over
+    T, so its error grows with T, not with each element's size); a bf16
+    output with TOL_BF16 (one rounding, which can land on the neighbouring
+    value) and the same atol for the sum.  Returns the largest error."""
+    import torch
+    errs = []
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{tag} {name}: {g.dtype} {tuple(g.shape)} against "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        if g.dtype == torch.float32:
+            errs.append(compare_sum(f"{tag} {name}", g, w, n))
+        else:
+            scale = float(w.float().abs().max())
+            errs.append(compare(f"{tag} {name} (bf16)", g, w, dict(
+                rtol=TOL_BF16["rtol"], atol=TOL_BF16["atol"] + sum_tol(n) * scale)))
+    return max(errs)
+
+
+def scan_bwd_bound(B, H, T, DK, es_rkv: int, es_u: int, with_dS: bool):
+    """(bound ms, what bounds it, FLOP) of the recurrence's backward: 12
+    FLOP an element and step (the formulas' 9: the state gradient's carry
+    3 and dr, dk, dv 2 each; and the forward state's recompute 3; the
+    kernel's third pass carries the state gradient again, 15 done); bytes:
+    r, k, v, logw, dout, s0, u (and dS_T) read once, dr, dk, dv, dlogw,
+    ds0, du written once."""
+    flops = 12.0 * DK * DK * B * H * T
+    nbytes = (B * H * T * DK * (6 * es_rkv + 12) + B * H * DK * DK * 4 * (2 + int(with_dS))
+              + 2 * H * DK * es_u)
+    ms, by = bound(flops, nbytes)
+    return ms, by, flops
+
+
+def phase_scan_backward(rows, smi):
+    """13a, run at the end of phase 3 (lines ``3B``, where the profiler
+    traces every launch): ``rwkv6_scan_bwd`` against its plain version at
+    rwkv6-3b's training and prefill shapes, f32, DK 16/32/128, T = 1 and
+    off the tiles, with and without dS_T; two runs bit for bit; a NaN in
+    r; events and device time against the bound and beside the forward's
+    at the same shape (the backward/forward ratio compares across cards)."""
+    import torch
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.timing import device_ms, rotating, time_ms
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((8, 40, LM_TRAIN_SEQ, 64), bf16, False, True, "rwkv6-3b training, dS_T none"),
+             ((8, 40, LM_TRAIN_SEQ, 64), bf16, True, True, "training shape with dS_T"),
+             ((8, 40, LM_PROMPT, 64), bf16, False, True, "rwkv6-3b prefill shape"),
+             ((2, 4, 300, 64), f32, True, False, "f32"),
+             ((2, 3, 37, 16), bf16, True, False, "DK 16"),
+             ((2, 3, 300, 32), f32, False, False, "DK 32"),
+             ((2, 3, 45, 128), bf16, True, False, "DK 128"),
+             ((3, 5, 1, 64), bf16, True, False, "T = 1"),
+             ((3, 5, 45, 64), f32, True, False, "T odd, off the 16-step tile")]
+    for (B, H, T, DK), dtype, with_dS, permuted, label in cases:
+        args, dout, dS = _scan_bwd_inputs(gen, B, H, T, DK, dtype, permuted)
+        dS_T = dS if with_dS else None
+        got = ops.rwkv6_scan_bwd(*args, dout, dS_T)
+        want = ref.rwkv6_scan_bwd_ref(*args, dout, dS_T)
+        torch.cuda.synchronize()
+        tag = (f"3B [{smi}] rwkv6_scan_bwd B={B} H={H} T={T} DK={DK} {str(dtype)[6:]} "
+               f"({label})")
+        err = compare_scan_bwd(tag, got, want, T + DK)
+        if (T, with_dS) == (LM_TRAIN_SEQ, False):
+            again = ops.rwkv6_scan_bwd(*args, dout, dS_T)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"  {tag}: two runs bit-identical {same}")
+            if not same:
+                raise AssertionError("rwkv6_scan_bwd: two runs differ")
+            train_err = err
+        del args, dout, dS, got, want
+    # a NaN in one element of r: NaN where the plain version has it
+    args, dout, _ = _scan_bwd_inputs(gen, 2, 3, 45, 64, bf16)
+    r = args[0].clone()
+    r[1, 2, 20, 5] = math.nan
+    got = ops.rwkv6_scan_bwd(r, *args[1:], dout)
+    want = ref.rwkv6_scan_bwd_ref(r, *args[1:], dout)
+    nan_same = all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(got, want))
+    log(f"  3B [{smi}] rwkv6_scan_bwd NaN in r at (b 1, h 2, t 20, 5): NaN positions equal "
+        f"the plain version's {nan_same} (NaN elements "
+        f"{[int(torch.isnan(g).sum()) for g in got]})")
+    if not nan_same:
+        raise AssertionError("rwkv6_scan_bwd: NaN positions differ from the plain version")
+    for line in build.ptxas_report():
+        if line.startswith("rwkv6_scan_bwd"):
+            log(f"  3B [{smi}] ptxas {line}")
+    # timed on three input sets in turn (26 MB of inputs a set at the
+    # training shape), as the model hands them over (permuted views)
+    B, H, DK = 8, 40, 64
+    for T, n_sets, iters, plain_iters in ((LM_TRAIN_SEQ, 3, 30, 3), (LM_PROMPT, 1, 5, 1)):
+        sets = [_scan_bwd_inputs(gen, B, H, T, DK, bf16, permuted=True) for _ in range(n_sets)]
+        bwd_sets = [(*a, d) for a, d, _ in sets]
+        fwd_sets = [a for a, _, _ in sets]
+        # late in a whole run a trace can miss one of these launches, three
+        # traces in a row (the forward at the training shape: 29 of 30 on an
+        # H100 80GB HBM3 at 700 W), so the means are taken over the traced
+        # launches: for the backward's call of two (0.4 ms and a few us) one
+        # missed launch moves the mean by under 2%
+        dev = device_ms(rotating(ops.rwkv6_scan_bwd, bwd_sets), iters)
+        events = time_ms(rotating(ops.rwkv6_scan_bwd, bwd_sets), iters)
+        fwd = device_ms(rotating(ops.rwkv6_scan, fwd_sets), iters)
+        plain = time_ms(rotating(ref.rwkv6_scan_bwd_ref, bwd_sets), plain_iters)
+        b_ms, b_by, flops = scan_bwd_bound(B, H, T, DK, 2, 2, False)
+        log(f"  3B [{smi}] rwkv6_scan_bwd B={B} H={H} T={T} DK={DK} bf16, dS_T none: kernel "
+            f"device {dev:.4f} ms ({SCAN_BWD_LAUNCHES} launches; {100 * b_ms / dev:.1f}% of "
+            f"bound), with host (CUDA events) {events:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {flops:.3e} FLOP of the formulas and the state's "
+            f"recompute at 67 TFLOP/s FP32; the kernel does 15/12 of it), forward kernel "
+            f"device {fwd:.4f} ms at the same shape, backward / forward {dev / fwd:.3f}; "
+            f"library: none (no single PyTorch call computes the recurrence's gradient)")
+        if T == LM_TRAIN_SEQ:
+            rows["rwkv6_scan_bwd"] = dict(
+                name="rwkv6_scan_bwd", route="cuda",
+                source="src/repro_torch/csrc/rwkv6_scan_bwd.cu", replaces=SCAN_BWD_REPLACES,
+                launches=0, max_abs_err=train_err, ms=dev, device_ms=dev, events_ms=events,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None, fwd_ms=fwd,
+                bwd_over_fwd=dev / fwd,
+                shape=f"B=8 H=40 T={T} DK=64 bf16, dS_T none (rwkv6-3b training)")
+        del sets, bwd_sets, fwd_sets
+    torch.cuda.synchronize()
+
+
+def phase_train_lm_smoke(smi):
+    """13b: the smoke RWKV-6 (2 layers, d 128): f32 step-0 gradients card
+    vs CPU leaf by leaf, then LM_SMOKE_STEPS ``lm_train_step``s on the CPU
+    (plain versions) and on the card (kernels) from the same weights and
+    batches, in f32 (losses within 1e-3) and in bf16 (within
+    TOL_LM_BF16_LOSS); the card's launches held to one ``rwkv6_scan`` and
+    one ``rwkv6_scan_bwd`` a layer and step."""
+    import torch
+    from repro_torch.checkpoint.io import flatten
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
+    cfg = get_smoke("rwkv6-3b")
+    api = get_model(cfg)
+    it = token_batches(cfg.vocab_size, LM_SMOKE_BATCH, LM_SMOKE_SEQ, seed=5)
+    data = [next(it) for _ in range(LM_SMOKE_STEPS)]
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, TOL_LM_BF16_LOSS)):
+        name = str(dtype)[6:]
+        params = api.init(cfg, generator=torch.Generator().manual_seed(4), dtype=dtype)
+        if dtype == torch.float32:
+            grads = {}
+            for dev in ("cpu", "cuda"):
+                live = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True),
+                                params)
+                loss, _ = api.loss_fn(live, _to(data[0], dev), cfg)
+                grads[dev] = torch.autograd.grad(loss, tree_leaves(live))
+            _compare_grads(f"13b [{smi}] smoke RWKV-6 f32 step-0 gradients, card vs cpu",
+                           grads["cuda"], grads["cpu"], [n for n, _ in flatten(params)[0]],
+                           cfg.d_ff + LM_SMOKE_SEQ)
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.detach().to(dev, copy=True), params)
+            opt = adamw_init(p)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = []
+            for b in data:
+                p, opt, m = lm_train_step(p, opt, _to(b, dev), cfg, total=LM_SMOKE_STEPS)
+                out.append(m["loss"])
+            losses[dev] = [float(x) for x in out]
+            counts = dict(ops.LAUNCHES)
+            log(f"  13b [{smi}] smoke RWKV-6 {name} on {dev}: {LM_SMOKE_STEPS} steps in "
+                f"{time.perf_counter() - t0:.3f} s, first losses "
+                f"{[round(x, 5) for x in losses[dev][:3]]}, last "
+                f"{[round(x, 5) for x in losses[dev][-3:]]}, launches {counts}")
+        want = {k: 0 for k in ops.LAUNCHES}
+        want["rwkv6_scan"] = want["rwkv6_scan_bwd"] = LM_SMOKE_STEPS * cfg.num_layers
+        if counts != want:
+            raise AssertionError(f"13b: launches {counts} differ from the plan's {want}")
+        compare(f"13b [{smi}] smoke RWKV-6 {name} losses over {LM_SMOKE_STEPS} steps, card "
+                f"vs cpu", torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+                dict(rtol=tol, atol=0.0))
+
+
+def phase_train_lm_full(rows, smi):
+    """13c: rwkv6-3b at full width and depth, bf16 params and f32 moments
+    (``train_lm``'s), batch LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens: one
+    warm-up step, then LM_TRAIN_TIMED timed steps with the launch counts
+    set to 0 before them; then a serving prefill on the trained params,
+    bit for bit against the same prefill with grad disabled."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import adamw_init
+    cfg = get_config("rwkv6-3b")
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params)
+    it = token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0, device="cuda")
+
+    def step():
+        nonlocal params, opt
+        params, opt, m = lm_train_step(params, opt, next(it), cfg, total=1 + LM_TRAIN_TIMED)
+        return m
+
+    step()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ms = [step() for _ in range(LM_TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / LM_TRAIN_TIMED
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in ms]
+    gnorms = [float(m["grad_norm"]) for m in ms]
+    want = {k: 0 for k in ops.LAUNCHES}
+    want["rwkv6_scan"] = want["rwkv6_scan_bwd"] = LM_TRAIN_TIMED * cfg.num_layers
+    n_params = sum(t.numel() for t in leaves(params).values())
+    log(f"  13c [{smi}] rwkv6-3b ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params bf16, moments f32), batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ} tokens: {s_per_step:.4f} s/train-step over {LM_TRAIN_TIMED} steps "
+        f"({LM_TRAIN_BATCH * LM_TRAIN_SEQ / s_per_step:.1f} tokens/s), max_memory_allocated "
+        f"{peak:.3f} GiB, losses {[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}, launches {counts}, planned {want}")
+    if counts != want or not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError("13c: launches differ from the plan or the loss is not finite")
+    rows["rwkv6_scan_bwd"]["launches"] = counts["rwkv6_scan_bwd"]
+    rows["rwkv6_scan"]["launches_train"] = counts["rwkv6_scan"]
+    # serving from the trained params: the kernels' no-grad path, untouched
+    del opt, ms
+    torch.cuda.empty_cache()
+    prompts = next(token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=9,
+                                 device="cuda"))["tokens"]
+    ops.reset_launches()
+    served, st = api.prefill(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    with torch.no_grad():
+        plain, pst = api.prefill(params, {"tokens": prompts}, cfg)
+    same = (torch.equal(served, plain) and torch.equal(st["S"], pst["S"])
+            and served.grad_fn is None)
+    finite = bool(torch.isfinite(served).all())
+    log(f"  13c [{smi}] prefill {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} on the trained params: "
+        f"bit-identical to the grad-disabled prefill {same}, finite {finite}, shape "
+        f"{tuple(served.shape)}, launches {counts}")
+    if not (same and finite and counts == {"rwkv6_scan": cfg.num_layers}):
+        raise AssertionError("13c: serving after training changed or missed the kernel")
+    del params, served, plain, st, pst
+    torch.cuda.empty_cache()
+    return s_per_step, peak
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -2919,6 +3235,7 @@ def main() -> int:
         rows = phase_kernels()
         phase_g_kernels(rows, smi)
         phase_backward_kernels(rows, smi)
+        phase_scan_backward(rows, smi)
     with phase("4 kernels in place (tiny DiT and smoke RWKV-6, cpu vs cuda)"):
         phase_tiny()
         phase_smoke_lm()
@@ -2950,11 +3267,15 @@ def main() -> int:
         tiny_cfg, tiny_params = phase_train_tiny(smi)
         phase_train_xl(rows, smi)
         phase_train_quality(tiny_cfg, tiny_params, smi)
+    with phase("13 main path 9 (RWKV-6 training: the smoke model cpu vs card, rwkv6-3b "
+               "at full width and depth; 13a ran at the end of phase 3)"):
+        phase_train_lm_smoke(smi)
+        phase_train_lm_full(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",
-            "fp32_bound_ms",
+            "fp32_bound_ms", "fwd_ms", "bwd_over_fwd",
             "device_ms",
             "events_ms", "shape")
     log(json.dumps({"kernels": [{k: rows[n][k] for k in keys if k in rows[n]}

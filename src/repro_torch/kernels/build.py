@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("expert_ffn.cu", "flash_attention.cu", "residual_int8.cu",
            "rwkv6_scan.cu", "paced_copy.cu", "expert_ffn_bwd.cu",
-           "flash_attention_bwd.cu")
+           "flash_attention_bwd.cu", "rwkv6_scan_bwd.cu")
 HEADERS = ("common.cuh", "tf32_mma.cuh", "expert_ffn_gemm.cuh", "expert_ffn_wgmma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,6 +50,7 @@ SIGNATURES = {
     "dice_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I, _P],
     "dice_residual_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dice_rwkv6_scan": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I] * 4 + [_P],
+    "dice_rwkv6_scan_bwd": [_P] * 15 + [_I] * 4 + [_L] * 15 + [_I] * 4 + [_P],
     "dice_paced_copy": [_P, _P, _L, _L, _I, _P],
 }
 
@@ -155,7 +156,7 @@ def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 
 
 _KERNEL = re.compile(r"(gate_up|down|bwd_wgmma|flash_bwd_dkdv|flash_bwd_dq|flash"
-                     r"|residual_int8_loop|residual_int8|rwkv6_scan)_kernel"
+                     r"|residual_int8_loop|residual_int8|rwkv6_scan_bwd|rwkv6_scan)_kernel"
                      r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}   # mangled template arguments
 

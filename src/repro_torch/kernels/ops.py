@@ -11,11 +11,12 @@ if ``cudaGetLastError`` reports a fault.
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count), so a run can show that its path went through the kernels.
 
-Training: ``expert_ffn`` and ``flash_attention`` go through the
-``torch.autograd.Function``s :class:`ExpertFFNFn` and
-:class:`FlashAttentionFn` when grad is enabled and an input requires it;
-their backward runs the backward kernels (``expert_ffn_bwd``,
-``flash_attention_bwd``) on the card and their plain versions on the CPU.
+Training: ``expert_ffn``, ``flash_attention`` and ``rwkv6_scan`` go
+through the ``torch.autograd.Function``s :class:`ExpertFFNFn`,
+:class:`FlashAttentionFn` and :class:`RWKV6ScanFn` when grad is enabled
+and an input requires it; their backward runs the backward kernels
+(``expert_ffn_bwd``, ``flash_attention_bwd``, ``rwkv6_scan_bwd``) on the
+card and their plain versions on the CPU.
 Otherwise the forward path is the serving one, unchanged.
 """
 from __future__ import annotations
@@ -31,7 +32,8 @@ from repro_torch.kernels.build import library
 
 LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
                             "residual_int8": 0, "rwkv6_scan": 0,
-                            "expert_ffn_bwd": 0, "flash_attention_bwd": 0}
+                            "expert_ffn_bwd": 0, "flash_attention_bwd": 0,
+                            "rwkv6_scan_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
@@ -441,45 +443,64 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On the card: r/k/v share one dtype (f32 or bf16), logw and u are f32 or
     that dtype, s0 is f32, and DK is one of ``RWKV6_HEAD_DIMS``; any T >= 1.
+    With grad enabled and an input that requires it, through
+    :class:`RWKV6ScanFn`; otherwise (serving) the kernel alone.
     """
+    if _needs_grad(r, k, v, logw, u, s0):
+        return RWKV6ScanFn.apply(r, k, v, logw, u, s0)
+    return _rwkv6_scan_fwd(r, k, v, logw, u, s0)
+
+
+def _check_rwkv6_shapes(name, r, k, v, logw, u, s0):
     if r.dim() != 4:
-        raise ValueError("rwkv6_scan: r, k, v, logw must be (B, H, T, DK)")
+        raise ValueError(f"{name}: r, k, v, logw must be (B, H, T, DK)")
     B, H, T, DK = r.shape
-    for name, t in (("k", k), ("v", v), ("logw", logw)):
+    for arg, t in (("k", k), ("v", v), ("logw", logw)):
         if t.shape != r.shape:
-            raise ValueError(f"rwkv6_scan: {name} {tuple(t.shape)} differs "
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} differs "
                              f"from r {tuple(r.shape)}")
     if tuple(u.shape) != (H, DK) or tuple(s0.shape) != (B, H, DK, DK):
-        raise ValueError(f"rwkv6_scan: u {tuple(u.shape)} / s0 "
+        raise ValueError(f"{name}: u {tuple(u.shape)} / s0 "
                          f"{tuple(s0.shape)} do not fit r {tuple(r.shape)}")
     if T < 1:
-        raise ValueError("rwkv6_scan: T must be at least 1")
+        raise ValueError(f"{name}: T must be at least 1")
+    return B, H, T, DK
+
+
+def _check_rwkv6_cuda(name, r, k, v, logw, u, s0):
+    """The card's checks shared by the forward and the backward."""
+    B, H, T, DK = r.shape
+    for t in (k, v, logw, u, s0):
+        if t.device != r.device:
+            raise ValueError(f"{name}: tensors on different devices "
+                             f"({t.device} vs {r.device})")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"{name}: r/k/v dtypes {r.dtype}, {k.dtype}, "
+                        f"{v.dtype} (one of float32, bfloat16)")
+    for arg, t in (("logw", logw), ("u", u)):
+        if t.dtype not in (torch.float32, r.dtype):
+            raise TypeError(f"{name}: {arg} dtype {t.dtype} (float32 "
+                            f"or {r.dtype})")
+    if s0.dtype != torch.float32:
+        raise TypeError(f"{name}: s0 dtype {s0.dtype} (float32)")
+    if DK not in RWKV6_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {DK} not in {RWKV6_HEAD_DIMS}")
+    for arg, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {arg}'s last dim must be contiguous")
+    if not (u.is_contiguous() and s0.is_contiguous()):
+        raise ValueError(f"{name}: u and s0 must be contiguous")
+    if B * H > 2**31 - 1:
+        raise ValueError(f"{name}: B*H={B * H} exceeds the grid")
+
+
+def _rwkv6_scan_fwd(r, k, v, logw, u, s0):
+    B, H, T, DK = _check_rwkv6_shapes("rwkv6_scan", r, k, v, logw, u, s0)
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, logw, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
-    for t in (k, v, logw, u, s0):
-        if t.device != r.device:
-            raise ValueError(f"rwkv6_scan: tensors on different devices "
-                             f"({t.device} vs {r.device})")
-    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError(f"rwkv6_scan: r/k/v dtypes {r.dtype}, {k.dtype}, "
-                        f"{v.dtype} (one of float32, bfloat16)")
-    for name, t in (("logw", logw), ("u", u)):
-        if t.dtype not in (torch.float32, r.dtype):
-            raise TypeError(f"rwkv6_scan: {name} dtype {t.dtype} (float32 "
-                            f"or {r.dtype})")
-    if s0.dtype != torch.float32:
-        raise TypeError(f"rwkv6_scan: s0 dtype {s0.dtype} (float32)")
-    if DK not in RWKV6_HEAD_DIMS:
-        raise ValueError(f"rwkv6_scan: head dim {DK} not in {RWKV6_HEAD_DIMS}")
-    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"rwkv6_scan: {name}'s last dim must be contiguous")
-    if not (u.is_contiguous() and s0.is_contiguous()):
-        raise ValueError("rwkv6_scan: u and s0 must be contiguous")
-    if B * H > 2**31 - 1:
-        raise ValueError(f"rwkv6_scan: B*H={B * H} exceeds the grid")
+    _check_rwkv6_cuda("rwkv6_scan", r, k, v, logw, u, s0)
     lib = library()
     out = torch.empty((B, H, T, DK), dtype=torch.float32, device=r.device)
     s_T = torch.empty((B, H, DK, DK), dtype=torch.float32, device=r.device)
@@ -492,3 +513,85 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on("rwkv6_scan", err)
     LAUNCHES["rwkv6_scan"] += 1
     return out, s_T
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   logw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                   dout: torch.Tensor, dS_T: Optional[torch.Tensor] = None):
+    """Gradients of :func:`rwkv6_scan` for the output gradient ``dout``
+    (B, H, T, DK) and the final state's gradient ``dS_T`` (B, H, DK, DK;
+    None: the state is not used, as in training).  Returns (dr, dk, dv,
+    dlogw, du, ds0): dr/dk/dv in r's dtype, du in u's, dlogw and ds0 f32.
+
+    On the card the inputs are :func:`rwkv6_scan`'s, read the same way;
+    ``dout`` is f32 with a contiguous last dim, ``dS_T`` f32 and
+    contiguous.  Two launches: the three passes of
+    ``csrc/rwkv6_scan_bwd.cu``, then du's sum over the batch."""
+    B, H, T, DK = _check_rwkv6_shapes("rwkv6_scan_bwd", r, k, v, logw, u, s0)
+    if tuple(dout.shape) != (B, H, T, DK):
+        raise ValueError(f"rwkv6_scan_bwd: dout {tuple(dout.shape)} is not "
+                         f"{(B, H, T, DK)}")
+    if dS_T is not None and tuple(dS_T.shape) != (B, H, DK, DK):
+        raise ValueError(f"rwkv6_scan_bwd: dS_T {tuple(dS_T.shape)} is not "
+                         f"{(B, H, DK, DK)}")
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, dout, dS_T)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan_bwd: unsupported device {r.device}")
+    _check_rwkv6_cuda("rwkv6_scan_bwd", r, k, v, logw, u, s0)
+    extra = (dout,) if dS_T is None else (dout, dS_T)
+    for t in extra:
+        if t.device != r.device or t.dtype != torch.float32:
+            raise TypeError(f"rwkv6_scan_bwd: dout and dS_T must be f32 on "
+                            f"{r.device}")
+    if dout.stride(-1) != 1:
+        raise ValueError("rwkv6_scan_bwd: dout's last dim must be contiguous")
+    if dS_T is not None and not dS_T.is_contiguous():
+        raise ValueError("rwkv6_scan_bwd: dS_T must be contiguous")
+    lib = library()
+    kw = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv = (torch.empty((B, H, T, DK), dtype=r.dtype, device=r.device)
+                  for _ in range(3))
+    dlogw = torch.empty((B, H, T, DK), **kw)
+    ds0 = torch.empty((B, H, DK, DK), **kw)
+    du_part = torch.empty((B, H, DK), **kw)
+    du = torch.empty((H, DK), dtype=u.dtype, device=r.device)
+    err = lib.dice_rwkv6_scan_bwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), dout.data_ptr(),
+        0 if dS_T is None else dS_T.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
+        du_part.data_ptr(), B, H, T, DK, *r.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *logw.stride()[:3], *dout.stride()[:3],
+        _DTYPES[r.dtype], _DTYPES[logw.dtype], _DTYPES[u.dtype],
+        r.device.index or 0, _stream(r.device))
+    _raise_on("rwkv6_scan_bwd", err)
+    LAUNCHES["rwkv6_scan_bwd"] += 1
+    return dr, dk, dv, dlogw, du, ds0
+
+
+class RWKV6ScanFn(torch.autograd.Function):
+    """``rwkv6_scan`` with its backward: the forward kernel and the
+    ``rwkv6_scan_bwd`` kernel on the card, both plain versions on the CPU.
+    Saves the inputs alone: the backward recomputes the states from ``s0``
+    (its final state is the forward's ``S_T``, bit for bit on the card).
+    A None cotangent for ``S_T`` goes to the backward as "no dS_T"."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.set_materialize_grads(False)        # an unused output's grad is None
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return _rwkv6_scan_fwd(r, k, v, logw, u, s0)
+
+    @staticmethod
+    def backward(ctx, dout, dS_T):
+        r, k, v, logw, u, s0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dout = dout.to(torch.float32)
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        if dS_T is not None:
+            dS_T = dS_T.to(torch.float32).contiguous()
+        grads = rwkv6_scan_bwd(r, k, v, logw, u, s0, dout, dS_T)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, (r, k, v, logw, u, s0)))

@@ -5,12 +5,12 @@ JAX package's oracles in ``repro.kernels.ref`` / ``repro.compress.ref``.
 The kernel wrappers in :mod:`repro_torch.kernels.ops` run them for tensors
 on the CPU; on the card they are what each kernel is held against.
 
-The two backward versions (``expert_ffn_bwd_ref``,
-``flash_attention_bwd_ref``) write the gradients' formulas out, as the
-backward kernels compute them; they do not call autograd on the forward.
-The JAX package has no backward kernel (it trains through XLA's autodiff
-of ``repro.kernels.ref``), so ``jax.vjp`` of its oracles is what the
-tests hold them against.
+The three backward versions (``expert_ffn_bwd_ref``,
+``flash_attention_bwd_ref``, ``rwkv6_scan_bwd_ref``) write the gradients'
+formulas out; they do not call autograd on the forward.  The JAX package
+has no backward kernel (it trains through XLA's autodiff of
+``repro.kernels.ref`` and of RWKV-6's jnp scan), so ``jax.vjp`` of its
+oracles is what the tests hold them against.
 """
 from __future__ import annotations
 
@@ -189,3 +189,50 @@ def rwkv6_scan_ref(r, k, v, logw, u, s0):
         outs.append(torch.einsum("bhk,bhkv->bhv", rt, S + u32 * kv))
         S = w[..., :, None] * S + kv
     return torch.stack(outs, dim=2), S
+
+
+def rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, dout, dS_T=None):
+    """Gradients of :func:`rwkv6_scan_ref` for the output gradient ``dout``
+    (B, H, T, DK) and the final state's ``dS_T`` (B, H, DK, DK; None means
+    zeros, as in training, where the loss never reads the state).
+
+    A forward loop keeps every state ``S_{t-1}`` before step t, then a
+    reverse loop carries the state's gradient ``dS_t`` (the gradient of
+    the state after step t) from ``dS_T``, all in f32::
+
+        dr_t    = S_{t-1} dout_t + u k_t (v_t . dout_t)
+        dk_t    = dS_t v_t       + u r_t (v_t . dout_t)
+        dv_t    = k_t dS_t       + dout_t sum_i u_i r_t,i k_t,i
+        dlogw_t = w_t sum_v dS_t S_{t-1}
+        du      = sum_b,t r_t k_t (v_t . dout_t)
+        dS_{t-1} = diag(w_t) dS_t + r_t^T dout_t,   ds0 = dS_0
+
+    Returns (dr, dk, dv, dlogw, du, ds0): dr/dk/dv in r's dtype, du in u's,
+    dlogw and ds0 in f32, each rounded once from f32 (the cotangents of the
+    reference's ``.astype(f32)`` of its inputs)."""
+    f32 = torch.float32
+    B, H, T, DK = r.shape
+    u32 = u.to(f32)[None]                                   # (1, H, DK)
+    states, S = [], s0.to(f32)
+    for t in range(T):
+        states.append(S)
+        w = torch.exp(logw[:, :, t].to(f32))
+        S = w[..., :, None] * S + k[:, :, t].to(f32)[..., :, None] \
+            * v[:, :, t].to(f32)[..., None, :]
+    dS = (torch.zeros_like(S) if dS_T is None else dS_T.to(f32))
+    dr, dk, dv, dlogw = ([None] * T for _ in range(4))
+    du = torch.zeros((B, H, DK), dtype=f32, device=r.device)
+    for t in reversed(range(T)):
+        rt, kt, vt, dot = (a[:, :, t].to(f32) for a in (r, k, v, dout))
+        w = torch.exp(logw[:, :, t].to(f32))
+        vd = (vt * dot).sum(-1, keepdim=True)
+        dr[t] = torch.einsum("bhkv,bhv->bhk", states[t], dot) + u32 * kt * vd
+        dk[t] = torch.einsum("bhkv,bhv->bhk", dS, vt) + u32 * rt * vd
+        dv[t] = torch.einsum("bhk,bhkv->bhv", kt, dS) \
+            + dot * (u32 * rt * kt).sum(-1, keepdim=True)
+        dlogw[t] = w * (dS * states[t]).sum(-1)
+        du = du + rt * kt * vd
+        dS = w[..., :, None] * dS + rt[..., :, None] * dot[..., None, :]
+    return (torch.stack(dr, 2).to(r.dtype), torch.stack(dk, 2).to(k.dtype),
+            torch.stack(dv, 2).to(v.dtype), torch.stack(dlogw, 2),
+            du.sum(0).to(u.dtype), dS)

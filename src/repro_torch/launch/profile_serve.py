@@ -36,13 +36,15 @@ OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
                "flash_bwd_": "flash_attention_bwd",
                "residual_int8_kernel": "residual_int8",
                "residual_int8_loop_kernel": "residual_int8",
-               "rwkv6_scan_kernel": "rwkv6_scan"}
+               "rwkv6_scan_kernel": "rwkv6_scan",
+               "rwkv6_scan_bwd_kernel": "rwkv6_scan_bwd",
+               "rwkv6_bwd_du_kernel": "rwkv6_scan_bwd"}
 
 
 # named ranges, which a trace also lists on the device as the span of the
 # kernels launched inside them: --obs's per-layer ranges and
-# rf_train_step's parts (launch/profile_train.py)
-RANGES = ("moe_l", "rf_train_step.")
+# rf_train_step's and lm_train_step's parts (launch/profile_train.py)
+RANGES = ("moe_l", "rf_train_step.", "lm_train_step.")
 
 
 def kernel_group(name: str) -> str:

@@ -1,17 +1,22 @@
 """Where a training step's device time goes, by kernel and by part.
 
-Trains DiT-MoE-XL at full width, depth cut (8 layers by default: the f32
-params, gradients, moments and clipped copy of 28 layers do not fit one
-80 GB card), with adaLN and the output layer perturbed from random
-weights, under ``torch.profiler``, and prints the CUDA kernels grouped
-into the port's kernels (forward and backward), cuBLAS products and
-everything else, then the step's three parts (the ``rf_train_step.*``
-ranges: forward and loss, backward, clip and AdamW), with the device's
-busy share of the wall time::
+Trains one model on the card under ``torch.profiler`` and prints the CUDA
+kernels grouped into the port's kernels (forward and backward), cuBLAS
+products and everything else, then the step's three parts (the
+``*_train_step.forward / .backward / .optimizer`` ranges: forward and
+loss, backward, clip and AdamW), with the device's busy share of the wall
+time::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train --layers 8 --batch 8 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch rwkv6-3b --batch 8 --seq 128
 
-A warm-up step runs first and is not traced.  Needs a CUDA device.
+``--arch dit-moe-xl`` (the default): full width, depth cut (8 layers by
+default: the f32 params, gradients, moments and clipped copy of 28 layers
+do not fit one 80 GB card), adaLN and the output layer perturbed from
+random weights, f32, ``rf_train_step``.  ``--arch rwkv6-3b``: full width
+and depth by default, bf16 params and f32 moments as ``train_lm`` makes
+them, batches of ``--seq`` tokens, ``lm_train_step``.  A warm-up step
+runs first and is not traced.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -21,18 +26,24 @@ import time
 
 import torch
 
-from repro_torch.configs.dit_moe_xl import config as xl_config
-from repro_torch.data.synthetic import latent_batches
+from repro_torch.configs import get_config
+from repro_torch.data.synthetic import latent_batches, token_batches
 from repro_torch.launch.profile_serve import RANGES, kernel_groups, print_groups
+from repro_torch.launch.train import lm_train_step
+from repro_torch.models.api import get_model
 from repro_torch.models.dit_moe import init_dit
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.sampling.rectified_flow import rf_draws, rf_train_step
 
-PARTS = ("rf_train_step.forward", "rf_train_step.backward",
-         "rf_train_step.optimizer")
+PART_NAMES = ("forward", "backward", "optimizer")
 
 
-def split_by_part(prof):
+def parts_of(step_name: str):
+    """The three range names of ``rf_train_step`` or ``lm_train_step``."""
+    return tuple(f"{step_name}.{p}" for p in PART_NAMES)
+
+
+def split_by_part(prof, parts=parts_of("rf_train_step")):
     """Kernel time (us) by part of the step.  A kernel belongs to the
     forward or the optimizer when it starts inside that range's device
     span (the trace lists a range on the device from its first kernel's
@@ -42,28 +53,20 @@ def split_by_part(prof):
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.events() if e.device_type == cuda]
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
-             if e.name in (PARTS[0], PARTS[2])]
-    parts = dict.fromkeys(PARTS, 0.0)
+             if e.name in (parts[0], parts[2])]
+    out = dict.fromkeys(parts, 0.0)
     for e in events:
         if e.name.startswith(RANGES):
             continue
         start = e.time_range.start
-        part = next((n for s, t, n in spans if s <= start < t), PARTS[1])
-        parts[part] += e.time_range.elapsed_us()
-    return parts
+        part = next((n for s, t, n in spans if s <= start < t), parts[1])
+        out[part] += e.time_range.elapsed_us()
+    return out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=8)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--top", type=int, default=12)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train: needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = xl_config().replace(num_layers=args.layers)
+def _dit_step(args):
+    """(config, step function, step name) for DiT-MoE-XL cut to --layers."""
+    cfg = get_config("dit-moe-xl").replace(num_layers=args.layers or 8)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_dit(cfg, generator=gen)
     for blk in params["blocks"]:        # adaLN-zero blocks are identity maps
@@ -79,6 +82,42 @@ def main(argv=None):
         nonlocal params, opt
         params, opt, _ = rf_train_step(params, opt, next(it), cfg,
                                        draws=rf_draws(gen, args.batch, shape))
+    return cfg, step, "rf_train_step"
+
+
+def _lm_step(args):
+    """(config, step function, step name) for an LM family at --layers
+    (its full depth by default), bf16 params from seed 0."""
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    api = get_model(cfg)
+    params = api.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params)
+    it = token_batches(cfg.vocab_size, args.batch, args.seq, seed=0, device="cuda")
+    total = args.steps + 1
+
+    def step():
+        nonlocal params, opt
+        params, opt, _ = lm_train_step(params, opt, next(it), cfg, total=total)
+    return cfg, step, "lm_train_step"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="dit-moe-xl", choices=["dit-moe-xl", "rwkv6-3b"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (DiT-MoE-XL: 8 by default; an LM: its config's)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128, help="tokens a sequence (LM)")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, step, name = (_dit_step if args.arch == "dit-moe-xl" else _lm_step)(args)
+    parts = parts_of(name)
 
     step()                                   # warm-up, not traced
     torch.cuda.synchronize()
@@ -90,24 +129,27 @@ def main(argv=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels, total, groups = kernel_groups(prof)
-    parts = split_by_part(prof)
-    print(f"{cfg.name} at {args.layers} layers, batch {args.batch}, {args.steps} "
+    by_part = split_by_part(prof, parts)
+    shape = (f"batch {args.batch} x {args.seq} tokens" if name == "lm_train_step"
+             else f"batch {args.batch}")
+    print(f"{cfg.name} at {cfg.num_layers} layers, {shape}, {args.steps} "
           f"training steps on {torch.cuda.get_device_name(0)}")
     print(f"wall {wall_us / 1e3:.3f} ms ({wall_us / 1e3 / args.steps:.3f} ms/step); "
           f"kernel time {total / 1e3:.3f} ms; device busy {100.0 * total / wall_us:.1f}%")
     print_groups(kernels, total, groups, args.steps, "step", args.top)
     print("kernel time by part of the step (the backward's with the few "
           "kernels outside the ranges: the batch and the draws):")
-    for name in PARTS:
-        us = parts[name]
-        print(f"  {name:26s} {us / 1e3 / args.steps:10.3f} ms/step "
+    for part in parts:
+        us = by_part[part]
+        print(f"  {part:26s} {us / 1e3 / args.steps:10.3f} ms/step "
               f"{100.0 * us / total:6.1f}%")
-    print(json.dumps({"wall_ms_per_step": wall_us / 1e3 / args.steps,
+    print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
+                      "wall_ms_per_step": wall_us / 1e3 / args.steps,
                       "busy_share": total / wall_us,
                       "groups_ms_per_step": {g: v[0] / 1e3 / args.steps
                                              for g, v in groups.items()},
                       "parts_ms_per_step": {k: v / 1e3 / args.steps
-                                            for k, v in parts.items()}}))
+                                            for k, v in by_part.items()}}))
 
 
 if __name__ == "__main__":

@@ -1,20 +1,25 @@
 """Training launcher of the port (port of ``repro.launch.train``).
 
 Trains the DiT-MoE diffusion model on synthetic class-conditional latents
-with rectified flow, AdamW and the cosine schedule, gradient clipping, and
-an optional checkpoint at the end (the reference's format 3, readable by
-either package).  Training runs in f32.  Every step goes through the
-kernels' autograd Functions on the card (the backward kernels included)
-and through their plain versions on the CPU.
+with rectified flow (``train_diffusion``, f32), and the RWKV-6 language
+model (the ``ssm`` family) on the synthetic token stream
+(``train_lm``, bf16 params as the reference's init gives them, f32
+AdamW moments).  Both use AdamW and the cosine schedule, gradient
+clipping, and an optional checkpoint at the end (the reference's format
+3, readable by either package).  Every step goes through the kernels'
+autograd Functions on the card (the backward kernels included) and
+through their plain versions on the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-moe-xl \\
       --smoke --device cpu --steps 5 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --smoke --device cpu --steps 3 --batch 2 --seq 16
 
 The flags are the reference's (``--arch --smoke --steps --batch --seq
---mesh --ckpt``) plus ``--device``.  Not ported yet, and refused with a
-``NotImplementedError`` that names ROADMAP.md: the language-model families
-(``train_lm`` waits for an ``rwkv6_scan`` backward kernel and for A.12's
-families) and the ``local`` / ``prod`` training meshes.
+--mesh --ckpt``) plus ``--device``; the CLI prints every step's loss (the
+reference's every 10th).  Not ported yet, and refused with a
+``NotImplementedError`` that names ROADMAP.md: the other language-model
+families (A.12) and the ``local`` / ``prod`` training meshes.
 """
 from __future__ import annotations
 
@@ -24,13 +29,77 @@ from typing import Optional
 
 import torch
 
-from repro_torch.checkpoint.io import save_checkpoint
+from repro_torch.checkpoint.io import save_checkpoint, unflatten
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.data.synthetic import latent_batches
+from repro_torch.data.synthetic import latent_batches, token_batches
+from repro_torch.models.api import get_model
 from repro_torch.models.dit_moe import init_dit
-from repro_torch.optim.adamw import adamw_init
+from repro_torch.optim.adamw import (adamw_init, adamw_update,
+                                     clip_by_global_norm, cosine_schedule,
+                                     tree_leaves, tree_map)
 from repro_torch.sampling.rectified_flow import rf_draws, rf_train_step
+
+
+def lm_train_step(params, opt_state, batch, cfg, *, total: int):
+    """One step of the reference's ``train_lm``: the gradients of the
+    family's ``loss_fn`` on ``batch`` (tokens, labels), clipped to global
+    norm 1.0, and AdamW at ``cosine_schedule(step, base_lr=3e-4,
+    warmup=20, total=total)``.  ``params`` and the moments are updated in
+    place; the metrics (``loss``, ``grad_norm``, ``lr``) stay 0-d device
+    tensors.  Returns (params, opt_state, metrics)."""
+    api = get_model(cfg)
+    rng = torch.profiler.record_function   # named ranges for profile_train
+    with torch.enable_grad():
+        # leaves that require grad, sharing the params' storage; the
+        # params themselves stay plain tensors, so serving from them
+        # later takes the kernels' no-grad path
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with rng("lm_train_step.forward"):
+            loss, _ = api.loss_fn(live, batch, cfg)
+        leaves = tree_leaves(live)
+        with rng("lm_train_step.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with rng("lm_train_step.optimizer"):
+        grads = unflatten(params, [torch.zeros_like(p) if g is None else g
+                                   for g, p in zip(grads, leaves)])
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        lr = cosine_schedule(opt_state.step, base_lr=3e-4, warmup=20,
+                             total=total)
+        params, opt_state = adamw_update(grads, opt_state, params, lr=lr)
+    return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm,
+                               "lr": lr}
+
+
+def train_lm(cfg, *, steps: int, batch: int, seq: int, mesh=None,
+             ckpt: Optional[str] = None, log_every: int = 10, device=None,
+             seed: int = 0):
+    """Train the language model ``cfg`` for ``steps`` steps on batches of
+    ``batch`` x ``seq`` tokens from ``token_batches(..., seed=seed)`` (the
+    reference's stream for the same seed).  The params come from the
+    family's init on a generator of the run's device seeded from ``seed``,
+    in the init's dtype (bf16).  Prints the reference's line every
+    ``log_every`` steps and at the last, writes ``ckpt`` at the end when
+    given, and returns the trained params."""
+    if mesh is not None:
+        raise NotImplementedError("train_lm over a mesh is not ported yet "
+                                  "(ROADMAP.md A)")
+    api = get_model(cfg)
+    dev = resolve_device(device)
+    params = api.init(cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+    opt = adamw_init(params)
+    it = token_batches(cfg.vocab_size, batch, seq, seed=seed, device=dev)
+    t0 = time.time()
+    for i in range(steps):
+        params, opt, m = lm_train_step(params, opt, next(it), cfg, total=steps)
+        if i % log_every == 0 or i == steps - 1:
+            print(f"step {i:5d}  loss {float(m['loss']):.4f}  "
+                  f"gnorm {float(m['grad_norm']):.3f}  "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)", flush=True)
+    if ckpt:
+        save_checkpoint(ckpt, params, step=steps)
+        print(f"saved {ckpt}")
+    return params
 
 
 def train_diffusion(cfg, *, steps: int, batch: int, ckpt: Optional[str] = None,
@@ -84,15 +153,18 @@ def main(argv=None):
         raise NotImplementedError(
             f"--mesh {args.mesh}: training meshes are not ported yet "
             f"(ROADMAP.md A)")
-    if cfg.family != "dit_moe":
+    if cfg.family not in ("dit_moe", "ssm"):
         raise NotImplementedError(
             f"training {cfg.name} ({cfg.family}) is not ported yet: train_lm "
-            f"waits for an rwkv6_scan backward kernel and the other families "
-            f"(ROADMAP.md A, A.12)")
+            f"runs the ssm family (RWKV-6) so far; the other families are "
+            f"ROADMAP.md A.12")
     print(f"training {cfg.name} ({cfg.family}), "
           f"{cfg.param_count() / 1e6:.1f}M params")
-    return train_diffusion(cfg, steps=args.steps, batch=args.batch,
-                           ckpt=args.ckpt, device=args.device)
+    if cfg.family == "dit_moe":
+        return train_diffusion(cfg, steps=args.steps, batch=args.batch,
+                               ckpt=args.ckpt, log_every=1, device=args.device)
+    return train_lm(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                    ckpt=args.ckpt, log_every=1, device=args.device)
 
 
 if __name__ == "__main__":

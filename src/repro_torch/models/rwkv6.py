@@ -11,7 +11,8 @@ squared-ReLU channel-mix FFN.  Time mixing per head (DK x DK state S)::
 with w_t = exp(-exp(decay_t)).  The recurrence always goes through
 :func:`repro_torch.kernels.ops.rwkv6_scan`: the hand-written kernel on the
 card, its plain version on the CPU.  Prefill runs it over the prompt,
-decode with T = 1 from the carried state.
+decode with T = 1 from the carried state; training differentiates
+:func:`loss_fn`, whose recurrence then runs the backward kernel too.
 
 Params are a plain dict in the JAX package's layout: ``layers`` holds one
 tensor per leaf stacked over a leading layer axis, and the layers run in a
@@ -52,9 +53,15 @@ def _fill(stack, layer, i: int) -> None:
             stack[k][i] = v
 
 
-def _layer(stack, i: int):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+def _unstack(stack, n: int):
+    """The first ``n`` layers of stacked params as one dict each, of views
+    into the stacked leaves: one ``unbind`` a leaf, whose backward stacks
+    the layers' gradients once.  (Indexing the stack per layer would give
+    each layer's gradient a zero-filled copy of the whole stack, summed
+    over the layers: at rwkv6-3b that is most of a training step.)"""
+    cols = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
             for k, v in stack.items()}
+    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
 
 
 def init_rwkv6(cfg, *, generator: torch.Generator,
@@ -210,8 +217,7 @@ def forward(params, tokens: torch.Tensor, cfg, *, state=None):
     if state is None:
         state = init_state(cfg, B, x.device)
     S_out, tm_out, cm_out = [], [], []
-    for i in range(cfg.num_layers):
-        p = _layer(params["layers"], i)
+    for i, p in enumerate(_unstack(params["layers"], cfg.num_layers)):
         h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
         tm, S, tm_x = _time_mix_scan(p, h, state["tm_x"][i].to(h.dtype),
                                      state["S"][i], cfg)
@@ -236,8 +242,11 @@ def forward(params, tokens: torch.Tensor, cfg, *, state=None):
 
 
 def loss_fn(params, batch, cfg):
-    """Mean next-token cross-entropy of ``batch`` (tokens, labels); the
-    port scores forward only (training is not ported)."""
+    """Mean next-token cross-entropy of ``batch`` (tokens, labels).
+    Differentiable: with grad enabled and params that require it, the
+    recurrence goes through ``ops.RWKV6ScanFn`` (its backward kernel on the
+    card) and the rest through PyTorch's autograd
+    (``launch/train.lm_train_step``)."""
     logits, _ = forward(params, batch["tokens"], cfg)
     ce = L.softmax_cross_entropy(logits, batch["labels"])
     return ce, {"ce": ce}

@@ -6,6 +6,7 @@ object in two halves with a pause between, and its linker refuses an
 object that is not whole, so builds that shared their objects would fail
 here.  No CUDA toolkit is needed.
 """
+import re
 import sys
 import threading
 
@@ -171,3 +172,29 @@ def test_sass_opcodes_counts_each_kernels_tensor_core_instructions(fake_toolchai
     assert build.sass_opcodes(("HGMMA", "HMMA", "FFMA")) == {
         "bwd_wgmma<3>": {"HGMMA": 2, "HMMA": 0, "FFMA": 1},
         "flash_bwd_dkdv<9>": {"HGMMA": 0, "HMMA": 1, "FFMA": 1}}
+
+
+def test_every_source_and_entry_point_is_registered():
+    """Each .cu under csrc/ is compiled, each header is hashed, and each
+    C entry point the wrappers call has its ctypes signature (the RWKV-6
+    backward's: 15 pointers, B, H, T, DK, 15 strides, 3 dtypes, device,
+    stream)."""
+    assert sorted(build.SOURCES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
+    assert sorted(build.HEADERS) == sorted(p.name for p in build.CSRC.glob("*.cuh"))
+    assert "rwkv6_scan_bwd.cu" in build.SOURCES
+    sig = build.SIGNATURES["dice_rwkv6_scan_bwd"]
+    assert len(sig) == 15 + 4 + 15 + 4 + 1
+    assert sig[15:19] == [build._I] * 4 and sig[19:34] == [build._L] * 15
+    for src in build.SOURCES:
+        text = (build.CSRC / src).read_text()
+        for name in re.findall(r'extern "C" int (\w+)\(', text):
+            assert name in build.SIGNATURES, (src, name)
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN4dice12_GLOBAL__N_121rwkv6_scan_bwd_kernelILi64EEEvNS0_7BwdArgsE",
+     "rwkv6_scan_bwd<64>"),
+    ("_ZN4dice46_GLOBAL__N__0a1b2c3d_13_rwkv6_scan_cu_1122334417rwkv6_scan_kernelILi64EEEvNS0_"
+     "8ScanArgsEPKvPKfPfSA_iii", "rwkv6_scan<64>")])
+def test_kernel_labels_tell_the_scan_from_its_backward(mangled, label):
+    assert build._kernel_label(mangled) == label

@@ -10,7 +10,8 @@ machine with only PyTorch:
 (``--noconftest``: the shared conftest imports JAX.)  Tolerances: f32
 1e-4 (sums of up to a few thousand terms in another order than cuBLAS'),
 bf16 2e-2; the int8 codec's q and scale must agree exactly; the RWKV-6
-recurrence 1e-3 (f32 state and output, sums of DK terms chained over T).
+recurrence 1e-3 (f32 state and output, sums of DK terms chained over T);
+its backward as ``_close_scan_bwd`` says.
 """
 import math
 
@@ -369,6 +370,99 @@ def test_rwkv6_scan_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError):                   # last dim strided
         rt = r.transpose(2, 3).contiguous().transpose(2, 3)
         ops.rwkv6_scan(rt, rt, rt, logw, u, s0)
+
+
+def _close_scan_bwd(got, want, n):
+    """As chip_smoke.compare_sum holds sums of ``n`` terms: rtol 1e-4 (f32)
+    or 2e-2 (bf16 outputs, one rounding that can land on the neighbouring
+    value), atol that plus max(1e-4, n 2^-24) of the largest magnitude
+    (dlogw is a running sum over T: its error grows with T, not with each
+    element's size)."""
+    rtol = 1e-4 if got.dtype == torch.float32 else 2e-2
+    atol = rtol + max(1e-4, n * 2.0 ** -24) * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def _scan_bwd_inputs(gen, B, H, T, DK, dtype):
+    """The forward's inputs with decays over [-6, 2] (w from 6e-4 to
+    0.9975), dout and a final-state gradient."""
+    r, k, v, _, u, s0 = _scan_inputs(gen, B, H, T, DK, dtype)
+    kw = dict(generator=gen, device="cuda")
+    logw = -torch.exp(torch.rand((B, H, T, DK), **kw) * 8.0 - 6.0)
+    dout = torch.randn((B, H, T, DK), **kw)
+    dS = 0.5 * torch.randn((B, H, DK, DK), **kw)
+    return (r, k, v, logw, u, s0), dout, dS
+
+
+@pytest.mark.parametrize("DK", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [1, 37, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_dS", [True, False])
+def test_rwkv6_scan_bwd_kernel(gen, DK, T, dtype, with_dS):
+    args, dout, dS = _scan_bwd_inputs(gen, 2, 3, T, DK, dtype)
+    dS_T = dS if with_dS else None
+    got = _launched("rwkv6_scan_bwd", lambda: ops.rwkv6_scan_bwd(*args, dout, dS_T))
+    want = ref.rwkv6_scan_bwd_ref(*args, dout, dS_T)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close_scan_bwd(g, w, T + DK)
+    again = ops.rwkv6_scan_bwd(*args, dout, dS_T)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_rwkv6_scan_bwd_reads_strided_inputs_and_keeps_nan(gen):
+    """(B, T, H, DK) projections and output gradient permuted to
+    (B, H, T, DK), as the model hands them over, give what contiguous
+    copies give; a NaN in r gives NaN where the plain version has it."""
+    B, T, H, DK = 2, 45, 3, 64
+    kw = dict(generator=gen, device="cuda")
+    r, k, v, dout = (torch.randn((B, T, H, DK), **kw).permute(0, 2, 1, 3) for _ in range(4))
+    r, k, v = (a.to(torch.bfloat16) for a in (r, k, v))
+    logw = (-torch.exp(torch.rand((B, T, H, DK), **kw) * 8.0 - 6.0)).permute(0, 2, 1, 3)
+    u = (0.5 + 0.1 * torch.randn((H, DK), **kw)).to(torch.bfloat16)
+    s0 = 0.1 * torch.randn((B, H, DK, DK), **kw)
+    got = ops.rwkv6_scan_bwd(r, k, v, logw, u, s0, dout)
+    flat = [a.contiguous() for a in (r, k, v, logw)]
+    want = ops.rwkv6_scan_bwd(*flat, u, s0, dout.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    bad = flat[0].clone()
+    bad[1, 2, 20, 5] = math.nan
+    got = ops.rwkv6_scan_bwd(bad, *flat[1:], u, s0, dout.contiguous())
+    want = ref.rwkv6_scan_bwd_ref(bad, *flat[1:], u, s0, dout.contiguous())
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert bool(torch.isnan(got[3]).any())
+
+
+def test_autograd_goes_through_the_scan_backward_kernel(gen):
+    args, dout, dS = _scan_bwd_inputs(gen, 2, 3, 40, 64, torch.bfloat16)
+    live = [a.clone().requires_grad_() for a in args]
+    before = dict(ops.LAUNCHES)
+    out, sT = ops.rwkv6_scan(*live)
+    got = torch.autograd.grad((out * dout).sum(), live)
+    want = ref.rwkv6_scan_bwd_ref(*args, dout)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, args):
+        assert g.dtype == x.dtype
+        _close_scan_bwd(g, w.to(x.dtype), 40 + 64)
+    assert ops.LAUNCHES["rwkv6_scan"] == before["rwkv6_scan"] + 1
+    assert ops.LAUNCHES["rwkv6_scan_bwd"] == before["rwkv6_scan_bwd"] + 1
+    with torch.no_grad():
+        plain_out, plain_sT = ops.rwkv6_scan(*args)
+    assert torch.equal(plain_out, out.detach()) and torch.equal(plain_sT, sT.detach())
+
+
+def test_rwkv6_scan_bwd_refuses_what_the_kernel_does_not_take(gen):
+    args, dout, dS = _scan_bwd_inputs(gen, 1, 2, 8, 32, torch.float32)
+    with pytest.raises(TypeError):
+        ops.rwkv6_scan_bwd(*args, dout.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan_bwd(*args, dout, dS.transpose(2, 3))
+    with pytest.raises(ValueError):
+        ops.rwkv6_scan_bwd(*args, dout.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError):
+        a = _scan_inputs(gen, 1, 2, 4, 24, torch.float32)
+        ops.rwkv6_scan_bwd(*a, torch.zeros((1, 2, 4, 24), device="cuda"))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -51,11 +51,14 @@ def test_the_paging_slice_modules_are_checked(rel):
 
 
 @pytest.mark.parametrize("rel", ["optim/adamw.py", "metrics/fid_proxy.py",
-                                 "launch/train.py", "data/synthetic.py"])
+                                 "launch/train.py", "data/synthetic.py",
+                                 "launch/profile_train.py", "models/rwkv6.py",
+                                 "kernels/ops.py"])
 def test_the_training_slice_modules_are_checked(rel):
-    """The optimizer, the FID proxy, the train CLI and the synthetic latents
-    are among the sources checked above, and import neither JAX nor the
-    JAX package."""
+    """The optimizer, the FID proxy, the train CLI (DiT-MoE and RWKV-6),
+    its profiler, the synthetic data, the RWKV-6 model and the kernel
+    wrappers with their autograd Functions are among the sources checked
+    above, and import neither JAX nor the JAX package."""
     path = PORT / rel
     assert path in _sources()
     assert not _imported_roots(path) & set(FORBIDDEN)

@@ -462,7 +462,8 @@ def test_train_cli_checkpoint_reads_in_reference_bit_for_bit(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--arch", "dit-moe-xl", "--smoke", "--mesh",
                                    "local"],
-                                  ["--arch", "rwkv6-3b", "--smoke"]])
+                                  ["--arch", "rwkv6-3b", "--smoke", "--mesh",
+                                   "local"]])
 def test_train_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(argv + ["--device", "cpu", "--steps", "1"])

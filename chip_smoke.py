@@ -167,15 +167,20 @@ non-zero and no phase's failure is caught:
      FID proxy against sync, interweaved < displaced and deep <= 1.05 x
      interweaved.
  13. main path 9: RWKV-6 training.  (a) At the end of phase 3 (lines
-     ``3B``): ``rwkv6_scan_bwd`` (three passes in one launch, then du's sum
-     over the batch) against its plain version at rwkv6-3b's training
-     shape (8, 40, 128, 64) bf16 with and without a final-state gradient,
-     its prefill shape (T = 2048), f32, DK 16/32/128, T = 1 and T = 45
-     (off the 16-step tile), decays drawn over [-6, 2]; two runs bit for
-     bit; a NaN in r NaN where the plain version has it; its device and
-     events time against the bound and beside the forward kernel's device
-     time at the same shape (``bwd_over_fwd``: the ratio compares across
-     cards); no single library call computes it.  (b) The smoke RWKV-6 (2
+     ``3B``): ``rwkv6_scan_bwd`` (the chunked recurrence on the tensor
+     cores in one launch, then dlogw's running sums and du's sum over the
+     batch) against its plain version at rwkv6-3b's training shape (8, 40,
+     128, 64) bf16 with and without a final-state gradient, its prefill
+     shape (T = 2048), f32, DK 16/32/128, T = 1 and T = 45 (off the
+     16-step chunk), decays drawn over [-6, 2], a logw of -inf and logw
+     over [-30, -20]; two runs bit for bit; a NaN in r NaN where the plain
+     version has it; HMMA in its SASS; its ptxas lines; its device and
+     events time against the bound (bytes, 3xTF32, FP32) and beside the
+     forward kernel's device time at the same shape (``bwd_over_fwd``: the
+     ratio compares across cards) and, when the environment variable
+     CHIP_SMOKE_PARENT names a ``git archive`` tar of the parent commit,
+     beside that commit's kernel, built from its sources and timed through
+     its own wrapper in the same run; no single library call computes it.  (b) The smoke RWKV-6 (2
      layers, d 128): f32 step-0 gradients card vs CPU leaf by leaf, then
      30 ``lm_train_step``s on the CPU (plain versions) and on the card
      (kernels) from the same weights and batches, f32 (losses within 1e-3)
@@ -197,6 +202,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2936,17 +2942,28 @@ LM_SMOKE_STEPS, LM_SMOKE_BATCH, LM_SMOKE_SEQ = 30, 2, 32   # 13b
 # elements; the CPU test holds the port to the reference's printed bf16
 # losses at 2e-3 (observed 8.3e-4), so card vs CPU in bf16 is held to 1e-2
 TOL_LM_BF16_LOSS = 1e-2
-SCAN_BWD_LAUNCHES = 2     # rwkv6_scan_bwd: the three passes, then du's sum over b
+SCAN_BWD_LAUNCHES = 2     # rwkv6_scan_bwd: the chunked recurrence, then dlogw's sums and du's
+# the names of those two kernels, which 13a requires in each trace it times
+SCAN_BWD_KERNELS = ("rwkv6_scan_bwd_kernel<", "rwkv6_scan_bwd_finish_kernel")
+# 13a: a ``git archive`` tar of the parent commit, whose rwkv6_scan_bwd is
+# built from its own sources and timed through its own wrapper, in a
+# process of its own, beside this tree's (unset: not timed)
+PARENT_ENV = "CHIP_SMOKE_PARENT"
+PARENT_FLAG = "--time-parent-scan-bwd"    # that process's mode
 SCAN_BWD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+# dlogw's error where decays underflow, of the running sums' largest term
+# (tests/test_torch_rwkv6_train.py's F32_REL, 168 x 2^-24)
+DLOGW_SUMS_REL = 1e-5
 SCAN_BWD_REPLACES = ("no Pallas kernel: XLA autodiff of the jnp scan of "
                      "src/repro/models/rwkv6.py:143 (_time_mix_scan)")
 
 
-def _scan_bwd_inputs(gen, B, H, T, DK, dtype, permuted=False):
+def _scan_bwd_inputs(gen, B, H, T, DK, dtype, permuted=False, logw_range=None):
     """r/k/v/u in ``dtype``, logw = -exp(decay) with decay uniform over
-    [-6, 2] (w from 6e-4 to 0.9975), s0 0.1 x normal, dout normal, dS_T
-    0.5 x normal.  ``permuted``: (B, T, H, DK) tensors permuted to
-    (B, H, T, DK), as the model hands them over."""
+    [-6, 2] (w from 6e-4 to 0.9975; ``logw_range``: logw itself uniform
+    over that range), s0 0.1 x normal, dout normal, dS_T 0.5 x normal.
+    ``permuted``: (B, T, H, DK) tensors permuted to (B, H, T, DK), as the
+    model hands them over."""
     import torch
     kw = dict(generator=gen, device="cuda")
     shape = (B, T, H, DK) if permuted else (B, H, T, DK)
@@ -2954,7 +2971,11 @@ def _scan_bwd_inputs(gen, B, H, T, DK, dtype, permuted=False):
     def draw(x):
         return x.permute(0, 2, 1, 3) if permuted else x
     r, k, v = (draw(torch.randn(shape, **kw)).to(dtype) for _ in range(3))
-    logw = draw(-torch.exp(torch.rand(shape, **kw) * 8.0 - 6.0))
+    if logw_range is None:
+        logw = draw(-torch.exp(torch.rand(shape, **kw) * 8.0 - 6.0))
+    else:
+        lo, hi = logw_range
+        logw = draw(lo + (hi - lo) * torch.rand(shape, **kw))
     dout = draw(torch.randn(shape, **kw))
     u = (0.5 + 0.1 * torch.randn((H, DK), **kw)).to(dtype)
     s0 = 0.1 * torch.randn((B, H, DK, DK), **kw)
@@ -2983,30 +3004,107 @@ def compare_scan_bwd(tag: str, got, want, n: int) -> float:
     return max(errs)
 
 
+def check_dlogw_rounding(tag: str, r, k, got, want) -> None:
+    """dlogw where a chunk's decay products underflow: its values (w_t, at
+    most e^-20, times the rest) lie far below the f32 rounding of the
+    running sums of r dr and k dk it is the difference of, so
+    ``compare_sum``'s floor of 1e-4 holds its error, not its values.  Here
+    it is also held within DLOGW_SUMS_REL of those sums' largest term, as
+    the CPU mirror holds it: finite, with an error at that rounding.  No
+    check of the kernel's running-sum form can resolve values below it."""
+    terms = max(float((r.float() * want[0].float()).abs().max()),
+                float((k.float() * want[1].float()).abs().max()))
+    err = float((got[3] - want[3]).abs().max())
+    log(f"  {tag} dlogw: max_abs_err {err:.3e}, {err / terms:.3e} of the running sums' "
+        f"largest term {terms:.4g} (tol {DLOGW_SUMS_REL:g}); largest |dlogw| "
+        f"{float(want[3].abs().max()):.3e}")
+    if not (bool(got[3].isfinite().all()) and err <= DLOGW_SUMS_REL * terms):
+        raise AssertionError(f"{tag} dlogw: {err:.3e} against {DLOGW_SUMS_REL:g} x {terms:.4g}")
+
+
 def scan_bwd_bound(B, H, T, DK, es_rkv: int, es_u: int, with_dS: bool):
-    """(bound ms, what bounds it, FLOP) of the recurrence's backward: 12
-    FLOP an element and step (the formulas' 9: the state gradient's carry
-    3 and dr, dk, dv 2 each; and the forward state's recompute 3; the
-    kernel's third pass carries the state gradient again, 15 done); bytes:
-    r, k, v, logw, dout, s0, u (and dS_T) read once, dr, dk, dv, dlogw,
-    ds0, du written once."""
+    """(bound ms, what bounds it, FLOP, FP32 bound ms) of the recurrence's
+    backward: 12 FLOP an element and step (the formulas' 9: the state
+    gradient's carry 3 and dr, dk, dv 2 each; and the forward state's
+    recompute 3) at 3xTF32's rate (a third of TF32's: the chunked kernel's
+    state products run on the tensor cores), with the FP32 cores' rate
+    beside it; bytes: r, k, v, logw, dout, s0, u (and dS_T) read once, dr,
+    dk, dv, dlogw, ds0, du written once."""
     flops = 12.0 * DK * DK * B * H * T
     nbytes = (B * H * T * DK * (6 * es_rkv + 12) + B * H * DK * DK * 4 * (2 + int(with_dS))
               + 2 * H * DK * es_u)
-    ms, by = bound(flops, nbytes)
-    return ms, by, flops
+    ms, by = bound(flops, nbytes, PEAK_TF32_FLOPS / 3)
+    return ms, by, flops, bound(flops, nbytes)[0]
+
+
+def _parent_scan_bwd_ms(shapes):
+    """(commit, {T: CUDA-events ms}) of the parent's ``rwkv6_scan_bwd`` at
+    B = 8, H = 40, DK = 64 bf16 for each (T, input sets, iterations) of
+    ``shapes``, or (None, {}) when ``PARENT_ENV`` is unset.  ``PARENT_ENV``
+    names a ``git archive`` tar; the commit is read from its header, and
+    the tree is unpacked afresh into a temporary directory under build/
+    and timed by ``chip_smoke.py PARENT_FLAG`` in a process of its own, so
+    the parent's wrapper drives the parent's kernel whatever their C
+    signature and scratch."""
+    import tarfile
+    import tempfile
+    tar = os.environ.get(PARENT_ENV)
+    if not tar:
+        return None, {}
+    with tarfile.open(tar) as tf:
+        tf.next()
+        commit = tf.pax_headers.get("comment", "")
+        if not commit:
+            raise AssertionError(f"{PARENT_ENV}={tar}: no commit in its header "
+                                 f"(not made by git archive)")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="parent_tree.", dir=ROOT / "build") as tree:
+        with tarfile.open(tar) as tf:
+            tf.extractall(tree, filter="data")
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), PARENT_FLAG, tree,
+                              json.dumps(shapes)], capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"the parent's rwkv6_scan_bwd ({commit}) was not timed: "
+                             f"{out.stderr[-3000:]}")
+    return commit, {int(t): ms for t, ms in json.loads(out.stdout.splitlines()[-1]).items()}
+
+
+def time_parent_scan_bwd(tree: str, shapes) -> int:
+    """``chip_smoke.py PARENT_FLAG TREE SHAPES``: time the ``rwkv6_scan_bwd``
+    of the tree unpacked at TREE, built from its own sources by its own
+    ``kernels/build.py`` and called through its own wrapper, on inputs
+    drawn as 13a draws them; prints {T: CUDA-events ms} as JSON."""
+    sys.path.insert(0, str(Path(tree) / "src"))
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.timing import rotating, time_ms
+    if not Path(ops.__file__).resolve().is_relative_to(Path(tree).resolve()):
+        raise AssertionError(f"imported {ops.__file__}, not the tree at {tree}")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    got = {}
+    for T, n_sets, iters in shapes:
+        sets = [_scan_bwd_inputs(gen, 8, 40, T, 64, torch.bfloat16, permuted=True)
+                for _ in range(n_sets)]
+        got[T] = time_ms(rotating(ops.rwkv6_scan_bwd, [(*a, d) for a, d, _ in sets]), iters)
+        del sets
+    print(json.dumps(got))
+    return 0
 
 
 def phase_scan_backward(rows, smi):
     """13a, run at the end of phase 3 (lines ``3B``, where the profiler
     traces every launch): ``rwkv6_scan_bwd`` against its plain version at
     rwkv6-3b's training and prefill shapes, f32, DK 16/32/128, T = 1 and
-    off the tiles, with and without dS_T; two runs bit for bit; a NaN in
-    r; events and device time against the bound and beside the forward's
-    at the same shape (the backward/forward ratio compares across cards)."""
+    off the 16-step chunks, with and without dS_T, a logw of -inf and
+    decays whose chunk products underflow; two runs bit for bit; a NaN in
+    r; its products on the tensor cores (HMMA in the SASS); events and
+    device time against the bound (3xTF32, FP32 and bytes) and beside the
+    forward's at the same shape (the backward/forward ratio compares
+    across cards), and beside the parent commit's kernel when PARENT_ENV
+    names its tar."""
     import torch
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.launch.timing import device_ms, rotating, time_ms
+    from repro_torch.launch.timing import kernel_ms, rotating, time_ms
     gen = torch.Generator(device="cuda").manual_seed(22)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [((8, 40, LM_TRAIN_SEQ, 64), bf16, False, True, "rwkv6-3b training, dS_T none"),
@@ -3017,9 +3115,16 @@ def phase_scan_backward(rows, smi):
              ((2, 3, 300, 32), f32, False, False, "DK 32"),
              ((2, 3, 45, 128), bf16, True, False, "DK 128"),
              ((3, 5, 1, 64), bf16, True, False, "T = 1"),
-             ((3, 5, 45, 64), f32, True, False, "T odd, off the 16-step tile")]
+             ((3, 5, 45, 64), f32, True, False, "T odd, off the 16-step chunk"),
+             ((2, 4, 100, 64), bf16, True, False, "a logw of -inf: w 0 in one row at one step"),
+             ((2, 4, 100, 64), f32, True, False,
+              "logw in [-30, -20]: a chunk's decay products underflow f32")]
     for (B, H, T, DK), dtype, with_dS, permuted, label in cases:
-        args, dout, dS = _scan_bwd_inputs(gen, B, H, T, DK, dtype, permuted)
+        args, dout, dS = _scan_bwd_inputs(
+            gen, B, H, T, DK, dtype, permuted,
+            logw_range=(-30.0, -20.0) if "underflow" in label else None)
+        if "-inf" in label:
+            args[3][1, 2, 37, 5] = -math.inf
         dS_T = dS if with_dS else None
         got = ops.rwkv6_scan_bwd(*args, dout, dS_T)
         want = ref.rwkv6_scan_bwd_ref(*args, dout, dS_T)
@@ -3027,6 +3132,8 @@ def phase_scan_backward(rows, smi):
         tag = (f"3B [{smi}] rwkv6_scan_bwd B={B} H={H} T={T} DK={DK} {str(dtype)[6:]} "
                f"({label})")
         err = compare_scan_bwd(tag, got, want, T + DK)
+        if "underflow" in label:
+            check_dlogw_rounding(tag, args[0], args[1], got, want)
         if (T, with_dS) == (LM_TRAIN_SEQ, False):
             again = ops.rwkv6_scan_bwd(*args, dout, dS_T)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -3050,38 +3157,63 @@ def phase_scan_backward(rows, smi):
     for line in build.ptxas_report():
         if line.startswith("rwkv6_scan_bwd"):
             log(f"  3B [{smi}] ptxas {line}")
+    sass = {k: v for k, v in build.sass_opcodes(("HMMA", "FFMA")).items()
+            if k.startswith("rwkv6_scan_bwd<")}
+    log(f"  3B [{smi}] sass rwkv6_scan_bwd: {sass}")
+    if len(sass) != 8 or not all(c["HMMA"] > 0 for c in sass.values()):
+        raise AssertionError(f"rwkv6_scan_bwd: a product is not on the tensor cores ({sass})")
     # timed on three input sets in turn (26 MB of inputs a set at the
     # training shape), as the model hands them over (permuted views)
     B, H, DK = 8, 40, 64
-    for T, n_sets, iters, plain_iters in ((LM_TRAIN_SEQ, 3, 30, 3), (LM_PROMPT, 1, 5, 1)):
+    shapes = ((LM_TRAIN_SEQ, 3, 30, 3), (LM_PROMPT, 1, 5, 1))
+    parent_commit, parent_ms = _parent_scan_bwd_ms([shape[:3] for shape in shapes])
+    for T, n_sets, iters, plain_iters in shapes:
         sets = [_scan_bwd_inputs(gen, B, H, T, DK, bf16, permuted=True) for _ in range(n_sets)]
         bwd_sets = [(*a, d) for a, d, _ in sets]
         fwd_sets = [a for a, _, _ in sets]
-        # late in a whole run a trace can miss one of these launches, three
-        # traces in a row (the forward at the training shape: 29 of 30 on an
-        # H100 80GB HBM3 at 700 W), so the means are taken over the traced
-        # launches: for the backward's call of two (0.4 ms and a few us) one
-        # missed launch moves the mean by under 2%
-        dev = device_ms(rotating(ops.rwkv6_scan_bwd, bwd_sets), iters)
+        # late in a whole run traces lose launches (the forward at the
+        # training shape: 29 of 30, three traces in a row; a fourth trace
+        # here: 0 or 1 of its launches, three runs in a row; NVIDIA H100
+        # 80GB HBM3, 700 W), so the backward's device time by launch and
+        # the forward's come from one trace a shape, each kernel's mean
+        # taken over its traced launches; a trace without a launch of one
+        # of the three is retaken, and any other kernel in it raises; the
+        # forward's sets run two behind, so neither finds its inputs in L2
+        bwd_fn = rotating(ops.rwkv6_scan_bwd, bwd_sets)
+        fwd_fn = rotating(ops.rwkv6_scan, fwd_sets[2 % n_sets:] + fwd_sets[:2 % n_sets])
+        split = kernel_ms(lambda: (bwd_fn(), fwd_fn()), iters,
+                          SCAN_BWD_KERNELS + ("rwkv6_scan_kernel<",))
+        fwd = split.pop("rwkv6_scan_kernel<")
+        dev = sum(split.values())
         events = time_ms(rotating(ops.rwkv6_scan_bwd, bwd_sets), iters)
-        fwd = device_ms(rotating(ops.rwkv6_scan, fwd_sets), iters)
         plain = time_ms(rotating(ref.rwkv6_scan_bwd_ref, bwd_sets), plain_iters)
-        b_ms, b_by, flops = scan_bwd_bound(B, H, T, DK, 2, 2, False)
+        b_ms, b_by, flops, fp32_ms = scan_bwd_bound(B, H, T, DK, 2, 2, False)
+        if parent_commit is None:
+            was = f"parent kernel: not timed ({PARENT_ENV} unset)"
+        else:
+            parent = parent_ms[T]
+            was = (f"parent commit {parent_commit[:12]}'s kernel in this run, its own wrapper "
+                   f"in a process of its own (CUDA events) {parent:.4f} ms, parent / this "
+                   f"(events) {parent / events:.3f}")
         log(f"  3B [{smi}] rwkv6_scan_bwd B={B} H={H} T={T} DK={DK} bf16, dS_T none: kernel "
             f"device {dev:.4f} ms ({SCAN_BWD_LAUNCHES} launches; {100 * b_ms / dev:.1f}% of "
             f"bound), with host (CUDA events) {events:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}: {flops:.3e} FLOP of the formulas and the state's "
-            f"recompute at 67 TFLOP/s FP32; the kernel does 15/12 of it), forward kernel "
-            f"device {fwd:.4f} ms at the same shape, backward / forward {dev / fwd:.3f}; "
-            f"library: none (no single PyTorch call computes the recurrence's gradient)")
+            f"{b_ms:.4f} ms ({b_by}; {flops:.3e} FLOP of the formulas and the state's "
+            f"recompute at 3xTF32's 165 TFLOP/s {flops / (PEAK_TF32_FLOPS / 3) * 1e3:.4f} ms, "
+            f"at FP32's 67 TFLOP/s {fp32_ms:.4f} ms), forward kernel device {fwd:.4f} ms at "
+            f"the same shape, backward / forward {dev / fwd:.3f}; by launch (device ms) "
+            f"{ {k: round(v, 4) for k, v in split.items()} }; {was}; library: none (no "
+            f"single PyTorch call computes the recurrence's gradient)")
         if T == LM_TRAIN_SEQ:
             rows["rwkv6_scan_bwd"] = dict(
                 name="rwkv6_scan_bwd", route="cuda",
                 source="src/repro_torch/csrc/rwkv6_scan_bwd.cu", replaces=SCAN_BWD_REPLACES,
                 launches=0, max_abs_err=train_err, ms=dev, device_ms=dev, events_ms=events,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None, fwd_ms=fwd,
-                bwd_over_fwd=dev / fwd,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, fp32_bound_ms=fp32_ms,
+                library_ms=None, fwd_ms=fwd, bwd_over_fwd=dev / fwd,
                 shape=f"B=8 H=40 T={T} DK=64 bf16, dS_T none (rwkv6-3b training)")
+            if parent_commit is not None:
+                rows["rwkv6_scan_bwd"]["parent_events_ms"] = parent
         del sets, bwd_sets, fwd_sets
     torch.cuda.synchronize()
 
@@ -3227,6 +3359,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == [PARENT_FLAG]:
+        return time_parent_scan_bwd(sys.argv[2], json.loads(sys.argv[3]))
     with phase("1 environment"):
         smi = phase_environment()
     with phase("2 build"):
@@ -3275,7 +3409,7 @@ def main() -> int:
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",
-            "fp32_bound_ms", "fwd_ms", "bwd_over_fwd",
+            "fp32_bound_ms", "fwd_ms", "bwd_over_fwd", "parent_events_ms",
             "device_ms",
             "events_ms", "shape")
     log(json.dumps({"kernels": [{k: rows[n][k] for k in keys if k in rows[n]}

@@ -156,15 +156,18 @@ def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 
 
 _KERNEL = re.compile(r"(gate_up|down|bwd_wgmma|flash_bwd_dkdv|flash_bwd_dq|flash"
-                     r"|residual_int8_loop|residual_int8|rwkv6_scan_bwd|rwkv6_scan)_kernel"
-                     r"I(f|13__nv_bfloat16)?(?:Li(\d+)E)?")
+                     r"|residual_int8_loop|residual_int8|rwkv6_scan_bwd_finish"
+                     r"|rwkv6_scan_bwd|rwkv6_scan)_kernel"
+                     r"(?:I(f|13__nv_bfloat16)?(?:Li(\d+)E)?)?")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}   # mangled template arguments
 
 
 def _kernel_label(mangled: str) -> str:
     m = _KERNEL.search(mangled)
-    return "" if m is None else (
-        f"{m[1]}<{', '.join(a for a in (_DTYPES.get(m[2]), m[3]) if a)}>")
+    if m is None:
+        return ""
+    args = ", ".join(a for a in (_DTYPES.get(m[2]), m[3]) if a)
+    return f"{m[1]}<{args}>" if args else m[1]
 
 
 def sass_opcodes(opcodes: Tuple[str, ...],

@@ -525,8 +525,10 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On the card the inputs are :func:`rwkv6_scan`'s, read the same way;
     ``dout`` is f32 with a contiguous last dim, ``dS_T`` f32 and
-    contiguous.  Two launches: the three passes of
-    ``csrc/rwkv6_scan_bwd.cu``, then du's sum over the batch."""
+    contiguous.  Two launches: the chunked recurrence of
+    ``csrc/rwkv6_scan_bwd.cu`` (a block walking the state forward and
+    one walking its gradient backward for each (b, h)), then dlogw's
+    reverse running sums and du's sum over the batch."""
     B, H, T, DK = _check_rwkv6_shapes("rwkv6_scan_bwd", r, k, v, logw, u, s0)
     if tuple(dout.shape) != (B, H, T, DK):
         raise ValueError(f"rwkv6_scan_bwd: dout {tuple(dout.shape)} is not "
@@ -554,14 +556,15 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   for _ in range(3))
     dlogw = torch.empty((B, H, T, DK), **kw)
     ds0 = torch.empty((B, H, DK, DK), **kw)
-    du_part = torch.empty((B, H, DK), **kw)
+    # k (.) dk^st (B, H, T, DK), du's parts and Q_T (B, H, DK each)
+    scratch = torch.empty((B * H * DK * (T + 2),), **kw)
     du = torch.empty((H, DK), dtype=u.dtype, device=r.device)
     err = lib.dice_rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s0.data_ptr(), dout.data_ptr(),
         0 if dS_T is None else dS_T.data_ptr(), dr.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dlogw.data_ptr(), du.data_ptr(), ds0.data_ptr(),
-        du_part.data_ptr(), B, H, T, DK, *r.stride()[:3], *k.stride()[:3],
+        scratch.data_ptr(), B, H, T, DK, *r.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *logw.stride()[:3], *dout.stride()[:3],
         _DTYPES[r.dtype], _DTYPES[logw.dtype], _DTYPES[u.dtype],
         r.device.index or 0, _stream(r.device))

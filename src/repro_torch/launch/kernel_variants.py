@@ -3,12 +3,14 @@
 A variant is the kernel library built with ``-D`` macros that the sources
 read (``csrc/expert_ffn.cu``, ``csrc/flash_attention.cu``,
 ``csrc/tf32_mma.cuh``, ``csrc/rwkv6_scan.cu``, ``csrc/residual_int8.cu``,
-``csrc/expert_ffn_bwd.cu`` and ``csrc/flash_attention_bwd.cu`` name them):
-another tiling or tile size, the int8 codec's looping path for
-every row, or a diagnostic that shows what a part costs by leaving it out:
-one TF32 pass instead of the 3xTF32 split (fast, not f32-accurate), the
-scan without its row-group reduction or without widening its staged tiles
-(wrong outputs).  Every library is built by
+``csrc/expert_ffn_bwd.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/rwkv6_scan_bwd.cu`` name them): another tiling or tile size, the
+int8 codec's looping path for every row, or a diagnostic that shows what a
+part costs by leaving it out: one TF32 pass instead of the 3xTF32 split
+(fast, not f32-accurate), the scan without its row-group reduction or
+without widening its staged tiles, the scan's backward with one kind of
+block alone, without its sums inside a chunk (wrong outputs) or with less
+shared memory free.  Every library is built by
 :mod:`repro_torch.kernels.build`, all at once; then the wrappers of
 :mod:`repro_torch.kernels.ops` launch each in turn at the main paths'
 shapes, held against the plain version and timed, in two rounds in one
@@ -17,10 +19,11 @@ process::
     PYTHONPATH=src python -m repro_torch.launch.kernel_variants \\
         [--kernels rwkv6_scan,residual_int8]
 
-The tensor-core kernels (the two forward and the two backward ones) are
-timed with CUDA events (``time_ms``), the two short ones by their device
-time alone (``device_ms``; the int8 codec's
-inputs rotate over three sets, 113 MB, so each call reads from HBM).
+The tensor-core kernels (the two forward and the two DiT backward ones)
+are timed with CUDA events (``time_ms``), the two short ones and the
+scan's backward by their device time alone (``device_ms``; the int8
+codec's inputs rotate over three sets, 113 MB, and the scan backward's at
+the training shape over three, 78 MB, so each call reads from HBM).
 Prints the card, ptxas's registers and spills of each variant's kernels at
 those shapes, then one line per round, shape and variant: ms, max abs error
 and whether it meets the kernel's tolerance.  Needs nvcc and a CUDA device.
@@ -41,7 +44,7 @@ from repro_torch.launch.timing import device_ms, rotating, time_ms
 TOL_F32 = dict(rtol=1e-4, atol=1e-4)
 TOL_SCAN = dict(rtol=1e-3, atol=1e-3)
 KERNELS = ("expert_ffn", "flash_attention", "rwkv6_scan", "residual_int8",
-           "expert_ffn_bwd", "flash_attention_bwd")
+           "expert_ffn_bwd", "flash_attention_bwd", "rwkv6_scan_bwd")
 # name -> (the wrappers whose kernels it changes; -D macros)
 VARIANTS = {
     "committed": (KERNELS, ()),
@@ -50,8 +53,8 @@ VARIANTS = {
     "4 warps x 64 rows, 64-key tiles": (
         ("flash_attention",), ("DICE_FLASH_WARPS=4", "DICE_FLASH_KEYS=64")),
     "one TF32 pass (diagnostic, not f32-accurate)": (
-        ("expert_ffn", "flash_attention", "expert_ffn_bwd", "flash_attention_bwd"),
-        ("DICE_TF32_ONE_PASS",)),
+        ("expert_ffn", "flash_attention", "expert_ffn_bwd", "flash_attention_bwd",
+         "rwkv6_scan_bwd"), ("DICE_TF32_ONE_PASS",)),
     "backward pass 0 at 128 columns": (("expert_ffn_bwd",), ("DICE_BWD_GU_BN=128",)),
     "backward kernels with the cvt.rna split": (
         ("expert_ffn_bwd", "flash_attention_bwd"), ("DICE_BWD_CVT_SPLIT",)),
@@ -72,10 +75,19 @@ VARIANTS = {
     "scan without the widening pass (diagnostic, wrong outputs)": (
         ("rwkv6_scan",), ("DICE_SCAN_NO_WIDEN",)),
     "int8 looping path for every row": (("residual_int8",), ("DICE_INT8_LOOP",)),
+    "scan backward: the G side's blocks alone (diagnostic, wrong outputs)": (
+        ("rwkv6_scan_bwd",), ("DICE_SCAN_BWD_ONLY=0",)),
+    "scan backward: the P side's blocks alone (diagnostic, wrong outputs)": (
+        ("rwkv6_scan_bwd",), ("DICE_SCAN_BWD_ONLY=1",)),
+    "scan backward without the sums inside a chunk (diagnostic, wrong outputs)": (
+        ("rwkv6_scan_bwd",), ("DICE_SCAN_BWD_NO_INTRA",)),
+    "scan backward at 2 blocks an SM (diagnostic: 20 KB more shared memory asked)": (
+        ("rwkv6_scan_bwd",), ("DICE_SCAN_BWD_SMEM_EXTRA=20480",)),
 }
 PTXAS_KERNELS = ("gate_up<f32", "down<f32", "flash<f32", "rwkv6_scan<64>",
                  "residual_int8<f32, 9>", "residual_int8_loop<f32>", "bwd_wgmma",
-                 "flash_bwd_dq<9>", "flash_bwd_dkdv<9>")
+                 "flash_bwd_dq<9>", "flash_bwd_dkdv<9>", "rwkv6_scan_bwd<bf16, 64>",
+                 "rwkv6_scan_bwd_finish")
 
 
 def _max_err(got, want, tol):
@@ -104,6 +116,22 @@ def _check_grads(want, sums):
             tol = dict(TOL_F32)
             if n:
                 tol["atol"] += max(TOL_F32["rtol"], n * 2.0 ** -24) * float(w.abs().max())
+            err, ok = _max_err(o, w, tol)
+            errs.append(err)
+            oks.append(ok)
+        return max(errs), all(oks)
+    return check
+
+
+def _check_scan_bwd(want, n):
+    """(dr, dk, dv, dlogw, du, ds0) as chip_smoke.py's ``compare_scan_bwd``
+    holds them: TOL_F32 (bf16 outputs 2e-2) plus an atol of ``n`` terms'
+    tensor-core drift of each tensor's largest value."""
+    def check(out):
+        errs, oks = [], []
+        for o, w in zip(out, want):
+            tol = dict(TOL_F32) if w.dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+            tol["atol"] += max(TOL_F32["rtol"], n * 2.0 ** -24) * float(w.float().abs().max())
             err, ok = _max_err(o, w, tol)
             errs.append(err)
             oks.append(ok)
@@ -167,6 +195,17 @@ def cases(gen, kernels):
                    _check_scan(ref.rwkv6_scan_ref(*sets[0])),
                    lambda sets=sets, iters=iters: device_ms(
                        rotating(ops.rwkv6_scan, sets), iters))
+    if "rwkv6_scan_bwd" in kernels:
+        # the training shape rotates over 3 input sets (78 MB), as chip_smoke.py 13a
+        for T, n_sets, iters in ((128, 3, 30), (2048, 1, 5)):
+            sets = [(*scan_inputs(gen, 8, 40, T, 64),
+                     torch.randn((8, T, 40, 64), **kw).permute(0, 2, 1, 3))
+                    for _ in range(n_sets)]
+            yield (f"rwkv6_scan_bwd (8, 40, {T}, 64) bf16, dS_T none", "rwkv6_scan_bwd",
+                   lambda args=sets[0]: ops.rwkv6_scan_bwd(*args),
+                   _check_scan_bwd(ref.rwkv6_scan_bwd_ref(*sets[0]), T + 64),
+                   lambda sets=sets, iters=iters: device_ms(
+                       rotating(ops.rwkv6_scan_bwd, sets), iters))
     if "residual_int8" in kernels:
         for N in (4096, 8192):
             sets = [int8_inputs(gen, N, 1152) for _ in range(3)]

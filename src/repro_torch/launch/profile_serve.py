@@ -38,7 +38,7 @@ OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
                "residual_int8_loop_kernel": "residual_int8",
                "rwkv6_scan_kernel": "rwkv6_scan",
                "rwkv6_scan_bwd_kernel": "rwkv6_scan_bwd",
-               "rwkv6_bwd_du_kernel": "rwkv6_scan_bwd"}
+               "rwkv6_scan_bwd_finish_kernel": "rwkv6_scan_bwd"}
 
 
 # named ranges, which a trace also lists on the device as the span of the

@@ -3,7 +3,7 @@ a ``torch.profiler`` trace."""
 from __future__ import annotations
 
 import itertools
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -50,11 +50,12 @@ def device_ms(fn, iters: int, launches_per_call: Optional[int] = None,
     trace can miss a few of many short launches).  Host time between
     launches is not counted, so a kernel shorter than its wrapper's host
     path is timed as itself.  ``fn`` should launch only the kernels to be
-    timed (a wrapper's ``torch.empty`` launches none); raises if the trace
-    holds no device time.  Given ``launches_per_call``, a trace that holds
-    another number of launches than ``iters`` times that is never
-    averaged (it dropped kernels, and its mean would be wrong): a fresh
-    trace is taken, up to ``attempts`` in all, and then it raises.  (In a
+    timed (a wrapper's ``torch.empty`` launches none).  A trace that holds
+    fewer launches than half the calls (late in a whole chip_smoke.py run
+    one held none for 50 calls) or, given ``launches_per_call``, another
+    number of launches than ``iters`` times that is never averaged (it
+    dropped kernels, and its mean would be wrong): a fresh trace is taken,
+    up to ``attempts`` in all, and then it raises.  (In a
     whole chip_smoke.py run a trace of 40 launches of 0.13-0.15 ms once
     held 39.)"""
     fn()
@@ -76,16 +77,62 @@ def device_ms(fn, iters: int, launches_per_call: Optional[int] = None,
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not _annotation(e)]
         launches = sum(e.count for e in kernels)
-        if launches_per_call is None or launches == iters * launches_per_call:
+        per_call = round(launches / iters)
+        if launches_per_call is None and per_call >= 1:
+            break
+        if launches_per_call is not None and launches == iters * launches_per_call:
             break
     else:
+        if launches_per_call is None:
+            raise RuntimeError(f"device_ms: {launches} kernel launches traced for {iters} "
+                               f"calls, {attempts} times; the profiler saw no device time")
         raise RuntimeError(f"device_ms: {launches} kernel launches traced for "
                            f"{iters} calls of {launches_per_call}, {attempts} times")
-    per_call = round(launches / iters)
-    if per_call < 1:
-        raise RuntimeError(f"device_ms: {launches} kernel launches traced for "
-                           f"{iters} calls; the profiler saw no device time")
     return sum(device_us(e) for e in kernels) / 1e3 / launches * per_call
+
+
+def kernel_ms(fn, iters: int, names: Sequence[str], attempts: int = 3) -> Dict[str, float]:
+    """Device time per call of each kernel of ``names`` that ``fn``
+    launches, from one ``torch.profiler`` trace of ``iters`` calls (after a
+    warm-up call and a warm-up profiler step, as ``device_ms`` takes them).
+    A traced kernel belongs to the one name its full name contains; its
+    mean over its traced launches times its launches a call (its traced
+    launches over ``iters``, rounded) is that name's time, so a launch the
+    trace misses does not bias it.  Their sum is the call's device time:
+    where a call of several launches spends its time, from the one trace.
+    A trace in which a name has no launch (the profiler dropped them) is
+    never used: a fresh one is taken, up to ``attempts`` in all, and then
+    it raises.  A traced kernel that matches no name, or more than one,
+    raises at once: it would be counted as some other kernel's time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(attempts):
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA or _annotation(e) or not e.count:
+                continue
+            owners = [n for n in names if n in e.key]
+            if len(owners) != 1:
+                raise RuntimeError(f"kernel_ms: traced kernel {e.key!r} matches "
+                                   f"{len(owners)} of the names {list(names)}")
+            per_launch = device_us(e) / 1e3 / e.count
+            out[owners[0]] = (out.get(owners[0], 0.0)
+                              + per_launch * max(1, round(e.count / iters)))
+        missing = [n for n in names if n not in out]
+        if not missing:
+            return out
+    raise RuntimeError(f"kernel_ms: no launch of {missing} traced for {iters} calls, "
+                       f"{attempts} times")
 
 
 def rotating(fn, sets):

@@ -195,6 +195,28 @@ def test_every_source_and_entry_point_is_registered():
     ("_ZN4dice12_GLOBAL__N_121rwkv6_scan_bwd_kernelILi64EEEvNS0_7BwdArgsE",
      "rwkv6_scan_bwd<64>"),
     ("_ZN4dice46_GLOBAL__N__0a1b2c3d_13_rwkv6_scan_cu_1122334417rwkv6_scan_kernelILi64EEEvNS0_"
-     "8ScanArgsEPKvPKfPfSA_iii", "rwkv6_scan<64>")])
+     "8ScanArgsEPKvPKfPfSA_iii", "rwkv6_scan<64>"),
+    ("_ZN4dice12_GLOBAL__N_121rwkv6_scan_bwd_kernelI13__nv_bfloat16Li64EEEvNS0_9ChunkArgsE",
+     "rwkv6_scan_bwd<bf16, 64>"),
+    ("_ZN4dice12_GLOBAL__N_121rwkv6_scan_bwd_kernelIfLi128EEEvNS0_9ChunkArgsE",
+     "rwkv6_scan_bwd<f32, 128>"),
+    ("_ZN4dice12_GLOBAL__N_128rwkv6_scan_bwd_finish_kernelEPfPKfS3_S3_Pviiiii",
+     "rwkv6_scan_bwd_finish")])
 def test_kernel_labels_tell_the_scan_from_its_backward(mangled, label):
     assert build._kernel_label(mangled) == label
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void dice::(anonymous namespace)::rwkv6_scan_bwd_kernel<__nv_bfloat16, 64>"
+     "(dice::(anonymous namespace)::ChunkArgs)", "rwkv6_scan_bwd"),
+    ("dice::(anonymous namespace)::rwkv6_scan_bwd_finish_kernel(float*, float const*, "
+     "float const*, float const*, void*, int, int, int, int, int)", "rwkv6_scan_bwd"),
+    ("void dice::(anonymous namespace)::rwkv6_scan_kernel<64>(dice::(anonymous "
+     "namespace)::ScanArgs, void const*, float const*, float*, float*, int, int, int)",
+     "rwkv6_scan")])
+def test_profiles_group_both_launches_of_the_scan_backward(name, group):
+    """profile_serve and profile_train put each kernel the backward
+    launches (the chunked recurrence, then its finish) in its group, and
+    the forward in its own."""
+    from repro_torch.launch.profile_serve import kernel_group
+    assert kernel_group(name) == group

@@ -410,6 +410,35 @@ def test_rwkv6_scan_bwd_kernel(gen, DK, T, dtype, with_dS):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("case", ["logw -inf at one step", "logw over [-30, -20]"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_bwd_kernel_at_extreme_decays(gen, case, dtype):
+    """The chunked kernel's decays are products: w = 0 at one step of one
+    row, and chunks whose decay products underflow f32, give the plain
+    version's outputs, finite, bit for bit run to run.  Where they
+    underflow, dlogw's values (w_t <= e^-20 times the rest) lie below the
+    f32 rounding of the running sums of r dr and k dk it is the difference
+    of: it is also held within 1e-5 of their largest term, as the CPU
+    mirror holds it, which bounds its error, not its values."""
+    args, dout, dS = _scan_bwd_inputs(gen, 2, 3, 100, 64, dtype)
+    logw = args[3]
+    if case.startswith("logw -inf"):
+        logw[1, 2, 37, 5] = -math.inf
+    else:
+        logw.uniform_(-30.0, -20.0, generator=gen)
+    got = _launched("rwkv6_scan_bwd", lambda: ops.rwkv6_scan_bwd(*args, dout, dS))
+    want = ref.rwkv6_scan_bwd_ref(*args, dout, dS)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        _close_scan_bwd(g, w, 100 + 64)
+    if case.startswith("logw over"):
+        terms = max(float((args[0].float() * want[0].float()).abs().max()),
+                    float((args[1].float() * want[1].float()).abs().max()))
+        assert float((got[3] - want[3]).abs().max()) <= 1e-5 * terms
+    again = ops.rwkv6_scan_bwd(*args, dout, dS)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_rwkv6_scan_bwd_reads_strided_inputs_and_keeps_nan(gen):
     """(B, T, H, DK) projections and output gradient permuted to
     (B, H, T, DK), as the model hands them over, give what contiguous

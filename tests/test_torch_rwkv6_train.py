@@ -2,9 +2,10 @@
 
 The recurrence's backward (``kernels/ref.rwkv6_scan_bwd_ref``, the plain
 version of ``csrc/rwkv6_scan_bwd.cu``) is held against ``jax.vjp`` of the
-reference's oracle; a plain torch model of the kernel's three passes
-(``_kernel_passes``: the cumulative-sum form of dlogw) against the plain
-backward; ``ops.RWKV6ScanFn``; the step-0 gradients of ``loss_fn`` against
+reference's oracle; a plain torch mirror of the kernel's chunked arithmetic
+(``_chunked_kernel``: 16-step chunks, decays as running products, the
+finish launch's reverse sums for dlogw) against the plain backward and
+``jax.vjp``; ``ops.RWKV6ScanFn``; the step-0 gradients of ``loss_fn`` against
 ``jax.grad`` of the reference's, leaf by leaf; ``lm_train_step`` against the
 losses the reference's own ``train_lm`` prints; the train CLI's checkpoint
 read by the reference; and serving untouched by the autograd wiring.
@@ -15,9 +16,13 @@ Tolerances, with their reasons:
     outputs within ``2e-2`` relative and absolute (as ``KERNEL_TOL``: both
     round the same f32 value once, which can land on the neighbouring
     bf16 value);
-  * the kernel's passes against the plain backward at T = 1024 with
-    decays drawn over [-6, 2] (w from 6e-4 to 0.9975): within
-    ``1e-5 * max|want|`` (observed 7.5e-7 for dlogw, 2.4e-7 for the rest);
+  * the chunked mirror against the plain backward: within
+    ``1e-5 * max|want|`` (at T = 1024 with decays drawn over [-6, 2], w
+    from 6e-4 to 0.9975, observed 7.5e-7 for dlogw, 2.2e-7 for the rest;
+    logw of -1e-4 over T = 1024 3.5e-6), except dlogw where a chunk's
+    decays underflow (logw over [-30, -20]): dlogw is then ~1e-11 of the
+    running sums' terms it is the difference of, so its error is held to
+    ``1e-5`` of the largest term (``r dr`` and ``k dk``), not of itself;
   * step-0 gradients: f32 params within ``1e-4 * max|want| + 1e-6`` per
     leaf (observed 2.7e-6 of the max); bf16 params within
     ``5e-2 * max|want|``, ``MODEL_TOL``'s bf16 rtol (observed 2.1e-2, on
@@ -120,69 +125,161 @@ def test_rwkv6_scan_bwd_ref_matches_jax_vjp(T, dtype, with_dS):
     (out, sT), vjp = jax.vjp(_jax_scan, *jax_in)
     want = vjp((jnp.asarray(dout), jnp.asarray(dS) if with_dS
                 else jnp.zeros_like(sT)))
-    got = ref.rwkv6_scan_bwd_ref(*port_in, _t(dout), _t(dS) if with_dS else None)
-    for name, g, w, x in zip(NAMES, got, want, port_in):
+    dS_T = _t(dS) if with_dS else None
+    got = ref.rwkv6_scan_bwd_ref(*port_in, _t(dout), dS_T)
+    chunked = _chunked_kernel(*port_in, _t(dout), dS_T)
+    for name, g, c, w, x in zip(NAMES, got, chunked, want, port_in):
         assert g.dtype == (torch.float32 if name in ("dlogw", "ds0") else x.dtype), name
+        c = c.to(g.dtype)                      # the kernel rounds its f32 sums once
         if g.dtype == torch.bfloat16:
             np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **BF16_TOL)
+            np.testing.assert_allclose(_np(c), _np(w), err_msg=name, **BF16_TOL)
         else:
             _close_rel(g, w, name=name)
+            _close_rel(c, w, name=name)
 
 
 # ---------------------------------------------------------------------------
-# (2) the kernel's passes, in plain torch, against the plain backward
+# (2) the kernel's chunked arithmetic, in plain torch, against the plain
+# backward
 # ---------------------------------------------------------------------------
-def _kernel_passes(r, k, v, logw, u, s0, dout, dS_T=None):
-    """The arithmetic of ``csrc/rwkv6_scan_bwd.cu``'s three passes, over
-    all (b, h) at once, in f32.  (A) forward in time from s0: dr and
-    kept = r (.) (P dout); (B) backward from dS_T: dk, and dlogw as the
-    running sum that starts at Q_T = sum_v dS_T (.) S_T, subtracts
-    k (.) (G v) and adds kept; ds0; (C) backward again: dv."""
+CHUNK = 16
+
+
+def _decays(w):
+    """alpha_t = prod_{m<t} w_m, beta_t = prod_{m>t} w_m down a chunk's
+    16 rows of w (..., 16, DK), and Lambda = the whole chunk's product, as
+    running products (the kernel's one thread a column)."""
+    al, be = [None] * CHUNK, [None] * CHUNK
+    a = torch.ones_like(w[..., 0, :])
+    for t in range(CHUNK):
+        al[t] = a
+        a = a * w[..., t, :]
+    b = torch.ones_like(a)
+    for t in reversed(range(CHUNK)):
+        be[t] = b
+        b = b * w[..., t, :]
+    return torch.stack(al, -2), torch.stack(be, -2), a
+
+
+def _chunked_kernel(r, k, v, logw, u, s0, dout, dS_T=None):
+    """The arithmetic of ``csrc/rwkv6_scan_bwd.cu``, over all (b, h) at
+    once, in f32.  Time in chunks of 16 (rows past T zero, w 1); A = dOut
+    V^T of a chunk.  The P side walks forward from s0: dr^st = alpha (.)
+    (dOut P_a^T) + the sum over s < t of D_{t,s} k_s A[t][s] (Horner:
+    acc = acc w_s + k_s A[t][s]), dr, r (.) dr^st, du's parts, then P_e =
+    Lambda P_a + (K beta)^T V and at the end Q_T.  The G side walks
+    backward from dS_T; one pass over m > t with the running products d =
+    D_{m,t} gives B[m][t] = sum_i k_t d r_m and dk^in_t = the sum over m < L
+    of d r_m A[m][t]; dk^st = beta (.) (V G_e^T) + dk^in, dv = (K beta) G_e
+    + B^T dOut + dout bs, k (.) dk^st, then G_a = Lambda G_e + (R alpha)^T
+    dOut.  The finish: dlogw as the reverse running sum from Q_T, split
+    over spans of time as the finish launch splits it; du over b."""
     f = torch.float32
     r, k, v, logw, dout = (a.to(f) for a in (r, k, v, logw, dout))
     u = u.to(f)[None]
-    w = torch.exp(logw)
-    vd = (v * dout).sum(-1)
-    bs = (u[:, :, None] * r * k).sum(-1)
-    T = r.shape[2]
-    P, dr, kept = s0.to(f), [], []
-    du = torch.zeros_like(u[0].expand(r.shape[0], -1, -1))
-    for t in range(T):                                       # (A)
-        drst = (P * dout[:, :, t, None, :]).sum(-1)
-        P = w[:, :, t, :, None] * P + k[:, :, t, :, None] * v[:, :, t, None, :]
-        dr.append(drst + u * k[:, :, t] * vd[:, :, t, None])
-        kept.append(r[:, :, t] * drst)
-        du = du + r[:, :, t] * k[:, :, t] * vd[:, :, t, None]
+    B, H, T, DK = r.shape
+    n = (T + CHUNK - 1) // CHUNK
 
-    def g0():
-        return torch.zeros_like(P) if dS_T is None else dS_T.to(f)
-    G = g0()
-    R = (G * P).sum(-1)
-    dk, dlogw = [None] * T, [None] * T
-    for t in reversed(range(T)):                             # (B)
-        dkst = (G * v[:, :, t, None, :]).sum(-1)
-        R = R - k[:, :, t] * dkst
-        dlogw[t] = R
-        R = R + kept[t]
-        dk[t] = dkst + u * r[:, :, t] * vd[:, :, t, None]
-        G = w[:, :, t, :, None] * G + r[:, :, t, :, None] * dout[:, :, t, None, :]
-    ds0, G, dv = G, g0(), [None] * T
-    for t in reversed(range(T)):                             # (C)
-        dv[t] = (k[:, :, t, :, None] * G).sum(-2) + dout[:, :, t] * bs[:, :, t, None]
-        G = w[:, :, t, :, None] * G + r[:, :, t, :, None] * dout[:, :, t, None, :]
-    return (torch.stack(dr, 2), torch.stack(dk, 2), torch.stack(dv, 2),
-            torch.stack(dlogw, 2), du.sum(0), ds0)
+    def tiles(x, fill=0.0):
+        x = torch.nn.functional.pad(x, (0, 0, 0, n * CHUNK - T), value=fill)
+        return x.reshape(B, H, n, CHUNK, DK)
+    rt, kt, vt, dt = (tiles(a) for a in (r, k, v, dout))
+    wt = torch.exp(tiles(logw))
+    vd = (vt * dt).sum(-1)[..., None]
+    bs = (u[:, :, None, None] * rt * kt).sum(-1)[..., None]
+    steps = torch.arange(CHUNK)
+    uu = u[:, :, None]
+    dr, rdr, dk, kdk, dv = (torch.empty_like(rt) for _ in range(5))
+
+    P, du = s0.to(f), torch.zeros((B, H, DK))                   # the P side
+    for c in range(n):
+        rc, kc, vc, wc, dc = (x[:, :, c] for x in (rt, kt, vt, wt, dt))
+        al, be, lam = _decays(wc)
+        A = torch.einsum("bhtj,bhsj->bhts", dc, vc)
+        acc = torch.zeros_like(rc)
+        for s in range(CHUNK - 1):
+            live = (steps > s)[:, None]
+            acc = torch.where(live, acc * wc[..., s:s + 1, :] + kc[..., s:s + 1, :]
+                              * A[..., s:s + 1], acc)
+        drst = al * torch.einsum("bhtj,bhij->bhti", dc, P) + acc
+        dr[:, :, c] = drst + uu * kc * vd[:, :, c]
+        rdr[:, :, c] = rc * drst
+        du = du + (rc * kc * vd[:, :, c]).sum(-2)
+        P = lam[..., None] * P + torch.einsum("bhti,bhtj->bhij", kc * be, vc)
+    Q = torch.zeros((B, H, DK)) if dS_T is None else (dS_T.to(f) * P).sum(-1)
+
+    G = torch.zeros_like(P) if dS_T is None else dS_T.to(f)   # the G side
+    for c in reversed(range(n)):
+        L = min(CHUNK, T - c * CHUNK)
+        rc, kc, vc, wc, dc = (x[:, :, c] for x in (rt, kt, vt, wt, dt))
+        al, be, lam = _decays(wc)
+        A = torch.einsum("bhtj,bhsj->bhts", dc, vc)
+        acc = torch.zeros_like(rc)
+        Bm = torch.zeros((B, H, CHUNK, CHUNK))
+        for t in range(CHUNK):
+            d = torch.ones((B, H, DK))
+            for m in range(t + 1, L):
+                x = d * rc[..., m, :]
+                Bm[..., m, t] = (kc[..., t, :] * x).sum(-1)
+                acc[..., t, :] = acc[..., t, :] + x * A[..., m, t, None]
+                d = d * wc[..., m, :]
+        dkst = be * torch.einsum("bhtj,bhij->bhti", vc, G) + acc
+        dk[:, :, c] = dkst + uu * rc * vd[:, :, c]
+        kdk[:, :, c] = kc * dkst
+        dv[:, :, c] = (torch.einsum("bhti,bhij->bhtj", kc * be, G)
+                       + torch.einsum("bhmt,bhmj->bhtj", Bm, dc) + dc * bs[:, :, c])
+        G = lam[..., None] * G + torch.einsum("bhti,bhtj->bhij", rc * al, dc)
+
+    def flat(x):
+        return x.reshape(B, H, n * CHUNK, DK)[:, :, :T]
+    rdr, kdk = flat(rdr), flat(kdk)
+    nseg = min(32, (T + 15) // 16)                              # the finish
+    span = (T + nseg - 1) // nseg
+    spans = [(min(T, j * span), min(T, j * span + span)) for j in range(nseg)]
+    tot = []
+    for t0, t1 in spans:
+        acc = torch.zeros((B, H, DK))
+        for t in reversed(range(t0, t1)):
+            acc = acc + (rdr[:, :, t] - kdk[:, :, t])
+        tot.append(acc)
+    dlogw = torch.empty((B, H, T, DK))
+    for j, (t0, t1) in enumerate(spans):
+        R = Q
+        for later in reversed(range(j + 1, nseg)):
+            R = R + tot[later]
+        for t in reversed(range(t0, t1)):
+            R = R - kdk[:, :, t]
+            dlogw[:, :, t] = R
+            R = R + rdr[:, :, t]
+    return (flat(dr), flat(dk), flat(dv), dlogw, du.sum(0), G)
+
+
+def _close_chunked(got, want, port_in, rel=F32_REL):
+    """Each output within ``rel`` of its largest value; dlogw also passes
+    within ``rel`` of the running sums' largest term (max |r dr|, |k dk|)
+    when its own values are far smaller than the terms it is the
+    difference of (underflowing decays)."""
+    r, k = (x.to(torch.float32) for x in port_in[:2])
+    for name, g, w in zip(NAMES, got, want):
+        if name == "dlogw":
+            terms = max(float((r * want[0]).abs().max()), float((k * want[1]).abs().max()))
+            bound = rel * max(float(w.abs().max()), terms)
+            assert float((g - w).abs().max()) <= bound, (name, float((g - w).abs().max()), bound)
+        else:
+            _close_rel(g, w, rel, name=name)
 
 
 @pytest.mark.parametrize("with_dS", [True, False])
 def test_kernel_passes_match_the_plain_backward_at_T_1024(with_dS):
-    """The cumulative-sum dlogw needs no state of step t and divides by no
-    decay: at T = 1024 with w down to 6e-4 it stays within 1e-5 of the
-    largest value of the direct form ``w_t sum_v dS_t S_{t-1}``."""
+    """The chunked form and its reverse-sum dlogw need no state of step t
+    and divide by no decay: at T = 1024 with w down to 6e-4 they stay
+    within 1e-5 of the largest value of the direct form
+    ``w_t sum_v dS_t S_{t-1}``."""
     _, port_in, dout, dS = _scan_inputs(11, 1, 2, 1024, 32, "float32")
     dS_T = _t(dS) if with_dS else None
     want = ref.rwkv6_scan_bwd_ref(*port_in, _t(dout), dS_T)
-    got = _kernel_passes(*port_in, _t(dout), dS_T)
+    got = _chunked_kernel(*port_in, _t(dout), dS_T)
     for name, g, w in zip(NAMES, got, want):
         _close_rel(g, w, name=name)
 
@@ -191,8 +288,46 @@ def test_kernel_passes_keep_the_init_regime():
     """Decays drawn in [-6, -5] (the init's -6 and the longest memory)."""
     _, port_in, dout, dS = _scan_inputs(12, 1, 1, 512, 16, "float32", decay=(-6.0, -5.0))
     want = ref.rwkv6_scan_bwd_ref(*port_in, _t(dout), _t(dS))
-    for name, g, w in zip(NAMES, _kernel_passes(*port_in, _t(dout), _t(dS)), want):
+    for name, g, w in zip(NAMES, _chunked_kernel(*port_in, _t(dout), _t(dS)), want):
         _close_rel(g, w, name=name)
+
+
+def _logw_inputs(seed, T, logw, DK=16):
+    """_scan_inputs at B = 1, H = 2 with logw replaced by ``logw(rng,
+    shape)``."""
+    _, port_in, dout, dS = _scan_inputs(seed, 1, 2, T, DK, "float32")
+    port_in[3] = _t(logw(np.random.default_rng(seed + 100), (1, 2, T, DK)).astype(np.float32))
+    return port_in, dout, dS
+
+
+def _one_minus_inf(rng, shape):
+    lw = -np.exp(rng.uniform(-6.0, 2.0, shape))
+    lw[0, 1, 20, 3] = -np.inf            # one row of one head's state: w 0 at step 20
+    return lw
+
+
+@pytest.mark.parametrize("case,T,logw", [
+    ("logw -inf at one step", 45, _one_minus_inf),
+    ("decays underflow in a chunk", 64, lambda rng, s: rng.uniform(-30.0, -20.0, s)),
+    ("decays near 1", 1024, lambda rng, s: -1e-4 * rng.uniform(0.5, 1.5, s)),
+    ("T 1", 1, lambda rng, s: -np.exp(rng.uniform(-6.0, 2.0, s))),
+    ("T 37", 37, lambda rng, s: -np.exp(rng.uniform(-6.0, 2.0, s))),
+    ("T 300", 300, lambda rng, s: -np.exp(rng.uniform(-6.0, 2.0, s)))],
+    ids=lambda x: x if isinstance(x, str) else None)
+@pytest.mark.parametrize("with_dS", [True, False])
+def test_chunked_kernel_matches_the_plain_backward_at_extreme_decays(case, T, logw, with_dS):
+    """The decays are products, never exp of a difference of cumulative
+    log-decays: a logw of -inf (w = 0) gives no NaN, a chunk whose
+    product underflows f32 gives the plain version's outputs, decays near
+    1 over 1024 steps keep their accuracy; a ragged last chunk (T not a
+    multiple of 16) is masked by selection."""
+    port_in, dout, dS = _logw_inputs(T, T, logw)
+    dS_T = _t(dS) if with_dS else None
+    want = ref.rwkv6_scan_bwd_ref(*port_in, _t(dout), dS_T)
+    got = _chunked_kernel(*port_in, _t(dout), dS_T)
+    for g in got:
+        assert bool(torch.isfinite(g).all()), case
+    _close_chunked(got, want, port_in)
 
 
 # ---------------------------------------------------------------------------

@@ -73,3 +73,52 @@ def test_without_a_launch_count_the_first_trace_is_used(fake_profiler):
     # 30 launches over 20 calls round to 2 a call
     assert timing.device_ms(lambda: None, 20) == pytest.approx(3000.0 / 1e3 / 30 * 2)
     assert len(fake_profiler) == 1
+
+
+def test_without_a_launch_count_an_empty_trace_is_retaken(fake_profiler):
+    # the profiler saw no device time in the first trace
+    fake_profiler += [_trace([]), _trace([(20, 2000.0)])]
+    assert timing.device_ms(lambda: None, 20) == pytest.approx(2000.0 / 1e3 / 20)
+    assert not fake_profiler
+
+
+def test_without_a_launch_count_only_empty_traces_raise(fake_profiler):
+    fake_profiler += [_trace([(4, 400.0)]) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="4 kernel launches traced for 20 calls, 3 times; "
+                                           "the profiler saw no device time"):
+        timing.device_ms(lambda: None, 20)
+
+
+def test_kernel_ms_splits_a_call_by_kernel(fake_profiler):
+    # 10 calls of 2 kernels, one launch of the second missed by the trace;
+    # the schedule's step is not a kernel
+    fake_profiler += [_trace([(10, 1000.0), (9, 225.0)])]
+    calls = []
+    got = timing.kernel_ms(lambda: calls.append(1), 10, ("kernel0", "kernel1"))
+    assert got == {"kernel0": pytest.approx(0.1), "kernel1": pytest.approx(0.025)}
+    assert len(calls) == 1 + 1 + 10          # warm-up call, warm-up step, timed calls
+
+
+def test_kernel_ms_retakes_a_trace_that_lost_a_kernel(fake_profiler):
+    # the first trace holds no launch of the second kernel: its time would
+    # silently drop out of the call's sum
+    fake_profiler += [_trace([(10, 1000.0)]), _trace([(10, 1000.0), (10, 250.0)])]
+    calls = []
+    got = timing.kernel_ms(lambda: calls.append(1), 10, ("kernel0", "kernel1"))
+    assert got == {"kernel0": pytest.approx(0.1), "kernel1": pytest.approx(0.025)}
+    assert len(calls) == 1 + 2 * (1 + 10)    # warm-up, then two traces of 1 + 10
+
+
+def test_kernel_ms_raises_on_an_empty_trace(fake_profiler):
+    fake_profiler += [_trace([])] * 3
+    with pytest.raises(RuntimeError, match=r"no launch of \['kernel0'\] traced for 10 calls, "
+                                           r"3 times"):
+        timing.kernel_ms(lambda: None, 10, ("kernel0",))
+    assert not fake_profiler                 # three traces taken
+
+
+def test_kernel_ms_refuses_a_kernel_it_was_not_given(fake_profiler):
+    # a stray kernel on the stream would be counted as the call's time
+    fake_profiler += [_trace([(10, 1000.0), (10, 250.0)])]
+    with pytest.raises(RuntimeError, match="'kernel1' matches 0 of the names"):
+        timing.kernel_ms(lambda: None, 10, ("kernel0",))

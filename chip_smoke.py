@@ -24,9 +24,10 @@ non-zero and no phase's failure is caught:
      time is shorter than their wrappers' host path; their inputs rotate
      over several sets where one would fit in L2.  ``rwkv6_scan`` has a
      row for prefill and one for decode, each with its own launches.
-     Last come the DiT kernels at DiT-MoE-G's shapes (lines ``3G``, phase
-     11), the two DiT backward kernels (lines ``3B``, phase 12a) and the
-     RWKV-6 recurrence's backward (lines ``3B``, phase 13a);
+     Then come the dense and MoE LMs' kernels (lines ``3L``, phase 14),
+     the DiT kernels at DiT-MoE-G's shapes (lines ``3G``, phase 11), the
+     two DiT backward kernels (lines ``3B``, phase 12a) and the RWKV-6
+     recurrence's backward (lines ``3B``, phase 13a);
   4. kernels in place: the tiny DiT served on the CPU (plain versions)
      and on the card (kernels) from the same weights and noise, 6 steps
      so that a light step's codec'd expert outputs reach the sample; the
@@ -191,6 +192,36 @@ non-zero and no phase's failure is caught:
      ``max_memory_allocated``, losses and grad norms finite, launches held
      to 32 of each scan kernel a step); then a prefill on the trained
      params, bit for bit against the same prefill with grad disabled.
+
+ 14. main path 10: the dense and MoE LM families (``models/dense.py``
+     through ``get_model``).  In phase 3, before 3G (lines ``3L``): the
+     flash kernel with its KV-cache masks against its plain version (the
+     plain version over query chunks at their offsets) at gemma2-9b's
+     prefill shape (4 x 8128, 16 heads over 8 kv heads of 256, bf16,
+     causal, softcap 50) with window 4096 and without, at its decode shape
+     (one query against 8,192 ring slots: a local layer at the last
+     position, a global one with empty slots, a ring before it fills and
+     a wrapped one), at stablelm's head dim 160, off its query and key
+     tiles with a q_offset and a kv_valid_len, and with the non-causal
+     one-sided window (C.9), each to TOL_BF16 with the atol in units of
+     its query row's RMS, and planted faults (the window dropped, q_offset
+     off by one, the ring's slots read in index order) rejected by that
+     check; ``expert_ffn`` at qwen3-moe-30b-a3b's bf16 prefill (128, 1280,
+     2048, 768) and decode (128, 8, ...) shapes; each timed by events and
+     device time beside its plain version, ``scaled_dot_product_attention``
+     with ``enable_gqa`` (no softcap) or none and three ``bmm``s, and its
+     bound over the kept (query, key) pairs and the kept slots' K and V.  (a) The six ``smoke()`` configs, f32 and bf16 params,
+     prefilled and decoded 8 steps on the CPU and on the card from the same
+     weights (TOL_F32 / TOL_BF16; each CPU decode step from the card's
+     cache), launches one flash (and one ``expert_ffn``) call a layer and
+     pass; gemma2's smoke model decoded with ``long_context=True`` into a
+     ring of 8 slots.  (b) gemma2-9b at full width and depth, bf16: 4
+     prompts of 8,128 tokens, 64 greedy decode steps (prefill s, decode
+     ms/step, ``max_memory_allocated``, 42 flash launches a pass), streamed
+     logits against a teacher-forced pass that unembeds only the compared
+     positions.  (c) qwen3-moe-30b-a3b at full width and depth (48
+     layers): 8 x 2048 prompts, 32 decode steps, 48 flash and 48
+     ``expert_ffn`` launches a pass.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3350,6 +3381,511 @@ def phase_train_lm_full(rows, smi):
     return s_per_step, peak
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dense and MoE LMs (3L, their kernels at the LMs' shapes, runs
+# in phase 3)
+# ---------------------------------------------------------------------------
+PEAK_BF16_FLOPS = 989e12                  # H100 SXM tensor cores, dense, 700 W
+LM_NAMES = ("gemma2-9b", "qwen3-moe-30b-a3b", "qwen3-32b", "stablelm-12b",
+            "deepseek-67b", "dbrx-132b")
+SMOKE_PROMPT, SMOKE_DECODE = 16, 8        # past gemma2 smoke's window of 8
+RING_SLOTS, RING_STEPS = 8, 20            # 14a: a ring shorter than the positions
+G2_BATCH, G2_PROMPT, G2_DECODE = 4, 8128, 64   # 8,192 tokens: gemma2's context
+G2_WINDOW = 4096
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 8, 2048, 32
+PLAIN_ROWS = 1024                         # 3L: the plain attention, query rows a chunk
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:70"
+
+
+def _close_quiet(name: str, got, want, tol) -> float:
+    """``compare`` without its line: the max abs error, raising on a miss."""
+    g, w = got.float().cpu(), want.float().cpu()
+    err = (g - w).abs()
+    if bool((err > tol["atol"] + tol["rtol"] * w.abs()).any()) or not _finite(g):
+        raise AssertionError(f"{name}: card and CPU disagree (max abs err "
+                             f"{float(err.max()):.3e})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _finite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
+
+
+def _flash_plain(q, k, v, opts):
+    """The plain version over query chunks of PLAIN_ROWS rows, each at its
+    own ``q_offset`` (positions are absolute, so the chunks give the whole
+    call's output): the whole (B, H, Sq, Sk) f32 logits of gemma2's prefill
+    would be 17 GB."""
+    import torch
+    from repro_torch.kernels import ref
+    Sq = q.shape[1]
+    if Sq <= PLAIN_ROWS:
+        return ref.flash_attention_ref(q, k, v, **opts)
+    out = torch.empty_like(q)
+    for a in range(0, Sq, PLAIN_ROWS):
+        o = dict(opts, q_offset=opts.get("q_offset", 0) + a)
+        out[:, a:a + PLAIN_ROWS] = ref.flash_attention_ref(q[:, a:a + PLAIN_ROWS], k, v, **o)
+    return out
+
+
+def _row_tol_ratio(got, want, tol):
+    """(max abs err, max err over its query row's RMS, max err over its
+    tolerance) of ``got`` against ``want`` (B, Sq, H, Dh): the tolerance is
+    ``tol["atol"]`` times the RMS over Dh of ``want``'s (b, query, head)
+    row plus ``tol["rtol"] |want|``.  A softmax over n kept unit-variance
+    keys gives outputs of RMS about sqrt(e / n) (0.026 at 4,096 keys), so
+    an absolute atol of TOL_BF16's 2e-2 would be as large as the output;
+    the kernel's own error (bf16 rounding of P and of the output) scales
+    with the row's RMS."""
+    import torch
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (g - w).abs()
+    lim = (tol["atol"] * rms + tol["rtol"] * w.abs()).clamp_min(1e-30)
+    if not bool(torch.isfinite(g).all()):
+        return float("inf"), float("inf"), float("inf")
+    return (float(err.max()), float((err / rms.clamp_min(1e-30)).max()),
+            float((err / lim).max()))
+
+
+def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launches=0,
+                  faults=()):
+    """One 3L row: the flash kernel with KV-cache masks against its plain
+    version, to TOL_BF16 (TOL_F32 in f32) with the atol in units of each
+    query row's RMS (:func:`_row_tol_ratio`); then each planted fault of
+    ``faults`` ((label, options that override the kernel's)) must fail
+    that check; with ``iters`` (0: a check, no row, no profiler trace)
+    timed by CUDA events and by device time; the plain version's time;
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (no softcap: SDPA
+    has none; causal by ``is_causal`` where the mask is the plain causal
+    one, else the mask as a bool ``attn_mask``); the bound over the
+    (query, key) pairs the mask keeps and the K and V of the slots some
+    query keeps, at the bf16 or 3xTF32 tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import device_ms, time_ms
+    B, Sq, Sk, H, KVH, Dh, dtype = shape
+    q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KVH, Dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KVH, Dh), generator=gen, device="cuda").to(dtype)
+    if k_pos_fn is not None:
+        opts = dict(opts, k_pos=k_pos_fn(Sk))
+    run = lambda: ops.flash_attention(q, k, v, **opts)   # noqa: E731
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    want = _flash_plain(q, k, v, opts)
+    name = (f"3L [{smi}] flash {label} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh} "
+            f"{str(dtype)[6:]} { {n: o for n, o in opts.items() if n != 'k_pos'} }")
+    err, err_rms, ratio = _row_tol_ratio(run(), want, tol)
+    log(f"  {name}: max_abs_err {err:.3e}, {err_rms:.3e} of its row's RMS, "
+        f"{ratio:.3f} of its tolerance (rtol={tol['rtol']}, atol={tol['atol']} x the "
+        f"row's RMS) {'ok' if ratio <= 1 else 'FAIL'}")
+    if ratio > 1:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    for fault, override in faults:
+        _, f_rms, f_ratio = _row_tol_ratio(
+            ops.flash_attention(q, k, v, **dict(opts, **override)), want, tol)
+        log(f"  3L [{smi}] flash {label}, planted fault ({fault}): max err {f_rms:.3e} of "
+            f"its row's RMS, {f_ratio:.3f} of the tolerance "
+            f"{'rejected' if f_ratio > 1 else 'NOT REJECTED'}")
+        if f_ratio <= 1:
+            raise AssertionError(f"{name}: the check does not reject {fault}")
+    del want
+    if not iters:
+        del q, k, v
+        return None
+    ms = time_ms(run, iters)
+    dev = device_ms(run, iters)
+    plain = time_ms(lambda: _flash_plain(q, k, v, opts), 1)
+    mask = ref.attention_mask(Sq, Sk, causal=opts.get("causal", False),
+                              window=opts.get("window"), device="cuda",
+                              q_offset=opts.get("q_offset", 0), k_pos=opts.get("k_pos"),
+                              one_sided=opts.get("one_sided_window", False))
+    kept = int(mask.sum())
+    kept_slots = int(mask.any(0).sum())
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    plain_causal = (opts.get("causal") and opts.get("window") is None
+                    and opts.get("k_pos") is None and not opts.get("q_offset") and Sq == Sk)
+    if plain_causal:
+        lib_fn = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        lib_fn = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lib_fn, iters)
+    del qt, kt, vt
+    flops = 4.0 * B * H * kept * Dh
+    es = q.element_size()
+    # q read and out written whole; K and V only at the slots some query
+    # keeps (the output depends on no other); k_pos whole
+    nbytes = es * (2 * B * Sq * H * Dh + 2 * B * kept_slots * KVH * Dh) \
+        + (4 * Sk if opts.get("k_pos") is not None else 0)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+    b_ms, b_by = bound(flops, nbytes, peak)
+    log(f"  3L [{smi}] flash {label}: kernel {ms:.4f} ms events, {dev:.4f} ms device, "
+        f"plain {plain:.4f} ms (query chunks of {PLAIN_ROWS}), scaled_dot_product_attention "
+        f"(enable_gqa, no softcap{', is_causal' if plain_causal else ', bool attn_mask'}) "
+        f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {kept} kept (query, key) pairs of "
+        f"{Sq * Sk}, K and V of {kept_slots} of {Sk} slots; "
+        f"{flops / dev / 1e9:.1f} TFLOP/s of them on the device)")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu", replaces=FLASH_REPLACES,
+                launches=launches, max_abs_err=err, ms=ms, device_ms=dev, events_ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                shape=f"{label}: B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh} "
+                      f"{str(dtype)[6:]}")
+
+
+def _ring_k_pos(pos: int):
+    """k_pos of a ring of Sk slots after the write at ``pos``
+    (``dense.ring_k_pos``, what decode builds once a step)."""
+    def make(Sk: int):
+        from repro_torch.models import dense
+        return dense.ring_k_pos(pos, Sk, "cuda")
+    return make
+
+
+def phase_lm_kernels(rows, smi):
+    """3L, in phase 3 before 3G: the flash kernel with its KV-cache masks
+    at the dense LMs' shapes, and ``expert_ffn`` at qwen3-moe-30b-a3b's
+    bf16 shapes, each against its plain version and timed (phase 14 adds
+    the launches of the rows it runs)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import device_ms, time_ms
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    bf16 = torch.bfloat16
+    g2 = (G2_BATCH, G2_PROMPT, G2_PROMPT, 16, 8, 256, bf16)
+    cap = dict(causal=True, softcap=50.0, one_sided_window=True)
+    rows["flash_attention gemma2 prefill local"] = _flash_lm_row(
+        smi, gen, "gemma2-9b prefill, local layer (window 4096)", g2,
+        dict(cap, window=G2_WINDOW), iters=3,
+        faults=(("the window dropped", dict(window=None)),
+                ("q_offset off by one", dict(q_offset=1))))
+    rows["flash_attention gemma2 prefill global"] = _flash_lm_row(
+        smi, gen, "gemma2-9b prefill, global layer", g2, cap, iters=3)
+    ring = (G2_BATCH, 1, G2_PROMPT + G2_DECODE, 16, 8, 256, bf16)
+    last = G2_PROMPT + G2_DECODE - 1
+    rows["flash_attention gemma2 decode local"] = _flash_lm_row(
+        smi, gen, "gemma2-9b decode, local layer at the last position", ring,
+        dict(cap, window=G2_WINDOW, q_offset=last), iters=50, k_pos_fn=_ring_k_pos(last),
+        faults=(("the window dropped", dict(window=None)),
+                ("q_offset off by one", dict(q_offset=last - 1))))
+    rows["flash_attention gemma2 decode global"] = _flash_lm_row(
+        smi, gen, "gemma2-9b decode, global layer at the first decode position", ring,
+        dict(cap, q_offset=G2_PROMPT), iters=50, k_pos_fn=_ring_k_pos(G2_PROMPT))
+    # empty slots (the ring not yet full) and a wrapped ring, window 4096:
+    # checks, not timed
+    for pos in (5000, 3 * 8192 + 1234):
+        wrapped = pos >= ring[2]
+        _flash_lm_row(smi, gen, f"ring at position {pos}", ring,
+                      dict(cap, window=G2_WINDOW, q_offset=pos),
+                      k_pos_fn=_ring_k_pos(pos),
+                      faults=(("ring slots read in index order", dict(k_pos=None)),)
+                      if wrapped else ())
+    # qwen3-moe-30b-a3b's attention (32 heads over 4 kv heads of 128, qk-norm
+    # before it): 14c's prefill and its first decode position
+    qm = (MOE_BATCH, MOE_PROMPT, MOE_PROMPT, 32, 4, 128, bf16)
+    rows["flash_attention qwen3-moe prefill"] = _flash_lm_row(
+        smi, gen, "qwen3-moe-30b-a3b prefill", qm,
+        dict(causal=True, one_sided_window=True), iters=10)
+    qd = (MOE_BATCH, 1, MOE_PROMPT + MOE_DECODE, 32, 4, 128, bf16)
+    rows["flash_attention qwen3-moe decode"] = _flash_lm_row(
+        smi, gen, "qwen3-moe-30b-a3b decode at the first decode position", qd,
+        dict(causal=True, q_offset=MOE_PROMPT, one_sided_window=True), iters=50,
+        k_pos_fn=_ring_k_pos(MOE_PROMPT))
+    rows["flash_attention stablelm Dh 160"] = _flash_lm_row(
+        smi, gen, "stablelm-12b's head dim 160 (the Dh 256 instance)",
+        (2, 2048, 2048, 32, 8, 160, bf16), dict(causal=True, one_sided_window=True),
+        iters=10)
+    # a chunk of queries continuing a partly written cache, off the 128-row
+    # query tile and the 16-key tile: q_offset 757, kv_valid_len 887
+    valid = lambda Sk: torch.where(torch.arange(Sk, device="cuda") < 887,   # noqa: E731
+                                   torch.arange(Sk, device="cuda"), -1).to(torch.int32)
+    rows["flash_attention q_offset kv_valid_len"] = _flash_lm_row(
+        smi, gen, "q_offset 757, kv_valid_len 887", (2, 130, 1000, 8, 2, 128, bf16),
+        dict(causal=True, q_offset=757, one_sided_window=True), iters=20, k_pos_fn=valid)
+    rows["flash_attention one-sided window"] = _flash_lm_row(
+        smi, gen, "non-causal one-sided window 40 (layers.attention, C.9)",
+        (2, 200, 200, 4, 4, 64, torch.float32),
+        dict(causal=False, window=40, one_sided_window=True), iters=20)
+
+    # expert_ffn at qwen3-moe-30b-a3b's bf16 shapes: 8 x 2048 prefill tokens
+    # (capacity 1280) and 8 decode tokens (the capacity floor of 8)
+    for C, label in ((1280, "prefill"), (8, "decode")):
+        E, d, f = 128, 2048, 768
+        args = _expert_inputs(gen, E, C, d, f, bf16)
+        err = compare(f"3L [{smi}] expert_ffn qwen3-moe {label} E={E} C={C} d={d} f={f} "
+                      f"bf16 silu", ops.expert_ffn(*args), ref.expert_ffn_ref(*args),
+                      TOL_BF16)
+        ms = time_ms(lambda: ops.expert_ffn(*args), 20)
+        dev = device_ms(lambda: ops.expert_ffn(*args), 20)
+        plain = time_ms(lambda: ref.expert_ffn_ref(*args), 5)
+        x, wg, wu, wd = args
+        h = torch.randn((E, C, f), device="cuda").to(bf16)
+        yard = time_ms(lambda: (torch.bmm(x, wg), torch.bmm(x, wu), torch.bmm(h, wd)), 20)
+        flops = 6.0 * E * C * d * f
+        nbytes = 2.0 * (2 * E * C * d + 3 * E * d * f)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        log(f"  3L [{smi}] expert_ffn qwen3-moe {label}: kernel {ms:.4f} ms events, "
+            f"{dev:.4f} ms device ({flops / dev / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+            f"three-bmm bf16 yardstick {yard:.4f} ms; library: none (no single PyTorch "
+            f"call computes the gated MLP); bound {b_ms:.4f} ms ({b_by}, bf16 peak)")
+        rows[f"expert_ffn qwen3-moe {label}"] = dict(
+            name="expert_ffn", route="cuda", source="src/repro_torch/csrc/expert_ffn.cu",
+            replaces="src/repro/kernels/expert_ffn.py:69", launches=0, max_abs_err=err,
+            ms=ms, device_ms=dev, events_ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, yardstick_ms=yard,
+            shape=f"E={E} C={C} d={d} f={f} bf16 silu (qwen3-moe-30b-a3b {label})")
+        del args, x, wg, wu, wd, h
+    torch.cuda.empty_cache()
+
+
+def phase_lm_smoke_card(smi):
+    """14a: each dense and MoE ``smoke()`` config, f32 and bf16 params from
+    one seed, prefilled with 2 x SMOKE_PROMPT tokens and decoded
+    SMOKE_DECODE steps on the CPU (plain versions) and on the card
+    (kernels); each CPU decode step starts from the card's cache, so a
+    bf16 value that rounds to the other neighbour on one device cannot
+    build up over the steps.  Then gemma2's smoke model with
+    ``long_context=True`` decoded from position 0 into a ring of
+    RING_SLOTS slots, shorter than the positions it reaches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models import dense
+    from repro_torch.models.api import get_model
+    P, D = SMOKE_PROMPT, SMOKE_DECODE
+    for name in LM_NAMES:
+        cfg = get_smoke(name)
+        api = get_model(cfg)
+        toks = torch.from_numpy(np.random.default_rng(14).integers(
+            0, cfg.vocab_size, (2, P + D), dtype=np.int32))
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            params = api.init(cfg, generator=torch.Generator().manual_seed(14), dtype=dtype)
+            p_gpu = _to(params, "cuda")
+            ops.reset_launches()
+            with torch.no_grad():
+                lg_g, c_g = api.prefill(p_gpu, {"tokens": toks[:, :P].cuda()}, cfg,
+                                        cache_len=P + D)
+                lg_c, c_c = api.prefill(params, {"tokens": toks[:, :P]}, cfg,
+                                        cache_len=P + D)
+                tag = f"14a [{smi}] {cfg.name} {str(dtype)[6:]}"
+                errs = [_close_quiet(f"{tag} prefill logits", lg_g, lg_c, tol),
+                        _close_quiet(f"{tag} prefill cache k", c_g["k"], c_c["k"], tol),
+                        _close_quiet(f"{tag} prefill cache v", c_g["v"], c_c["v"], tol)]
+                for t in range(P, P + D):
+                    c_c = {"k": c_g["k"].cpu(), "v": c_g["v"].cpu(), "pos": c_g["pos"]}
+                    lg_c, c_c = api.decode_step(params, {"token": toks[:, t]}, c_c, cfg)
+                    lg_g, c_g = api.decode_step(p_gpu, {"token": toks[:, t].cuda()}, c_g, cfg)
+                    errs.append(_close_quiet(f"{tag} decode {t} logits", lg_g, lg_c, tol))
+                    errs.extend(_close_quiet(f"{tag} decode {t} cache {n}", c_g[n], c_c[n], tol)
+                                for n in ("k", "v"))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+            want = {"flash_attention": cfg.num_layers * (1 + D)}
+            if cfg.is_moe:
+                want["expert_ffn"] = cfg.num_layers * (1 + D)
+            log(f"  {tag}: prefill {P} + {D} decode steps, cuda vs cpu max abs err "
+                f"{max(errs):.3e} (tol rtol={tol['rtol']} atol={tol['atol']}), launches "
+                f"{counts}, planned {want}")
+            if counts != want:
+                raise AssertionError(f"{tag}: launches differ from the plan")
+    cfg = get_smoke("gemma2-9b")
+    api = get_model(cfg)
+    toks = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (2, RING_STEPS), dtype=np.int32))
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        params = api.init(cfg, generator=torch.Generator().manual_seed(15), dtype=dtype)
+        p_gpu = _to(params, "cuda")
+        c_g = api.init_cache(cfg, 2, RING_SLOTS, dtype=dtype, device="cuda")
+        errs = []
+        with torch.no_grad():
+            for t in range(RING_STEPS):
+                c_c = {"k": c_g["k"].cpu(), "v": c_g["v"].cpu(), "pos": c_g["pos"]}
+                lg_c, _ = api.decode_step(params, {"token": toks[:, t]}, c_c, cfg,
+                                          long_context=True)
+                lg_g, c_g = api.decode_step(p_gpu, {"token": toks[:, t].cuda()}, c_g, cfg,
+                                            long_context=True)
+                errs.append(_close_quiet(f"14a ring step {t}", lg_g, lg_c, tol))
+        log(f"  14a [{smi}] {cfg.name} {str(dtype)[6:]} long_context ring: {RING_STEPS} "
+            f"decode steps into {RING_SLOTS} slots (windows "
+            f"{dense.layer_windows(cfg, long_context=True)}), "
+            f"cuda vs cpu max abs err {max(errs):.3e} (tol rtol={tol['rtol']} "
+            f"atol={tol['atol']})")
+
+
+def _greedy(api, params, cfg, prompts, steps: int, cache_len: int):
+    """Prefill then ``steps`` greedy decode steps, each timed between
+    synchronisations; returns (streamed logits list, generated tokens,
+    prefill s, decode s, flash/expert_ffn launches of the prefill)."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last, cache = api.prefill(params, {"tokens": prompts}, cfg, cache_len=cache_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    tok = last.argmax(-1)
+    generated, streamed = [], [last]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(steps):
+            generated.append(tok)
+            lg, cache = api.decode_step(params, {"token": tok}, cache, cfg)
+            streamed.append(lg)
+            tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    del cache
+    return streamed, torch.stack(generated, 1), prefill_s, decode_s, prefill_counts
+
+
+def phase_gemma2_full(rows, smi):
+    """14b: gemma2-9b at full width and depth, bf16 params from seed 0: a
+    warm-up prefill of 4 x 256, then G2_BATCH prompts of G2_PROMPT tokens
+    and G2_DECODE greedy decode steps (8,192 tokens, gemma2's context)
+    with the launch counts set to 0 before and read after; then one
+    teacher-forced pass over prompt + generated tokens, unembedding only
+    the positions it compares ((4, 8192, 256000) bf16 logits would be
+    16.8 GB)."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import dense
+    from repro_torch.models.api import get_model
+    cfg = get_config("gemma2-9b")
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = api.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params).values())
+    log(f"  14b [{smi}] gemma2-9b params: {n_params / 1e9:.3f} B bf16 "
+        f"({2 * n_params / 1e9:.2f} GB) on the card, init {time.perf_counter() - t0:.3f} s; "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim} "
+        f"(kv {cfg.num_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, windows "
+        f"{G2_WINDOW} on even layers")
+    prompts = next(token_batches(cfg.vocab_size, G2_BATCH, G2_PROMPT, seed=0,
+                                 device="cuda"))["tokens"]
+    _greedy(api, params, cfg, prompts[:, :256], 2, 258)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streamed, gen_tokens, prefill_s, decode_s, pre = _greedy(
+        api, params, cfg, prompts, G2_DECODE, G2_PROMPT + G2_DECODE)
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_pre = {"flash_attention": cfg.num_layers}
+    want = {"flash_attention": cfg.num_layers * (1 + G2_DECODE)}
+    log(f"  14b [{smi}] prefill {G2_BATCH} x {G2_PROMPT}: {prefill_s:.4f} s "
+        f"({G2_BATCH * G2_PROMPT / prefill_s:.1f} tokens/s); decode {G2_DECODE} steps x "
+        f"{G2_BATCH}: {1e3 * decode_s / G2_DECODE:.4f} ms/step "
+        f"({G2_BATCH * G2_DECODE / decode_s:.1f} tokens/s); max_memory_allocated "
+        f"{peak:.3f} GiB; launches prefill {pre} (planned {want_pre}), all {counts} "
+        f"(planned {want})")
+    if pre != want_pre or counts != want:
+        raise AssertionError("14b: gemma2-9b's launches differ from one flash call a layer")
+    windows = dense.layer_windows(cfg)
+    local = sum(w is not None for w in windows)
+    for key, n in (("local", local), ("global", cfg.num_layers - local)):
+        rows[f"flash_attention gemma2 prefill {key}"]["launches"] = n
+        rows[f"flash_attention gemma2 decode {key}"]["launches"] = n * G2_DECODE
+    streamed = torch.stack(streamed, 1)                        # (B, 65, V)
+    P = G2_PROMPT
+    with torch.no_grad():
+        full = torch.cat([prompts, gen_tokens.to(prompts.dtype)], 1)
+        x, _ = dense.forward_hidden(params, full, cfg)
+        forced = dense._unembed(params, x[:, P - 1:], cfg)
+    del x
+    torch.cuda.synchronize()
+    finite = _finite(streamed) and _finite(forced)
+    # TOL_STREAM_DEEP at every position, the last prompt one too: bf16 over
+    # 42 layers, and the prefill (8,128 rows a GEMM), the decode steps (4)
+    # and the forced pass (8,192) run cuBLAS kernels that round apart
+    err = (streamed.float() - forced.float()).abs().amax(dim=(0, 2))
+    agree = float((streamed[:, 1:].argmax(-1) == forced[:, 1:].argmax(-1)).float().mean())
+    log(f"  14b [{smi}] streamed vs teacher-forced max |diff| at the last prompt "
+        f"position {float(err[0]):.4e}, over {G2_DECODE} decode positions "
+        f"{float(err[1:].max()):.4e} (tol {TOL_STREAM_DEEP} for both), greedy tokens agree "
+        f"{agree:.4f} (min {MIN_GREEDY_AGREE}); forced logits std "
+        f"{float(forced.float().std()):.4f}, finite {finite}; peak with the forced pass "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not finite or tuple(streamed.shape) != (G2_BATCH, G2_DECODE + 1, cfg.vocab_size):
+        raise AssertionError("14b: logits are not finite or have the wrong shape")
+    if float(err.max()) > TOL_STREAM_DEEP or agree < MIN_GREEDY_AGREE:
+        raise AssertionError("14b: streamed logits disagree with teacher forcing")
+    del params, streamed, forced
+    torch.cuda.empty_cache()
+    return prefill_s, decode_s / G2_DECODE, peak
+
+
+def phase_moe_full(rows, smi):
+    """14c: qwen3-moe-30b-a3b at full width and depth (48 layers, 30.5 B
+    params, 61 GB in bf16), bf16 params from seed 0: a warm-up prefill, then
+    MOE_BATCH prompts of MOE_PROMPT tokens and MOE_DECODE greedy decode
+    steps, launches held to one flash and one ``expert_ffn`` call a layer
+    and pass.  Teacher forcing is no check here: capacity-based routing
+    drops other pairs for 16,640 tokens than for 8."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+    cfg = get_config("qwen3-moe-30b-a3b")
+    api = get_model(cfg)
+    n_layers = cfg.num_layers
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = api.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params).values())
+    log(f"  14c [{smi}] qwen3-moe-30b-a3b at full width and depth, {n_layers} layers: "
+        f"{n_params / 1e9:.3f} B params bf16 on the card ({held:.3f} GiB held before "
+        f"them), init {time.perf_counter() - t0:.3f} s; d {cfg.d_model}, {cfg.num_heads} heads x "
+        f"{cfg.head_dim} (kv {cfg.num_kv_heads}), {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_token}, f {cfg.expert_d_ff}, vocab {cfg.vocab_size}")
+    prompts = next(token_batches(cfg.vocab_size, MOE_BATCH, MOE_PROMPT, seed=1,
+                                 device="cuda"))["tokens"]
+    _greedy(api, params, cfg, prompts[:, :256], 2, 258)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streamed, _, prefill_s, decode_s, pre = _greedy(
+        api, params, cfg, prompts, MOE_DECODE, MOE_PROMPT + MOE_DECODE)
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_pre = {"flash_attention": n_layers, "expert_ffn": n_layers}
+    want = {k: n_layers * (1 + MOE_DECODE) for k in want_pre}
+    streamed = torch.stack(streamed, 1)
+    finite = _finite(streamed)
+    log(f"  14c [{smi}] prefill {MOE_BATCH} x {MOE_PROMPT}: {prefill_s:.4f} s "
+        f"({MOE_BATCH * MOE_PROMPT / prefill_s:.1f} tokens/s); decode {MOE_DECODE} steps x "
+        f"{MOE_BATCH}: {1e3 * decode_s / MOE_DECODE:.4f} ms/step "
+        f"({MOE_BATCH * MOE_DECODE / decode_s:.1f} tokens/s); max_memory_allocated "
+        f"{peak:.3f} GiB; logits finite {finite}, shape {tuple(streamed.shape)}; launches "
+        f"prefill {pre} (planned {want_pre}), all {counts} (planned {want})")
+    if pre != want_pre or counts != want:
+        raise AssertionError("14c: launches differ from one flash and one expert_ffn "
+                             "call a layer")
+    if not finite or tuple(streamed.shape) != (MOE_BATCH, MOE_DECODE + 1, cfg.vocab_size):
+        raise AssertionError("14c: logits are not finite or have the wrong shape")
+    for kernel in ("expert_ffn", "flash_attention"):
+        rows[f"{kernel} qwen3-moe prefill"]["launches"] = n_layers
+        rows[f"{kernel} qwen3-moe decode"]["launches"] = n_layers * MOE_DECODE
+    del params, streamed
+    torch.cuda.empty_cache()
+    return prefill_s, decode_s / MOE_DECODE, peak
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -3367,6 +3903,9 @@ def main() -> int:
         phase_build()
     with phase("3 kernels vs plain versions"):
         rows = phase_kernels()
+        # 3L before 3G and 3B: a whole run's later profiler traces have
+        # dropped launches (a 3L trace held 2 of 5 when it came last)
+        phase_lm_kernels(rows, smi)
         phase_g_kernels(rows, smi)
         phase_backward_kernels(rows, smi)
         phase_scan_backward(rows, smi)
@@ -3405,6 +3944,12 @@ def main() -> int:
                "at full width and depth; 13a ran at the end of phase 3)"):
         phase_train_lm_smoke(smi)
         phase_train_lm_full(rows, smi)
+    with phase("14 main path 10 (dense and MoE LMs: the six smoke configs cpu vs card, "
+               "gemma2-9b at full width and depth, qwen3-moe-30b-a3b at full width; "
+               "3L ran in phase 3)"):
+        phase_lm_smoke_card(smi)
+        phase_gemma2_full(rows, smi)
+        phase_moe_full(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "max_abs_err", "ms",

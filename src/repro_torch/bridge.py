@@ -1,7 +1,8 @@
 """Carry a JAX parameter tree over to the port.
 
-``from_jax_params`` takes the tree ``repro.models.dit_moe.init_dit`` or
-``repro.models.rwkv6.init_rwkv6`` builds, with its leaves as numpy arrays
+``from_jax_params`` takes the tree ``repro.models.dit_moe.init_dit``,
+``repro.models.rwkv6.init_rwkv6`` or ``repro.models.dense.init_lm`` (the
+dense and MoE LMs) builds, with its leaves as numpy arrays
 (``jax.device_get`` gives that), and returns the same tree of torch
 tensors.  Every leaf keeps its shape, its dtype and its (in, out) layout,
 so nothing is transposed on the way; bf16 leaves cross bit for bit.  This
@@ -25,6 +26,9 @@ RWKV6_LAYER_KEYS = ("ln1", "ln2", "mix", "mix_lora_a", "mix_lora_b", "wr",
                     "wk", "wv", "wg", "wo", "decay_base", "decay_lora_a",
                     "decay_lora_b", "bonus_u", "ln_x", "cm_mix", "cm_k",
                     "cm_v", "cm_r")
+LM_TOP_KEYS = ("embed", "layers", "final_norm")
+LM_LAYER_KEYS = ("ln1", "ln2", "attn")
+LM_ATTN_KEYS = ("wq", "wk", "wv", "wo")
 
 
 def _convert(node, device, path: str):
@@ -44,10 +48,20 @@ def _convert(node, device, path: str):
 
 def from_jax_params(tree: Dict[str, Any],
                     device: Optional[str] = None) -> Dict[str, Any]:
-    """numpy tree of ``repro.models.dit_moe.init_dit`` or
-    ``repro.models.rwkv6.init_rwkv6`` -> port params on ``device``
-    (``cuda`` unless given)."""
-    if "layers" in tree:
+    """numpy tree of ``repro.models.dit_moe.init_dit``,
+    ``repro.models.rwkv6.init_rwkv6`` or ``repro.models.dense.init_lm`` ->
+    port params on ``device`` (``cuda`` unless given).  An LM tree is told
+    by its layer keys: an ``attn`` block (with ``mlp`` or ``moe``) is the
+    dense/MoE LM's, anything else is checked as RWKV-6's."""
+    if "layers" in tree and "attn" in tree["layers"]:
+        _require(tree, LM_TOP_KEYS, "not a dense/MoE LM param tree")
+        layer = tree["layers"]
+        _require(layer, LM_LAYER_KEYS, "layers")
+        _require(layer["attn"], LM_ATTN_KEYS, "layers.attn")
+        if ("mlp" in layer) == ("moe" in layer):
+            raise KeyError("layers: a dense/MoE LM layer holds one of 'mlp' "
+                           "and 'moe'")
+    elif "layers" in tree:
         _require(tree, RWKV6_TOP_KEYS, "not an RWKV-6 param tree")
         _require(tree["layers"], RWKV6_LAYER_KEYS, "layers")
     else:

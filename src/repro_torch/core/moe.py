@@ -43,8 +43,32 @@ from repro_torch.compress import codecs as codec_lib
 from repro_torch.core import overlap as overlap_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act_fn
+from repro_torch.models.layers import dense_init
 from repro_torch.obs import telemetry as obs_telemetry
 from repro_torch.resilience import faults as fault_lib
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+def moe_init(gen: torch.Generator, cfg, *, dtype: torch.dtype = torch.bfloat16):
+    """MoE params in the reference's tree, drawn from ``gen`` on its device:
+    an f32 router (d, E), the expert stacks (E, d, f) / (E, f, d) in
+    ``dtype``, and shared experts of width ``f * num_shared_experts`` only
+    when the config has some."""
+    d, f, E = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
+    p = {
+        "router": dense_init(gen, (d, E), dtype=torch.float32),
+        "experts_gate": dense_init(gen, (E, d, f), dtype=dtype),
+        "experts_up": dense_init(gen, (E, d, f), dtype=dtype),
+        "experts_down": dense_init(gen, (E, f, d), dtype=dtype),
+    }
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        p["shared_gate"] = dense_init(gen, (d, fs), dtype=dtype)
+        p["shared_up"] = dense_init(gen, (d, fs), dtype=dtype)
+        p["shared_down"] = dense_init(gen, (fs, d), dtype=dtype)
+    return p
 
 
 def default_capacity(num_tokens: int, cfg, *, k: Optional[int] = None,

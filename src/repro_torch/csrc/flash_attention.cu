@@ -1,11 +1,22 @@
 // Online-softmax attention for Hopper (sm_90a) on the tensor cores.
 //   q (B, Sq, H, Dh), k/v (B, Sk, KVH, Dh) -> o (B, Sq, H, Dh)
 // read and written through strides in that layout (the last dim must be
-// contiguous), so the caller makes no transposed copy.  Options exactly as
-// the Pallas kernel's: causal, sliding window (symmetric when not causal),
-// logit softcap, GQA by h // (H / KVH); masked logits are -1e30 (not -inf),
-// keys past Sk are padding at -inf, so a fully masked row gives the mean of
-// V; l is clamped at 1e-30.  Dh up to 256; f32 or bf16 in and out.
+// contiguous), so the caller makes no transposed copy.  Options as the
+// Pallas kernel's: causal, sliding window, logit softcap, GQA by
+// h // (H / KVH); masked logits are -1e30 (not -inf), keys past Sk are
+// padding at -inf, so a fully masked row gives the mean of V; l is clamped
+// at 1e-30.  Dh up to 256; f32 or bf16 in and out.
+//
+// KV-cache masks (the LM families' prefill and ring-buffer decode): query
+// row i has the absolute position pq = q_offset + i; key slot j has
+// pk = k_pos[j] when a k_pos vector is given (a negative value marks an
+// empty slot), else pk = j.  Key j is kept for row i iff
+//   pk >= 0 && (!causal || pq >= pk) && (!window || pq - pk < window)
+//           && (!symmetric || pk - pq < window).
+// symmetric is the Pallas kernel's window when not causal; the wrapper
+// clears it for the one-sided window of layers.attention.  Every key tile
+// is walked whatever the mask: k_pos need not be monotone (a wrapped ring
+// is not), and a fully masked row must still see every slot.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention), which keeps m/l/acc in VMEM scratch across its
@@ -47,6 +58,9 @@
 //   - The register tiles are sized by a template argument NT (8-wide Dh
 //     tiles: 4, 9, 16 or 32), so the O accumulator never spills to local
 //     memory; Dh = 72 runs at NT = 9 with no padding tile.
+//   - A warp whose 16 query rows all lie past Sq skips the products and
+//     the softmax (it still helps load the tiles): decode (Sq = 1) runs
+//     one warp of eight, a 32-query DistriFusion owner two.
 //   - An optional f32 (B, H, Sq) output lse receives each row's log-sum-
 //     exp of the scaled logits, m + log(l), for the backward kernel
 //     (flash_attention_bwd.cu).  It is stored where the epilogue
@@ -124,9 +138,9 @@ template <typename T, int NT>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-             int Sq, int Sk, int H,
+             const int* __restrict__ k_pos, int q_offset, int Sq, int Sk, int H,
              int KVH, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
-             int causal, int has_window, int window, int has_softcap,
+             int causal, int has_window, int window, int symmetric, int has_softcap,
              float softcap, float scale, int aligned) {
   constexpr int BKV = key_tile<NT>();
   constexpr int SN = BKV / 8;           // 8-key tiles of S per K/V tile
@@ -172,6 +186,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};
   const int row = warp * 16 + g;        // rows row and row + 8 of the block
   const T* qa = Qs + row * ld + t;
+  const bool active = q0 + warp * 16 < Sq;   // warp-uniform
+  const int pq0 = q_offset + q0 + row;        // position of row `row`
 
   for (int kt = 0; kt < ntiles; ++kt) {
     cp_async_wait<STAGES - 2>();
@@ -181,6 +197,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (nk < ntiles) load_stage(nk % STAGES, nk);
       cp_async_commit();
     }
+    if (!active) continue;              // its rows are all past Sq
     const T* Kt = ring + (2 * (kt % STAGES)) * tile;
     const T* Vt = Kt + tile;
     const int key0 = kt * BKV;
@@ -211,27 +228,36 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // softcap, masks, padding keys; running max over the quad of lanes
+    // softcap, masks, padding keys; running max over the quad of lanes.
+    // Two copies of the loop behind a uniform branch: without k_pos a key's
+    // position is its index and no load is issued.
     float mx[2] = {-INFINITY, -INFINITY};
+    auto mask = [&](auto key_pos) {
 #pragma unroll
-    for (int j = 0; j < SN; ++j)
+      for (int j = 0; j < SN; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int pq = q0 + row + (e >> 1) * 8;
-        const int pk = key0 + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e];
-        if (has_softcap) x = softcap * tanhf(x / softcap);
-        bool keep = true;
-        if (causal) keep = keep && (pq >= pk);
-        if (has_window) {
-          keep = keep && (pq - pk) < window;
-          if (!causal) keep = keep && (pk - pq) < window;
+        for (int e = 0; e < 4; ++e) {
+          const int pq = pq0 + (e >> 1) * 8;
+          const int key = key0 + j * 8 + 2 * t + (e & 1);
+          const int pk = key_pos(key);
+          float x = s[j][e];
+          if (has_softcap) x = softcap * tanhf(x / softcap);
+          bool keep = pk >= 0;
+          if (causal) keep = keep && (pq >= pk);
+          if (has_window) {
+            keep = keep && (pq - pk) < window;
+            if (symmetric) keep = keep && (pk - pq) < window;
+          }
+          if (!keep) x = MASKED;
+          x = key < Sk ? x : -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
-        if (!keep) x = MASKED;
-        x = pk < Sk ? x : -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
+    };
+    if (k_pos == nullptr)
+      mask([](int key) { return key; });
+    else
+      mask([&](int key) { return key < Sk ? __ldg(k_pos + key) : 0; });
     float corr[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -302,10 +328,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int NT>
-cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                      int Sq, int Sk, int H, int KVH, int Dh, Strides qs, Strides ks,
-                      Strides vs, Strides os, int causal, int has_window, int window,
-                      int has_softcap, float softcap, cudaStream_t stream) {
+cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, float* lse,
+                      const int* k_pos, int q_offset, int B, int Sq, int Sk, int H, int KVH,
+                      int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                      int has_window, int window, int symmetric, int has_softcap,
+                      float softcap, cudaStream_t stream) {
   const int dp = 8 * ((Dh + 7) / 8);
   const size_t smem = smem_bytes<T, NT>(dp);
   cudaError_t err = cudaFuncSetAttribute(
@@ -320,21 +347,24 @@ cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, floa
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_kernel<T, NT><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal, has_window,
-      window, has_softcap, softcap, (float)(1.0 / sqrt((double)Dh)), aligned);
+      static_cast<T*>(o), lse, k_pos, q_offset, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
+      has_window, window, symmetric, has_softcap, softcap, (float)(1.0 / sqrt((double)Dh)),
+      aligned);
   return cudaSuccess;
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int Sq, int Sk, int H, int KVH, int Dh, Strides qs, Strides ks,
-                   Strides vs, Strides os, int causal, int has_window, int window,
-                   int has_softcap, float softcap, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const int* k_pos, int q_offset, int B, int Sq, int Sk, int H, int KVH,
+                   int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                   int has_window, int window, int symmetric, int has_softcap, float softcap,
+                   cudaStream_t stream) {
   const int nd = (Dh + 7) / 8;
   auto run = [&](auto kernel_nt) {
     constexpr int NT = decltype(kernel_nt)::value;
-    return launch_nt<T, NT>(q, k, v, o, lse, B, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
-                            has_window, window, has_softcap, softcap, stream);
+    return launch_nt<T, NT>(q, k, v, o, lse, k_pos, q_offset, B, Sq, Sk, H, KVH, Dh, qs, ks,
+                            vs, os, causal, has_window, window, symmetric, has_softcap,
+                            softcap, stream);
   };
   if (nd <= 4) return run(std::integral_constant<int, 4>{});
   if (nd <= 9) return run(std::integral_constant<int, 9>{});
@@ -347,13 +377,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 // Strides are in elements: *_sb, *_ss, *_sh for the batch, sequence and head
 // dims of each tensor.  lse: null, or f32 (B, H, Sq) contiguous for the rows'
-// log-sum-exp.  dtype: 0 f32, 1 bf16.  Returns cudaGetLastError().
+// log-sum-exp.  k_pos: null, or int32 (Sk,) key positions (negative: empty
+// slot); q_offset: the position of query row 0.  symmetric: the window also
+// masks keys window or more past the query.  dtype: 0 f32, 1 bf16.
+// Returns cudaGetLastError().
 extern "C" int dice_flash_attention(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq, int Sk,
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* k_pos,
+    int q_offset, int B, int Sq, int Sk,
     int H, int KVH, int Dh, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int causal,
-    int has_window, int window, int has_softcap, float softcap, int dtype,
+    int has_window, int window, int symmetric, int has_softcap, float softcap, int dtype,
     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -361,14 +395,15 @@ extern "C" int dice_flash_attention(
   const dice::Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* kp = static_cast<const int*>(k_pos);
   if (dtype == dice::kF32)
-    err = dice::launch<float>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH, Dh, qs,
-                              ks, vs, os, causal,
-                              has_window, window, has_softcap, softcap, s);
+    err = dice::launch<float>(q, k, v, o, static_cast<float*>(lse), kp, q_offset, B, Sq, Sk,
+                              H, KVH, Dh, qs, ks, vs, os, causal, has_window, window,
+                              symmetric, has_softcap, softcap, s);
   else
-    err = dice::launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KVH,
-                                      Dh, qs, ks, vs, os,
-                                      causal, has_window, window, has_softcap, softcap, s);
+    err = dice::launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), kp, q_offset, B,
+                                      Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal, has_window,
+                                      window, symmetric, has_softcap, softcap, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

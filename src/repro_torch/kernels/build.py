@@ -44,8 +44,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
     "dice_expert_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dice_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-    + [_L] * 12 + [_I, _I, _I, _I, _F, _I, _I, _P],
+    "dice_flash_attention": [_P] * 6 + [_I] * 7 + [_L] * 12
+    + [_I] * 5 + [_F, _I, _I, _P],
     "dice_expert_ffn_bwd": [_P] * 10 + [_I] * 7 + [_P],
     "dice_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I, _P],
     "dice_residual_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],

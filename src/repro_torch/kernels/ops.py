@@ -38,6 +38,7 @@ LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
 MAX_HEAD_DIM = 256
+_INT32_MAX = 2 ** 31 - 1
 MAX_BWD_HEAD_DIM = 128
 RWKV6_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -128,24 +129,57 @@ def _expert_ffn_fwd(buf, w_gate, w_up, w_down, act):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
+                    softcap: Optional[float] = None, q_offset: int = 0,
+                    k_pos: Optional[torch.Tensor] = None,
+                    one_sided_window: bool = False,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Sq, H, Dh); k, v (B, Sk, KVH, Dh) -> (B, Sq, H, Dh), read
     through strides (the head dim must be contiguous).  ``out``, a
     (B, Sq, H, Dh) tensor or view with a contiguous head dim, receives the
     result in place of a new tensor (the kernel writes through its
     strides).  With grad enabled and an input that requires it, through
-    :class:`FlashAttentionFn` (``out`` then raises)."""
+    :class:`FlashAttentionFn` (``out`` then raises).
+
+    KV-cache masks: query row i sits at position ``q_offset + i``; key
+    slot j at ``k_pos[j]`` (int32 (Sk,) on q's device; negative marks an
+    empty slot), else at j.  The window is the Pallas kernel's, symmetric
+    when not causal, unless ``one_sided_window`` (``pq - pk < window``
+    only, as ``layers.attention`` applies it)."""
     if _needs_grad(q, k, v):
         if out is not None:
             raise ValueError("flash_attention: out= cannot be combined with "
                              "grad (autograd needs a fresh output)")
-        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                      q_offset, k_pos, one_sided_window)
     return _flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                softcap=softcap, out=out)[0]
+                                softcap=softcap, q_offset=q_offset,
+                                k_pos=k_pos,
+                                one_sided_window=one_sided_window,
+                                out=out)[0]
+
+
+def _check_masks(q, k, q_offset, k_pos, window) -> None:
+    """The KV-cache mask arguments the kernel takes: positions and the
+    window in int32, ``k_pos`` an int32 (Sk,) vector on q's device."""
+    if not isinstance(q_offset, int) or q_offset < 0 \
+            or q_offset + q.shape[1] > _INT32_MAX:
+        raise ValueError(f"flash_attention: q_offset {q_offset!r} must be an "
+                         f"int in [0, 2^31 - Sq]")
+    if window is not None and not 0 <= window <= _INT32_MAX:
+        raise ValueError(f"flash_attention: window {window} not in "
+                         f"[0, 2^31 - 1]")
+    if k_pos is not None and (k_pos.dtype != torch.int32
+                              or tuple(k_pos.shape) != (k.shape[1],)
+                              or k_pos.device != q.device
+                              or not k_pos.is_contiguous()):
+        raise ValueError(f"flash_attention: k_pos must be a contiguous int32 "
+                         f"({k.shape[1]},) tensor on {q.device}, not "
+                         f"{k_pos.dtype} {tuple(k_pos.shape)} on "
+                         f"{k_pos.device}")
 
 
 def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
+                         q_offset=0, k_pos=None, one_sided_window=False,
                          out=None, want_lse: bool = False):
     """(o, lse): ``lse`` is the (B, H, Sq) f32 row log-sum-exp of the
     scaled logits when ``want_lse`` (unmasked, no softcap, H == KVH only),
@@ -156,9 +190,13 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
         raise ValueError(f"flash_attention: out {tuple(out.shape)} "
                          f"{out.dtype} must match q {tuple(q.shape)} "
                          f"{q.dtype} on its device, head dim contiguous")
+    if q.dim() == 4 and k.dim() == 4:
+        _check_masks(q, k, q_offset, k_pos, window)
     if q.device.type == "cpu":
         o = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    softcap=softcap)
+                                    softcap=softcap, q_offset=q_offset,
+                                    k_pos=k_pos,
+                                    one_sided_window=one_sided_window)
         lse = ref.attention_lse_ref(q, k) if want_lse else None
         return (o if out is None else out.copy_(o)), lse
     if q.device.type != "cuda":
@@ -190,10 +228,12 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
     err = lib.dice_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if lse is None else lse.data_ptr(),
+        0 if k_pos is None else k_pos.data_ptr(), q_offset,
         B, Sq, Sk, H, KVH, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
         int(causal), int(window is not None),
         int(window) if window is not None else 0,
+        int(not causal and not one_sided_window),
         int(softcap is not None),
         float(softcap) if softcap is not None else 0.0,
         code, q.device.index or 0, _stream(q.device))
@@ -390,21 +430,32 @@ class FlashAttentionFn(torch.autograd.Function):
     output and the log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset=0,
+                k_pos=None, one_sided_window=False):
+        cache_masks = q_offset != 0 or k_pos is not None
         plain = (not causal and window is None and softcap is None
-                 and q.shape[2] == k.shape[2])
+                 and not cache_masks and q.shape[2] == k.shape[2])
         o, lse = _flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                      softcap=softcap, want_lse=plain)
+                                      softcap=softcap, q_offset=q_offset,
+                                      k_pos=k_pos,
+                                      one_sided_window=one_sided_window,
+                                      want_lse=plain)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.cache_masks = cache_masks
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.cache_masks:
+            raise NotImplementedError(
+                "flash_attention backward: KV-cache masks (q_offset, k_pos) "
+                "not ported (queued with the LM families' training, "
+                "ROADMAP.md A)")
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          **ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def residual_int8(value: torch.Tensor, base: torch.Tensor, *,

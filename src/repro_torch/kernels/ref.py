@@ -89,27 +89,34 @@ def expert_ffn_bwd_ref(buf, w_gate, w_up, w_down, dy, *, act: str = "silu"):
 
 
 def attention_mask(Sq: int, Sk: int, *, causal: bool, window,
-                   device) -> torch.Tensor:
-    """(Sq, Sk) bool: key j visible to query i.  A window is symmetric when
-    the attention is not causal."""
-    pq = torch.arange(Sq, device=device)[:, None]
-    pk = torch.arange(Sk, device=device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+                   device, q_offset: int = 0, k_pos=None,
+                   one_sided: bool = False) -> torch.Tensor:
+    """(Sq, Sk) bool: key j visible to query i.  Query i sits at position
+    ``q_offset + i``; key j at ``k_pos[j]`` (an int (Sk,) tensor, negative
+    for an empty slot), else at j.  A window keeps ``pq - pk < window``
+    and, when the attention is not causal and not ``one_sided``, also
+    ``pk - pq < window`` (the Pallas kernel's symmetric window)."""
+    pq = q_offset + torch.arange(Sq, device=device)[:, None]
+    pk = (torch.arange(Sk, device=device) if k_pos is None
+          else k_pos.to(device=device, dtype=torch.int64))[None, :]
+    mask = (pk >= 0).expand(Sq, Sk).clone()
     if causal:
         mask &= pq >= pk
     if window is not None:
         mask &= (pq - pk) < window
-        if not causal:
+        if not causal and not one_sided:
             mask &= (pk - pq) < window
     return mask
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = False, window=None,
-                        softcap=None):
+                        softcap=None, q_offset: int = 0, k_pos=None,
+                        one_sided_window: bool = False):
     """q: (B, Sq, H, Dh); k, v: (B, Sk, KVH, Dh) -> (B, Sq, H, Dh).
 
     GQA maps query head h to kv head ``h // (H // KVH)``.  Masked logits are
-    -1e30, not -inf, so a fully masked row gives the mean of V."""
+    -1e30, not -inf, so a fully masked row gives the mean of V.  The mask
+    is :func:`attention_mask`'s."""
     B, Sq, H, Dh = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -119,7 +126,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = False, window=None,
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
-                          device=q.device)
+                          device=q.device, q_offset=q_offset, k_pos=k_pos,
+                          one_sided=one_sided_window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))

@@ -2,9 +2,10 @@
 model families the port has.
 
 ``get_model(cfg)`` returns a :class:`ModelApi` with the JAX package's field
-names.  The port has the ``ssm`` family (RWKV-6) so far; DiT-MoE serving
+names.  The port has the ``dense`` and ``moe`` families
+(:mod:`repro_torch.models.dense`) and ``ssm`` (RWKV-6); DiT-MoE serving
 goes through :class:`repro_torch.launch.serve.DiceServer`, and the other
-families are queued in ROADMAP.md A.12.
+families (``hybrid``, ``vlm``, ``audio``) are queued in ROADMAP.md A.12.
 """
 from __future__ import annotations
 
@@ -23,6 +24,16 @@ class ModelApi:
 
 
 def get_model(cfg) -> ModelApi:
+    if cfg.family in ("dense", "moe"):
+        from repro_torch.models import dense as m
+        return ModelApi(
+            init=m.init_lm,
+            loss_fn=m.loss_fn,
+            prefill=lambda p, b, c, **kw: m.prefill(p, b["tokens"], c, **kw),
+            decode_step=lambda p, b, cache, c, **kw: m.decode_step(
+                p, b["token"], cache, c, **kw),
+            init_cache=m.init_cache,
+        )
     if cfg.family == "ssm":
         from repro_torch.models import rwkv6 as m
         return ModelApi(

@@ -1,0 +1,303 @@
+"""Decoder-only transformer LM for the dense and MoE families, port of
+``repro.models.dense``.
+
+One implementation, config-driven variants:
+  * GQA with RoPE; qk-norm (qwen3); attention-logit softcap, sandwich
+    norms, embedding scale and final-logit softcap (gemma2); alternating
+    local/global sliding windows (gemma2); gated MLP (silu or gelu).
+  * MoE FFN (qwen3-moe, dbrx) through :func:`repro_torch.core.moe.moe_forward`
+    on one device: the hand-written ``expert_ffn`` kernel on the card.
+
+Attention always goes through :func:`repro_torch.models.layers.attention`,
+the hand-written flash kernel on the card (its plain version on the CPU):
+causal, windowed, soft-capped GQA in prefill and the teacher-forced
+forward, and one query against the ring-buffer KV cache in decode, masked
+by the slots' absolute positions (``k_pos``).
+
+Params are a plain dict in the JAX package's layout: ``layers`` holds one
+tensor per leaf stacked over a leading layer axis; the layers run in a
+Python loop where the JAX package scans, over views unbound once a call
+(:func:`~repro_torch.models.layers.unstack_layers`).  The KV cache's
+``pos`` is a host int, so no step reads a device scalar back; decode writes
+its k and v into the cache tensors in place.  Expert parallelism over a
+mesh (``mesh``, ``seq_shard``, ``attn_shard``) is not ported (ROADMAP.md
+A, order item 4) and raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.core import moe as moe_lib
+from repro_torch.models import layers as L
+
+
+def _refuse_mesh(mesh=None, seq_shard: bool = False, attn_shard=None) -> None:
+    if mesh is not None or seq_shard or attn_shard:
+        raise NotImplementedError(
+            "models.dense: mesh, seq_shard and attn_shard shard the model over "
+            "a device mesh, which the port does not do for the LM families yet "
+            "(ROADMAP.md A, order item 4: training meshes)")
+
+
+# ---------------------------------------------------------------------------
+# per-layer window pattern
+# ---------------------------------------------------------------------------
+def layer_windows(cfg, *, long_context: bool = False) -> List[Optional[int]]:
+    """Attention window per layer, None for unlimited (the reference's 0)."""
+    w = [0] * cfg.num_layers
+    if cfg.local_global_pattern and cfg.sliding_window:
+        w[0::2] = [cfg.sliding_window] * len(w[0::2])   # gemma2: even layers local
+    if long_context and cfg.long_context_window:
+        w = [x or cfg.long_context_window for x in w]   # cap global layers
+    return [x or None for x in w]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_lm(cfg, *, generator: torch.Generator,
+            dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """Random params on ``generator.device`` in the layout of
+    ``repro.models.dense.init_lm`` (other numbers than the reference's for
+    the same seed; its weights come over by
+    :func:`repro_torch.bridge.from_jax_params`)."""
+    g, dev = generator, generator.device
+
+    def one_layer():
+        p = {
+            "ln1": L.rmsnorm_init(cfg.d_model, dev),
+            "ln2": L.rmsnorm_init(cfg.d_model, dev),
+            "attn": L.attn_init(g, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.head_dim, qk_norm=cfg.qk_norm, dtype=dtype),
+        }
+        if cfg.post_norm:
+            p["ln1_post"] = L.rmsnorm_init(cfg.d_model, dev)
+            p["ln2_post"] = L.rmsnorm_init(cfg.d_model, dev)
+        if cfg.is_moe:
+            p["moe"] = moe_lib.moe_init(g, cfg, dtype=dtype)
+        else:
+            p["mlp"] = L.mlp_init(g, cfg.d_model, cfg.d_ff, dtype=dtype)
+        return p
+
+    layers = L.stack_layers(one_layer, cfg.num_layers)
+    params = {
+        "embed": L.dense_init(g, (cfg.vocab_size, cfg.d_model), scale=0.02,
+                              dtype=dtype),
+        "layers": layers,
+        "final_norm": L.rmsnorm_init(cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(g, (cfg.vocab_size, cfg.d_model),
+                                         scale=1.0 / math.sqrt(cfg.d_model),
+                                         dtype=dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# one transformer layer
+# ---------------------------------------------------------------------------
+def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None):
+    """MoE FFN on (B, S, d), the reference's single-device path; returns
+    (y, load-balance loss)."""
+    _refuse_mesh(mesh)
+    B, S, d = x.shape
+    y, aux = moe_lib.moe_forward(p_moe, x.reshape(B * S, d), cfg)
+    return y.reshape(B, S, d), aux.lb_loss
+
+
+def _ffn(p, h: torch.Tensor, cfg):
+    if cfg.is_moe:
+        return _moe_block(p["moe"], h, cfg)
+    return (L.mlp_apply(p["mlp"], h, act=cfg.act),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+           window: Optional[int], kv_cache=None, cache_pos=None,
+           kv_valid_len=None):
+    """(x, (k, v), lb) of one pre-norm block: attention, then the MLP or
+    MoE, each with gemma2's post-norm when the config has it."""
+    h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
+    attn_out, new_kv = L.attn_apply(
+        p["attn"], h, positions, cfg, kv_cache=kv_cache, cache_pos=cache_pos,
+        window=window, kv_valid_len=kv_valid_len)
+    if cfg.post_norm:
+        attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
+    x = x + attn_out
+    h = L.rmsnorm(p["ln2"], x, eps=cfg.norm_eps)
+    ffn, lb = _ffn(p, h, cfg)
+    if cfg.post_norm:
+        ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)
+    return x + ffn, new_kv, lb
+
+
+def _embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        # the reference multiplies by sqrt(d) cast to x's dtype first: in
+        # bf16 the rounded scale gives other products than the exact one
+        scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+        x = x * scale
+    return x
+
+
+def _unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    w = params.get("unembed", params["embed"])
+    logits = x @ w.T
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)     # in the logits' dtype
+    return logits
+
+
+def _positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
+    return torch.arange(start, start + S, device=device)[None, :].expand(B, S)
+
+
+# ---------------------------------------------------------------------------
+# full teacher-forced forward
+# ---------------------------------------------------------------------------
+def forward_hidden(params, tokens: torch.Tensor, cfg, *,
+                   long_context: bool = False, mesh=None,
+                   seq_shard: bool = False, attn_shard=None):
+    """tokens (B, S) -> (final-normed hidden states (B, S, d), summed
+    load-balance loss): :func:`forward` before the unembedding, so a caller
+    can unembed only the positions it reads."""
+    _refuse_mesh(mesh, seq_shard, attn_shard)
+    B, S = tokens.shape
+    x = _embed(params, tokens, cfg)
+    positions = _positions(B, S, x.device)
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = L.unstack_layers(params["layers"], cfg.num_layers)
+    for p, win in zip(layers, layer_windows(cfg, long_context=long_context)):
+        x, _, lb_l = _layer(p, x, positions, cfg, window=win)
+        lb = lb + lb_l
+    return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), lb
+
+
+def forward(params, tokens: torch.Tensor, cfg, **kw):
+    """tokens (B, S) -> (logits (B, S, V), summed load-balance loss).
+    Keywords as :func:`forward_hidden`."""
+    x, lb = forward_hidden(params, tokens, cfg, **kw)
+    return _unembed(params, x, cfg), lb
+
+
+def loss_fn(params, batch, cfg, *, lb_weight: float = 0.01, **fwd_kw):
+    """Forward only: the backward of causal, windowed or soft-capped flash
+    attention is not ported (ROADMAP.md A, order item 3) and raises."""
+    logits, lb = forward(params, batch["tokens"], cfg, **fwd_kw)
+    ce = L.softmax_cross_entropy(logits, batch["labels"])
+    return ce + lb_weight * lb, {"ce": ce, "lb": lb}
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg, batch: int, max_len: int, *,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> Dict[str, Any]:
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": 0}                             # next write position
+
+
+def prefill(params, tokens: torch.Tensor, cfg, *, long_context: bool = False,
+            cache_len: Optional[int] = None, mesh=None):
+    """tokens (B, S) -> (last-token logits (B, V), cache).  The cache holds
+    the prompt's post-RoPE k and v in its first S slots; ``cache_len`` (at
+    least S; default S) sizes it for the decode steps to come, the slots
+    past S zero."""
+    _refuse_mesh(mesh)
+    B, S = tokens.shape
+    n = S if cache_len is None else cache_len
+    if n < S:
+        raise ValueError(f"prefill: cache_len {n} is shorter than the prompt {S}")
+    x = _embed(params, tokens, cfg)
+    positions = _positions(B, S, x.device)
+    shape = (cfg.num_layers, B, n, cfg.num_kv_heads, cfg.head_dim)
+    alloc = torch.empty if n == S else torch.zeros
+    ks = alloc(shape, dtype=x.dtype, device=x.device)
+    vs = alloc(shape, dtype=x.dtype, device=x.device)
+    layers = L.unstack_layers(params["layers"], cfg.num_layers)
+    for i, (p, win) in enumerate(zip(layers, layer_windows(
+            cfg, long_context=long_context))):
+        x, (k, v), _ = _layer(p, x, positions, cfg, window=win)
+        ks[i, :, :S] = k
+        vs[i, :, :S] = v
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], eps=cfg.norm_eps)
+    logits = _unembed(params, x, cfg)[:, 0]
+    return logits, {"k": ks, "v": vs, "pos": S}
+
+
+def decode_step(params, token: torch.Tensor, cache, cfg, *,
+                long_context: bool = False, mesh=None):
+    """One-token decode.  token (B,); cache from :func:`init_cache` or
+    :func:`prefill`, whose k and v this step writes in place at
+    ``pos % cache_len`` (post-RoPE, so slot order is irrelevant).
+
+    Ring semantics: when the cache is shorter than the position, writes
+    wrap; slot s holds the largest position p <= pos with p % cache_len ==
+    s, and that position masks it (``k_pos``, built once a step and shared
+    by every layer; -1 for a slot not yet written)."""
+    _refuse_mesh(mesh)
+    B = token.shape[0]
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cache_len = cache["k"].shape[2]
+    pos = int(cache["pos"])
+    write_idx = pos % cache_len
+    x = _embed(params, token[:, None], cfg)
+    positions = torch.full((B, 1), pos, device=x.device)
+    k_pos = ring_k_pos(pos, cache_len, x.device)
+    layers = L.unstack_layers(params["layers"], cfg.num_layers)
+    windows = layer_windows(cfg, long_context=long_context)
+    for p, win, ck, cv in zip(layers, windows, cache["k"].unbind(0),
+                              cache["v"].unbind(0)):
+        a = p["attn"]
+        h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
+        q = (h @ a["wq"]).reshape(B, 1, H, Dh)
+        k = (h @ a["wk"]).reshape(B, 1, KVH, Dh)
+        v = (h @ a["wv"]).reshape(B, 1, KVH, Dh)
+        if "q_norm" in a:
+            q = L.rmsnorm(a["q_norm"], q)
+            k = L.rmsnorm(a["k_norm"], k)
+        q = L.rope(q, positions, theta=cfg.rope_theta)
+        k = L.rope(k, positions, theta=cfg.rope_theta)
+        ck[:, write_idx] = k[:, 0].to(ck.dtype)
+        cv[:, write_idx] = v[:, 0].to(cv.dtype)
+        out = _decode_attention(q, ck, cv, k_pos=k_pos, q_pos=pos, window=win,
+                                softcap=cfg.attn_logit_softcap)
+        attn_out = out.reshape(B, 1, H * Dh) @ a["wo"]
+        if cfg.post_norm:
+            attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
+        x = x + attn_out
+        h2 = L.rmsnorm(p["ln2"], x, eps=cfg.norm_eps)
+        ffn, _ = _ffn(p, h2, cfg)
+        if cfg.post_norm:
+            ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)
+        x = x + ffn
+    x = L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    logits = _unembed(params, x, cfg)[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def ring_k_pos(pos: int, cache_len: int, device) -> torch.Tensor:
+    """int32 (cache_len,) absolute positions of a ring cache's slots after
+    the write at ``pos``: slot s holds ``pos - ((pos - s) mod cache_len)``,
+    -1 for a slot not yet written."""
+    slots = torch.arange(cache_len, device=device)
+    slot_pos = pos - torch.remainder(pos - slots, cache_len)
+    return torch.where(slot_pos >= 0, slot_pos, -1).to(torch.int32)
+
+
+def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, *, k_pos: torch.Tensor, q_pos: int,
+                      window: Optional[int], softcap: Optional[float]):
+    """q (B, 1, H, Dh) against a ring cache (B, Sc, KVH, Dh) whose slots sit
+    at ``k_pos`` (:func:`ring_k_pos`; negative for an empty slot): causal at
+    ``q_pos``, one-sided window, through the flash kernel with ``q_offset =
+    q_pos``."""
+    return L.attention(q, k_cache, v_cache, causal=True, window=window,
+                       softcap=softcap, q_offset=q_pos, k_pos=k_pos)

@@ -1,8 +1,8 @@
-"""Shared layers of the port's models (the parts of ``repro.models.layers``
-that the DiT-MoE and RWKV-6 paths use): init helpers, RMS norm, RoPE,
-attention and the f32 cross-entropy.  Params are plain dicts of tensors in
-the JAX package's layout: a projection weight is (in, out) and applies as
-``x @ w``.
+"""Shared layers of the port's models (port of ``repro.models.layers``):
+init helpers, RMS norm, RoPE, grouped-query attention with the KV-cache
+masks, the attention block, the gated MLP and the f32 cross-entropy.
+Params are plain dicts of tensors in the JAX package's layout: a
+projection weight is (in, out) and applies as ``x @ w``.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import act_fn
 
 
 def dense_init(gen: torch.Generator, shape, *, scale: Optional[float] = None,
@@ -23,6 +24,43 @@ def dense_init(gen: torch.Generator, shape, *, scale: Optional[float] = None,
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=torch.float32).mul_(scale).to(dtype)
+
+
+def stack_layers(draw_layer, n: int):
+    """Params of ``n`` layers stacked over a leading layer axis: each
+    layer, drawn by ``draw_layer()``, is copied into the stacked tensors,
+    so the peak is the stack plus one layer."""
+    stack = None
+    for i in range(n):
+        layer = draw_layer()
+        if stack is None:
+            stack = _empty_stack(layer, n)
+        _fill(stack, layer, i)
+    return stack
+
+
+def _empty_stack(layer, n: int):
+    return {k: _empty_stack(v, n) if isinstance(v, dict)
+            else v.new_empty((n, *v.shape)) for k, v in layer.items()}
+
+
+def _fill(stack, layer, i: int) -> None:
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _fill(stack[k], v, i)
+        else:
+            stack[k][i] = v
+
+
+def unstack_layers(stack, n: int):
+    """The first ``n`` layers of stacked params as one dict each, of views
+    into the stacked leaves: one ``unbind`` a leaf, whose backward stacks
+    the layers' gradients once.  (Indexing the stack per layer would give
+    each layer's gradient a zero-filled copy of the whole stack, summed
+    over the layers: at rwkv6-3b that is most of a training step.)"""
+    cols = {k: unstack_layers(v, n) if isinstance(v, dict)
+            else torch.unbind(v) for k, v in stack.items()}
+    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
 
 
 def rmsnorm_init(d: int, device=None):
@@ -54,21 +92,61 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = False, window: Optional[int] = None,
-              softcap: Optional[float] = None) -> torch.Tensor:
-    """Grouped-query attention, q (B, Sq, H, Dh), k/v (B, Sk, KVH, Dh).
+              softcap: Optional[float] = None, q_offset: int = 0,
+              kv_valid_len=None,
+              k_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grouped-query attention, q (B, Sq, H, Dh), k/v (B, Sk, KVH, Dh): the
+    JAX package's ``layers.attention``.
 
     On CUDA tensors this is the hand-written flash kernel; on the CPU its
-    plain version.  For the DiT's inputs (no window, no KV cache) it is the
-    function of the JAX package's dense ``layers.attention``.  A window here
-    is symmetric when not causal, as in the flash kernel."""
+    plain version.  Query i sits at position ``q_offset + i``; key j is
+    visible to it iff ``pq - pk < window`` (one-sided, whether causal or
+    not) and, when ``causal``, ``pq >= pk``.  ``kv_valid_len`` (an int or a
+    0-d integer tensor) masks the keys at and past it, a partly filled KV
+    cache.  ``k_pos`` (int32 (Sk,); negative for an empty slot) gives the
+    keys' positions instead of their indices: the ring-buffer cache of
+    decode.  The flash kernel's online softmax over key tiles is the
+    counterpart of the reference's ``_blocked_attention`` (the path it
+    takes when Sq * Sk > 2^22): neither materialises Sq x Sk scores."""
+    if kv_valid_len is not None:
+        if k_pos is not None:
+            raise ValueError("attention: give kv_valid_len or k_pos, not both")
+        idx = torch.arange(k.shape[1], device=k.device, dtype=torch.int32)
+        k_pos = torch.where(idx < kv_valid_len, idx, torch.full_like(idx, -1))
     return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+                               softcap=softcap, q_offset=q_offset,
+                               k_pos=k_pos, one_sided_window=True)
+
+
+def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
+              num_kv_heads: int, head_dim: int, *, qk_norm: bool = False,
+              dtype: torch.dtype = torch.bfloat16):
+    """Attention params in the reference's tree: wq (d, H Dh), wk and wv
+    (d, KVH Dh), wo (H Dh, d), and with ``qk_norm`` the per-head RMS norms
+    ``q_norm`` / ``k_norm``.  Drawn from ``gen`` (other numbers than the
+    reference's for the same seed)."""
+    p = {
+        "wq": dense_init(gen, (d_model, num_heads * head_dim), dtype=dtype),
+        "wk": dense_init(gen, (d_model, num_kv_heads * head_dim), dtype=dtype),
+        "wv": dense_init(gen, (d_model, num_kv_heads * head_dim), dtype=dtype),
+        "wo": dense_init(gen, (num_heads * head_dim, d_model), dtype=dtype),
+    }
+    if qk_norm:
+        p["q_norm"] = rmsnorm_init(head_dim, gen.device)
+        p["k_norm"] = rmsnorm_init(head_dim, gen.device)
+    return p
 
 
 def attn_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
-               causal: bool = True, window: Optional[int] = None):
-    """Self-attention block: projections, RoPE on q and k, attention, output
-    projection.  Returns (out, (k, v))."""
+               kv_cache=None, cache_pos: Optional[int] = None,
+               window: Optional[int] = None, kv_valid_len=None,
+               causal: bool = True):
+    """Self-attention block: projections, qk-norm, RoPE on q and k,
+    attention, output projection.  Returns (out, (k, v)): this call's k and
+    v (post-RoPE), or with ``kv_cache`` = (ck, cv) (B, Sc, KVH, Dh) the
+    cache with them written at ``cache_pos`` (a host int), in place; the
+    queries then sit at ``cache_pos`` on and attend over the whole cache,
+    ``kv_valid_len`` masking its unwritten tail."""
     B, S, _ = x.shape
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, Dh)
@@ -79,15 +157,44 @@ def attn_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         k = rmsnorm(p["k_norm"], k)
     q = rope(q, positions, theta=cfg.rope_theta)
     k = rope(k, positions, theta=cfg.rope_theta)
+    q_off = 0
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        if not 0 <= cache_pos <= ck.shape[1] - S:
+            raise ValueError(f"attn_apply: {S} rows at cache_pos {cache_pos} "
+                             f"do not fit a cache of {ck.shape[1]}")
+        ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+        cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        k, v, q_off = ck, cv, cache_pos
     out = attention(q, k, v, causal=causal, window=window,
-                    softcap=cfg.attn_logit_softcap)
+                    softcap=cfg.attn_logit_softcap, q_offset=q_off,
+                    kv_valid_len=kv_valid_len)
     return out.reshape(B, S, H * Dh) @ p["wo"], (k, v)
 
 
-def softmax_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy, computed in f32."""
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+             dtype: torch.dtype = torch.bfloat16):
+    return {
+        "w_gate": dense_init(gen, (d_model, d_ff), dtype=dtype),
+        "w_up": dense_init(gen, (d_model, d_ff), dtype=dtype),
+        "w_down": dense_init(gen, (d_ff, d_model), dtype=dtype),
+    }
+
+
+def mlp_apply(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """Gated MLP ``(act(x Wg) * (x Wu)) Wd``, plain matrix products (the
+    JAX package leaves them to XLA); gelu is the tanh form."""
+    h = act_fn(act)(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """Mean token cross-entropy, computed in f32; ``softcap`` caps the
+    logits as ``c * tanh(logits / c)`` first."""
     logits = logits.to(torch.float32)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return (lse - gold).mean()

@@ -40,35 +40,11 @@ def _heads(cfg) -> int:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _empty_stack(layer, n: int):
-    return {k: _empty_stack(v, n) if isinstance(v, dict)
-            else v.new_empty((n, *v.shape)) for k, v in layer.items()}
-
-
-def _fill(stack, layer, i: int) -> None:
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _fill(stack[k], v, i)
-        else:
-            stack[k][i] = v
-
-
-def _unstack(stack, n: int):
-    """The first ``n`` layers of stacked params as one dict each, of views
-    into the stacked leaves: one ``unbind`` a leaf, whose backward stacks
-    the layers' gradients once.  (Indexing the stack per layer would give
-    each layer's gradient a zero-filled copy of the whole stack, summed
-    over the layers: at rwkv6-3b that is most of a training step.)"""
-    cols = {k: _unstack(v, n) if isinstance(v, dict) else torch.unbind(v)
-            for k, v in stack.items()}
-    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
-
-
 def init_rwkv6(cfg, *, generator: torch.Generator,
                dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """Random params on ``generator.device`` in the layout of
-    ``repro.models.rwkv6.init_rwkv6``.  Each layer is drawn and copied into
-    the stacked tensors, so the peak is the params plus one layer.  The
+    ``repro.models.rwkv6.init_rwkv6``, stacked by
+    :func:`~repro_torch.models.layers.stack_layers`.  The
     draws differ from JAX's for the same seed; to run the reference's
     weights use :func:`repro_torch.bridge.from_jax_params`."""
     g, dev = generator, generator.device
@@ -107,12 +83,7 @@ def init_rwkv6(cfg, *, generator: torch.Generator,
             "cm_r": dense((d, d)),
         }
 
-    layers = None
-    for i in range(cfg.num_layers):
-        layer = one_layer()
-        if layers is None:
-            layers = _empty_stack(layer, cfg.num_layers)
-        _fill(layers, layer, i)
+    layers = L.stack_layers(one_layer, cfg.num_layers)
     return {
         "embed": dense((cfg.vocab_size, d), scale=0.02),
         "layers": layers,
@@ -217,7 +188,7 @@ def forward(params, tokens: torch.Tensor, cfg, *, state=None):
     if state is None:
         state = init_state(cfg, B, x.device)
     S_out, tm_out, cm_out = [], [], []
-    for i, p in enumerate(_unstack(params["layers"], cfg.num_layers)):
+    for i, p in enumerate(L.unstack_layers(params["layers"], cfg.num_layers)):
         h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
         tm, S, tm_x = _time_mix_scan(p, h, state["tm_x"][i].to(h.dtype),
                                      state["S"][i], cfg)

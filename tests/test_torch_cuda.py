@@ -115,6 +115,39 @@ def test_flash_attention_kernel(gen, shape, opts, dtype):
     _close(got, ref.flash_attention_ref(q, k, v, **opts), dtype)
 
 
+# the KV-cache masks: one query against a ring cache (wrapped, so k_pos is
+# not monotone; gemma2's Dh 256 and a local window; empty slots before the
+# ring fills), queries at an offset off the 128-row and key tiles, and the
+# non-causal one-sided window of layers.attention
+@pytest.mark.parametrize("case", ["ring wrapped", "ring filling", "offset chunk",
+                                  "one-sided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_with_cache_masks(gen, case, dtype):
+    L = 300
+    B, Sq, H, KVH, Dh = {"ring wrapped": (2, 1, 4, 2, 256),
+                         "ring filling": (2, 1, 8, 1, 128),
+                         "offset chunk": (1, 130, 4, 2, 64),
+                         "one-sided": (1, 70, 4, 4, 72)}[case]
+    kw = dict(generator=gen, device="cuda")
+    q = torch.randn((B, Sq, H, Dh), **kw).to(dtype)
+    k = torch.randn((B, L, KVH, Dh), **kw).to(dtype)
+    v = torch.randn((B, L, KVH, Dh), **kw).to(dtype)
+    slots = torch.arange(L, device="cuda")
+    if case.startswith("ring"):
+        pos = 1000 if case == "ring wrapped" else 137
+        slot_pos = pos - torch.remainder(pos - slots, L)
+        k_pos = torch.where(slot_pos >= 0, slot_pos, -1).int()
+        opts = dict(causal=True, window=200 if Dh == 256 else None, softcap=50.0,
+                    q_offset=pos, k_pos=k_pos, one_sided_window=True)
+    elif case == "offset chunk":
+        k_pos = torch.where(slots < 250, slots, -1).int()       # kv_valid_len 250
+        opts = dict(causal=True, q_offset=117, k_pos=k_pos, one_sided_window=True)
+    else:
+        opts = dict(causal=False, window=40, one_sided_window=True)
+    got = _launched("flash_attention", lambda: ops.flash_attention(q, k, v, **opts))
+    _close(got, ref.flash_attention_ref(q, k, v, **opts), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_reads_unaligned_rows(gen, dtype):
     """Dh = 30 sliced one element into a 31-wide tensor: no row is 16-byte

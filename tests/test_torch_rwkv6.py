@@ -157,7 +157,7 @@ def test_config_registry():
     assert get_smoke("rwkv6-3b") == rwkv6_3b.smoke()
     assert dit_config().param_count() == jax_get_config("dit-moe-xl").param_count()
     with pytest.raises(KeyError, match="A.12"):
-        get_config("gemma2-9b")
+        get_config("zamba2-7b")
 
 
 @pytest.mark.parametrize("seed", [0, 7])

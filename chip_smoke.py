@@ -25,7 +25,8 @@ non-zero and no phase's failure is caught:
      over several sets where one would fit in L2.  ``rwkv6_scan`` has a
      row for prefill and one for decode, each with its own launches.
      Then come the dense and MoE LMs' kernels (lines ``3L``, phase 14),
-     the DiT kernels at DiT-MoE-G's shapes (lines ``3G``, phase 11), the
+     the flash kernel at the hybrid, audio and VLM families' shapes (lines
+     ``3F``, phase 15), the DiT kernels at DiT-MoE-G's shapes (lines ``3G``, phase 11), the
      two DiT backward kernels (lines ``3B``, phase 12a) and the RWKV-6
      recurrence's backward (lines ``3B``, phase 13a);
   4. kernels in place: the tiny DiT served on the CPU (plain versions)
@@ -222,6 +223,33 @@ non-zero and no phase's failure is caught:
      positions.  (c) qwen3-moe-30b-a3b at full width and depth (48
      layers): 8 x 2048 prompts, 32 decode steps, 48 flash and 48
      ``expert_ffn`` launches a pass.
+ 15. main path 11: the hybrid, audio and VLM families (``models/zamba2.py``,
+     ``encdec.py``, ``vlm.py`` through ``get_model``).  In phase 3, after
+     3L (lines ``3F``): the flash kernel at their shapes, held and timed as
+     the 3L rows: zamba2-7b's shared block (4 x 4,096 prompt rows over its
+     4,128-slot cache, 32 heads of 112, causal; one decode row), seamless's
+     encoder (4 x 4,096 frames, 16 heads of 64, non-causal) and cross-
+     attention (256 prompt rows and one decode row over the 4,096 frames),
+     the VLM's self-attention (4 x 2,048, 32 heads over 8 of 128; one
+     decode row over 2,080 ring slots) and cross-attention (2,048 rows and
+     one decode row over 1,601 image keys), with SDPA (``enable_gqa``, no
+     mask where the mask keeps every pair) beside each.  (a) The three
+     ``smoke()`` configs and two ragged layouts (zamba2 with two trailing
+     mamba blocks, the VLM with two trailing self layers), f32 and bf16
+     params with the SSD's A_log, dt_bias and D and the cross gates drawn
+     off their init values, prefilled and decoded 8 steps on the CPU and
+     on the card from the same weights and stub inputs, each CPU step
+     from the card's state (TOL_F32 / TOL_FAMILY_BF16; zamba2's f32 runs,
+     whose conv tail and KV cache are bf16, TOL_F32_BF16_STATE), launches held
+     to the plan.  (b) zamba2-7b at full width and depth, bf16: 4 x 4,096
+     prompts, 32 greedy decode steps, 13 flash launches a pass.  (c)
+     seamless-m4t-large-v2: 4 x 4,096 stub audio frames, 4 x 256 decoder
+     prompts, the self cache padded for 32 decode steps, 72 flash launches
+     in the prefill and 48 a decode step.  (d) llama-3.2-vision-11b: 4 x
+     1,601 stub image embeddings, 4 x 2,048 prompts, 32 decode steps, 40
+     flash launches a pass.  Each of (b)-(d): prefill s, decode ms/step,
+     ``max_memory_allocated``, streamed logits against a teacher-forced
+     pass (TOL_STREAM_DEEP, greedy agreement), the model freed after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -776,7 +804,7 @@ def _to(tree, dev):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
-    return tree.to(dev)
+    return tree.to(dev) if hasattr(tree, "to") else tree      # a cache's host pos
 
 
 def drive(server, reqs, num_steps: int, label: str, *, need_codec: bool):
@@ -3450,7 +3478,7 @@ def _row_tol_ratio(got, want, tol):
 
 
 def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launches=0,
-                  faults=()):
+                  faults=(), tag="3L"):
     """One 3L row: the flash kernel with KV-cache masks against its plain
     version, to TOL_BF16 (TOL_F32 in f32) with the atol in units of each
     query row's RMS (:func:`_row_tol_ratio`); then each planted fault of
@@ -3459,9 +3487,10 @@ def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launc
     timed by CUDA events and by device time; the plain version's time;
     ``scaled_dot_product_attention`` with ``enable_gqa`` (no softcap: SDPA
     has none; causal by ``is_causal`` where the mask is the plain causal
-    one, else the mask as a bool ``attn_mask``); the bound over the
-    (query, key) pairs the mask keeps and the K and V of the slots some
-    query keeps, at the bf16 or 3xTF32 tensor-core peak."""
+    one, no mask where it keeps every pair, else the mask as a bool
+    ``attn_mask``); the bound over the (query, key) pairs the mask keeps
+    and the K and V of the slots some query keeps, at the bf16 or 3xTF32
+    tensor-core peak.  ``tag`` starts each line (3L, 3F)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -3475,7 +3504,7 @@ def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launc
     run = lambda: ops.flash_attention(q, k, v, **opts)   # noqa: E731
     tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
     want = _flash_plain(q, k, v, opts)
-    name = (f"3L [{smi}] flash {label} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh} "
+    name = (f"{tag} [{smi}] flash {label} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh} "
             f"{str(dtype)[6:]} { {n: o for n, o in opts.items() if n != 'k_pos'} }")
     err, err_rms, ratio = _row_tol_ratio(run(), want, tol)
     log(f"  {name}: max_abs_err {err:.3e}, {err_rms:.3e} of its row's RMS, "
@@ -3486,7 +3515,7 @@ def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launc
     for fault, override in faults:
         _, f_rms, f_ratio = _row_tol_ratio(
             ops.flash_attention(q, k, v, **dict(opts, **override)), want, tol)
-        log(f"  3L [{smi}] flash {label}, planted fault ({fault}): max err {f_rms:.3e} of "
+        log(f"  {tag} [{smi}] flash {label}, planted fault ({fault}): max err {f_rms:.3e} of "
             f"its row's RMS, {f_ratio:.3f} of the tolerance "
             f"{'rejected' if f_ratio > 1 else 'NOT REJECTED'}")
         if f_ratio <= 1:
@@ -3507,9 +3536,14 @@ def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launc
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     plain_causal = (opts.get("causal") and opts.get("window") is None
                     and opts.get("k_pos") is None and not opts.get("q_offset") and Sq == Sk)
+    unmasked = (not opts.get("causal") and opts.get("window") is None
+                and opts.get("k_pos") is None)
     if plain_causal:
         lib_fn = lambda: F.scaled_dot_product_attention(   # noqa: E731
             qt, kt, vt, is_causal=True, enable_gqa=True)
+    elif unmasked:
+        lib_fn = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qt, kt, vt, enable_gqa=True)
     else:
         lib_fn = lambda: F.scaled_dot_product_attention(   # noqa: E731
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
@@ -3523,9 +3557,11 @@ def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launc
         + (4 * Sk if opts.get("k_pos") is not None else 0)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
     b_ms, b_by = bound(flops, nbytes, peak)
-    log(f"  3L [{smi}] flash {label}: kernel {ms:.4f} ms events, {dev:.4f} ms device, "
+    lib_mask = (", is_causal" if plain_causal else ", no mask" if unmasked
+                else ", bool attn_mask")
+    log(f"  {tag} [{smi}] flash {label}: kernel {ms:.4f} ms events, {dev:.4f} ms device, "
         f"plain {plain:.4f} ms (query chunks of {PLAIN_ROWS}), scaled_dot_product_attention "
-        f"(enable_gqa, no softcap{', is_causal' if plain_causal else ', bool attn_mask'}) "
+        f"(enable_gqa, no softcap{lib_mask}) "
         f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {kept} kept (query, key) pairs of "
         f"{Sq * Sk}, K and V of {kept_slots} of {Sk} slots; "
         f"{flops / dev / 1e9:.1f} TFLOP/s of them on the device)")
@@ -3719,19 +3755,28 @@ def phase_lm_smoke_card(smi):
             f"atol={tol['atol']})")
 
 
-def _greedy(api, params, cfg, prompts, steps: int, cache_len: int):
+def _greedy(api, params, cfg, prompts, steps: int, cache_len: int, extra=None,
+            pad: int = 0):
     """Prefill then ``steps`` greedy decode steps, each timed between
     synchronisations; returns (streamed logits list, generated tokens,
-    prefill s, decode s, flash/expert_ffn launches of the prefill)."""
+    prefill s, decode s, flash/expert_ffn launches of the prefill).
+    ``extra``: the stub modality inputs of the prefill's batch; ``pad``:
+    zero slots appended to the self cache after the prefill (the
+    encoder-decoder's prefill returns exactly the prompt's, as the
+    reference's does)."""
     import torch
     from repro_torch.kernels import ops
     ops.reset_launches()
     t0 = time.perf_counter()
     with torch.no_grad():
-        last, cache = api.prefill(params, {"tokens": prompts}, cfg, cache_len=cache_len)
+        last, cache = api.prefill(params, {"tokens": prompts, **(extra or {})}, cfg,
+                                  cache_len=cache_len)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if pad:
+        from repro_torch.models import encdec
+        cache = encdec.pad_cache(cache, pad)
     tok = last.argmax(-1)
     generated, streamed = [], [last]
     t0 = time.perf_counter()
@@ -3886,6 +3931,290 @@ def phase_moe_full(rows, smi):
     return prefill_s, decode_s / MOE_DECODE, peak
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid, audio and VLM families (3F, their flash shapes, runs
+# in phase 3)
+# ---------------------------------------------------------------------------
+HYB_BATCH, HYB_PROMPT, HYB_DECODE = 4, 4096, 32
+AUD_BATCH, AUD_PROMPT, AUD_DECODE = 4, 256, 32   # over the config's 4,096 frames
+VLM_BATCH, VLM_PROMPT, VLM_DECODE = 4, 2048, 32  # and its 1,601 image tokens
+# zamba2 under f32 params still keeps its conv tail and KV cache in bf16 (the
+# reference's rounding points): an element whose card and CPU f32 values
+# straddle a bf16 rounding boundary rounds one ulp apart and moves the logits
+# by up to about 1e-3 (tests/test_torch_zamba2.py's CACHE_TOL); its bf16
+# leaves are held one bf16 ulp (2^-7) wider
+TOL_F32_BF16_STATE = dict(rtol=1e-4, atol=5e-3)
+# the families' bf16 smoke models stack 5 to 8 blocks (zamba2's each with
+# a chain of bf16 roundings: conv taps, silu, gating), and the flash kernel
+# rounds P to bf16 where its plain version keeps f32: card against CPU they
+# are held to the bf16 tolerance of the CPU tests against the JAX package
+# (tests/test_torch_dense.py's MODEL_TOL; zamba2-smoke's prefill logits
+# were 3.9e-2 apart in PR 25's first card run, past TOL_BF16)
+TOL_FAMILY_BF16 = dict(rtol=5e-2, atol=5e-2)
+
+
+def phase_family_kernels(rows, smi):
+    """3F, in phase 3 after 3L: the flash kernel at the hybrid, audio and
+    VLM families' bf16 shapes, each against its plain version and timed as
+    the 3L rows (phase 15 adds the launches of the main paths' calls)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    bf16 = torch.bfloat16
+    P, n = HYB_PROMPT, HYB_PROMPT + HYB_DECODE
+    causal = dict(causal=True, one_sided_window=True)
+    full = dict(causal=False, one_sided_window=True)
+
+    def valid(Sk):                                   # kv_valid_len P: the prompt's slots
+        idx = torch.arange(Sk, device="cuda", dtype=torch.int32)
+        return torch.where(idx < P, idx, -1)
+
+    rows["flash_attention zamba2 prefill"] = _flash_lm_row(
+        smi, gen, "zamba2-7b prefill (the prompt in the 4,128-slot cache)",
+        (HYB_BATCH, P, n, 32, 32, 112, bf16), causal, iters=3, k_pos_fn=valid, tag="3F")
+    rows["flash_attention zamba2 decode"] = _flash_lm_row(
+        smi, gen, "zamba2-7b decode at the first decode position",
+        (HYB_BATCH, 1, n, 32, 32, 112, bf16), dict(causal, q_offset=P), iters=50,
+        k_pos_fn=_ring_k_pos(P), tag="3F")
+    F_ = 4096
+    rows["flash_attention seamless encoder"] = _flash_lm_row(
+        smi, gen, "seamless-m4t-large-v2 encoder over 4,096 frames",
+        (AUD_BATCH, F_, F_, 16, 16, 64, bf16), full, iters=5, tag="3F")
+    rows["flash_attention seamless cross prefill"] = _flash_lm_row(
+        smi, gen, "seamless-m4t-large-v2 decoder prompt's cross-attention",
+        (AUD_BATCH, AUD_PROMPT, F_, 16, 16, 64, bf16), full, iters=10, tag="3F")
+    rows["flash_attention seamless cross decode"] = _flash_lm_row(
+        smi, gen, "seamless-m4t-large-v2 decode's cross-attention",
+        (AUD_BATCH, 1, F_, 16, 16, 64, bf16), full, iters=50, tag="3F")
+    Ti, P, n = 1601, VLM_PROMPT, VLM_PROMPT + VLM_DECODE
+    rows["flash_attention vlm self prefill"] = _flash_lm_row(
+        smi, gen, "llama-3.2-vision-11b self-attention prefill",
+        (VLM_BATCH, P, P, 32, 8, 128, bf16), causal, iters=5, tag="3F")
+    rows["flash_attention vlm cross prefill"] = _flash_lm_row(
+        smi, gen, "llama-3.2-vision-11b cross-attention prefill over 1,601 image keys",
+        (VLM_BATCH, P, Ti, 32, 8, 128, bf16), full, iters=5, tag="3F")
+    rows["flash_attention vlm self decode"] = _flash_lm_row(
+        smi, gen, "llama-3.2-vision-11b self-attention decode at the first decode position",
+        (VLM_BATCH, 1, n, 32, 8, 128, bf16), dict(causal, q_offset=P), iters=50,
+        k_pos_fn=_ring_k_pos(P), tag="3F")
+    rows["flash_attention vlm cross decode"] = _flash_lm_row(
+        smi, gen, "llama-3.2-vision-11b cross-attention decode over 1,601 image keys",
+        (VLM_BATCH, 1, Ti, 32, 8, 128, bf16), full, iters=50, tag="3F")
+    torch.cuda.empty_cache()
+
+
+def _flash_plan(cfg):
+    """(flash calls in the prefill, flash calls a decode step) of a family."""
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2
+        return zamba2.num_attn_blocks(cfg), zamba2.num_attn_blocks(cfg)
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    return cfg.num_layers, cfg.num_layers                 # vlm: self + cross
+
+
+def _off_init(params, gen) -> None:
+    """The SSD's A_log, dt_bias and D and the VLM's cross gates drawn off
+    their init values (0, -4, 1: every head alike; gates 0: the cross path
+    would add nothing), in place, from ``gen`` on its device."""
+    import torch
+    rand = lambda leaf: torch.rand(leaf.shape, generator=gen, device=gen.device)  # noqa: E731
+    if "mamba" in params:
+        m = params["mamba"]
+        m["A_log"] = rand(m["A_log"]) * 2 - 1
+        m["dt_bias"] = rand(m["dt_bias"]) * 5 - 4
+        m["D"] = 0.5 + rand(m["D"])
+    if "cross" in params:
+        for g in ("gate_attn", "gate_mlp"):
+            params["cross"][g] = 0.3 + 0.9 * rand(params["cross"][g])
+
+
+def _stub_inputs(api, cfg, batch: int, gen):
+    """The family's stub modality inputs (``ModelApi.extra_inputs``), drawn
+    from ``gen`` on its device in their dtype."""
+    import torch
+    return {name: torch.randn(shape_fn(cfg, batch), generator=gen,
+                              device=gen.device).to(dtype)
+            for name, shape_fn, dtype in api.extra_inputs}
+
+
+def _family_smoke_configs():
+    from repro_torch.configs import get_smoke
+    z, v = get_smoke("zamba2-7b"), get_smoke("llama-3.2-vision-11b")
+    return (z, z.replace(name="zamba2-smoke-ragged", num_layers=8),
+            get_smoke("seamless-m4t-large-v2"),
+            v, v.replace(name="llama-vision-smoke-ragged", num_layers=7))
+
+
+def _state_errs(tag, got, want, tol, f32_model):
+    """Max abs errors of a cache's tensor leaves, card against CPU; bf16
+    leaves of an f32 model one bf16 ulp wider."""
+    import torch
+    errs = []
+    for k, g in got.items():
+        if not isinstance(g, torch.Tensor):
+            assert g == want[k], (tag, k)
+            continue
+        t = dict(tol, rtol=2 ** -7) if f32_model and g.dtype == torch.bfloat16 else tol
+        errs.append(_close_quiet(f"{tag} cache {k}", g, want[k], t))
+    return errs
+
+
+def phase_family_smoke_card(smi):
+    """15a: the hybrid, audio and VLM ``smoke()`` configs and two ragged
+    layouts, f32 and bf16 params from one seed (the SSD's and the gates'
+    leaves off their init values), prefilled with 2 x SMOKE_PROMPT tokens
+    (and the stub inputs) and decoded SMOKE_DECODE steps on the CPU and on
+    the card; each CPU decode step starts from the card's state."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    from repro_torch.models.api import get_model
+    P, D = SMOKE_PROMPT, SMOKE_DECODE
+    for cfg in _family_smoke_configs():
+        api = get_model(cfg)
+        toks = torch.from_numpy(np.random.default_rng(15).integers(
+            0, cfg.vocab_size, (2, P + D), dtype=np.int32))
+        extra = _stub_inputs(api, cfg, 2, torch.Generator().manual_seed(16))
+        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_FAMILY_BF16)):
+            f32 = dtype == torch.float32
+            if f32 and cfg.family == "hybrid":
+                tol = TOL_F32_BF16_STATE
+            gen = torch.Generator().manual_seed(15)
+            params = api.init(cfg, generator=gen, dtype=dtype)
+            _off_init(params, gen)
+            p_gpu = _to(params, "cuda")
+            kw = {} if cfg.family == "audio" else {"cache_len": P + D}
+            tag = f"15a [{smi}] {cfg.name} {str(dtype)[6:]}"
+            ops.reset_launches()
+            with torch.no_grad():
+                lg_g, c_g = api.prefill(p_gpu, {"tokens": toks[:, :P].cuda(),
+                                                **_to(extra, "cuda")}, cfg, **kw)
+                lg_c, c_c = api.prefill(params, {"tokens": toks[:, :P], **extra}, cfg, **kw)
+                if cfg.family == "audio":
+                    c_g, c_c = encdec.pad_cache(c_g, D), encdec.pad_cache(c_c, D)
+                errs = [_close_quiet(f"{tag} prefill logits", lg_g, lg_c, tol)]
+                errs += _state_errs(f"{tag} prefill", c_g, c_c, tol, f32)
+                for t in range(P, P + D):
+                    c_c = _to(c_g, "cpu")
+                    lg_c, c_c = api.decode_step(params, {"token": toks[:, t]}, c_c, cfg)
+                    lg_g, c_g = api.decode_step(p_gpu, {"token": toks[:, t].cuda()}, c_g, cfg)
+                    errs.append(_close_quiet(f"{tag} decode {t} logits", lg_g, lg_c, tol))
+                    errs += _state_errs(f"{tag} decode {t}", c_g, c_c, tol, f32)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+            pre, step = _flash_plan(cfg)
+            want = {"flash_attention": pre + D * step}
+            log(f"  {tag}: prefill {P} + {D} decode steps, cuda vs cpu max abs err "
+                f"{max(errs):.3e} (tol rtol={tol['rtol']} atol={tol['atol']}), launches "
+                f"{counts}, planned {want}")
+            if counts != want:
+                raise AssertionError(f"{tag}: launches differ from the plan")
+            del params, p_gpu
+
+
+def _family_full(rows, smi, name, tag, batch, prompt, steps, *, pad=False):
+    """One of 15b-15d: ``name`` at full width and depth, bf16 params from
+    seed 0 (the SSD's and the gates' leaves off their init values), stub
+    inputs from a seed: a warm-up prefill of 256 tokens, then ``batch``
+    prompts of ``prompt`` tokens and ``steps`` greedy decode steps with the
+    launch counts set to 0 before and read after; then one teacher-forced
+    pass over prompt + generated tokens, unembedding only the compared
+    positions.  Returns (prefill s, decode s a step, peak GiB)."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import dense, encdec, vlm, zamba2
+    from repro_torch.models.api import get_model
+    cfg = get_config(name)
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(cfg, generator=gen)
+    _off_init(params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params).values())
+    log(f"  {tag} [{smi}] {name} at full width and depth: {n_params / 1e9:.3f} B params "
+        f"bf16 ({2 * n_params / 1e9:.2f} GB) on the card ({held:.3f} GiB held before "
+        f"them), init {time.perf_counter() - t0:.3f} s; {cfg.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, "
+        f"d {cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim} (kv {cfg.num_kv_heads}), "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+    prompts = next(token_batches(cfg.vocab_size, batch, prompt, seed=3,
+                                 device="cuda"))["tokens"]
+    extra = _stub_inputs(api, cfg, batch, torch.Generator(device="cuda").manual_seed(4))
+    pad = steps if pad else 0
+    _greedy(api, params, cfg, prompts[:, :256], 2, 258, extra=extra,
+            pad=2 if pad else 0)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streamed, gen_tokens, prefill_s, decode_s, pre = _greedy(
+        api, params, cfg, prompts, steps, prompt + steps, extra=extra, pad=pad)
+    counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_pre, n_step = _flash_plan(cfg)
+    want_pre = {"flash_attention": n_pre}
+    want = {"flash_attention": n_pre + steps * n_step}
+    log(f"  {tag} [{smi}] prefill {batch} x {prompt}: {prefill_s:.4f} s "
+        f"({batch * prompt / prefill_s:.1f} tokens/s); decode {steps} steps x {batch}: "
+        f"{1e3 * decode_s / steps:.4f} ms/step ({batch * steps / decode_s:.1f} tokens/s); "
+        f"max_memory_allocated {peak:.3f} GiB; launches prefill {pre} (planned "
+        f"{want_pre}), all {counts} (planned {want})")
+    if pre != want_pre or counts != want:
+        raise AssertionError(f"{tag}: {name}'s flash launches differ from the plan")
+    streamed = torch.stack(streamed, 1)                          # (B, steps + 1, V)
+    with torch.no_grad():
+        full = torch.cat([prompts, gen_tokens.to(prompts.dtype)], 1)
+        if cfg.family == "hybrid":
+            forced = zamba2.forward(params, full, cfg)[0][:, prompt - 1:]
+        elif cfg.family == "audio":
+            forced = encdec.forward(params, full, extra["audio_frames"], cfg)[0][:, prompt - 1:]
+        else:
+            x = vlm.forward_hidden(params, full, extra["image_embeds"], cfg)
+            forced = dense._unembed(params, x[:, prompt - 1:], cfg)
+            del x
+    torch.cuda.synchronize()
+    finite = _finite(streamed) and _finite(forced)
+    err = (streamed.float() - forced.float()).abs().amax(dim=(0, 2))
+    agree = float((streamed[:, 1:].argmax(-1) == forced[:, 1:].argmax(-1)).float().mean())
+    log(f"  {tag} [{smi}] streamed vs teacher-forced max |diff| at the last prompt "
+        f"position {float(err[0]):.4e}, over {steps} decode positions "
+        f"{float(err[1:].max()):.4e} (tol {TOL_STREAM_DEEP} for both), greedy tokens agree "
+        f"{agree:.4f} (min {MIN_GREEDY_AGREE}); forced logits std "
+        f"{float(forced.float().std()):.4f}, finite {finite}; peak with the forced pass "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not finite or tuple(streamed.shape) != (batch, steps + 1, cfg.vocab_size):
+        raise AssertionError(f"{tag}: logits are not finite or have the wrong shape")
+    if float(err.max()) > TOL_STREAM_DEEP or agree < MIN_GREEDY_AGREE:
+        raise AssertionError(f"{tag}: streamed logits disagree with teacher forcing")
+    del params, streamed, forced, extra
+    torch.cuda.empty_cache()
+    return prefill_s, decode_s / steps, peak
+
+
+def phase_family_full(rows, smi):
+    """15b-15d: zamba2-7b, seamless-m4t-large-v2 and llama-3.2-vision-11b at
+    full width and depth, one after the other (each freed before the next);
+    the 3F rows get their main-path launches."""
+    _family_full(rows, smi, "zamba2-7b", "15b", HYB_BATCH, HYB_PROMPT, HYB_DECODE)
+    rows["flash_attention zamba2 prefill"]["launches"] = 13
+    rows["flash_attention zamba2 decode"]["launches"] = 13 * HYB_DECODE
+    _family_full(rows, smi, "seamless-m4t-large-v2", "15c", AUD_BATCH, AUD_PROMPT,
+                 AUD_DECODE, pad=True)
+    rows["flash_attention seamless encoder"]["launches"] = 24
+    rows["flash_attention seamless cross prefill"]["launches"] = 24
+    rows["flash_attention seamless cross decode"]["launches"] = 24 * AUD_DECODE
+    _family_full(rows, smi, "llama-3.2-vision-11b", "15d", VLM_BATCH, VLM_PROMPT,
+                 VLM_DECODE)
+    for kind, n in (("self", 32), ("cross", 8)):
+        rows[f"flash_attention vlm {kind} prefill"]["launches"] = n
+        rows[f"flash_attention vlm {kind} decode"]["launches"] = n * VLM_DECODE
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -3906,6 +4235,7 @@ def main() -> int:
         # 3L before 3G and 3B: a whole run's later profiler traces have
         # dropped launches (a 3L trace held 2 of 5 when it came last)
         phase_lm_kernels(rows, smi)
+        phase_family_kernels(rows, smi)
         phase_g_kernels(rows, smi)
         phase_backward_kernels(rows, smi)
         phase_scan_backward(rows, smi)
@@ -3950,6 +4280,11 @@ def main() -> int:
         phase_lm_smoke_card(smi)
         phase_gemma2_full(rows, smi)
         phase_moe_full(rows, smi)
+    with phase("15 main path 11 (hybrid, audio and VLM families: the smoke configs cpu vs "
+               "card, zamba2-7b, seamless-m4t-large-v2 and llama-3.2-vision-11b at full "
+               "width and depth; 3F ran in phase 3)"):
+        phase_family_smoke_card(smi)
+        phase_family_full(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "max_abs_err", "ms",

@@ -1,8 +1,10 @@
 """Carry a JAX parameter tree over to the port.
 
 ``from_jax_params`` takes the tree ``repro.models.dit_moe.init_dit``,
-``repro.models.rwkv6.init_rwkv6`` or ``repro.models.dense.init_lm`` (the
-dense and MoE LMs) builds, with its leaves as numpy arrays
+``repro.models.rwkv6.init_rwkv6``, ``repro.models.dense.init_lm`` (the
+dense and MoE LMs), ``repro.models.zamba2.init_zamba2``,
+``repro.models.encdec.init_encdec`` or ``repro.models.vlm.init_vlm``
+builds, with its leaves as numpy arrays
 (``jax.device_get`` gives that), and returns the same tree of torch
 tensors.  Every leaf keeps its shape, its dtype and its (in, out) layout,
 so nothing is transposed on the way; bf16 leaves cross bit for bit.  This
@@ -29,6 +31,15 @@ RWKV6_LAYER_KEYS = ("ln1", "ln2", "mix", "mix_lora_a", "mix_lora_b", "wr",
 LM_TOP_KEYS = ("embed", "layers", "final_norm")
 LM_LAYER_KEYS = ("ln1", "ln2", "attn")
 LM_ATTN_KEYS = ("wq", "wk", "wv", "wo")
+VLM_CROSS_KEYS = ("ln1", "ln2", "attn", "mlp", "gate_attn", "gate_mlp")
+ZAMBA2_TOP_KEYS = ("embed", "mamba", "shared_attn", "final_norm", "unembed")
+ZAMBA2_MAMBA_KEYS = ("ln", "w_xz", "conv", "w_bcdt", "A_log", "D", "dt_bias",
+                     "w_out")
+ZAMBA2_SHARED_KEYS = ("ln1", "attn", "ln2", "mlp")
+ENCDEC_TOP_KEYS = ("enc_layers", "enc_norm", "dec_layers", "embed",
+                   "final_norm", "unembed")
+ENCDEC_ENC_KEYS = ("ln1", "ln2", "attn", "mlp")
+ENCDEC_DEC_KEYS = ("ln1", "ln_x", "ln2", "attn", "xattn", "mlp")
 
 
 def _convert(node, device, path: str):
@@ -48,12 +59,25 @@ def _convert(node, device, path: str):
 
 def from_jax_params(tree: Dict[str, Any],
                     device: Optional[str] = None) -> Dict[str, Any]:
-    """numpy tree of ``repro.models.dit_moe.init_dit``,
-    ``repro.models.rwkv6.init_rwkv6`` or ``repro.models.dense.init_lm`` ->
-    port params on ``device`` (``cuda`` unless given).  An LM tree is told
-    by its layer keys: an ``attn`` block (with ``mlp`` or ``moe``) is the
-    dense/MoE LM's, anything else is checked as RWKV-6's."""
-    if "layers" in tree and "attn" in tree["layers"]:
+    """numpy tree of one of the JAX package's ``init_*`` (module docstring)
+    -> port params on ``device`` (``cuda`` unless given).  The tree is told
+    by its keys: ``mamba`` is zamba2's, ``enc_layers`` the encoder-decoder's;
+    a ``layers`` stack with an ``attn`` block (with ``mlp`` or ``moe``) is
+    the dense/MoE LM's, the VLM's when it also has ``cross``; any other
+    ``layers`` is checked as RWKV-6's, and a tree without one as DiT-MoE's."""
+    if "mamba" in tree:
+        _require(tree, ZAMBA2_TOP_KEYS, "not a zamba2 param tree")
+        _require(tree["mamba"], ZAMBA2_MAMBA_KEYS, "mamba")
+        _require(tree["shared_attn"], ZAMBA2_SHARED_KEYS, "shared_attn")
+        _require(tree["shared_attn"]["attn"], LM_ATTN_KEYS, "shared_attn.attn")
+    elif "enc_layers" in tree:
+        _require(tree, ENCDEC_TOP_KEYS, "not an encoder-decoder param tree")
+        _require(tree["enc_layers"], ENCDEC_ENC_KEYS, "enc_layers")
+        _require(tree["dec_layers"], ENCDEC_DEC_KEYS, "dec_layers")
+        for stack in ("enc_layers", "dec_layers"):
+            _require(tree[stack]["attn"], LM_ATTN_KEYS, f"{stack}.attn")
+        _require(tree["dec_layers"]["xattn"], LM_ATTN_KEYS, "dec_layers.xattn")
+    elif "layers" in tree and "attn" in tree["layers"]:
         _require(tree, LM_TOP_KEYS, "not a dense/MoE LM param tree")
         layer = tree["layers"]
         _require(layer, LM_LAYER_KEYS, "layers")
@@ -61,6 +85,9 @@ def from_jax_params(tree: Dict[str, Any],
         if ("mlp" in layer) == ("moe" in layer):
             raise KeyError("layers: a dense/MoE LM layer holds one of 'mlp' "
                            "and 'moe'")
+        if "cross" in tree:
+            _require(tree["cross"], VLM_CROSS_KEYS, "cross")
+            _require(tree["cross"]["attn"], LM_ATTN_KEYS, "cross.attn")
     elif "layers" in tree:
         _require(tree, RWKV6_TOP_KEYS, "not an RWKV-6 param tree")
         _require(tree["layers"], RWKV6_LAYER_KEYS, "layers")

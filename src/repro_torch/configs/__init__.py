@@ -1,11 +1,11 @@
-"""Config registry of the port: the configs it can run so far, DiT-MoE-XL
-and DiT-MoE-G (the paper's two models), rwkv6-3b and the dense and MoE
-LMs (gemma2-9b, qwen3-moe-30b-a3b, qwen3-32b, stablelm-12b, deepseek-67b,
-dbrx-132b).
+"""Config registry of the port: every config of the JAX package's
+registry, under the same names: DiT-MoE-XL and DiT-MoE-G (the paper's two
+models), rwkv6-3b, the dense and MoE LMs (gemma2-9b, qwen3-moe-30b-a3b,
+qwen3-32b, stablelm-12b, deepseek-67b, dbrx-132b), zamba2-7b (hybrid),
+llama-3.2-vision-11b (vlm) and seamless-m4t-large-v2 (audio).
 
-``get_config`` / ``get_smoke`` take the JAX package's registry names; a
-name the JAX package has but the port does not yet raises and points at
-ROADMAP.md A.12 (other model families).
+``get_config`` / ``get_smoke`` raise ``KeyError`` for a name no registry
+has.
 """
 from importlib import import_module
 
@@ -16,7 +16,10 @@ _MODULES = {
     "deepseek-67b": "deepseek_67b",
     "stablelm-12b": "stablelm_12b",
     "qwen3-32b": "qwen3_32b",
+    "zamba2-7b": "zamba2_7b",
     "dbrx-132b": "dbrx_132b",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "dit-moe-xl": "dit_moe_xl",
     "dit-moe-g": "dit_moe_g",
 }
@@ -24,8 +27,7 @@ _MODULES = {
 
 def _module(name: str):
     if name not in _MODULES:
-        raise KeyError(f"config {name!r} is not ported yet (ported: "
-                       f"{sorted(_MODULES)}); see ROADMAP.md A.12")
+        raise KeyError(f"unknown config {name!r} (known: {sorted(_MODULES)})")
     return import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

@@ -126,8 +126,7 @@ def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         window=window, kv_valid_len=kv_valid_len)
     if cfg.post_norm:
         attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
-    x = x + attn_out
-    h = L.rmsnorm(p["ln2"], x, eps=cfg.norm_eps)
+    x, h = L.add_rmsnorm(x, attn_out, p["ln2"], eps=cfg.norm_eps)
     ffn, lb = _ffn(p, h, cfg)
     if cfg.post_norm:
         ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)
@@ -272,8 +271,7 @@ def decode_step(params, token: torch.Tensor, cache, cfg, *,
         attn_out = out.reshape(B, 1, H * Dh) @ a["wo"]
         if cfg.post_norm:
             attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
-        x = x + attn_out
-        h2 = L.rmsnorm(p["ln2"], x, eps=cfg.norm_eps)
+        x, h2 = L.add_rmsnorm(x, attn_out, p["ln2"], eps=cfg.norm_eps)
         ffn, _ = _ffn(p, h2, cfg)
         if cfg.post_norm:
             ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)

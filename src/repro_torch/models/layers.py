@@ -75,6 +75,18 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, params, *,
+                eps: float = 1e-6):
+    """(x + y, rmsnorm(x + y)), both in x's dtype: the reference's residual
+    add followed by a norm, ``x = x + y; h = rmsnorm(p, x)``, as XLA runs
+    it.  XLA fuses the add into the norm's f32 convert and drops the add's
+    bf16 rounding there, so the norm reads the unrounded f32 sum (in bf16,
+    norming the rounded sum gives another value for about 22% of the
+    elements; PR 12 found the same in RWKV-6)."""
+    s = x.to(torch.float32) + y.to(torch.float32)
+    return s.to(x.dtype), rmsnorm(params, s, eps=eps).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, *,
          theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding, half-split (not interleaved).
@@ -157,7 +169,7 @@ def attn_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         k = rmsnorm(p["k_norm"], k)
     q = rope(q, positions, theta=cfg.rope_theta)
     k = rope(k, positions, theta=cfg.rope_theta)
-    q_off = 0
+    q_off, new_kv = 0, (k, v)
     if kv_cache is not None:
         ck, cv = kv_cache
         if not 0 <= cache_pos <= ck.shape[1] - S:
@@ -165,11 +177,14 @@ def attn_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
                              f"do not fit a cache of {ck.shape[1]}")
         ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
         cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
-        k, v, q_off = ck, cv, cache_pos
+        # the reference's attention upcasts q, k and v to f32: a cache kept
+        # in another dtype than q (zamba2's bf16 cache under f32 params) is
+        # read in q's dtype, since the flash kernel takes one dtype
+        k, v, q_off, new_kv = ck.to(q.dtype), cv.to(q.dtype), cache_pos, (ck, cv)
     out = attention(q, k, v, causal=causal, window=window,
                     softcap=cfg.attn_logit_softcap, q_offset=q_off,
                     kv_valid_len=kv_valid_len)
-    return out.reshape(B, S, H * Dh) @ p["wo"], (k, v)
+    return out.reshape(B, S, H * Dh) @ p["wo"], new_kv
 
 
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
@@ -181,10 +196,21 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA evaluates it: x * (1 / (1 + exp(-x))), each op
+    rounded to x's dtype.  In bf16 that is the reference's value bit for
+    bit, where ``F.silu`` (one rounding) gives another for about 39% of
+    inputs: over the encoder-decoder's and Zamba2's stacked blocks the
+    difference reaches the 5e-2 bf16 tolerance."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 def mlp_apply(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     """Gated MLP ``(act(x Wg) * (x Wu)) Wd``, plain matrix products (the
-    JAX package leaves them to XLA); gelu is the tanh form."""
-    h = act_fn(act)(x @ p["w_gate"]) * (x @ p["w_up"])
+    JAX package leaves them to XLA); silu rounds as :func:`silu`, gelu is
+    the tanh form."""
+    fn = silu if act == "silu" else act_fn(act)
+    h = fn(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
 
 

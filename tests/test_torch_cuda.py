@@ -148,6 +148,42 @@ def test_flash_attention_kernel_with_cache_masks(gen, case, dtype):
     _close(got, ref.flash_attention_ref(q, k, v, **opts), dtype)
 
 
+# the hybrid, audio and VLM families' shapes (one batch row each): zamba2's
+# shared block (Dh 112, causal, the prompt in a cache with room for decode),
+# seamless's encoder (non-causal over 4,096 frames at Dh 64), the VLM's
+# cross-attention (GQA 32 over 8, Dh 128, 1,601 image keys: not a multiple
+# of the 16-key tile) for a prompt and one decode row.  bf16 is held with
+# the atol in units of each query row's RMS, as chip_smoke.py's 3L rows: an
+# output over thousands of keys is about 0.02 in size.
+@pytest.mark.parametrize("case", ["zamba2 prefill", "seamless encoder",
+                                  "vlm cross prompt", "vlm cross decode"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_the_family_shapes(gen, case, dtype):
+    Sq, Sk, H, KVH, Dh, opts = {
+        "zamba2 prefill": (1024, 1056, 32, 32, 112, dict(causal=True)),
+        "seamless encoder": (4096, 4096, 16, 16, 64, dict(causal=False)),
+        "vlm cross prompt": (512, 1601, 32, 8, 128, dict(causal=False)),
+        "vlm cross decode": (1, 1601, 32, 8, 128, dict(causal=False))}[case]
+    kw = dict(generator=gen, device="cuda")
+    q = torch.randn((1, Sq, H, Dh), **kw).to(dtype)
+    k = torch.randn((1, Sk, KVH, Dh), **kw).to(dtype)
+    v = torch.randn((1, Sk, KVH, Dh), **kw).to(dtype)
+    if case == "zamba2 prefill":
+        idx = torch.arange(Sk, device="cuda", dtype=torch.int32)
+        opts = dict(opts, k_pos=torch.where(idx < Sq, idx, -1))     # kv_valid_len Sq
+    opts = dict(opts, one_sided_window=True)
+    got = _launched("flash_attention", lambda: ops.flash_attention(q, k, v, **opts))
+    want = ref.flash_attention_ref(q, k, v, **opts)
+    assert tuple(got.shape) == (1, Sq, H, Dh)
+    if dtype == torch.float32:
+        _close(got, want, dtype)
+    else:
+        rms = want.float().pow(2).mean(-1, keepdim=True).sqrt()
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 2e-2 * rms + 2e-2 * want.float().abs()).all()), \
+            float((err / rms).max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_reads_unaligned_rows(gen, dtype):
     """Dh = 30 sliced one element into a 31-wide tensor: no row is 16-byte

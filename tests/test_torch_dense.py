@@ -371,13 +371,18 @@ def test_get_model_round_trip(name):
     assert cache["k"].shape == (cfg.num_layers, 2, 8, cfg.num_kv_heads, cfg.head_dim)
 
 
-def test_get_model_still_refuses_hybrid():
-    cfg = ModelConfig(name="z", family="hybrid", num_layers=2, d_model=64,
+def test_get_model_and_get_config_refuse_unknown_names():
+    """Every family of the JAX package has a model interface now: only an
+    unknown family raises, as the reference's ValueError; only an unknown
+    config name raises KeyError."""
+    cfg = ModelConfig(name="z", family="nope", num_layers=2, d_model=64,
                       d_ff=128, vocab_size=256, num_heads=4, num_kv_heads=4)
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="unknown family"):
         get_model(cfg)
-    with pytest.raises(KeyError, match="A.12"):
-        get_config("zamba2-7b")
+    with pytest.raises(KeyError, match="unknown config"):
+        get_config("zamba3-7b")
+    with pytest.raises(KeyError, match="unknown config"):
+        get_smoke("zamba3-7b")
 
 
 @pytest.mark.parametrize("call", [

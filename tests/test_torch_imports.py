@@ -64,6 +64,20 @@ def test_the_training_slice_modules_are_checked(rel):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("rel", ["models/zamba2.py", "models/encdec.py",
+                                 "models/vlm.py", "models/api.py",
+                                 "configs/zamba2_7b.py",
+                                 "configs/seamless_m4t_large_v2.py",
+                                 "configs/llama32_vision_11b.py"])
+def test_the_model_family_modules_are_checked(rel):
+    """The hybrid, audio and VLM families, their configs and the family
+    dispatcher are among the sources checked above, and import neither JAX
+    nor the JAX package."""
+    path = PORT / rel
+    assert path in _sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     env.pop("PYTHONSTARTUP", None)

@@ -322,6 +322,40 @@ def _cfgs():
     return jax_tiny().replace(**TINY4), tiny().replace(**TINY4)
 
 
+def test_get_model_dit_moe_loss_matches_the_reference():
+    """get_model for dit_moe, as the reference's api.py builds it: init is
+    init_dit, loss_fn the rectified-flow loss, and prefill, decode_step and
+    init_cache None.  The reference's loss_fn draws t, x0 and drop from a
+    PRNG key torch cannot replay, so the port's takes them as keywords: here
+    the reference's own draws from the key, and the losses agree."""
+    from repro.models.api import get_model as jax_get_model
+    from repro_torch.models.api import get_model
+    jcfg, cfg = _cfgs()
+    jp = jax_init_dit(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(4)
+    for blk in jp["blocks"]:
+        blk["adaln"] = jnp.asarray(0.05 * rng.standard_normal(blk["adaln"].shape),
+                                   jnp.float32)
+    b = next(jax_latent_batches(batch=BATCH, tokens=jcfg.patch_tokens,
+                                channels=jcfg.in_channels,
+                                num_classes=jcfg.num_classes, seed=1))
+    key = jax.random.PRNGKey(5)
+    jloss, jm = jax_get_model(jcfg).loss_fn(jp, b, jcfg, key=key)
+    api = get_model(cfg)
+    params = bridge.from_jax_params(jax.device_get(jp), device="cpu")
+    with torch.no_grad():
+        loss, m = api.loss_fn(params, _batch(b), cfg,
+                              **_jax_draws(key, b["latents"].shape))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(float(m["mse"]), float(jm["mse"]), rtol=1e-5)
+    assert api.prefill is None and api.decode_step is None and api.init_cache is None
+    with pytest.raises(TypeError, match="key"):
+        api.loss_fn(params, _batch(b), cfg, key=key)
+    got = api.init(cfg, generator=torch.Generator().manual_seed(0))
+    assert [tuple(v.shape) for v in bridge.leaves(got).values()] == \
+        [tuple(v.shape) for v in bridge.leaves(jp).values()]
+
+
 def test_rf_loss_step0_gradients_match_jax_grad():
     jcfg, cfg = _cfgs()
     jp = jax_init_dit(jax.random.PRNGKey(0), jcfg)

@@ -26,9 +26,11 @@ non-zero and no phase's failure is caught:
      row for prefill and one for decode, each with its own launches.
      Then come the dense and MoE LMs' kernels (lines ``3L``, phase 14),
      the flash kernel at the hybrid, audio and VLM families' shapes (lines
-     ``3F``, phase 15), the DiT kernels at DiT-MoE-G's shapes (lines ``3G``, phase 11), the
-     two DiT backward kernels (lines ``3B``, phase 12a) and the RWKV-6
-     recurrence's backward (lines ``3B``, phase 13a);
+     ``3F``, phase 15), the flash backward at the LM families' training
+     shapes (lines ``3B``, phase 16), the DiT kernels at DiT-MoE-G's shapes
+     (lines ``3G``, phase 11), the two DiT backward kernels (lines ``3B``,
+     phase 12a) and the RWKV-6 recurrence's backward (lines ``3B``, phase
+     13a);
   4. kernels in place: the tiny DiT served on the CPU (plain versions)
      and on the card (kernels) from the same weights and noise, 6 steps
      so that a light step's codec'd expert outputs reach the sample; the
@@ -250,6 +252,37 @@ non-zero and no phase's failure is caught:
      flash launches a pass.  Each of (b)-(d): prefill s, decode ms/step,
      ``max_memory_allocated``, streamed logits against a teacher-forced
      pass (TOL_STREAM_DEEP, greedy agreement), the model freed after.
+ 16. main path 12: training the dense, hybrid, audio and VLM families
+     (``train_lm``'s ``lm_train_step`` through ``get_model``'s
+     ``loss_fn``, each layer recomputed in the backward).  In phase 3,
+     after 3F (lines ``3B``): ``flash_attention_bwd``, extended to causal
+     masks, GQA, bf16 and Sq != Sk, against its plain version at each
+     training shape of phase 16b (qwen3-32b's causal (8, 128, 64 over 8,
+     128), zamba2-7b's (8, 128, 32 x 112), seamless's encoder (8, 4096, 16 x
+     64), decoder self- and cross-attention over 4,096 frames, the VLM's
+     self (32 over 8 x 128) and cross attention over 1,601 keys), bf16
+     timed and f32 checked where cheap: the forward's f32 output and
+     log-sum-exp to TOL_F32, the gradients to TOL_BF16 / TOL_F32 with the
+     atol in units of each row's RMS plus 2^-14 of each element's terms'
+     magnitudes, two runs bit for bit, the planted faults that apply (the
+     plain version run non-causal, the last 32 queries' dQ without their
+     diagonal key tile, the first 32 keys' dK/dV without query tile 0, kv
+     heads mapped as h % KVH) rejected; events and device time beside the
+     plain version, the device time of SDPA's backward (``is_causal``,
+     ``enable_gqa``) and the bound; ptxas's registers and spills.  (a) The
+     five smoke configs (qwen3-32b, deepseek-67b, zamba2-7b,
+     seamless-m4t-large-v2, llama-3.2-vision-11b): f32 step-0 gradients
+     card vs CPU leaf by leaf, then 5 ``lm_train_step``s on both from the
+     same params, batches and stub inputs, f32 and bf16, launches held to
+     the plan (the recompute's second forward included).  (b)
+     seamless-m4t-large-v2 at full width and depth, qwen3-32b (2 layers),
+     zamba2-7b (12 layers: two uses of the shared block) and
+     llama-3.2-vision-11b (one superblock) at full width, bf16 params and
+     f32 moments, batch 8 x 128 with stub frames or image embeddings: a
+     warm-up and 4 timed steps, s/step, ``max_memory_allocated``, finite
+     losses and grad norms, launches held to the depth, and
+     ``flash_attention_bwd``'s by shape (``ops.FLASH_BWD_SHAPES``) give
+     the 3B rows' launches.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2723,7 +2756,7 @@ def phase_backward_kernels(rows, smi):
         k, v = (torch.randn((B, Sk, H, Dh), generator=gen, device="cuda") for _ in range(2))
         do = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda")
         o_plain = ops.flash_attention(q, k, v)
-        o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
+        o, lse, _ = ops._flash_attention_fwd(q, k, v, want_lse=True)
         got = ops.flash_attention_bwd(q, k, v, o, lse, do)
         want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
         again = ops.flash_attention_bwd(q, k, v, o, lse, do)
@@ -2743,7 +2776,7 @@ def phase_backward_kernels(rows, smi):
             timed[B, Dh] = (err, q, k, v, o, lse, do)
     q, k, v, do = (torch.randn((1, 32, 2, 24), generator=gen, device="cuda") for _ in range(4))
     q[0, 3, 1, 5] = math.nan
-    o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
+    o, lse, _ = ops._flash_attention_fwd(q, k, v, want_lse=True)
     got = ops.flash_attention_bwd(q, k, v, o, lse, do)
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
     nan_same = all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(got, want))
@@ -2753,8 +2786,8 @@ def phase_backward_kernels(rows, smi):
         raise AssertionError("flash_attention_bwd: NaN positions differ from the plain version")
     # the five wgmma passes, and the flash instances of Dh 72 and 88 (NT 9, 12)
     regs = [line for line in build.ptxas_report()
-            if line.startswith(("bwd_wgmma", "flash_bwd_dkdv<9>", "flash_bwd_dq<9>",
-                                "flash_bwd_dkdv<12>", "flash_bwd_dq<12>"))]
+            if line.startswith(("bwd_wgmma", "flash_bwd_dkdv<f32, 9>", "flash_bwd_dq<f32, 9>",
+                                "flash_bwd_dkdv<f32, 12>", "flash_bwd_dq<f32, 12>"))]
     for line in regs:
         log(f"  3B [{smi}] ptxas {line}")
     # ptxas notes that it serialized wgmmas (C7511-C7515) in the port's build
@@ -3422,6 +3455,7 @@ G2_BATCH, G2_PROMPT, G2_DECODE = 4, 8128, 64   # 8,192 tokens: gemma2's context
 G2_WINDOW = 4096
 MOE_BATCH, MOE_PROMPT, MOE_DECODE = 8, 2048, 32
 PLAIN_ROWS = 1024                         # 3L: the plain attention, query rows a chunk
+ROUNDOFF_TERMS = 2.0 ** -14               # 3B: f32 roundoff, of the terms' magnitudes
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:70"
 
 
@@ -3440,24 +3474,7 @@ def _finite(t) -> bool:
     return bool(torch.isfinite(t).all())
 
 
-def _flash_plain(q, k, v, opts):
-    """The plain version over query chunks of PLAIN_ROWS rows, each at its
-    own ``q_offset`` (positions are absolute, so the chunks give the whole
-    call's output): the whole (B, H, Sq, Sk) f32 logits of gemma2's prefill
-    would be 17 GB."""
-    import torch
-    from repro_torch.kernels import ref
-    Sq = q.shape[1]
-    if Sq <= PLAIN_ROWS:
-        return ref.flash_attention_ref(q, k, v, **opts)
-    out = torch.empty_like(q)
-    for a in range(0, Sq, PLAIN_ROWS):
-        o = dict(opts, q_offset=opts.get("q_offset", 0) + a)
-        out[:, a:a + PLAIN_ROWS] = ref.flash_attention_ref(q[:, a:a + PLAIN_ROWS], k, v, **o)
-    return out
-
-
-def _row_tol_ratio(got, want, tol):
+def _row_tol_ratio(got, want, tol, *, terms=None):
     """(max abs err, max err over its query row's RMS, max err over its
     tolerance) of ``got`` against ``want`` (B, Sq, H, Dh): the tolerance is
     ``tol["atol"]`` times the RMS over Dh of ``want``'s (b, query, head)
@@ -3465,12 +3482,24 @@ def _row_tol_ratio(got, want, tol):
     keys gives outputs of RMS about sqrt(e / n) (0.026 at 4,096 keys), so
     an absolute atol of TOL_BF16's 2e-2 would be as large as the output;
     the kernel's own error (bf16 rounding of P and of the output) scales
-    with the row's RMS."""
+    with the row's RMS.  ``terms`` (gradients; ``want``'s shape): the sum
+    of the magnitudes of each element's terms, of which ROUNDOFF_TERMS is
+    added to its tolerance.  A gradient element is a sum whose terms
+    cancel (sum_j P_ij (dP_ij - D_i) = 0; under a causal mask the first
+    query's dq is 0 up to roundoff), so both sides carry f32 noise of the
+    size of its terms, not of its row (in f32 at qwen3-32b's training
+    shape on an H100, 4.4e-5 of the tensor's RMS on a row of 1e-3 of it;
+    at zamba2's, 9.2e-5 of the magnitudes of P (|dP| + |D|) |K|, since
+    dP - D itself cancels; at most 5.0e-6 of the magnitudes of every
+    operand at each 3B shape, so 2^-14 leaves 12x)."""
     import torch
     g, w = got.float(), want.float()
     rms = w.pow(2).mean(-1, keepdim=True).sqrt()
     err = (g - w).abs()
-    lim = (tol["atol"] * rms + tol["rtol"] * w.abs()).clamp_min(1e-30)
+    lim = tol["atol"] * rms + tol["rtol"] * w.abs()
+    if terms is not None:
+        lim = lim + ROUNDOFF_TERMS * terms
+    lim = lim.clamp_min(1e-30)
     if not bool(torch.isfinite(g).all()):
         return float("inf"), float("inf"), float("inf")
     return (float(err.max()), float((err / rms.clamp_min(1e-30)).max()),
@@ -3503,7 +3532,7 @@ def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launc
         opts = dict(opts, k_pos=k_pos_fn(Sk))
     run = lambda: ops.flash_attention(q, k, v, **opts)   # noqa: E731
     tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
-    want = _flash_plain(q, k, v, opts)
+    want = ref.flash_attention_ref(q, k, v, rows=PLAIN_ROWS, **opts)
     name = (f"{tag} [{smi}] flash {label} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh} "
             f"{str(dtype)[6:]} { {n: o for n, o in opts.items() if n != 'k_pos'} }")
     err, err_rms, ratio = _row_tol_ratio(run(), want, tol)
@@ -3526,7 +3555,7 @@ def _flash_lm_row(smi, gen, label, shape, opts, *, iters=0, k_pos_fn=None, launc
         return None
     ms = time_ms(run, iters)
     dev = device_ms(run, iters)
-    plain = time_ms(lambda: _flash_plain(q, k, v, opts), 1)
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, rows=PLAIN_ROWS, **opts), 1)
     mask = ref.attention_mask(Sq, Sk, causal=opts.get("causal", False),
                               window=opts.get("window"), device="cuda",
                               q_offset=opts.get("q_offset", 0), k_pos=opts.get("k_pos"),
@@ -4028,15 +4057,6 @@ def _off_init(params, gen) -> None:
             params["cross"][g] = 0.3 + 0.9 * rand(params["cross"][g])
 
 
-def _stub_inputs(api, cfg, batch: int, gen):
-    """The family's stub modality inputs (``ModelApi.extra_inputs``), drawn
-    from ``gen`` on its device in their dtype."""
-    import torch
-    return {name: torch.randn(shape_fn(cfg, batch), generator=gen,
-                              device=gen.device).to(dtype)
-            for name, shape_fn, dtype in api.extra_inputs}
-
-
 def _family_smoke_configs():
     from repro_torch.configs import get_smoke
     z, v = get_smoke("zamba2-7b"), get_smoke("llama-3.2-vision-11b")
@@ -4068,6 +4088,7 @@ def phase_family_smoke_card(smi):
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import stub_inputs
     from repro_torch.models import encdec
     from repro_torch.models.api import get_model
     P, D = SMOKE_PROMPT, SMOKE_DECODE
@@ -4075,7 +4096,7 @@ def phase_family_smoke_card(smi):
         api = get_model(cfg)
         toks = torch.from_numpy(np.random.default_rng(15).integers(
             0, cfg.vocab_size, (2, P + D), dtype=np.int32))
-        extra = _stub_inputs(api, cfg, 2, torch.Generator().manual_seed(16))
+        extra = stub_inputs(api, cfg, 2, torch.Generator().manual_seed(16))
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_FAMILY_BF16)):
             f32 = dtype == torch.float32
             if f32 and cfg.family == "hybrid":
@@ -4126,6 +4147,7 @@ def _family_full(rows, smi, name, tag, batch, prompt, steps, *, pad=False):
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import stub_inputs
     from repro_torch.models import dense, encdec, vlm, zamba2
     from repro_torch.models.api import get_model
     cfg = get_config(name)
@@ -4146,7 +4168,7 @@ def _family_full(rows, smi, name, tag, batch, prompt, steps, *, pad=False):
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
     prompts = next(token_batches(cfg.vocab_size, batch, prompt, seed=3,
                                  device="cuda"))["tokens"]
-    extra = _stub_inputs(api, cfg, batch, torch.Generator(device="cuda").manual_seed(4))
+    extra = stub_inputs(api, cfg, batch, torch.Generator(device="cuda").manual_seed(4))
     pad = steps if pad else 0
     _greedy(api, params, cfg, prompts[:, :256], 2, 258, extra=extra,
             pad=2 if pad else 0)                                  # warm-up
@@ -4215,6 +4237,386 @@ def phase_family_full(rows, smi):
         rows[f"flash_attention vlm {kind} decode"]["launches"] = n * VLM_DECODE
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training the dense, hybrid, audio and VLM families (the flash
+# backward at their shapes runs in phase 3, lines 3B)
+# ---------------------------------------------------------------------------
+LMT_NAMES = ("qwen3-32b", "deepseek-67b", "zamba2-7b", "seamless-m4t-large-v2",
+             "llama-3.2-vision-11b")
+LMT_FULL = ("seamless-m4t-large-v2", "qwen3-32b", "zamba2-7b", "llama-3.2-vision-11b")
+LMT_SMOKE_STEPS, LMT_SMOKE_BATCH, LMT_SMOKE_SEQ = 5, 2, 32   # 16a
+LMT_TIMED = 4                                               # 16b, after a warm-up step
+# the flash backward's LM training shapes (B, Sq, Sk, H, KVH, Dh, causal), at
+# the reference CLI's 8 x 128 tokens: (label, shape, 16b's launches of it
+# a step, as a function of the trained config)
+LMT_FLASH_SHAPES = (
+    ("qwen3-32b self-attention (GQA 64 over 8)", (8, 128, 128, 64, 8, 128, True),
+     "qwen3-32b", lambda c: c.num_layers),
+    ("zamba2-7b shared block (Dh 112)", (8, 128, 128, 32, 32, 112, True),
+     "zamba2-7b", lambda c: c.num_layers // c.hybrid_attn_every),
+    ("seamless-m4t-large-v2 encoder over 4,096 frames", (8, 4096, 4096, 16, 16, 64, False),
+     "seamless-m4t-large-v2", lambda c: c.encoder_layers),
+    ("seamless-m4t-large-v2 decoder self-attention", (8, 128, 128, 16, 16, 64, True),
+     "seamless-m4t-large-v2", lambda c: c.num_layers),
+    ("seamless-m4t-large-v2 cross-attention over 4,096 frames",
+     (8, 128, 4096, 16, 16, 64, False), "seamless-m4t-large-v2", lambda c: c.num_layers),
+    ("llama-3.2-vision-11b self-attention (GQA 32 over 8)", (8, 128, 128, 32, 8, 128, True),
+     "llama-3.2-vision-11b", lambda c: c.num_layers - c.num_layers // c.cross_attn_every),
+    ("llama-3.2-vision-11b cross-attention over 1,601 image keys",
+     (8, 128, 1601, 32, 8, 128, False), "llama-3.2-vision-11b",
+     lambda c: c.num_layers // c.cross_attn_every),
+)
+
+
+def _flash_bwd_wrong_heads(q, k, v, o32, lse, do, causal):
+    """A planted fault: the plain backward with query head h reading kv
+    head h % KVH instead of h // G (the heads permuted into the grouped
+    order that mapping implies, the gradients permuted back)."""
+    from repro_torch.kernels import ref
+    H, KVH = q.shape[2], k.shape[2]
+    G = H // KVH
+    perm = [(h % KVH) * G + h // KVH for h in range(H)]   # head h's grouped slot
+    inv = sorted(range(H), key=lambda h: perm[h])           # the head in each slot
+    dq, dk, dv = ref.flash_attention_bwd_ref(q[:, :, inv], k, v, o32[:, :, inv],
+                                             lse[:, inv].contiguous(), do[:, :, inv],
+                                             causal=causal)
+    return dq[:, :, perm], dk, dv
+
+
+def _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, side):
+    """A planted fault of a causal Sq == Sk shape, confined to one tile:
+    ``"dq"``, the last query block's loop stops one 32-key tile short, so
+    the last 32 queries' dq miss their diagonal tile (keys Sq - 32 on);
+    ``"dkdv"``, the first key block's loop starts one 32-query tile late,
+    so the first 32 keys' dK and dV miss queries 0-31.  The other rows are
+    ``want``'s (the plain gradients)."""
+    from repro_torch.kernels import ref
+    t, Sq = 32, q.shape[1]
+    dq, dk, dv = (g.clone() for g in want)
+    if side == "dq":
+        a = Sq - t       # those queries over keys 0 .. a - 1, all visible to them
+        dq[:, a:] = ref.flash_attention_bwd_ref(q[:, a:], k[:, :a], v[:, :a], o32[:, a:],
+                                                lse[:, :, a:], do[:, a:])[0]
+    else:
+        # keys 0 .. t - 1 over queries t on, which see all of them
+        _, dk[:, :t], dv[:, :t] = ref.flash_attention_bwd_ref(
+            q[:, t:], k[:, :t], v[:, :t], o32[:, t:], lse[:, :, t:], do[:, t:])
+    return dq, dk, dv
+
+
+def _flash_bwd_row(smi, gen, label, shape, dtype, *, iters=0):
+    """One 3B line of the LM training shapes: the flash forward's f32
+    output and log-sum-exp against the plain version's (TOL_F32), then the
+    backward kernel's dq, dk, dv against the plain backward, to TOL_BF16
+    (TOL_F32 in f32) with the atol in units of each (b, row, head) row's
+    RMS over Dh, plus ROUNDOFF_TERMS of the magnitudes of each element's
+    terms (:func:`_row_tol_ratio`); two runs bit for bit; the planted
+    faults that apply must fail that check: the plain version run
+    non-causal, the diagonal tile dropped from the last query block's dQ
+    or the first query tile from the first key block's dK/dV (causal),
+    kv heads mapped as h % KVH (GQA).  With ``iters``: events and device
+    time (two launches a call), the plain version's time, the device time
+    of the backward of ``scaled_dot_product_attention`` (``is_causal``,
+    ``enable_gqa``) through autograd, and the bound over the kept (query,
+    key) pairs: 2.5x the forward's products at the bf16 peak (3xTF32 in
+    f32) or the bytes of q, k, v, dO, the f32 O and lse read and dq, dk,
+    dv written.  Returns the row (``iters``) or None."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import device_ms, time_ms
+    B, Sq, Sk, H, KVH, Dh, causal = shape
+    kw = dict(generator=gen, device="cuda")
+    q = torch.randn((B, Sq, H, Dh), **kw).to(dtype)
+    k = torch.randn((B, Sk, KVH, Dh), **kw).to(dtype)
+    v = torch.randn((B, Sk, KVH, Dh), **kw).to(dtype)
+    do = torch.randn((B, Sq, H, Dh), **kw).to(dtype)
+    tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    name = (f"3B [{smi}] flash_attention_bwd {label} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} "
+            f"Dh={Dh} {'causal ' if causal else ''}{str(dtype)[6:]}")
+    o, lse, o32 = ops._flash_attention_fwd(q, k, v, causal=causal, want_lse=True)
+    want_o32, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, stats=True)
+    fwd_err = max(_close_quiet(f"{name} lse", lse, want_lse, TOL_F32),
+                  _close_quiet(f"{name} f32 output", o32, want_o32, TOL_F32))
+    if not torch.equal(o, o32.to(dtype)):
+        raise AssertionError(f"{name}: the forward's output is not its f32 output rounded")
+    del want_o32, want_lse
+    run = lambda: ops.flash_attention_bwd(q, k, v, o32, lse, do, causal=causal)  # noqa: E731
+    got, again = run(), run()
+    want = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, causal=causal)
+    terms = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, causal=causal, magnitudes=True)
+    torch.cuda.synchronize()
+    res = [_row_tol_ratio(g, w, tol, terms=t) for g, w, t in zip(got, want, terms)]
+    err, ratio = max(r[0] for r in res), max(r[2] for r in res)
+    of_terms = max(float(((g.float() - w.float()).abs() / t.clamp_min(1e-30)).max())
+                   for g, w, t in zip(got, want, terms))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  {name}: forward lse / f32 output max_abs_err {fwd_err:.3e} (TOL_F32); dQ, dK, dV "
+        f"max_abs_err {err:.3e}, at most {of_terms:.3e} of its terms' magnitudes; "
+        f"{ratio:.3f} of its tolerance (rtol="
+        f"{tol['rtol']}, atol={tol['atol']} x the row's RMS, plus {ROUNDOFF_TERMS:.3e} x the "
+        f"terms' magnitudes) {'ok' if ratio <= 1 else 'FAIL'}; two runs bit-identical {same}")
+    if ratio > 1 or not same:
+        raise AssertionError(f"{name}: the kernel disagrees with its plain version or "
+                             f"two runs differ")
+    del again
+    faults = []
+    if causal:
+        faults.append(("the plain version run non-causal", lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o32, lse, do, causal=False)))
+    if causal and Sq == Sk:
+        faults += [("the last 32 queries' dQ without their diagonal key tile",
+                    lambda: _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, "dq")),
+                   ("the first 32 keys' dK/dV without the first query tile",
+                    lambda: _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, "dkdv"))]
+    if KVH != H:
+        faults.append(("kv heads mapped as h % KVH", lambda: _flash_bwd_wrong_heads(
+            q, k, v, o32, lse, do, causal)))
+    for fault, plain in faults:
+        f_ratio = max(_row_tol_ratio(g, w, tol, terms=t)[2]
+                      for g, w, t in zip(got, plain(), terms))
+        log(f"  3B [{smi}] flash_attention_bwd {label} {str(dtype)[6:]}, planted fault "
+            f"({fault}): {f_ratio:.3f} of the tolerance "
+            f"{'rejected' if f_ratio > 1 else 'NOT REJECTED'}")
+        if f_ratio <= 1:
+            raise AssertionError(f"{name}: the check does not reject {fault}")
+    del want, terms
+    if not iters:
+        del q, k, v, do, o, o32, lse, got
+        torch.cuda.empty_cache()
+        return None
+    ms = time_ms(run, iters)
+    dev = device_ms(run, iters, launches_per_call=FLASH_BWD_LAUNCHES)
+    plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o32, lse, do,
+                                                        causal=causal), 1)
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,  # noqa: E731
+                                           retain_graph=True)
+    lib_events = time_ms(sdpa_bwd, iters)
+    lib = device_ms(sdpa_bwd, iters)
+    del qt, kt, vt, ot
+    kept = Sq * (Sq + 1) // 2 if causal and Sq == Sk else int(ref.attention_mask(
+        Sq, Sk, causal=causal, window=None, device="cpu").sum())
+    flops = 2.5 * 4.0 * B * H * kept * Dh
+    es = q.element_size()
+    nq, nk = B * Sq * H * Dh, B * Sk * KVH * Dh
+    nbytes = (es * (2 * nq + 2 * nk)        # q, dO, k, v read
+              + 4 * nq + 4 * B * H * Sq     # the f32 O and lse read
+              + es * (nq + 2 * nk))         # dq, dk, dv written
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+    b_ms, b_by = bound(flops, nbytes, peak)
+    log(f"  3B [{smi}] flash_attention_bwd {label} {str(dtype)[6:]}: kernel {ms:.4f} ms "
+        f"events, {dev:.4f} ms device ({FLASH_BWD_LAUNCHES} launches), plain {plain:.4f} ms, "
+        f"backward of scaled_dot_product_attention (is_causal={causal}, enable_gqa) through "
+        f"autograd {lib:.4f} ms device ({lib_events:.4f} ms events), kernel / SDPA backward "
+        f"{dev / lib:.3f} (device), bound {b_ms:.4f} ms ({b_by}; {kept} kept (query, key) "
+        f"pairs, {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB; {flops / dev / 1e9:.1f} TFLOP/s on "
+        f"the device)")
+    del q, k, v, do, o, o32, lse, got
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu", replaces=NO_PALLAS,
+                launches=0, max_abs_err=err, ms=ms, device_ms=dev, events_ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library_events_ms=lib_events, yardstick_ratio=dev / lib,
+                shape=f"{label}: B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh}"
+                      f"{' causal' if causal else ''} {str(dtype)[6:]}")
+
+
+def phase_lm_train_kernels(rows, smi):
+    """3B, in phase 3 after 3F: the flash backward (and the forward's f32
+    output and log-sum-exp it reads) at the LM families' training shapes,
+    bf16 (timed) and f32 (checked); phase 16b adds each bf16 row's
+    launches.  Then each new instance's ptxas registers and spills."""
+    import torch
+    from repro_torch.kernels import build
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for label, shape, _, _ in LMT_FLASH_SHAPES:
+        big = shape[1] * shape[2] > 1 << 20
+        rows[f"flash_attention_bwd {label}"] = _flash_bwd_row(
+            smi, gen, label, shape, torch.bfloat16, iters=3 if big else 20)
+        if not big:
+            _flash_bwd_row(smi, gen, label, shape, torch.float32)
+    for line in build.ptxas_report():
+        if line.startswith(("flash_bwd_dq<bf16", "flash_bwd_dkdv<bf16", "flash_bwd_dq<f32, 16>",
+                            "flash_bwd_dkdv<f32, 16>", "flash_bwd_dq<f32, 8>",
+                            "flash_bwd_dkdv<f32, 8>")):
+            log(f"  3B [{smi}] ptxas {line}")
+
+
+def _train_flash_plan(cfg):
+    """(flash_attention, flash_attention_bwd) launches a training step of
+    ``cfg``: every attention call runs the forward and the backward once,
+    and the forward again where its layer is recomputed (all of them but
+    the VLM's cross blocks)."""
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2
+        n = zamba2.num_attn_blocks(cfg)
+        return 2 * n, n
+    if cfg.family == "audio":
+        n = cfg.encoder_layers + 2 * cfg.num_layers
+        return 2 * n, n
+    if cfg.family == "vlm":
+        n_cross = cfg.num_layers // cfg.cross_attn_every
+        n_self = cfg.num_layers - n_cross
+        return 2 * n_self + n_cross, n_self + n_cross
+    return 2 * cfg.num_layers, cfg.num_layers
+
+
+def _planned_train_launches(cfg, steps: int):
+    from repro_torch.kernels import ops
+    fwd, bwd = _train_flash_plan(cfg)
+    want = {k: 0 for k in ops.LAUNCHES}
+    want["flash_attention"], want["flash_attention_bwd"] = steps * fwd, steps * bwd
+    return want
+
+
+def phase_lm_train_smoke(smi):
+    """16a: the smoke configs of qwen3-32b, deepseek-67b, zamba2-7b,
+    seamless-m4t-large-v2 and llama-3.2-vision-11b (the SSD's leaves and
+    the cross gates off their init), from one seed: f32 step-0 gradients
+    card vs CPU leaf by leaf, then LMT_SMOKE_STEPS ``lm_train_step``s on
+    the CPU (plain versions) and on the card (kernels) from the same
+    params, batches and stub inputs, f32 (losses within 1e-3) and bf16
+    (within TOL_LM_BF16_LOSS), the card's launches held to the plan."""
+    import torch
+    from repro_torch.checkpoint.io import flatten
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_train_step, stub_inputs
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
+    for name in LMT_NAMES:
+        cfg = get_smoke(name)
+        api = get_model(cfg)
+        it = token_batches(cfg.vocab_size, LMT_SMOKE_BATCH, LMT_SMOKE_SEQ, seed=16)
+        sgen = torch.Generator().manual_seed(17)
+        data = [dict(next(it), **stub_inputs(api, cfg, LMT_SMOKE_BATCH, sgen))
+                for _ in range(LMT_SMOKE_STEPS)]
+        for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, TOL_LM_BF16_LOSS)):
+            gen = torch.Generator().manual_seed(16)
+            params = api.init(cfg, generator=gen, dtype=dtype)
+            _off_init(params, gen)
+            tag = f"16a [{smi}] {cfg.name} {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                grads = {}
+                for dev in ("cpu", "cuda"):
+                    live = tree_map(lambda t: t.detach().to(dev, copy=True).requires_grad_(True),
+                                    params)
+                    loss, _ = api.loss_fn(live, _to(data[0], dev), cfg)
+                    grads[dev] = torch.autograd.grad(loss, tree_leaves(live))
+                _compare_grads(f"{tag} step-0 gradients, card vs cpu", grads["cuda"],
+                               grads["cpu"], [n for n, _ in flatten(params)[0]],
+                               cfg.d_ff + max(LMT_SMOKE_SEQ, cfg.num_audio_frames or 0,
+                                              cfg.num_image_tokens or 0))
+            losses = {}
+            for dev in ("cpu", "cuda"):
+                p = tree_map(lambda t: t.detach().to(dev, copy=True), params)
+                opt = adamw_init(p)
+                ops.reset_launches()
+                out = []
+                for b in data:
+                    p, opt, m = lm_train_step(p, opt, _to(b, dev), cfg, total=LMT_SMOKE_STEPS)
+                    out.append(m["loss"])
+                losses[dev] = [float(x) for x in out]
+                counts = dict(ops.LAUNCHES)
+            want = _planned_train_launches(cfg, LMT_SMOKE_STEPS)
+            log(f"  {tag}: {LMT_SMOKE_STEPS} steps, losses cpu "
+                f"{[round(x, 5) for x in losses['cpu']]}, card "
+                f"{[round(x, 5) for x in losses['cuda']]}, card launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if counts != want:
+                raise AssertionError(f"{tag}: launches {counts} differ from the plan's {want}")
+            compare(f"{tag} losses card vs cpu", torch.tensor(losses["cuda"]),
+                    torch.tensor(losses["cpu"]), dict(rtol=tol, atol=0.0))
+
+
+def phase_lm_train_full(rows, smi):
+    """16b: seamless-m4t-large-v2 at full width and depth, qwen3-32b,
+    zamba2-7b and llama-3.2-vision-11b at full width with the depth one
+    card holds (``profile_train.lm_train_config``), bf16 params and f32
+    moments as ``train_lm`` makes them (the SSD's leaves and the cross
+    gates off their init), batch LMT_BATCH x LMT_SEQ tokens with the
+    stub audio frames or image embeddings: one warm-up step, then
+    LMT_TIMED steps with the launch counts set to 0 before them and held
+    to the depth after (the recompute's second forward included); loss and
+    grad norm finite.  Each model is freed before the next.  Returns
+    {name: (s/step, peak GiB)}."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_train import lm_train_config
+    from repro_torch.launch.train import lm_train_step, stub_inputs
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import adamw_init
+    out, fwd_total = {}, 0
+    for name in LMT_FULL:
+        cfg = lm_train_config(name)
+        api = get_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = api.init(cfg, generator=gen)
+        _off_init(params, gen)
+        opt = adamw_init(params)
+        n_params = sum(t.numel() for t in leaves(params).values())
+        it = token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0,
+                           device="cuda")
+        sgen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step():
+            nonlocal params, opt
+            b = dict(next(it), **stub_inputs(api, cfg, LM_TRAIN_BATCH, sgen))
+            params, opt, m = lm_train_step(params, opt, b, cfg, total=1 + LMT_TIMED)
+            return m
+
+        step()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ms = [step() for _ in range(LMT_TIMED)]
+        torch.cuda.synchronize()
+        s_per_step = (time.perf_counter() - t0) / LMT_TIMED
+        counts, by_shape = dict(ops.LAUNCHES), dict(ops.FLASH_BWD_SHAPES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(m["loss"]) for m in ms]
+        gnorms = [float(m["grad_norm"]) for m in ms]
+        want = _planned_train_launches(cfg, LMT_TIMED)
+        layout = (f"{cfg.num_layers} layers + {cfg.encoder_layers} encoder layers"
+                  if cfg.encoder_layers else f"{cfg.num_layers} layers")
+        log(f"  16b [{smi}] {name} ({layout}, d {cfg.d_model}, {cfg.num_heads} heads x "
+            f"{cfg.head_dim} over {cfg.num_kv_heads}, {n_params / 1e9:.3f} B params bf16, "
+            f"moments f32), batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: {s_per_step:.4f} "
+            f"s/train-step over {LMT_TIMED} steps ({LM_TRAIN_BATCH * LM_TRAIN_SEQ / s_per_step:.1f}"
+            f" tokens/s), max_memory_allocated {peak:.3f} GiB, losses "
+            f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 4) for x in gnorms]}, "
+            f"launches { {k: v for k, v in counts.items() if v} }, planned "
+            f"{ {k: v for k, v in want.items() if v} }; flash_attention_bwd by (B, Sq, Sk, "
+            f"H, KVH, Dh, causal) {by_shape}")
+        if counts != want or not all(math.isfinite(x) for x in losses + gnorms):
+            raise AssertionError(f"16b {name}: launches differ from the plan or the loss "
+                                 f"or grad norm is not finite")
+        mine = {shape: LMT_TIMED * per_step(cfg)
+                for _, shape, owner, per_step in LMT_FLASH_SHAPES if owner == name}
+        if by_shape != mine:
+            raise AssertionError(f"16b {name}: flash_attention_bwd's launches by shape "
+                                 f"{by_shape} differ from the plan's {mine}")
+        for label, shape, owner, _ in LMT_FLASH_SHAPES:
+            if owner == name:
+                rows[f"flash_attention_bwd {label}"]["launches"] = by_shape[shape]
+        fwd_total += counts["flash_attention"]
+        out[name] = (s_per_step, peak)
+        del params, opt, ms
+        torch.cuda.empty_cache()
+    rows["flash_attention"]["launches_train_lm"] = fwd_total
+    return out
+
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -4236,6 +4638,7 @@ def main() -> int:
         # dropped launches (a 3L trace held 2 of 5 when it came last)
         phase_lm_kernels(rows, smi)
         phase_family_kernels(rows, smi)
+        phase_lm_train_kernels(rows, smi)
         phase_g_kernels(rows, smi)
         phase_backward_kernels(rows, smi)
         phase_scan_backward(rows, smi)
@@ -4285,9 +4688,15 @@ def main() -> int:
                "width and depth; 3F ran in phase 3)"):
         phase_family_smoke_card(smi)
         phase_family_full(rows, smi)
+    with phase("16 main path 12 (training the dense, hybrid, audio and VLM families: the "
+               "smoke configs cpu vs card, four at full width; their 3B lines ran in "
+               "phase 3)"):
+        phase_lm_train_smoke(smi)
+        phase_lm_train_full(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
-            "launches_placed_per_rank", "launches_train", "max_abs_err", "ms",
+            "launches_placed_per_rank", "launches_train", "launches_train_lm",
+            "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",
             "fp32_bound_ms", "fwd_ms", "bwd_over_fwd", "parent_events_ms",
             "device_ms",

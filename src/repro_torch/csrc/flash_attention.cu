@@ -66,7 +66,10 @@
 //     (flash_attention_bwd.cu).  It is stored where the epilogue
 //     normalises by l, by the lane of each quad that holds t = 0; with a
 //     null pointer the kernel computes and writes exactly what it did
-//     without it.
+//     without it.  An optional f32 (B, Sq, H, Dh) contiguous output o32
+//     receives acc / l unrounded beside a bf16 o: the backward's D =
+//     rowsum(dO * O) is the reference's sum of P dP, the output before
+//     its bf16 rounding.
 #include <type_traits>
 
 #include "common.cuh"
@@ -138,7 +141,7 @@ template <typename T, int NT>
 __global__ void __launch_bounds__(WARPS * 32)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-             const int* __restrict__ k_pos, int q_offset, int Sq, int Sk, int H,
+             float* __restrict__ o32, const int* __restrict__ k_pos, int q_offset, int Sq, int Sk, int H,
              int KVH, int Dh, Strides qs, Strides ks, Strides vs, Strides os,
              int causal, int has_window, int window, int symmetric, int has_softcap,
              float softcap, float scale, int aligned) {
@@ -322,14 +325,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) {
       const int pq = q0 + row + (e >> 1) * 8;
       const int dd = n * 8 + 2 * t + (e & 1);
-      if (n < nd && pq < Sq && dd < Dh)
-        store_f32(ob + pq * os.s + dd, acc[n][e] / l[e >> 1]);
+      if (n < nd && pq < Sq && dd < Dh) {
+        const float val = acc[n][e] / l[e >> 1];
+        store_f32(ob + pq * os.s + dd, val);
+        if (o32 != nullptr) o32[(((size_t)b * Sq + pq) * H + hh) * Dh + dd] = val;
+      }
     }
 }
 
 template <typename T, int NT>
 cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, float* lse,
-                      const int* k_pos, int q_offset, int B, int Sq, int Sk, int H, int KVH,
+                      float* o32, const int* k_pos, int q_offset, int B, int Sq, int Sk, int H, int KVH,
                       int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
                       int has_window, int window, int symmetric, int has_softcap,
                       float softcap, cudaStream_t stream) {
@@ -347,7 +353,7 @@ cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, floa
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_kernel<T, NT><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, k_pos, q_offset, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
+      static_cast<T*>(o), lse, o32, k_pos, q_offset, Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal,
       has_window, window, symmetric, has_softcap, softcap, (float)(1.0 / sqrt((double)Dh)),
       aligned);
   return cudaSuccess;
@@ -355,14 +361,14 @@ cudaError_t launch_nt(const void* q, const void* k, const void* v, void* o, floa
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   const int* k_pos, int q_offset, int B, int Sq, int Sk, int H, int KVH,
+                   float* o32, const int* k_pos, int q_offset, int B, int Sq, int Sk, int H, int KVH,
                    int Dh, Strides qs, Strides ks, Strides vs, Strides os, int causal,
                    int has_window, int window, int symmetric, int has_softcap, float softcap,
                    cudaStream_t stream) {
   const int nd = (Dh + 7) / 8;
   auto run = [&](auto kernel_nt) {
     constexpr int NT = decltype(kernel_nt)::value;
-    return launch_nt<T, NT>(q, k, v, o, lse, k_pos, q_offset, B, Sq, Sk, H, KVH, Dh, qs, ks,
+    return launch_nt<T, NT>(q, k, v, o, lse, o32, k_pos, q_offset, B, Sq, Sk, H, KVH, Dh, qs, ks,
                             vs, os, causal, has_window, window, symmetric, has_softcap,
                             softcap, stream);
   };
@@ -377,12 +383,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 // Strides are in elements: *_sb, *_ss, *_sh for the batch, sequence and head
 // dims of each tensor.  lse: null, or f32 (B, H, Sq) contiguous for the rows'
-// log-sum-exp.  k_pos: null, or int32 (Sk,) key positions (negative: empty
+// log-sum-exp.  o32: null, or f32 (B, Sq, H, Dh) contiguous for the output
+// unrounded (beside a bf16 o).  k_pos: null, or int32 (Sk,) key positions (negative: empty
 // slot); q_offset: the position of query row 0.  symmetric: the window also
 // masks keys window or more past the query.  dtype: 0 f32, 1 bf16.
 // Returns cudaGetLastError().
 extern "C" int dice_flash_attention(
-    const void* q, const void* k, const void* v, void* o, void* lse, const void* k_pos,
+    const void* q, const void* k, const void* v, void* o, void* lse, void* o32,
+    const void* k_pos,
     int q_offset, int B, int Sq, int Sk,
     int H, int KVH, int Dh, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
@@ -397,11 +405,13 @@ extern "C" int dice_flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kp = static_cast<const int*>(k_pos);
   if (dtype == dice::kF32)
-    err = dice::launch<float>(q, k, v, o, static_cast<float*>(lse), kp, q_offset, B, Sq, Sk,
+    err = dice::launch<float>(q, k, v, o, static_cast<float*>(lse),
+                              static_cast<float*>(o32), kp, q_offset, B, Sq, Sk,
                               H, KVH, Dh, qs, ks, vs, os, causal, has_window, window,
                               symmetric, has_softcap, softcap, s);
   else
-    err = dice::launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), kp, q_offset, B,
+    err = dice::launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse),
+                                      static_cast<float*>(o32), kp, q_offset, B,
                                       Sq, Sk, H, KVH, Dh, qs, ks, vs, os, causal, has_window,
                                       window, symmetric, has_softcap, softcap, s);
   if (err != cudaSuccess) return (int)err;

@@ -44,10 +44,10 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
     "dice_expert_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dice_flash_attention": [_P] * 6 + [_I] * 7 + [_L] * 12
+    "dice_flash_attention": [_P] * 7 + [_I] * 7 + [_L] * 12
     + [_I] * 5 + [_F, _I, _I, _P],
     "dice_expert_ffn_bwd": [_P] * 10 + [_I] * 7 + [_P],
-    "dice_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_L] * 15 + [_I, _P],
+    "dice_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 3 + [_P],
     "dice_residual_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dice_rwkv6_scan": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I] * 4 + [_P],
     "dice_rwkv6_scan_bwd": [_P] * 15 + [_I] * 4 + [_L] * 15 + [_I] * 4 + [_P],

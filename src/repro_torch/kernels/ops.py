@@ -9,7 +9,9 @@ scratch with ``torch.empty``, launches on the current stream and raises
 if ``cudaGetLastError`` reports a fault.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
-count), so a run can show that its path went through the kernels.
+count), so a run can show that its path went through the kernels;
+``FLASH_BWD_SHAPES`` splits ``flash_attention_bwd``'s by (B, Sq, Sk, H,
+KVH, Dh, causal).
 
 Training: ``expert_ffn``, ``flash_attention`` and ``rwkv6_scan`` go
 through the ``torch.autograd.Function``s :class:`ExpertFFNFn`,
@@ -34,6 +36,7 @@ LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
                             "residual_int8": 0, "rwkv6_scan": 0,
                             "expert_ffn_bwd": 0, "flash_attention_bwd": 0,
                             "rwkv6_scan_bwd": 0}
+FLASH_BWD_SHAPES: Dict[Tuple[int, int, int, int, int, int, bool], int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
@@ -46,6 +49,7 @@ RWKV6_HEAD_DIMS = (16, 32, 64, 128)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    FLASH_BWD_SHAPES.clear()
 
 
 def _check_cuda(name: str, tensors) -> int:
@@ -181,9 +185,16 @@ def _check_masks(q, k, q_offset, k_pos, window) -> None:
 def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
                          q_offset=0, k_pos=None, one_sided_window=False,
                          out=None, want_lse: bool = False):
-    """(o, lse): ``lse`` is the (B, H, Sq) f32 row log-sum-exp of the
-    scaled logits when ``want_lse`` (unmasked, no softcap, H == KVH only),
-    else None.  The kernel's output is the same with or without it."""
+    """(o, lse, o32).  With ``want_lse`` (no window, softcap or KV-cache
+    masks: what the backward takes) ``lse`` is the (B, H, Sq) f32 row
+    log-sum-exp of the scaled logits and ``o32`` the output unrounded in
+    f32 (``o`` itself for f32 inputs), the backward's D = rowsum(dO * O);
+    else both are None.  The kernel's output is the same with or without
+    them."""
+    if want_lse and (window is not None or softcap is not None or q_offset
+                     or k_pos is not None):
+        raise ValueError("flash_attention: the log-sum-exp is kept only "
+                         "without a window, softcap or KV-cache masks")
     if out is not None and (tuple(out.shape) != tuple(q.shape)
                             or out.dtype != q.dtype or out.device != q.device
                             or out.stride(-1) != 1):
@@ -193,12 +204,16 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
     if q.dim() == 4 and k.dim() == 4:
         _check_masks(q, k, q_offset, k_pos, window)
     if q.device.type == "cpu":
-        o = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, q_offset=q_offset,
-                                    k_pos=k_pos,
-                                    one_sided_window=one_sided_window)
-        lse = ref.attention_lse_ref(q, k) if want_lse else None
-        return (o if out is None else out.copy_(o)), lse
+        o32, lse = ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, k_pos=k_pos, one_sided_window=one_sided_window,
+            stats=True)
+        o = o32.to(q.dtype)
+        if not want_lse:
+            o32 = lse = None
+        elif q.dtype == torch.float32:
+            o32 = o
+        return (o if out is None else out.copy_(o)), lse, o32
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     code = _check_cuda("flash_attention", (q, k, v))
@@ -225,9 +240,14 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
         if out is None else out
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if want_lse else None
+    o32 = None
+    if want_lse:
+        o32 = o if q.dtype == torch.float32 else torch.empty(
+            (B, Sq, H, Dh), dtype=torch.float32, device=q.device)
     err = lib.dice_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if lse is None else lse.data_ptr(),
+        0 if o32 is None or o32 is o else o32.data_ptr(),
         0 if k_pos is None else k_pos.data_ptr(), q_offset,
         B, Sq, Sk, H, KVH, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
@@ -239,7 +259,7 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
         code, q.device.index or 0, _stream(q.device))
     _raise_on("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
-    return o, lse
+    return o, lse, o32
 
 
 # ---------------------------------------------------------------------------
@@ -344,39 +364,43 @@ def unstage_ffn_bwd_grads(lay: FFNBwdLayout, d: int, f: int, grads):
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None):
-    """Gradients (dq, dk, dv) of :func:`flash_attention` from its output
-    ``o``, its row log-sum-exp ``lse`` (B, H, Sq) f32 and the output
-    gradient ``do``.  Unmasked, no softcap, H == KVH and f32 only, on the
-    card and on the CPU alike: anything else raises NotImplementedError
-    (queued for the LM families' training, ROADMAP.md A)."""
+    """Gradients (dq, dk, dv) of :func:`flash_attention` from its
+    unrounded f32 output ``o`` (B, Sq, H, Dh), its row log-sum-exp ``lse``
+    (B, H, Sq) f32 (both from ``_flash_attention_fwd(want_lse=True)``)
+    and the output gradient ``do``.  Causal or not, GQA (k and v (B, Sk,
+    KVH, Dh); dk and dv come back in that shape, summed over each kv
+    head's query heads), Sq and Sk free, f32 or bf16 (dq, dk, dv in that
+    dtype, rounded once from f32), Dh up to ``MAX_BWD_HEAD_DIM``, on the
+    card and on the CPU alike.  A window, a softcap and Dh above 128
+    raise NotImplementedError (gemma2 and stablelm's training, queued in
+    ROADMAP.md A)."""
     missing = [name for name, on in (
-        ("causal", causal), ("window", window is not None),
-        ("softcap", softcap is not None),
-        ("GQA (H != KVH)", q.dim() == 4 and k.dim() == 4
-         and q.shape[2] != k.shape[2]),
-        ("bf16", q.dtype != torch.float32)) if on]
+        ("window", window is not None), ("softcap", softcap is not None),
+        (f"head_dim {q.shape[-1]} > {MAX_BWD_HEAD_DIM}",
+         q.shape[-1] > MAX_BWD_HEAD_DIM)) if on]
     if missing:
         raise NotImplementedError(
             f"flash_attention backward: {', '.join(missing)} not ported "
-            f"(queued with the LM families' training, ROADMAP.md A)")
+            f"(queued with gemma2's and stablelm's training, ROADMAP.md A)")
     if q.device.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    _check_cuda("flash_attention_bwd", (q, k, v, o, do))
+    code = _check_cuda("flash_attention_bwd", (q, k, v, do))
     B, Sq, H, Dh = q.shape
-    Sk = k.shape[1]
-    if (tuple(k.shape) != (B, Sk, H, Dh) or tuple(v.shape) != tuple(k.shape)
+    Sk, KVH = k.shape[1], k.shape[2]
+    if (tuple(k.shape) != (B, Sk, KVH, Dh) or tuple(v.shape) != tuple(k.shape)
             or tuple(o.shape) != tuple(q.shape)
             or tuple(do.shape) != tuple(q.shape)):
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"o {tuple(o.shape)}, do {tuple(do.shape)} do not "
                          f"agree")
-    if not 0 < Dh <= MAX_BWD_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_attention_bwd: head_dim {Dh} not in "
-            f"[1, {MAX_BWD_HEAD_DIM}] (ROADMAP.md A)")
+    if KVH == 0 or H % KVH:
+        raise ValueError(f"flash_attention_bwd: {H} heads over {KVH} kv heads")
+    if o.dtype != torch.float32 or o.device != q.device:
+        raise ValueError("flash_attention_bwd: o must be the forward's f32 "
+                         "output on q's device")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq) \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 "
@@ -388,19 +412,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
             raise ValueError(f"flash_attention_bwd: {name}'s head dim must "
                              f"be contiguous")
     lib = library()
-    kw = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty((B, Sq, H, Dh), **kw)
-    dk = torch.empty((B, Sk, H, Dh), **kw)
-    dv = torch.empty((B, Sk, H, Dh), **kw)
-    delta = torch.empty((B, H, Sq), **kw)          # rowsum(dO * O)
+    dq = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     err = lib.dice_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, Dh,
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], q.device.index or 0, _stream(q.device))
+        *do.stride()[:3], int(causal), code, q.device.index or 0,
+        _stream(q.device))
     _raise_on("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
+    key = (B, Sq, Sk, H, KVH, Dh, bool(causal))
+    FLASH_BWD_SHAPES[key] = FLASH_BWD_SHAPES.get(key, 0) + 1
     return dq, dk, dv
 
 
@@ -425,24 +451,24 @@ class ExpertFFNFn(torch.autograd.Function):
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with its backward: the forward kernel (which
-    then also stores the row log-sum-exp) and the ``flash_attention_bwd``
-    kernel on the card, the plain versions on the CPU.  Saves q, k, v, the
-    output and the log-sum-exp."""
+    then also stores the row log-sum-exp and, for bf16, the output in
+    f32) and the ``flash_attention_bwd`` kernel on the card, the plain
+    versions on the CPU.  Saves q, k, v, the f32 output and the
+    log-sum-exp.  A window, a softcap or KV-cache masks run the forward
+    and raise in the backward (not ported, ROADMAP.md A)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset=0,
                 k_pos=None, one_sided_window=False):
         cache_masks = q_offset != 0 or k_pos is not None
-        plain = (not causal and window is None and softcap is None
-                 and not cache_masks and q.shape[2] == k.shape[2])
-        o, lse = _flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                      softcap=softcap, q_offset=q_offset,
-                                      k_pos=k_pos,
-                                      one_sided_window=one_sided_window,
-                                      want_lse=plain)
+        ported = window is None and softcap is None and not cache_masks
+        o, lse, o32 = _flash_attention_fwd(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, k_pos=k_pos, one_sided_window=one_sided_window,
+            want_lse=ported)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
         ctx.cache_masks = cache_masks
-        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.save_for_backward(q, k, v, o32, lse)
         return o
 
     @staticmethod
@@ -450,10 +476,9 @@ class FlashAttentionFn(torch.autograd.Function):
         if ctx.cache_masks:
             raise NotImplementedError(
                 "flash_attention backward: KV-cache masks (q_offset, k_pos) "
-                "not ported (queued with the LM families' training, "
-                "ROADMAP.md A)")
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                "not ported (training passes none; ROADMAP.md A)")
+        q, k, v, o32, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o32, lse, do.contiguous(),
                                          **ctx.opts)
         return dq, dk, dv, None, None, None, None, None, None
 

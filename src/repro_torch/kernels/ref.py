@@ -109,60 +109,128 @@ def attention_mask(Sq: int, Sk: int, *, causal: bool, window,
     return mask
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = False, window=None,
-                        softcap=None, q_offset: int = 0, k_pos=None,
-                        one_sided_window: bool = False):
-    """q: (B, Sq, H, Dh); k, v: (B, Sk, KVH, Dh) -> (B, Sq, H, Dh).
+def _chunk_rows(B: int, H: int, Sq: int, Sk: int, rows) -> int:
+    """Query rows a chunk of the plain attention: ``rows``, or as many as
+    keep one (B, H, rows, Sk) f32 score tensor within 2^28 elements (1
+    GiB), so the plain versions hold the seamless encoder's (8, 4096, 16
+    heads) on the card without 4 x 8.6 GB of scores."""
+    if rows is not None:
+        return max(1, rows)
+    return max(1, min(Sq, (1 << 28) // max(1, B * H * Sk)))
 
-    GQA maps query head h to kv head ``h // (H // KVH)``.  Masked logits are
-    -1e30, not -inf, so a fully masked row gives the mean of V.  The mask
-    is :func:`attention_mask`'s."""
+
+def _logits(q, k32, *, causal: bool, window=None, softcap=None,
+            q_offset: int = 0, k_pos=None, one_sided: bool = False):
+    """((B, KVH, G, Sq, Sk) f32 scaled logits ``q k^T / sqrt(Dh)``,
+    softcapped and masked at -1e30 by :func:`attention_mask`; that mask)."""
     B, Sq, H, Dh = q.shape
-    Sk, KVH = k.shape[1], k.shape[2]
-    G = H // KVH
-    qg = q.reshape(B, Sq, KVH, G, Dh).to(torch.float32)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
-                     k.to(torch.float32)) / math.sqrt(Dh)
+    Sk, KVH = k32.shape[1], k32.shape[2]
+    qg = q.to(torch.float32).reshape(B, Sq, KVH, H // KVH, Dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k32) / math.sqrt(Dh)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
                           device=q.device, q_offset=q_offset, k_pos=k_pos,
-                          one_sided=one_sided_window)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+                          one_sided=one_sided)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = False, window=None,
+                        softcap=None, q_offset: int = 0, k_pos=None,
+                        one_sided_window: bool = False, stats: bool = False,
+                        rows=None):
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, KVH, Dh) -> (B, Sq, H, Dh).
+
+    GQA maps query head h to kv head ``h // (H // KVH)``.  Masked logits are
+    -1e30, not -inf, so a fully masked row gives the mean of V.  The mask
+    is :func:`attention_mask`'s.  With ``stats`` it returns (the output
+    unrounded in f32, the (B, H, Sq) f32 row log-sum-exp of the masked
+    logits): what the flash kernel keeps for the backward.  The queries
+    run in chunks of ``rows`` (None: :func:`_chunk_rows`), each at its own
+    ``q_offset``."""
+    B, Sq, H, Dh = q.shape
+    n = _chunk_rows(B, H, Sq, k.shape[1], rows)
+    if n < Sq:
+        parts = [flash_attention_ref(
+            q[:, a:a + n], k, v, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset + a, k_pos=k_pos, one_sided_window=one_sided_window,
+            stats=stats, rows=n) for a in range(0, Sq, n)]
+        if stats:
+            return (torch.cat([o for o, _ in parts], 1),
+                    torch.cat([lse for _, lse in parts], 2))
+        return torch.cat(parts, 1)
+    s, _ = _logits(q, k.to(torch.float32), causal=causal, window=window,
+                   softcap=softcap, q_offset=q_offset, k_pos=k_pos,
+                   one_sided=one_sided_window)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
-    return out.reshape(B, Sq, H, Dh).to(q.dtype)
+    out = out.reshape(B, Sq, H, Dh)
+    if stats:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return out.to(q.dtype)
 
 
-def attention_lse_ref(q, k):
-    """(B, H, Sq) f32 row log-sum-exp of the scaled logits ``q k^T /
-    sqrt(Dh)`` (no mask, no softcap, H == KVH): what the flash kernel
-    stores beside its output for the backward."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32)) / math.sqrt(q.shape[-1])
-    return torch.logsumexp(s, dim=-1)
+def attention_lse_ref(q, k, *, causal: bool = False):
+    """(B, H, Sq) f32 row log-sum-exp of :func:`flash_attention_ref`'s
+    logits (it does not depend on v)."""
+    return flash_attention_ref(q, k, k, causal=causal, stats=True)[1]
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do):
-    """Gradients of unmasked attention (H == KVH, no softcap) in the
-    recompute form of the backward kernel: with ``scale = 1/sqrt(Dh)``,
-    ``P = exp(q k^T scale - lse)`` and ``D = rowsum(dO * O)``::
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = False,
+                            rows=None, magnitudes: bool = False):
+    """Gradients of GQA attention (no window, no softcap; causal or not,
+    Sq and Sk free) in the recompute form of the backward kernel: with
+    ``scale = 1/sqrt(Dh)``, ``P = exp(q k^T scale - lse)`` (0 where the
+    mask drops a key) and ``D = rowsum(dO * O)``::
 
         dV = P^T dO,  dS = P (dO V^T - D),  dQ = dS K scale,
         dK = dS^T Q scale
 
-    q, k, v, o, do (B, S, H, Dh); lse (B, H, Sq).  Returns (dq, dk, dv)
-    in q's dtype, computed in f32."""
-    q32, k32, v32, o32, do32 = (a.to(torch.float32) for a in (q, k, v, o, do))
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
-    p = torch.exp(s - lse.to(torch.float32)[..., None])
-    dd = (do32 * o32).sum(-1).transpose(1, 2)                   # (B, H, Sq)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
-    ds = p * (dp - dd[..., None])
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    q, o, do (B, Sq, H, Dh); k, v (B, Sk, KVH, Dh), query head h reading
+    kv head ``h // (H // KVH)``; lse (B, H, Sq).  ``o`` is the forward's
+    unrounded f32 output: the reference's softmax backward sums ``P dP``,
+    which is dO . O before O is rounded to the inputs' dtype (with a bf16
+    O, 19% of bf16 dq and dk elements land elsewhere).  Everything runs
+    in f32 over query chunks (:func:`_chunk_rows`); dK and dV are summed
+    over a kv head's G query heads and over the chunks in f32.  Returns
+    (dq, dk, dv) in the inputs' dtype, each rounded once.
+
+    With ``magnitudes`` the same sums run over the magnitudes of every
+    operand (|Q|, |K|, |V|, |O|, |dO|; dS as ``P (|dO| |V|^T + rowsum(|dO|
+    |O|))``) and come back in f32: what each gradient element's f32
+    roundoff scales with where its terms cancel (a causal first query's
+    dq is 0, and dP - D there is dO . V - dO . V)."""
+    B, Sq, H, Dh = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(Dh)
+    k32, v32 = k.to(f32), v.to(f32)
+    kt, vt = (k32.abs(), v32.abs()) if magnitudes else (k32, v32)
+    dq = torch.empty((B, Sq, H, Dh), dtype=f32, device=q.device)
+    dk = torch.zeros((B, Sk, KVH, Dh), dtype=f32, device=q.device)
+    dv = torch.zeros((B, Sk, KVH, Dh), dtype=f32, device=q.device)
+    n = _chunk_rows(B, H, Sq, Sk, rows)
+    for a in range(0, Sq, n):
+        m = min(n, Sq - a)
+        s, mask = _logits(q[:, a:a + m], k32, causal=causal, q_offset=a)
+        ls = lse[:, :, a:a + m].to(f32).reshape(B, KVH, G, m)
+        p = torch.exp(s - ls[..., None])
+        if causal:
+            p = torch.where(mask, p, torch.zeros_like(p))
+        qc, doc, oc = (t[:, a:a + m].to(f32).reshape(B, m, KVH, G, Dh)
+                       for t in (q, do, o))
+        if magnitudes:
+            qc, doc, oc = qc.abs(), doc.abs(), oc.abs()
+        dd = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vt)
+        ds = p * (dp + dd) if magnitudes else p * (dp - dd)
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+        dq[:, a:a + m] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kt)
+                          * scale).reshape(B, m, H, Dh)
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc) * scale
+    if magnitudes:
+        return dq, dk, dv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -180,7 +180,7 @@ def cases(gen, kernels):
                lambda call=call: time_ms(call, 10))
     if "flash_attention_bwd" in kernels:
         q, k, v, do = (torch.randn((8, 256, 16, 72), **kw) for _ in range(4))
-        o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
+        o, lse, _ = ops._flash_attention_fwd(q, k, v, want_lse=True)
         call = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do)   # noqa: E731
         yield ("flash_attention_bwd XL (8, 256, 16, 72) f32", "flash_attention_bwd", call,
                _check_grads(ref.flash_attention_bwd_ref(q, k, v, o, lse, do), (0, 0, 0)),

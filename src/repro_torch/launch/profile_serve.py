@@ -42,9 +42,10 @@ OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
 
 
 # named ranges, which a trace also lists on the device as the span of the
-# kernels launched inside them: --obs's per-layer ranges and
-# rf_train_step's and lm_train_step's parts (launch/profile_train.py)
-RANGES = ("moe_l", "rf_train_step.", "lm_train_step.")
+# kernels launched inside them: --obs's per-layer ranges, rf_train_step's
+# and lm_train_step's parts and the recomputed layers (layers.remat;
+# launch/profile_train.py)
+RANGES = ("moe_l", "rf_train_step.", "lm_train_step.", "layers.remat")
 
 
 def kernel_group(name: str) -> str:

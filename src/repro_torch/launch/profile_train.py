@@ -2,21 +2,29 @@
 
 Trains one model on the card under ``torch.profiler`` and prints the CUDA
 kernels grouped into the port's kernels (forward and backward), cuBLAS
-products and everything else, then the step's three parts (the
+products and everything else, then the step's parts (the
 ``*_train_step.forward / .backward / .optimizer`` ranges: forward and
-loss, backward, clip and AdamW), with the device's busy share of the wall
-time::
+loss, backward, clip and AdamW; the LMs' recomputed layers, the
+``layers.remat`` ranges run in the backward, apart from it), with the
+device's busy share of the wall time::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train --layers 8 --batch 8 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.profile_train --arch rwkv6-3b --batch 8 --seq 128
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch seamless-m4t-large-v2
 
 ``--arch dit-moe-xl`` (the default): full width, depth cut (8 layers by
 default: the f32 params, gradients, moments and clipped copy of 28 layers
 do not fit one 80 GB card), adaLN and the output layer perturbed from
-random weights, f32, ``rf_train_step``.  ``--arch rwkv6-3b``: full width
-and depth by default, bf16 params and f32 moments as ``train_lm`` makes
-them, batches of ``--seq`` tokens, ``lm_train_step``.  A warm-up step
-runs first and is not traced.  Needs a CUDA device.
+random weights, f32, ``rf_train_step``.  An LM (``rwkv6-3b`` and the
+families ``train_lm`` trains: ``qwen3-32b``, ``zamba2-7b``,
+``seamless-m4t-large-v2``, ``llama-3.2-vision-11b``): bf16 params and f32
+moments as ``train_lm`` makes them, the stub audio frames or image
+embeddings drawn each step, batches of ``--seq`` tokens,
+``lm_train_step``, at the depth of :data:`LM_TRAIN_LAYERS` (what one card
+holds; ``chip_smoke.py`` phase 16 trains the same cuts) unless
+``--layers`` names another, laid out as the family lays out its blocks
+(:func:`lm_train_config`).  A warm-up step runs first and is not traced.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -29,13 +37,37 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import latent_batches, token_batches
 from repro_torch.launch.profile_serve import RANGES, kernel_groups, print_groups
-from repro_torch.launch.train import lm_train_step
+from repro_torch.launch.train import lm_train_step, refuse_untrainable, stub_inputs
 from repro_torch.models.api import get_model
 from repro_torch.models.dit_moe import init_dit
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.sampling.rectified_flow import rf_draws, rf_train_step
 
 PART_NAMES = ("forward", "backward", "optimizer")
+RECOMPUTE = "recompute"
+# the LMs' depth for a training profile on one 80 GB card (bf16 params,
+# f32 moments: about 20 bytes a param): seamless-m4t-large-v2 and
+# rwkv6-3b whole; qwen3-32b 2 of 64 layers (1.56 B of embedding and
+# unembedding, 0.49 B a layer); zamba2-7b 12 of 81 (two uses of the shared
+# block); llama-3.2-vision-11b one superblock, 4 self layers and 1 cross
+LM_TRAIN_LAYERS = {"qwen3-32b": 2, "zamba2-7b": 12, "llama-3.2-vision-11b": 5}
+LM_ARCHS = ("rwkv6-3b", "qwen3-32b", "zamba2-7b", "seamless-m4t-large-v2",
+            "llama-3.2-vision-11b")
+
+
+def lm_train_config(arch: str, layers=None):
+    """``arch``'s config at ``layers`` (default :data:`LM_TRAIN_LAYERS`, else
+    its own depth), laid out as its family lays out blocks: zamba2's
+    superblocks and trailing mamba blocks and the VLM's superblocks follow
+    from ``num_layers``; the audio model cuts its encoder to the same
+    depth as its decoder."""
+    cfg = get_config(arch)
+    layers = layers or LM_TRAIN_LAYERS.get(arch)
+    if not layers:
+        return cfg
+    if cfg.family == "audio":
+        return cfg.replace(num_layers=layers, encoder_layers=layers)
+    return cfg.replace(num_layers=layers)
 
 
 def parts_of(step_name: str):
@@ -44,22 +76,28 @@ def parts_of(step_name: str):
 
 
 def split_by_part(prof, parts=parts_of("rf_train_step")):
-    """Kernel time (us) by part of the step.  A kernel belongs to the
-    forward or the optimizer when it starts inside that range's device
-    span (the trace lists a range on the device from its first kernel's
-    start to its last's end); autograd launches the backward from its own
-    thread, outside the range opened on this one, so every other kernel
-    counts as the backward's."""
+    """Kernel time (us) by part of the step: the three of ``parts`` and
+    ``RECOMPUTE``.  A kernel belongs to the forward or the optimizer when
+    it starts inside that range's device span (the trace lists a range on
+    the device from its first kernel's start to its last's end); autograd
+    launches the backward from its own thread, outside the range opened on
+    this one, so a kernel outside both belongs to the recompute when it
+    starts inside a ``layers.remat`` span (a recomputed layer run again in
+    the backward), else to the backward."""
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.events() if e.device_type == cuda]
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
              if e.name in (parts[0], parts[2])]
-    out = dict.fromkeys(parts, 0.0)
+    remat = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "layers.remat"]
+    out = dict.fromkeys(parts + (RECOMPUTE,), 0.0)
     for e in events:
         if e.name.startswith(RANGES):
             continue
         start = e.time_range.start
-        part = next((n for s, t, n in spans if s <= start < t), parts[1])
+        part = next((n for s, t, n in spans if s <= start < t), None)
+        if part is None:
+            part = RECOMPUTE if any(s <= start < t for s, t in remat) else parts[1]
         out[part] += e.time_range.elapsed_us()
     return out
 
@@ -86,28 +124,31 @@ def _dit_step(args):
 
 
 def _lm_step(args):
-    """(config, step function, step name) for an LM family at --layers
-    (its full depth by default), bf16 params from seed 0."""
-    cfg = get_config(args.arch)
-    if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
+    """(config, step function, step name) for an LM at :func:`lm_train_config`
+    (--layers), bf16 params from seed 0, the family's stub inputs drawn
+    each step as ``train_lm`` draws them."""
+    cfg = lm_train_config(args.arch, args.layers)
+    refuse_untrainable(cfg)
     api = get_model(cfg)
     params = api.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
     opt = adamw_init(params)
     it = token_batches(cfg.vocab_size, args.batch, args.seq, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
     total = args.steps + 1
 
     def step():
         nonlocal params, opt
-        params, opt, _ = lm_train_step(params, opt, next(it), cfg, total=total)
+        batch = dict(next(it), **stub_inputs(api, cfg, args.batch, gen))
+        params, opt, _ = lm_train_step(params, opt, batch, cfg, total=total)
     return cfg, step, "lm_train_step"
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="dit-moe-xl", choices=["dit-moe-xl", "rwkv6-3b"])
+    ap.add_argument("--arch", default="dit-moe-xl", choices=("dit-moe-xl",) + LM_ARCHS)
     ap.add_argument("--layers", type=int, default=None,
-                    help="depth (DiT-MoE-XL: 8 by default; an LM: its config's)")
+                    help="depth (DiT-MoE-XL: 8 by default; an LM: LM_TRAIN_LAYERS', "
+                         "else its config's)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128, help="tokens a sequence (LM)")
     ap.add_argument("--steps", type=int, default=3)
@@ -139,10 +180,14 @@ def main(argv=None):
     print_groups(kernels, total, groups, args.steps, "step", args.top)
     print("kernel time by part of the step (the backward's with the few "
           "kernels outside the ranges: the batch and the draws):")
-    for part in parts:
+    for part in parts[:1] + (RECOMPUTE,) + parts[1:]:
         us = by_part[part]
         print(f"  {part:26s} {us / 1e3 / args.steps:10.3f} ms/step "
               f"{100.0 * us / total:6.1f}%")
+    flash = sum(groups[g][0] for g in ("flash_attention", "flash_attention_bwd")
+                if g in groups)
+    print(f"flash_attention + flash_attention_bwd {flash / 1e3 / args.steps:.3f} ms/step, "
+          f"{100.0 * flash / total:.1f}% of the kernel time")
     print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
                       "wall_ms_per_step": wall_us / 1e3 / args.steps,
                       "busy_share": total / wall_us,

@@ -17,7 +17,10 @@ by the slots' absolute positions (``k_pos``).
 Params are a plain dict in the JAX package's layout: ``layers`` holds one
 tensor per leaf stacked over a leading layer axis; the layers run in a
 Python loop where the JAX package scans, over views unbound once a call
-(:func:`~repro_torch.models.layers.unstack_layers`).  The KV cache's
+(:func:`~repro_torch.models.layers.unstack_layers`).  In training each
+layer is recomputed in the backward (``remat``, the reference's
+``jax.checkpoint``), and attention's gradients come from the flash
+backward kernel (causal, GQA, bf16).  The KV cache's
 ``pos`` is a host int, so no step reads a device scalar back; decode writes
 its k and v into the cache tensors in place.  Expert parallelism over a
 mesh (``mesh``, ``seq_shard``, ``attn_shard``) is not ported (ROADMAP.md
@@ -26,6 +29,7 @@ A, order item 4) and raises.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -133,6 +137,27 @@ def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     return x + ffn, new_kv, lb
 
 
+def _train_layer(p, x: torch.Tensor, *, positions: torch.Tensor, cfg,
+                 window: Optional[int]):
+    """(x, lb) of :func:`_layer` without a cache: the unit the teacher-
+    forced forward recomputes in the backward."""
+    x, _, lb = _layer(p, x, positions, cfg, window=window)
+    return x, lb
+
+
+def check_remat_policy(remat_policy: str) -> None:
+    """The reference's policies: ``"full"`` recomputes each layer; ``"dots"``
+    and ``"save_ffn"`` (keep the matrix products' or the named FFN outputs)
+    are not ported and raise, queued with ``dryrun``'s ``remat_dots``
+    (ROADMAP.md A, order item 5)."""
+    if remat_policy in ("dots", "save_ffn"):
+        raise NotImplementedError(
+            f"remat_policy {remat_policy!r} is not ported (queued with dryrun's "
+            f"remat_dots, ROADMAP.md A order item 5); 'full' recomputes each layer")
+    if remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+
+
 def _embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:
@@ -161,18 +186,24 @@ def _positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def forward_hidden(params, tokens: torch.Tensor, cfg, *,
                    long_context: bool = False, mesh=None,
-                   seq_shard: bool = False, attn_shard=None):
+                   seq_shard: bool = False, attn_shard=None,
+                   remat: bool = True, remat_policy: str = "full"):
     """tokens (B, S) -> (final-normed hidden states (B, S, d), summed
     load-balance loss): :func:`forward` before the unembedding, so a caller
-    can unembed only the positions it reads."""
+    can unembed only the positions it reads.  ``remat`` (the reference's
+    default): with grad enabled each layer is recomputed in the backward
+    (:func:`layers.remat`), the same values with less memory;
+    ``remat_policy`` as :func:`check_remat_policy`."""
     _refuse_mesh(mesh, seq_shard, attn_shard)
+    check_remat_policy(remat_policy)
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = _positions(B, S, x.device)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = L.unstack_layers(params["layers"], cfg.num_layers)
     for p, win in zip(layers, layer_windows(cfg, long_context=long_context)):
-        x, _, lb_l = _layer(p, x, positions, cfg, window=win)
+        x, lb_l = L.remat(partial(_train_layer, positions=positions, cfg=cfg,
+                                  window=win), p, x, enabled=remat)
         lb = lb + lb_l
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), lb
 
@@ -185,8 +216,11 @@ def forward(params, tokens: torch.Tensor, cfg, **kw):
 
 
 def loss_fn(params, batch, cfg, *, lb_weight: float = 0.01, **fwd_kw):
-    """Forward only: the backward of causal, windowed or soft-capped flash
-    attention is not ported (ROADMAP.md A, order item 3) and raises."""
+    """(cross-entropy + ``lb_weight`` x the load-balance loss, metrics) of
+    the teacher-forced forward; keywords as :func:`forward_hidden`.  Its
+    backward runs the flash backward kernel; a window, a softcap and Dh
+    above 128 raise there (``launch.train.refuse_untrainable`` refuses
+    such configs before any init)."""
     logits, lb = forward(params, batch["tokens"], cfg, **fwd_kw)
     ce = L.softmax_cross_entropy(logits, batch["labels"])
     return ce + lb_weight * lb, {"ce": ce, "lb": lb}

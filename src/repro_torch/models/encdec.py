@@ -25,6 +25,7 @@ and silu rounds as the reference's (``layers.silu``).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
@@ -70,28 +71,41 @@ def init_encdec(cfg, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
-def encode(params, audio_frames: torch.Tensor, cfg) -> torch.Tensor:
+def _enc_layer(p, x: torch.Tensor, *, positions: torch.Tensor, cfg) -> torch.Tensor:
+    """One bidirectional encoder layer: self-attention, then the MLP."""
+    h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
+    a, _ = L.attn_apply(p["attn"], h, positions, cfg, causal=False)
+    x, h = L.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
+    return x + L.mlp_apply(p["mlp"], h, act=cfg.act)
+
+
+def encode(params, audio_frames: torch.Tensor, cfg, *,
+           remat: bool = True) -> torch.Tensor:
     """audio_frames (B, Tf, d) -> encoder memory (B, Tf, d), in the params'
-    dtype."""
+    dtype.  With ``remat`` and grad enabled each layer is recomputed in the
+    backward, as the reference checkpoints it."""
     B, Tf, _ = audio_frames.shape
     x = audio_frames.to(params["embed"].dtype)
-    positions = dense._positions(B, Tf, x.device)
+    run = partial(_enc_layer, positions=dense._positions(B, Tf, x.device), cfg=cfg)
     for p in L.unstack_layers(params["enc_layers"], cfg.encoder_layers):
-        h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
-        a, _ = L.attn_apply(p["attn"], h, positions, cfg, causal=False)
-        x, h = L.add_rmsnorm(x, a, p["ln2"], eps=cfg.norm_eps)
-        x = x + L.mlp_apply(p["mlp"], h, act=cfg.act)
+        x = L.remat(run, p, x, enabled=remat)
     return L.rmsnorm(params["enc_norm"], x, eps=cfg.norm_eps)
 
 
 def _memory_kv(params, memory: torch.Tensor, cfg):
     """Every decoder layer's cross K/V over the encoder memory, computed
-    once: two (layers, B, Tf, KVH, Dh) stacks."""
+    once: two (layers, B, Tf, KVH, Dh) stacks (written in place, or
+    stacked where autograd records them)."""
     B, Tf, _ = memory.shape
     n, KVH, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    layers = L.unstack_layers(params["dec_layers"], n)
+    if torch.is_grad_enabled() and (memory.requires_grad
+                                    or params["dec_layers"]["xattn"]["wk"].requires_grad):
+        return tuple(torch.stack([(memory @ p["xattn"][w]).view(B, Tf, KVH, Dh)
+                                  for p in layers]) for w in ("wk", "wv"))
     mk = memory.new_empty((n, B, Tf, KVH, Dh))
     mv = memory.new_empty((n, B, Tf, KVH, Dh))
-    for i, p in enumerate(L.unstack_layers(params["dec_layers"], n)):
+    for i, p in enumerate(layers):
         torch.matmul(memory, p["xattn"]["wk"], out=mk[i].view(B, Tf, KVH * Dh))
         torch.matmul(memory, p["xattn"]["wv"], out=mv[i].view(B, Tf, KVH * Dh))
     return mk, mv
@@ -126,31 +140,45 @@ def _dec_layer(p, x: torch.Tensor, positions: torch.Tensor, mem_kv, cfg, *,
     return _cross_mlp(p, x, a, *mem_kv, cfg), new_kv
 
 
-def _decoder(params, tokens: torch.Tensor, mem_k, mem_v, cfg, ks=None, vs=None):
+def _train_dec_layer(p, x: torch.Tensor, mk: torch.Tensor, mv: torch.Tensor, *,
+                     positions: torch.Tensor, cfg) -> torch.Tensor:
+    """:func:`_dec_layer` without a cache: the unit training recomputes."""
+    return _dec_layer(p, x, positions, (mk, mv), cfg)[0]
+
+
+def _decoder(params, tokens: torch.Tensor, mem_k, mem_v, cfg, ks=None, vs=None,
+             remat: bool = False):
     """The decoder over a prompt: final-normed hidden states; each layer's
-    (k, v) written into ``ks``/``vs`` (layers, B, S, KVH, Dh) when given."""
+    (k, v) written into ``ks``/``vs`` (layers, B, S, KVH, Dh) when given;
+    with ``remat`` (and no ``ks``) each layer is recomputed in the
+    backward."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     positions = dense._positions(B, S, x.device)
+    run = partial(_train_dec_layer, positions=positions, cfg=cfg)
     for i, p in enumerate(L.unstack_layers(params["dec_layers"], cfg.num_layers)):
-        x, (k, v) = _dec_layer(p, x, positions, (mem_k[i], mem_v[i]), cfg)
-        if ks is not None:
-            ks[i], vs[i] = k, v
+        if ks is None:
+            x = L.remat(run, p, x, mem_k[i], mem_v[i], enabled=remat)
+            continue
+        x, (ks[i], vs[i]) = _dec_layer(p, x, positions, (mem_k[i], mem_v[i]), cfg)
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
 
 
-def forward(params, tokens: torch.Tensor, audio_frames: torch.Tensor, cfg, **_):
+def forward(params, tokens: torch.Tensor, audio_frames: torch.Tensor, cfg, *,
+            remat: bool = True, **_):
     """Teacher-forced decoder logits (B, S, V) given audio frames, and a
-    zero auxiliary loss (the reference's second output)."""
-    memory = encode(params, audio_frames, cfg)
+    zero auxiliary loss (the reference's second output).  With ``remat``
+    and grad enabled every encoder and decoder layer is recomputed in the
+    backward, as the reference checkpoints them."""
+    memory = encode(params, audio_frames, cfg, remat=remat)
     mem_k, mem_v = _memory_kv(params, memory, cfg)
-    x = _decoder(params, tokens, mem_k, mem_v, cfg)
+    x = _decoder(params, tokens, mem_k, mem_v, cfg, remat=remat)
     return (x @ params["unembed"].T,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def loss_fn(params, batch, cfg, **kw):
-    logits, _ = forward(params, batch["tokens"], batch["audio_frames"], cfg)
+    logits, _ = forward(params, batch["tokens"], batch["audio_frames"], cfg, **kw)
     ce = L.softmax_cross_entropy(logits, batch["labels"])
     return ce, {"ce": ce}
 
@@ -161,7 +189,7 @@ def prefill(params, tokens: torch.Tensor, audio_frames: torch.Tensor, cfg, **_):
     KVH, Dh), exactly the prompt's S slots; the memory K/V ``mem_k``,
     ``mem_v`` (layers, B, Tf, KVH, Dh); ``pos`` S."""
     B, S = tokens.shape
-    memory = encode(params, audio_frames, cfg)
+    memory = encode(params, audio_frames, cfg, remat=False)
     mem_k, mem_v = _memory_kv(params, memory, cfg)
     shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
     ks = memory.new_empty(shape)

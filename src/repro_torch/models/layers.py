@@ -10,6 +10,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act_fn
@@ -61,6 +62,27 @@ def unstack_layers(stack, n: int):
     cols = {k: unstack_layers(v, n) if isinstance(v, dict)
             else torch.unbind(v) for k, v in stack.items()}
     return [{k: v[i] for k, v in cols.items()} for i in range(n)]
+
+
+def remat(fn, *args, enabled: bool = True):
+    """``fn(*args)``, its activations recomputed in the backward when grad
+    is enabled (``torch.utils.checkpoint`` without reentry): the
+    counterpart of the reference's ``jax.checkpoint`` around a layer.
+    Otherwise, or with ``enabled`` False, a plain call.  ``fn`` must bind
+    everything else it reads (``functools.partial``), since it runs again
+    in the backward; the layers draw no random numbers, so no RNG state
+    is kept."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(_ranged, fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
+
+
+def _ranged(fn, *args):
+    # a profiler range around each run of a recomputed layer, the forward's
+    # and the backward's: launch/profile_train.py tells the recompute by it
+    with torch.profiler.record_function("layers.remat"):
+        return fn(*args)
 
 
 def rmsnorm_init(d: int, device=None):

@@ -22,6 +22,7 @@ k and v into the cache in place.  A device mesh raises, as in ``dense``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
@@ -88,14 +89,19 @@ def _cross_block(p, x: torch.Tensor, img_kv, cfg) -> torch.Tensor:
 
 def _image_kv(params, image_embeds: torch.Tensor, cfg):
     """Every cross block's image K/V: two (n_cross, B, Ti, KVH, Dh) stacks
-    in the params' dtype."""
+    in the params' dtype (written in place, or stacked where autograd
+    records them)."""
     B, Ti, _ = image_embeds.shape
     n, KVH, Dh = _n_cross(cfg), cfg.num_kv_heads, cfg.head_dim
     wk = params["cross"]["attn"]["wk"]
     img = image_embeds.to(wk.dtype)
+    cross = L.unstack_layers(params["cross"], n)
+    if torch.is_grad_enabled() and (img.requires_grad or wk.requires_grad):
+        return tuple(torch.stack([(img @ p["attn"][w]).view(B, Ti, KVH, Dh)
+                                  for p in cross]) for w in ("wk", "wv"))
     ik = img.new_empty((n, B, Ti, KVH, Dh))
     iv = img.new_empty((n, B, Ti, KVH, Dh))
-    for c, p in enumerate(L.unstack_layers(params["cross"], n)):
+    for c, p in enumerate(cross):
         torch.matmul(img, p["attn"]["wk"], out=ik[c].view(B, Ti, KVH * Dh))
         torch.matmul(img, p["attn"]["wv"], out=iv[c].view(B, Ti, KVH * Dh))
     return ik, iv
@@ -113,42 +119,49 @@ def _grouped(cfg):
 
 
 def _run(params, x, positions, img_k, img_v, cfg, *, long_context: bool,
-         ks=None, vs=None):
+         ks=None, vs=None, remat: bool = False):
     """The decoder over a prompt (superblocks, then trailing self layers);
-    each self layer's (k, v) written into ``ks``/``vs`` when given.
+    each self layer's (k, v) written into ``ks``/``vs`` when given, else,
+    with ``remat``, each self layer recomputed in the backward (the
+    reference checkpoints the self layers, not the cross blocks).
     Returns the final-normed hidden states."""
     layers = L.unstack_layers(params["layers"], _n_self(cfg))
     cross = L.unstack_layers(params["cross"], _n_cross(cfg))
     windows = dense.layer_windows(_self_cfg(cfg), long_context=long_context)
     for s, idx in _grouped(cfg):
         for i in idx:
-            x, (k, v), _ = dense._layer(layers[i], x, positions, cfg, window=windows[i])
-            if ks is not None:
-                ks[i], vs[i] = k, v
+            if ks is None:
+                x, _ = L.remat(partial(dense._train_layer, positions=positions, cfg=cfg,
+                                       window=windows[i]), layers[i], x, enabled=remat)
+                continue
+            x, (ks[i], vs[i]), _ = dense._layer(layers[i], x, positions, cfg,
+                                                window=windows[i])
         if s is not None:
             x = _cross_block(cross[s], x, (img_k[s], img_v[s]), cfg)
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
 
 
 def forward_hidden(params, tokens: torch.Tensor, image_embeds: torch.Tensor,
-                   cfg, *, mesh=None, long_context: bool = False):
+                   cfg, *, mesh=None, long_context: bool = False,
+                   remat: bool = True):
     """tokens (B, S) -> final-normed hidden states (B, S, d): :func:`forward`
     before the unembedding, so a caller can unembed only the positions it
-    reads."""
+    reads.  ``remat``: with grad enabled each self layer is recomputed in
+    the backward."""
     dense._refuse_mesh(mesh)
     B, S = tokens.shape
     x = dense._embed(params, tokens, cfg)
     img_k, img_v = _image_kv(params, image_embeds, cfg)
     return _run(params, x, dense._positions(B, S, x.device), img_k, img_v, cfg,
-                long_context=long_context)
+                long_context=long_context, remat=remat)
 
 
 def forward(params, tokens: torch.Tensor, image_embeds: torch.Tensor, cfg, *,
-            mesh=None, long_context: bool = False, **_):
+            mesh=None, long_context: bool = False, remat: bool = True, **_):
     """Teacher-forced logits (B, S, V) with interleaved cross-attention, and
     a zero auxiliary loss (the reference's second output)."""
     x = forward_hidden(params, tokens, image_embeds, cfg, mesh=mesh,
-                       long_context=long_context)
+                       long_context=long_context, remat=remat)
     return (dense._unembed(params, x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

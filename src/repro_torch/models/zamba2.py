@@ -44,6 +44,7 @@ ones.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -183,8 +184,11 @@ def _ssd_scan(xh, bt, ct, dt, A, D, S0, *, chunk: int = 128):
 
     decay = _segsum(la).exp_()                              # (B, nc, H, Q, Q)
     decay_out = decay[..., Q - 1, :].clone()                # j -> chunk end
-    y = (decay.mul_((c @ b.transpose(-1, -2))[:, :, None])) @ u
-    del decay
+    cb = (c @ b.transpose(-1, -2))[:, :, None]
+    # in place for serving; autograd needs exp's output as it was
+    grad = torch.is_grad_enabled() and decay.requires_grad
+    y = ((decay * cb) if grad else decay.mul_(cb)) @ u
+    del decay, cb
     states = b.transpose(-1, -2)[:, :, None] @ (decay_out[..., None] * u)
     cs = la.cumsum(-1)                                      # (B, nc, H, Q)
     # S entering each chunk: the chunk-level segsum's (B, H, nc+1, nc+1)
@@ -297,11 +301,29 @@ def _final_logits(params, x: torch.Tensor, cfg) -> torch.Tensor:
     return x @ params["unembed"].T
 
 
+def _superblock(x: torch.Tensor, blocks, S0s, c0s, shared, *,
+                positions: torch.Tensor, cfg, window: Optional[int]):
+    """(x, [S_T], [conv tail]) of one superblock: its mamba blocks, each
+    from its state, then the shared attention block (none for the
+    trailing blocks, ``shared`` None)."""
+    Ss, cs = [], []
+    for p, S0, c0 in zip(blocks, S0s, c0s):
+        x, S, c = _mamba_block(p, x, cfg, S0, c0)
+        Ss.append(S)
+        cs.append(c)
+    if shared is not None:
+        x = _attn_block(shared, x, positions, cfg, window=window)
+    return x, Ss, cs
+
+
 def forward(params, tokens: torch.Tensor, cfg, *, state=None,
-            attn_window: Optional[int] = None, **_):
+            attn_window: Optional[int] = None, remat: bool = True, **_):
     """Teacher-forced logits (B, T, V) and the state after them (S, conv,
     pos; no KV cache).  The shared block runs full causal self-attention
-    over this call's tokens (windowed with ``attn_window``)."""
+    over this call's tokens (windowed with ``attn_window``).  With
+    ``remat`` and grad enabled each superblock (its mamba blocks and the
+    shared block) is recomputed in the backward, as the reference
+    checkpoints it; the trailing mamba blocks are not."""
     B, T = tokens.shape
     x = params["embed"][tokens.long()]
     if state is None:
@@ -309,15 +331,20 @@ def forward(params, tokens: torch.Tensor, cfg, *, state=None,
     pos0 = int(state["pos"])
     positions = dense._positions(B, T, x.device, pos0)
     mamba = L.unstack_layers(params["mamba"], num_mamba_blocks(cfg))
-    S_out, c_out = torch.empty_like(state["S"]), torch.empty_like(state["conv"])
-    for kind, i in _blocks(cfg):
-        if kind == "mamba":
-            x, S_out[i], c_out[i] = _mamba_block(mamba[i], x, cfg, state["S"][i],
-                                                 state["conv"][i])
-        else:
-            x = _attn_block(params["shared_attn"], x, positions, cfg,
-                            window=attn_window or None)
-    return _final_logits(params, x, cfg), {"S": S_out, "conv": c_out,
+    n_super, per, n_main, rem = _layout(cfg)
+    groups = [(range(s * per, (s + 1) * per), params["shared_attn"], remat)
+              for s in range(n_super)] + [(range(n_main, n_main + rem), None, False)]
+    S_out, c_out = [], []
+    for idx, shared, rm in groups:
+        run = partial(_superblock, positions=positions, cfg=cfg,
+                      window=attn_window or None)
+        x, Ss, cs = L.remat(run, x, [mamba[i] for i in idx],
+                            [state["S"][i] for i in idx],
+                            [state["conv"][i] for i in idx], shared, enabled=rm)
+        S_out += Ss
+        c_out += cs
+    return _final_logits(params, x, cfg), {"S": torch.stack(S_out),
+                                           "conv": torch.stack(c_out),
                                            "pos": pos0 + T}
 
 

@@ -216,7 +216,7 @@ def test_one_tf32_pass_misses_the_f32_tolerance(gen, monkeypatch, kernel):
         else:
             q, k, v, do = (torch.randn((2, 128, 4, 72), generator=gen, device="cuda")
                            for _ in range(4))
-            o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
+            o, lse, _ = ops._flash_attention_fwd(q, k, v, want_lse=True)
             args, pick = (q, k, v, o, lse, do), 0
             run, plain = ops.flash_attention_bwd, ref.flash_attention_bwd_ref
 
@@ -885,8 +885,8 @@ def test_flash_attention_bwd_kernel(gen, B, Sq, Sk, H, Dh):
     k, v = (torch.randn((B, Sk, H, Dh), generator=gen, device="cuda") for _ in range(2))
     do = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda")
     o0 = ops.flash_attention(q, k, v)
-    o, lse = ops._flash_attention_fwd(q, k, v, want_lse=True)
-    assert torch.equal(o, o0)               # the lse store changes nothing
+    o, lse, o32 = ops._flash_attention_fwd(q, k, v, want_lse=True)
+    assert torch.equal(o, o0) and o32 is o  # the lse store changes nothing
     _close(lse, ref.attention_lse_ref(q, k), torch.float32)
     got = _launched("flash_attention_bwd",
                     lambda: ops.flash_attention_bwd(q, k, v, o, lse, do))
@@ -894,6 +894,48 @@ def test_flash_attention_bwd_kernel(gen, B, Sq, Sk, H, Dh):
     for g, w in zip(got, want):
         _close(g, w, torch.float32)
     again = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _grad_close(got, want, dtype):
+    """f32: TOL; bf16: the kernel and the plain version round the same f32
+    value once, which can land on the neighbouring bf16 value (2^-7
+    relative), over f32 sums taken in another order (1e-3 of the
+    tensor's largest value)."""
+    if dtype == torch.float32:
+        _close(got, want, dtype)
+        return
+    g, w = got.float(), want.float()
+    assert bool(((g - w).abs() <= 8e-3 * w.abs() + 1e-3 * w.abs().max()).all())
+
+
+# the LM families' training shapes, cut: causal GQA at Dh 128, Dh 112 (NT
+# 16 with a ragged last Dh tile), GQA 4 over 1, cross-attention over
+# 1,601 keys (off the 32-key tile), Sq != Sk off the 64-row tile, 5 rows
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,Dh,causal", [
+    (2, 128, 128, 8, 2, 128, True), (2, 70, 70, 4, 4, 112, True),
+    (1, 200, 200, 4, 1, 64, True), (2, 33, 1601, 4, 2, 128, False),
+    (2, 128, 300, 4, 4, 64, False), (1, 5, 5, 2, 1, 32, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_at_lm_shapes(gen, B, Sq, Sk, H, KVH, Dh, causal, dtype):
+    q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Sk, KVH, Dh), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
+    o, lse, o32 = ops._flash_attention_fwd(q, k, v, causal=causal, want_lse=True)
+    want_o32, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, stats=True)
+    _close(lse, want_lse, torch.float32)
+    _close(o32, want_o32, torch.float32)
+    assert o32.dtype == torch.float32 and torch.equal(o, o32.to(dtype))
+    ops.reset_launches()
+    got = _launched("flash_attention_bwd", lambda: ops.flash_attention_bwd(
+        q, k, v, o32, lse, do, causal=causal))
+    assert ops.FLASH_BWD_SHAPES == {(B, Sq, Sk, H, KVH, Dh, causal): 1}
+    want = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, causal=causal)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        _grad_close(g, w, dtype)
+    again = ops.flash_attention_bwd(q, k, v, o32, lse, do, causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -923,5 +965,5 @@ def test_autograd_goes_through_the_backward_kernels(gen):
         ops.expert_ffn_bwd(*(t.detach().bfloat16() for t in (x, wg, wu, wd)),
                            dy.bfloat16())
     with pytest.raises(NotImplementedError):
-        o = ops.flash_attention(q, k, v, causal=True)
+        o = ops.flash_attention(q, k, v, window=16)
         o.sum().backward()

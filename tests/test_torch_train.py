@@ -287,20 +287,37 @@ def test_autograd_functions_run_the_plain_backward_on_cpu():
 
 
 @pytest.mark.parametrize("opts", [dict(causal=True), dict(window=4),
-                                  dict(softcap=30.0), "gqa", "bf16"])
+                                  dict(softcap=30.0), "gqa", "bf16", "dh160"])
 def test_flash_backward_raises_for_what_is_not_ported(opts):
+    """A window, a softcap and Dh 160 run the forward and raise in the
+    backward, naming ROADMAP.md (gemma2's and stablelm's training); the
+    causal, GQA and bf16 cases, ported, give the plain backward's
+    gradients bit for bit, dk and dv in k's (B, Sk, KVH, Dh)."""
     g = torch.Generator().manual_seed(5)
-    kvh, dtype, kw = 3, torch.float32, {}
+    kvh, dtype, dh, kw = 3, torch.float32, 16, {}
     if opts == "gqa":
         kvh = 1
     elif opts == "bf16":
         dtype = torch.bfloat16
+    elif opts == "dh160":
+        dh = 160
     else:
         kw = opts
-    q = torch.randn((1, 8, 3, 16), generator=g).to(dtype).requires_grad_()
-    k, v = (torch.randn((1, 8, kvh, 16), generator=g).to(dtype)
+    q = torch.randn((1, 8, 3, dh), generator=g).to(dtype).requires_grad_()
+    k, v = (torch.randn((1, 8, kvh, dh), generator=g).to(dtype)
             .requires_grad_() for _ in range(2))
     o = ops.flash_attention(q, k, v, **kw)     # the forward runs
+    if opts in ("gqa", "bf16") or kw.get("causal"):
+        do = torch.randn(o.shape, generator=g).to(dtype)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        plain = [t.detach() for t in (q, k, v)]
+        causal = bool(kw.get("causal"))
+        o32, lse = ref.flash_attention_ref(*plain, causal=causal, stats=True)
+        want = ref.flash_attention_bwd_ref(*plain, o32, lse, do, causal=causal)
+        for a, b, x in zip(got, want, plain):
+            assert a.dtype == dtype and a.shape == x.shape
+            assert torch.equal(a, b)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         o.sum().backward()
 
@@ -497,7 +514,9 @@ def test_train_cli_checkpoint_reads_in_reference_bit_for_bit(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [["--arch", "dit-moe-xl", "--smoke", "--mesh",
                                    "local"],
                                   ["--arch", "rwkv6-3b", "--smoke", "--mesh",
-                                   "local"]])
+                                   "local"],
+                                  ["--arch", "gemma2-9b", "--smoke"],
+                                  ["--arch", "qwen3-moe-30b-a3b", "--smoke"]])
 def test_train_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(argv + ["--device", "cpu", "--steps", "1"])

@@ -252,37 +252,57 @@ non-zero and no phase's failure is caught:
      flash launches a pass.  Each of (b)-(d): prefill s, decode ms/step,
      ``max_memory_allocated``, streamed logits against a teacher-forced
      pass (TOL_STREAM_DEEP, greedy agreement), the model freed after.
- 16. main path 12: training the dense, hybrid, audio and VLM families
-     (``train_lm``'s ``lm_train_step`` through ``get_model``'s
-     ``loss_fn``, each layer recomputed in the backward).  In phase 3,
-     after 3F (lines ``3B``): ``flash_attention_bwd``, extended to causal
-     masks, GQA, bf16 and Sq != Sk, against its plain version at each
-     training shape of phase 16b (qwen3-32b's causal (8, 128, 64 over 8,
-     128), zamba2-7b's (8, 128, 32 x 112), seamless's encoder (8, 4096, 16 x
-     64), decoder self- and cross-attention over 4,096 frames, the VLM's
-     self (32 over 8 x 128) and cross attention over 1,601 keys), bf16
-     timed and f32 checked where cheap: the forward's f32 output and
-     log-sum-exp to TOL_F32, the gradients to TOL_BF16 / TOL_F32 with the
-     atol in units of each row's RMS plus 2^-14 of each element's terms'
-     magnitudes, two runs bit for bit, the planted faults that apply (the
-     plain version run non-causal, the last 32 queries' dQ without their
-     diagonal key tile, the first 32 keys' dK/dV without query tile 0, kv
-     heads mapped as h % KVH) rejected; events and device time beside the
-     plain version, the device time of SDPA's backward (``is_causal``,
-     ``enable_gqa``) and the bound; ptxas's registers and spills.  (a) The
-     five smoke configs (qwen3-32b, deepseek-67b, zamba2-7b,
-     seamless-m4t-large-v2, llama-3.2-vision-11b): f32 step-0 gradients
-     card vs CPU leaf by leaf, then 5 ``lm_train_step``s on both from the
-     same params, batches and stub inputs, f32 and bf16, launches held to
-     the plan (the recompute's second forward included).  (b)
-     seamless-m4t-large-v2 at full width and depth, qwen3-32b (2 layers),
-     zamba2-7b (12 layers: two uses of the shared block) and
-     llama-3.2-vision-11b (one superblock) at full width, bf16 params and
-     f32 moments, batch 8 x 128 with stub frames or image embeddings: a
-     warm-up and 4 timed steps, s/step, ``max_memory_allocated``, finite
-     losses and grad norms, launches held to the depth, and
-     ``flash_attention_bwd``'s by shape (``ops.FLASH_BWD_SHAPES``) give
-     the 3B rows' launches.
+ 16. main path 12: training every LM family but RWKV-6 (``train_lm``'s
+     ``lm_train_step`` through ``get_model``'s ``loss_fn``, each layer
+     recomputed in the backward).  In phase 3, after 3F (lines ``3B``):
+     ``flash_attention_bwd`` (causal masks, GQA, bf16, Sq != Sk, one-sided
+     windows, the logit softcap, Dh up to 256) against its plain version
+     at each training shape of phase 16b (qwen3-32b's causal (8, 128, 64
+     over 8, 128), zamba2-7b's (8, 128, 32 x 112), seamless's encoder (8,
+     4096, 16 x 64), decoder self- and cross-attention over 4,096 frames,
+     the VLM's self (32 over 8 x 128) and cross attention over 1,601 keys,
+     gemma2-9b's local (window 4,096) and global layers (softcap 50, 16
+     over 8 x 256) at 8 x 128 and 1 x 6,144, stablelm-12b's (32 over 8 x
+     160), qwen3-moe's (32 over 4 x 128)) and at gemma2's 1 x 8,192
+     context, bf16 timed and f32 checked where cheap: the forward's f32
+     output and log-sum-exp to TOL_F32, the gradients to TOL_BF16 /
+     TOL_F32 with the atol in units of each row's RMS plus 2^-14 of each
+     element's terms' magnitudes, two runs bit for bit, the planted faults
+     that apply (the plain version run non-causal, the last 32 queries' dQ
+     without their diagonal key tile, the first 32 keys' dK/dV without
+     query tile 0, kv heads mapped as h % KVH) rejected by more than 10x;
+     events and device time beside the plain version, the device time of
+     SDPA's backward (``is_causal``, or a bool mask for a window, no
+     softcap; ``enable_gqa``) and the bound; checks off the main path
+     (a window of 8 keys and a softcap of 5 over scaled logits, where the
+     faults "the window one key wider" and "the softcap's factor left
+     out" must be rejected too, a non-causal one-sided window with Sq !=
+     Sk at Dh 160, a ragged Dh 200); "dK's last Dh tile dropped" at every
+     line above Dh 128;
+     ``expert_ffn_bwd`` in bf16 at qwen3-moe's (128 experts of 2048 x 768,
+     capacity 80) and dbrx's (16 of 6144 x 10752, capacity 320) expert
+     shapes against the plain version's f32 sums, the fault "dWg and dWu
+     swapped" rejected, timed beside the plain version and six bf16
+     ``bmm``s; ptxas's registers and spills.  (a) The smoke configs of
+     qwen3-32b, deepseek-67b, zamba2-7b, seamless-m4t-large-v2,
+     llama-3.2-vision-11b, gemma2-9b, stablelm-12b (also at head_dim
+     160), qwen3-moe-30b-a3b and dbrx-132b: f32 step-0 gradients card vs
+     CPU leaf by leaf, then 5 ``lm_train_step``s on both from the same
+     params, batches and stub inputs, f32 and bf16, launches held to the
+     plan (the recompute's second forward, and ``expert_ffn``'s,
+     included).  (b) seamless-m4t-large-v2 at full width and depth,
+     qwen3-32b (2 layers), zamba2-7b (12 layers: two uses of the shared
+     block), llama-3.2-vision-11b (one superblock), gemma2-9b (4 layers
+     at 8 x 128; 2 layers over 1 x 6,144 tokens), stablelm-12b (6 layers)
+     and qwen3-moe-30b-a3b (3 layers, all 128 experts) at full width, bf16
+     params and f32 moments, batch 8 x 128 with stub frames or image
+     embeddings: a warm-up and 4 timed steps, s/step,
+     ``max_memory_allocated``, finite losses and grad norms, launches held
+     to the depth, and ``flash_attention``'s, ``flash_attention_bwd``'s
+     and ``expert_ffn_bwd``'s by shape (``ops.FLASH_SHAPES``,
+     ``FLASH_BWD_SHAPES``, ``FFN_BWD_SHAPES``) give the 3B rows' launches.
+     dbrx-132b does not train at full width: one layer with its
+     embeddings (4.5 B params) needs more than the card's 80 GB.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2833,9 +2853,13 @@ def phase_backward_kernels(rows, smi):
     tensor = {k: v for k, v in sass.items() if "bwd" in k}
     for name, counts in sorted(tensor.items()):
         log(f"  3B [{smi}] sass {name}: {counts}")
+    # passes 0 and 1 write the f32 scratch only; 2-4 have an f32 and a bf16
+    # instance (the gradients' type)
     wgmma_ok = [k for k in tensor if k.startswith("bwd_wgmma")]
     hmma_ok = [k for k in tensor if k.startswith("flash_bwd")]
-    if (len(wgmma_ok) != 5 or not all(tensor[k]["HGMMA"] > 0 for k in wgmma_ok)
+    want_wgmma = {"bwd_wgmma<0, f32>", "bwd_wgmma<1, f32>"} | {
+        f"bwd_wgmma<{i}, {t}>" for i in (2, 3, 4) for t in ("f32", "bf16")}
+    if (set(wgmma_ok) != want_wgmma or not all(tensor[k]["HGMMA"] > 0 for k in wgmma_ok)
             or not hmma_ok or not all(tensor[k]["HMMA"] > 0 for k in hmma_ok)):
         raise AssertionError("backward kernels: a product is not on the tensor cores "
                              f"(SASS opcode counts {tensor})")
@@ -3474,6 +3498,14 @@ def _finite(t) -> bool:
     return bool(torch.isfinite(t).all())
 
 
+def _flash_count(pred) -> int:
+    """``flash_attention``'s launches since the counts were last reset
+    whose shape key (B, Sq, Sk, H, KVH, Dh, causal, window, softcap;
+    ``ops.FLASH_SHAPES``) satisfies ``pred``: a row's measured count."""
+    from repro_torch.kernels import ops
+    return sum(n for key, n in ops.FLASH_SHAPES.items() if pred(*key))
+
+
 def _row_tol_ratio(got, want, tol, *, terms=None):
     """(max abs err, max err over its query row's RMS, max err over its
     tolerance) of ``got`` against ``want`` (B, Sq, H, Dh): the tolerance is
@@ -3867,11 +3899,11 @@ def phase_gemma2_full(rows, smi):
         f"(planned {want})")
     if pre != want_pre or counts != want:
         raise AssertionError("14b: gemma2-9b's launches differ from one flash call a layer")
-    windows = dense.layer_windows(cfg)
-    local = sum(w is not None for w in windows)
-    for key, n in (("local", local), ("global", cfg.num_layers - local)):
-        rows[f"flash_attention gemma2 prefill {key}"]["launches"] = n
-        rows[f"flash_attention gemma2 decode {key}"]["launches"] = n * G2_DECODE
+    for key, local in (("local", True), ("global", False)):
+        rows[f"flash_attention gemma2 prefill {key}"]["launches"] = _flash_count(
+            lambda B, Sq, Sk, H, KVH, Dh, c, w, sc: Sq > 1 and (w is not None) == local)
+        rows[f"flash_attention gemma2 decode {key}"]["launches"] = _flash_count(
+            lambda B, Sq, Sk, H, KVH, Dh, c, w, sc: Sq == 1 and (w is not None) == local)
     streamed = torch.stack(streamed, 1)                        # (B, 65, V)
     P = G2_PROMPT
     with torch.no_grad():
@@ -3952,9 +3984,11 @@ def phase_moe_full(rows, smi):
                              "call a layer")
     if not finite or tuple(streamed.shape) != (MOE_BATCH, MOE_DECODE + 1, cfg.vocab_size):
         raise AssertionError("14c: logits are not finite or have the wrong shape")
-    for kernel in ("expert_ffn", "flash_attention"):
-        rows[f"{kernel} qwen3-moe prefill"]["launches"] = n_layers
-        rows[f"{kernel} qwen3-moe decode"]["launches"] = n_layers * MOE_DECODE
+    rows["expert_ffn qwen3-moe prefill"]["launches"] = n_layers
+    rows["expert_ffn qwen3-moe decode"]["launches"] = n_layers * MOE_DECODE
+    for key, one in (("prefill", False), ("decode", True)):
+        rows[f"flash_attention qwen3-moe {key}"]["launches"] = _flash_count(
+            lambda B, Sq, *_: (Sq == 1) == one)
     del params, streamed
     torch.cuda.empty_cache()
     return prefill_s, decode_s / MOE_DECODE, peak
@@ -4134,14 +4168,17 @@ def phase_family_smoke_card(smi):
             del params, p_gpu
 
 
-def _family_full(rows, smi, name, tag, batch, prompt, steps, *, pad=False):
+def _family_full(rows, smi, name, tag, batch, prompt, steps, row_shapes, *, pad=False):
     """One of 15b-15d: ``name`` at full width and depth, bf16 params from
     seed 0 (the SSD's and the gates' leaves off their init values), stub
     inputs from a seed: a warm-up prefill of 256 tokens, then ``batch``
     prompts of ``prompt`` tokens and ``steps`` greedy decode steps with the
     launch counts set to 0 before and read after; then one teacher-forced
     pass over prompt + generated tokens, unembedding only the compared
-    positions.  Returns (prefill s, decode s a step, peak GiB)."""
+    positions.  ``row_shapes`` {3F row: predicate of a ``FLASH_SHAPES``
+    key}: each row's launches, counted by shape at the wrapper over the
+    prefill and the decode steps.  Returns (prefill s, decode s a step,
+    peak GiB)."""
     import torch
     from repro_torch.bridge import leaves
     from repro_torch.configs import get_config
@@ -4188,6 +4225,8 @@ def _family_full(rows, smi, name, tag, batch, prompt, steps, *, pad=False):
         f"{want_pre}), all {counts} (planned {want})")
     if pre != want_pre or counts != want:
         raise AssertionError(f"{tag}: {name}'s flash launches differ from the plan")
+    for row, pred in row_shapes.items():
+        rows[row]["launches"] = _flash_count(pred)
     streamed = torch.stack(streamed, 1)                          # (B, steps + 1, V)
     with torch.no_grad():
         full = torch.cat([prompts, gen_tokens.to(prompts.dtype)], 1)
@@ -4221,54 +4260,121 @@ def _family_full(rows, smi, name, tag, batch, prompt, steps, *, pad=False):
 def phase_family_full(rows, smi):
     """15b-15d: zamba2-7b, seamless-m4t-large-v2 and llama-3.2-vision-11b at
     full width and depth, one after the other (each freed before the next);
-    the 3F rows get their main-path launches."""
-    _family_full(rows, smi, "zamba2-7b", "15b", HYB_BATCH, HYB_PROMPT, HYB_DECODE)
-    rows["flash_attention zamba2 prefill"]["launches"] = 13
-    rows["flash_attention zamba2 decode"]["launches"] = 13 * HYB_DECODE
+    the 3F rows get their main-path launches, counted by shape."""
+    _family_full(rows, smi, "zamba2-7b", "15b", HYB_BATCH, HYB_PROMPT, HYB_DECODE, {
+        "flash_attention zamba2 prefill": lambda B, Sq, *_: Sq > 1,
+        "flash_attention zamba2 decode": lambda B, Sq, *_: Sq == 1})
     _family_full(rows, smi, "seamless-m4t-large-v2", "15c", AUD_BATCH, AUD_PROMPT,
-                 AUD_DECODE, pad=True)
-    rows["flash_attention seamless encoder"]["launches"] = 24
-    rows["flash_attention seamless cross prefill"]["launches"] = 24
-    rows["flash_attention seamless cross decode"]["launches"] = 24 * AUD_DECODE
+                 AUD_DECODE, {
+                     "flash_attention seamless encoder":
+                         lambda B, Sq, Sk, H, KVH, Dh, c, *_: not c and Sq == Sk,
+                     "flash_attention seamless cross prefill":
+                         lambda B, Sq, Sk, H, KVH, Dh, c, *_: not c and 1 < Sq != Sk,
+                     "flash_attention seamless cross decode":
+                         lambda B, Sq, Sk, H, KVH, Dh, c, *_: not c and Sq == 1},
+                 pad=True)
     _family_full(rows, smi, "llama-3.2-vision-11b", "15d", VLM_BATCH, VLM_PROMPT,
-                 VLM_DECODE)
-    for kind, n in (("self", 32), ("cross", 8)):
-        rows[f"flash_attention vlm {kind} prefill"]["launches"] = n
-        rows[f"flash_attention vlm {kind} decode"]["launches"] = n * VLM_DECODE
+                 VLM_DECODE, {
+                     f"flash_attention vlm {kind} {when}":
+                         (lambda B, Sq, Sk, H, KVH, Dh, c, *_, cr=kind == "cross",
+                          one=when == "decode": c != cr and (Sq == 1) == one)
+                     for kind in ("self", "cross") for when in ("prefill", "decode")})
 
 
 # ---------------------------------------------------------------------------
 # phase 16: training the dense, hybrid, audio and VLM families (the flash
 # backward at their shapes runs in phase 3, lines 3B)
 # ---------------------------------------------------------------------------
-LMT_NAMES = ("qwen3-32b", "deepseek-67b", "zamba2-7b", "seamless-m4t-large-v2",
-             "llama-3.2-vision-11b")
-LMT_FULL = ("seamless-m4t-large-v2", "qwen3-32b", "zamba2-7b", "llama-3.2-vision-11b")
+# 16a: the smoke configs (name, config overrides): stablelm also narrowed to
+# its full config's head dim 160
+LMT_SMOKE = (("qwen3-32b", {}), ("deepseek-67b", {}), ("zamba2-7b", {}),
+             ("seamless-m4t-large-v2", {}), ("llama-3.2-vision-11b", {}), ("gemma2-9b", {}),
+             ("stablelm-12b", {}), ("stablelm-12b", {"head_dim": 160}),
+             ("qwen3-moe-30b-a3b", {}), ("dbrx-132b", {}))
+# gemma2-9b's long-sequence training run: 1 x 6,144 tokens at 2 layers (one
+# local, one global), its 8,192 context cut: at 8,192 the f32 and bf16
+# logits over 256,000 words and their gradients (38 GB) on top of 2.23 B
+# params' bf16 params and gradients and f32 moments ran out of the card's
+# 80 GB in the second step (64.7 GiB allocated, 7.8 more asked; PERF.md
+# §4); 6,144 still puts 2,048 queries past the 4,096 window
+G2_TRAIN_SEQ = 6144
+# 16b: (label, arch, layers (None: profile_train.LM_TRAIN_LAYERS'), batch, seq)
+LMT_FULL = (("seamless-m4t-large-v2", "seamless-m4t-large-v2", None, 8, 128),
+            ("qwen3-32b", "qwen3-32b", None, 8, 128),
+            ("zamba2-7b", "zamba2-7b", None, 8, 128),
+            ("llama-3.2-vision-11b", "llama-3.2-vision-11b", None, 8, 128),
+            ("gemma2-9b", "gemma2-9b", None, 8, 128),
+            ("gemma2-9b 6144", "gemma2-9b", 2, 1, G2_TRAIN_SEQ),
+            ("stablelm-12b", "stablelm-12b", None, 8, 128),
+            ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", None, 8, 128))
 LMT_SMOKE_STEPS, LMT_SMOKE_BATCH, LMT_SMOKE_SEQ = 5, 2, 32   # 16a
 LMT_TIMED = 4                                               # 16b, after a warm-up step
-# the flash backward's LM training shapes (B, Sq, Sk, H, KVH, Dh, causal), at
-# the reference CLI's 8 x 128 tokens: (label, shape, 16b's launches of it
-# a step, as a function of the trained config)
+# the flash backward's LM training shapes (B, Sq, Sk, H, KVH, Dh, causal,
+# window, softcap; ops.FLASH_BWD_SHAPES's key), at the reference CLI's 8 x
+# 128 tokens and gemma2's 1 x 6,144 (and its 8,192 context, timed but not
+# trained): (label, shape, the 16b run that trains it, its launches a
+# step as a function of that run's config)
 LMT_FLASH_SHAPES = (
-    ("qwen3-32b self-attention (GQA 64 over 8)", (8, 128, 128, 64, 8, 128, True),
+    ("qwen3-32b self-attention (GQA 64 over 8)", (8, 128, 128, 64, 8, 128, True, None, None),
      "qwen3-32b", lambda c: c.num_layers),
-    ("zamba2-7b shared block (Dh 112)", (8, 128, 128, 32, 32, 112, True),
+    ("zamba2-7b shared block (Dh 112)", (8, 128, 128, 32, 32, 112, True, None, None),
      "zamba2-7b", lambda c: c.num_layers // c.hybrid_attn_every),
-    ("seamless-m4t-large-v2 encoder over 4,096 frames", (8, 4096, 4096, 16, 16, 64, False),
+    ("seamless-m4t-large-v2 encoder over 4,096 frames",
+     (8, 4096, 4096, 16, 16, 64, False, None, None),
      "seamless-m4t-large-v2", lambda c: c.encoder_layers),
-    ("seamless-m4t-large-v2 decoder self-attention", (8, 128, 128, 16, 16, 64, True),
+    ("seamless-m4t-large-v2 decoder self-attention",
+     (8, 128, 128, 16, 16, 64, True, None, None),
      "seamless-m4t-large-v2", lambda c: c.num_layers),
     ("seamless-m4t-large-v2 cross-attention over 4,096 frames",
-     (8, 128, 4096, 16, 16, 64, False), "seamless-m4t-large-v2", lambda c: c.num_layers),
-    ("llama-3.2-vision-11b self-attention (GQA 32 over 8)", (8, 128, 128, 32, 8, 128, True),
+     (8, 128, 4096, 16, 16, 64, False, None, None), "seamless-m4t-large-v2",
+     lambda c: c.num_layers),
+    ("llama-3.2-vision-11b self-attention (GQA 32 over 8)",
+     (8, 128, 128, 32, 8, 128, True, None, None),
      "llama-3.2-vision-11b", lambda c: c.num_layers - c.num_layers // c.cross_attn_every),
     ("llama-3.2-vision-11b cross-attention over 1,601 image keys",
-     (8, 128, 1601, 32, 8, 128, False), "llama-3.2-vision-11b",
+     (8, 128, 1601, 32, 8, 128, False, None, None), "llama-3.2-vision-11b",
      lambda c: c.num_layers // c.cross_attn_every),
+    ("gemma2-9b local layer (window 4,096, softcap 50, Dh 256, GQA 16 over 8)",
+     (8, 128, 128, 16, 8, 256, True, 4096, 50.0), "gemma2-9b", lambda c: (c.num_layers + 1) // 2),
+    ("gemma2-9b global layer (softcap 50, Dh 256)", (8, 128, 128, 16, 8, 256, True, None, 50.0),
+     "gemma2-9b", lambda c: c.num_layers // 2),
+    ("gemma2-9b local layer over its 8,192-token context (not trained: 16b's is cut)",
+     (1, 8192, 8192, 16, 8, 256, True, 4096, 50.0), None, None),
+    ("gemma2-9b local layer over 6,144 tokens (the window bites)",
+     (1, G2_TRAIN_SEQ, G2_TRAIN_SEQ, 16, 8, 256, True, 4096, 50.0), "gemma2-9b 6144",
+     lambda c: (c.num_layers + 1) // 2),
+    ("gemma2-9b global layer over 6,144 tokens",
+     (1, G2_TRAIN_SEQ, G2_TRAIN_SEQ, 16, 8, 256, True, None, 50.0), "gemma2-9b 6144",
+     lambda c: c.num_layers // 2),
+    ("stablelm-12b (GQA 32 over 8, Dh 160)", (8, 128, 128, 32, 8, 160, True, None, None),
+     "stablelm-12b", lambda c: c.num_layers),
+    ("qwen3-moe-30b-a3b (GQA 32 over 4)", (8, 128, 128, 32, 4, 128, True, None, None),
+     "qwen3-moe-30b-a3b", lambda c: c.num_layers),
+)
+# 3B checks off the main path, not timed: gemma2's head geometry with a
+# window of 8 keys and a tight softcap over logits scaled 4x (q * 4), where
+# the window's last key and the cap's factor 1 - (S/c)^2 each move the
+# gradients far past the tolerance; stablelm's Dh 160 and a ragged Dh 200
+# (label, shape, q scale, planted faults beyond the automatic ones: dK's
+# last Dh tile dropped is one wherever Dh > 128)
+LMT_FLASH_CHECKS = (
+    ("gemma2 geometry, window 8, softcap 5 over 4x logits",
+     (2, 128, 128, 16, 8, 256, True, 8, 5.0), 4.0, ("window", "softcap")),
+    ("stablelm geometry, non-causal one-sided window 20, Sq != Sk",
+     (2, 96, 130, 32, 8, 160, False, 20, None), 1.0, ()),
+    ("Dh 200 (a ragged last Dh tile), causal, window 40", (1, 130, 130, 4, 2, 200, True, 40, 30.0),
+     1.0, ()),
+)
+# the experts' backward in bf16 at the MoE family's shapes, C from
+# core/moe.default_capacity at 8 x 128 tokens (capacity factor 1.25):
+# (label, (E, C, d, f), the 16b run that trains it)
+LMT_FFN_SHAPES = (
+    ("qwen3-moe-30b-a3b (128 experts top-8)", (128, 80, 2048, 768), "qwen3-moe-30b-a3b"),
+    ("dbrx-132b (16 experts top-4)", (16, 320, 6144, 10752), None),
 )
 
 
-def _flash_bwd_wrong_heads(q, k, v, o32, lse, do, causal):
+def _flash_bwd_wrong_heads(q, k, v, o32, lse, do, masks):
     """A planted fault: the plain backward with query head h reading kv
     head h % KVH instead of h // G (the heads permuted into the grouped
     order that mapping implies, the gradients permuted back)."""
@@ -4279,11 +4385,40 @@ def _flash_bwd_wrong_heads(q, k, v, o32, lse, do, causal):
     inv = sorted(range(H), key=lambda h: perm[h])           # the head in each slot
     dq, dk, dv = ref.flash_attention_bwd_ref(q[:, :, inv], k, v, o32[:, :, inv],
                                              lse[:, inv].contiguous(), do[:, :, inv],
-                                             causal=causal)
+                                             **masks)
     return dq[:, :, perm], dk, dv
 
 
-def _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, side):
+def _flash_bwd_no_cap_factor(q, k, v, o32, lse, do, masks):
+    """A planted fault: the plain backward with the softcap's factor
+    1 - (S/c)^2 left out of dS (P and lse still over the capped logits)."""
+    import torch
+    from repro_torch.kernels import ref
+    B, Sq, H, Dh = q.shape
+    KVH, G = k.shape[2], H // k.shape[2]
+    f32, scale = torch.float32, 1.0 / math.sqrt(Dh)
+    s, mask = ref._logits(q, k.float(), causal=masks["causal"], window=masks["window"],
+                          softcap=masks["softcap"], one_sided=True)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KVH, G, Sq)[..., None]), 0.0)
+    qc, doc, oc = (t.to(f32).reshape(B, Sq, KVH, G, Dh) for t in (q, do, o32))
+    dd = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", doc, v.float()) - dd)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+    dq = (torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale).reshape(B, Sq, H, Dh)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qc) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_dk_tile_dropped(want):
+    """A planted fault: the plain gradients with the last 8-column Dh tile
+    of dK dropped (a column half's block that skips its last tile)."""
+    dq, dk, dv = (g.clone() for g in want)
+    last = (dk.shape[-1] - 1) // 8 * 8
+    dk[..., last:last + 8] = 0
+    return dq, dk, dv
+
+
+def _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, side, softcap=None):
     """A planted fault of a causal Sq == Sk shape, confined to one tile:
     ``"dq"``, the last query block's loop stops one 32-key tile short, so
     the last 32 queries' dq miss their diagonal tile (keys Sq - 32 on);
@@ -4296,55 +4431,67 @@ def _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, side):
     if side == "dq":
         a = Sq - t       # those queries over keys 0 .. a - 1, all visible to them
         dq[:, a:] = ref.flash_attention_bwd_ref(q[:, a:], k[:, :a], v[:, :a], o32[:, a:],
-                                                lse[:, :, a:], do[:, a:])[0]
+                                                lse[:, :, a:], do[:, a:], softcap=softcap)[0]
     else:
         # keys 0 .. t - 1 over queries t on, which see all of them
         _, dk[:, :t], dv[:, :t] = ref.flash_attention_bwd_ref(
-            q[:, t:], k[:, :t], v[:, :t], o32[:, t:], lse[:, :, t:], do[:, t:])
+            q[:, t:], k[:, :t], v[:, :t], o32[:, t:], lse[:, :, t:], do[:, t:],
+            softcap=softcap)
     return dq, dk, dv
 
 
-def _flash_bwd_row(smi, gen, label, shape, dtype, *, iters=0):
-    """One 3B line of the LM training shapes: the flash forward's f32
-    output and log-sum-exp against the plain version's (TOL_F32), then the
-    backward kernel's dq, dk, dv against the plain backward, to TOL_BF16
-    (TOL_F32 in f32) with the atol in units of each (b, row, head) row's
-    RMS over Dh, plus ROUNDOFF_TERMS of the magnitudes of each element's
-    terms (:func:`_row_tol_ratio`); two runs bit for bit; the planted
-    faults that apply must fail that check: the plain version run
-    non-causal, the diagonal tile dropped from the last query block's dQ
-    or the first query tile from the first key block's dK/dV (causal),
-    kv heads mapped as h % KVH (GQA).  With ``iters``: events and device
-    time (two launches a call), the plain version's time, the device time
-    of the backward of ``scaled_dot_product_attention`` (``is_causal``,
-    ``enable_gqa``) through autograd, and the bound over the kept (query,
-    key) pairs: 2.5x the forward's products at the bf16 peak (3xTF32 in
-    f32) or the bytes of q, k, v, dO, the f32 O and lse read and dq, dk,
-    dv written.  Returns the row (``iters``) or None."""
+def _flash_bwd_row(smi, gen, label, shape, dtype, *, iters=0, q_scale=1.0, faults=()):
+    """One 3B line of the LM training shapes (B, Sq, Sk, H, KVH, Dh,
+    causal, window, softcap; the window one-sided, as ``layers.attention``
+    applies it): the flash forward's f32 output and log-sum-exp against
+    the plain version's (TOL_F32), then the backward kernel's dq, dk, dv
+    against the plain backward, to TOL_BF16 (TOL_F32 in f32) with the
+    atol in units of each (b, row, head) row's RMS over Dh, plus
+    ROUNDOFF_TERMS of the magnitudes of each element's terms
+    (:func:`_row_tol_ratio`); two runs bit for bit; the planted faults
+    that apply must fail that check by more than 10x: the plain version
+    run non-causal, the diagonal tile dropped from the last query block's
+    dQ or the first query tile from the first key block's dK/dV (causal,
+    Sq == Sk, no window that bites), kv heads mapped as h % KVH (GQA), and
+    dK's last 8-column Dh tile dropped (Dh above 128, where the grid
+    splits the columns in halves) and those ``faults`` names:
+    ``"window"`` one key more, ``"softcap"`` the cap's factor left out.  ``q_scale`` multiplies q (a softcap that bites).  With
+    ``iters``: events and device time (two launches a call), the plain
+    version's time, the device time of the backward of
+    ``scaled_dot_product_attention`` (``is_causal`` or, with a window, a
+    bool ``attn_mask``; it has no softcap; ``enable_gqa``) through
+    autograd, and the bound over the kept (query, key) pairs: 2.5x the
+    forward's products at the bf16 peak (3xTF32 in f32) or the bytes of
+    q, k, v, dO, the f32 O and lse read and dq, dk, dv written.  Returns
+    the row (``iters``) or None."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.timing import device_ms, time_ms
-    B, Sq, Sk, H, KVH, Dh, causal = shape
+    B, Sq, Sk, H, KVH, Dh, causal, window, softcap = shape
+    masks = dict(causal=causal, window=window, softcap=softcap)
     kw = dict(generator=gen, device="cuda")
-    q = torch.randn((B, Sq, H, Dh), **kw).to(dtype)
+    q = (torch.randn((B, Sq, H, Dh), **kw) * q_scale).to(dtype)
     k = torch.randn((B, Sk, KVH, Dh), **kw).to(dtype)
     v = torch.randn((B, Sk, KVH, Dh), **kw).to(dtype)
     do = torch.randn((B, Sq, H, Dh), **kw).to(dtype)
     tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+    extra = "".join(f" {n} {x}" for n, x in (("window", window), ("softcap", softcap)) if x)
     name = (f"3B [{smi}] flash_attention_bwd {label} B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} "
-            f"Dh={Dh} {'causal ' if causal else ''}{str(dtype)[6:]}")
-    o, lse, o32 = ops._flash_attention_fwd(q, k, v, causal=causal, want_lse=True)
-    want_o32, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, stats=True)
+            f"Dh={Dh} {'causal ' if causal else ''}{str(dtype)[6:]}{extra}")
+    o, lse, o32 = ops._flash_attention_fwd(q, k, v, one_sided_window=True, want_lse=True,
+                                           **masks)
+    want_o32, want_lse = ref.flash_attention_ref(q, k, v, one_sided_window=True, stats=True,
+                                                 **masks)
     fwd_err = max(_close_quiet(f"{name} lse", lse, want_lse, TOL_F32),
                   _close_quiet(f"{name} f32 output", o32, want_o32, TOL_F32))
     if not torch.equal(o, o32.to(dtype)):
         raise AssertionError(f"{name}: the forward's output is not its f32 output rounded")
     del want_o32, want_lse
-    run = lambda: ops.flash_attention_bwd(q, k, v, o32, lse, do, causal=causal)  # noqa: E731
+    run = lambda: ops.flash_attention_bwd(q, k, v, o32, lse, do, **masks)  # noqa: E731
     got, again = run(), run()
-    want = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, causal=causal)
-    terms = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, causal=causal, magnitudes=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, **masks)
+    terms = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, magnitudes=True, **masks)
     torch.cuda.synchronize()
     res = [_row_tol_ratio(g, w, tol, terms=t) for g, w, t in zip(got, want, terms)]
     err, ratio = max(r[0] for r in res), max(r[2] for r in res)
@@ -4360,26 +4507,37 @@ def _flash_bwd_row(smi, gen, label, shape, dtype, *, iters=0):
         raise AssertionError(f"{name}: the kernel disagrees with its plain version or "
                              f"two runs differ")
     del again
-    faults = []
+    plan = []
     if causal:
-        faults.append(("the plain version run non-causal", lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o32, lse, do, causal=False)))
-    if causal and Sq == Sk:
-        faults += [("the last 32 queries' dQ without their diagonal key tile",
-                    lambda: _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, "dq")),
-                   ("the first 32 keys' dK/dV without the first query tile",
-                    lambda: _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, "dkdv"))]
+        plan.append(("the plain version run non-causal", lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o32, lse, do, **dict(masks, causal=False))))
+    if causal and Sq == Sk and (window is None or window >= Sq):
+        plan += [("the last 32 queries' dQ without their diagonal key tile",
+                  lambda: _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, "dq",
+                                                  softcap)),
+                 ("the first 32 keys' dK/dV without the first query tile",
+                  lambda: _flash_bwd_tile_dropped(q, k, v, o32, lse, do, want, "dkdv",
+                                                  softcap))]
     if KVH != H:
-        faults.append(("kv heads mapped as h % KVH", lambda: _flash_bwd_wrong_heads(
-            q, k, v, o32, lse, do, causal)))
-    for fault, plain in faults:
+        plan.append(("kv heads mapped as h % KVH", lambda: _flash_bwd_wrong_heads(
+            q, k, v, o32, lse, do, masks)))
+    if "window" in faults:
+        plan.append(("the window one key wider", lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o32, lse, do, **dict(masks, window=window + 1))))
+    if "softcap" in faults:
+        plan.append(("the softcap's factor 1 - (S/c)^2 left out",
+                     lambda: _flash_bwd_no_cap_factor(q, k, v, o32, lse, do, masks)))
+    if Dh > 128:
+        plan.append(("dK's last 8-column Dh tile dropped",
+                     lambda: _flash_bwd_dk_tile_dropped(want)))
+    for fault, plain in plan:
         f_ratio = max(_row_tol_ratio(g, w, tol, terms=t)[2]
                       for g, w, t in zip(got, plain(), terms))
         log(f"  3B [{smi}] flash_attention_bwd {label} {str(dtype)[6:]}, planted fault "
             f"({fault}): {f_ratio:.3f} of the tolerance "
-            f"{'rejected' if f_ratio > 1 else 'NOT REJECTED'}")
-        if f_ratio <= 1:
-            raise AssertionError(f"{name}: the check does not reject {fault}")
+            f"{'rejected' if f_ratio > 10 else 'NOT REJECTED by 10x'}")
+        if f_ratio <= 10:
+            raise AssertionError(f"{name}: the check does not reject {fault} by 10x")
     del want, terms
     if not iters:
         del q, k, v, do, o, o32, lse, got
@@ -4387,18 +4545,20 @@ def _flash_bwd_row(smi, gen, label, shape, dtype, *, iters=0):
         return None
     ms = time_ms(run, iters)
     dev = device_ms(run, iters, launches_per_call=FLASH_BWD_LAUNCHES)
-    plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o32, lse, do,
-                                                        causal=causal), 1)
+    plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, **masks), 1)
+    mask = ref.attention_mask(Sq, Sk, causal=causal, window=window, device="cuda",
+                              one_sided=True)
+    kept = int(mask.sum())
     qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    sdpa_kw = (dict(is_causal=causal) if window is None
+               else dict(attn_mask=mask))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
     dot = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,  # noqa: E731
                                            retain_graph=True)
     lib_events = time_ms(sdpa_bwd, iters)
     lib = device_ms(sdpa_bwd, iters)
-    del qt, kt, vt, ot
-    kept = Sq * (Sq + 1) // 2 if causal and Sq == Sk else int(ref.attention_mask(
-        Sq, Sk, causal=causal, window=None, device="cpu").sum())
+    del qt, kt, vt, ot, mask
     flops = 2.5 * 4.0 * B * H * kept * Dh
     es = q.element_size()
     nq, nk = B * Sq * H * Dh, B * Sk * KVH * Dh
@@ -4407,9 +4567,12 @@ def _flash_bwd_row(smi, gen, label, shape, dtype, *, iters=0):
               + es * (nq + 2 * nk))         # dq, dk, dv written
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
     b_ms, b_by = bound(flops, nbytes, peak)
+    sdpa_how = ("is_causal" if window is None and causal else
+                "bool attn_mask" if window is not None else "no mask")
     log(f"  3B [{smi}] flash_attention_bwd {label} {str(dtype)[6:]}: kernel {ms:.4f} ms "
         f"events, {dev:.4f} ms device ({FLASH_BWD_LAUNCHES} launches), plain {plain:.4f} ms, "
-        f"backward of scaled_dot_product_attention (is_causal={causal}, enable_gqa) through "
+        f"backward of scaled_dot_product_attention ({sdpa_how}, enable_gqa"
+        f"{'; no softcap, which SDPA does not take' if softcap else ''}) through "
         f"autograd {lib:.4f} ms device ({lib_events:.4f} ms events), kernel / SDPA backward "
         f"{dev / lib:.3f} (device), bound {b_ms:.4f} ms ({b_by}; {kept} kept (query, key) "
         f"pairs, {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB; {flops / dev / 1e9:.1f} TFLOP/s on "
@@ -4422,14 +4585,97 @@ def _flash_bwd_row(smi, gen, label, shape, dtype, *, iters=0):
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                 library_events_ms=lib_events, yardstick_ratio=dev / lib,
                 shape=f"{label}: B={B} Sq={Sq} Sk={Sk} H={H} KVH={KVH} Dh={Dh}"
-                      f"{' causal' if causal else ''} {str(dtype)[6:]}")
+                      f"{' causal' if causal else ''}{extra} {str(dtype)[6:]}")
+
+
+def _ffn_bwd_bf16_ratio(got, want, n):
+    """Max over the four gradients of |got - want| over its tolerance: a
+    bf16 gradient against the plain version's f32 sum of ``n`` products
+    (``sum_tol``), rounded once (2^-8 relative, half a bf16 ulp)."""
+    out = 0.0
+    for g, w, m in zip(got, want, n):
+        w = w.float()
+        lim = TOL_F32["atol"] + sum_tol(m) * float(w.abs().max()) + 2.0 ** -8 * w.abs()
+        out = max(out, float(((g.float() - w).abs() / lim).max()))
+    return out
+
+
+def _ffn_bwd_bf16_row(smi, gen, label, E, C, d, f, *, iters):
+    """One 3B line of ``expert_ffn_bwd`` in bf16 at an MoE config's expert
+    shape: the four gradients against the plain version's f32 sums
+    (:func:`_ffn_bwd_bf16_ratio`), two runs bit for bit, the planted fault
+    (dWg and dWu swapped) rejected by more than 10x; events and device
+    time (ten launches: five widening passes, five wgmma passes), the
+    plain version's time, the six bf16 ``bmm``s of the gradients as the
+    yardstick, and the bound: the six products' FLOP at the bf16 peak or
+    the bytes of X, dY, the three weights read and the four gradients
+    written, in bf16."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import device_ms, time_ms
+    x, wg, wu, wd = _expert_inputs(gen, E, C, d, f, torch.bfloat16)
+    dy = torch.randn((E, C, d), generator=gen, device="cuda").bfloat16()
+    run = lambda: ops.expert_ffn_bwd(x, wg, wu, wd, dy)  # noqa: E731
+    got, again = run(), run()
+    want = ref.expert_ffn_bwd_ref(*(t.float() for t in (x, wg, wu, wd, dy)))
+    torch.cuda.synchronize()
+    n = (2 * f + d, C, C, C)
+    ratio = _ffn_bwd_bf16_ratio(got, want, n)
+    err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    swapped = _ffn_bwd_bf16_ratio(got, (want[0], want[2], want[1], want[3]), n)
+    name = f"3B [{smi}] expert_ffn_bwd {label} E={E} C={C} d={d} f={f} bf16"
+    log(f"  {name}: dX, dWg, dWu, dWd max_abs_err {err:.3e}, {ratio:.3f} of the tolerance "
+        f"(2^-8 |want| + TOL_F32's atol + sum_tol of the tensor's max) "
+        f"{'ok' if ratio <= 1 else 'FAIL'}; two runs bit-identical {same}; planted fault (dWg "
+        f"and dWu swapped) {swapped:.3f} of the tolerance "
+        f"{'rejected' if swapped > 10 else 'NOT REJECTED by 10x'}")
+    if ratio > 1 or not same or swapped <= 10:
+        raise AssertionError(f"{name}: the kernel disagrees with its plain version, two runs "
+                             f"differ or the check misses the planted fault")
+    del again, want
+    torch.cuda.empty_cache()
+    ms = time_ms(run, iters)
+    dev = device_ms(run, iters, launches_per_call=2 * FFN_BWD_LAUNCHES)
+    plain = time_ms(lambda: ref.expert_ffn_bwd_ref(x, wg, wu, wd, dy), 1)
+    with torch.no_grad():
+        g = x @ wg
+        u = x @ wu
+        h = ref.act_fn("silu")(g) * u
+
+    def six():
+        dh = dy @ wd.transpose(1, 2)
+        dwd = h.transpose(1, 2) @ dy
+        dg, du = dh * u, dh * g
+        dx = dg @ wg.transpose(1, 2) + du @ wu.transpose(1, 2)
+        return dwd, dx, x.transpose(1, 2) @ dg, x.transpose(1, 2) @ du
+
+    yard = time_ms(six, iters)
+    flops = 6 * 2.0 * E * C * d * f
+    nbytes = 2.0 * (3 * E * C * d + 6 * E * d * f)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  3B [{smi}] expert_ffn_bwd {label} bf16: kernel {ms:.4f} ms events, {dev:.4f} ms "
+        f"device ({2 * FFN_BWD_LAUNCHES} launches), plain {plain:.4f} ms, six bf16 bmm "
+        f"{yard:.4f} ms (kernel / six bmm {ms / yard:.3f}), bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops:.3e} FLOP, {nbytes / 1e6:.1f} MB; {flops / dev / 1e9:.1f} TFLOP/s on the "
+        f"device)")
+    del x, wg, wu, wd, dy, got, g, u, h
+    torch.cuda.empty_cache()
+    return dict(name="expert_ffn_bwd", route="cuda",
+                source="src/repro_torch/csrc/expert_ffn_bwd.cu", replaces=NO_PALLAS,
+                launches=0, max_abs_err=err, ms=ms, device_ms=dev, events_ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                yardstick_ms=yard, yardstick_ratio=ms / yard,
+                shape=f"{label}: E={E} C={C} d={d} f={f} bf16")
 
 
 def phase_lm_train_kernels(rows, smi):
     """3B, in phase 3 after 3F: the flash backward (and the forward's f32
     output and log-sum-exp it reads) at the LM families' training shapes,
-    bf16 (timed) and f32 (checked); phase 16b adds each bf16 row's
-    launches.  Then each new instance's ptxas registers and spills."""
+    bf16 (timed) and f32 (checked), then its checks off the main path,
+    and ``expert_ffn_bwd`` in bf16 at the MoE family's shapes; phase 16b
+    adds each bf16 row's launches.  Then each instance's ptxas registers
+    and spills."""
     import torch
     from repro_torch.kernels import build
     gen = torch.Generator(device="cuda").manual_seed(26)
@@ -4439,10 +4685,18 @@ def phase_lm_train_kernels(rows, smi):
             smi, gen, label, shape, torch.bfloat16, iters=3 if big else 20)
         if not big:
             _flash_bwd_row(smi, gen, label, shape, torch.float32)
+    for label, shape, q_scale, faults in LMT_FLASH_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            _flash_bwd_row(smi, gen, label, shape, dtype, q_scale=q_scale, faults=faults)
+    for label, (E, C, d, f), _ in LMT_FFN_SHAPES:
+        rows[f"expert_ffn_bwd {label}"] = _ffn_bwd_bf16_row(
+            smi, gen, label, E, C, d, f, iters=3 if d * f > 1 << 24 else 10)
     for line in build.ptxas_report():
         if line.startswith(("flash_bwd_dq<bf16", "flash_bwd_dkdv<bf16", "flash_bwd_dq<f32, 16>",
                             "flash_bwd_dkdv<f32, 16>", "flash_bwd_dq<f32, 8>",
-                            "flash_bwd_dkdv<f32, 8>")):
+                            "flash_bwd_dkdv<f32, 8>", "flash_bwd_dq<f32, 20>",
+                            "flash_bwd_dkdv<f32, 20>", "flash_bwd_dq<f32, 32>",
+                            "flash_bwd_dkdv<f32, 32>", "widen")):
             log(f"  3B [{smi}] ptxas {line}")
 
 
@@ -4466,31 +4720,46 @@ def _train_flash_plan(cfg):
 
 
 def _planned_train_launches(cfg, steps: int):
+    """Every kernel's launches in ``steps`` training steps of ``cfg``:
+    flash's (:func:`_train_flash_plan`) and, for the MoE family, one
+    ``expert_ffn`` call a layer in the forward and one in its recompute,
+    one ``expert_ffn_bwd`` a layer."""
     from repro_torch.kernels import ops
     fwd, bwd = _train_flash_plan(cfg)
     want = {k: 0 for k in ops.LAUNCHES}
     want["flash_attention"], want["flash_attention_bwd"] = steps * fwd, steps * bwd
+    if cfg.is_moe:
+        want["expert_ffn"], want["expert_ffn_bwd"] = 2 * steps * cfg.num_layers, \
+            steps * cfg.num_layers
     return want
 
 
+def _lmt_smoke_cfg(name, over):
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke(name)
+    return cfg.replace(name=f"{cfg.name} at head_dim {over['head_dim']}", **over) \
+        if over else cfg
+
+
 def phase_lm_train_smoke(smi):
-    """16a: the smoke configs of qwen3-32b, deepseek-67b, zamba2-7b,
-    seamless-m4t-large-v2 and llama-3.2-vision-11b (the SSD's leaves and
-    the cross gates off their init), from one seed: f32 step-0 gradients
-    card vs CPU leaf by leaf, then LMT_SMOKE_STEPS ``lm_train_step``s on
-    the CPU (plain versions) and on the card (kernels) from the same
-    params, batches and stub inputs, f32 (losses within 1e-3) and bf16
-    (within TOL_LM_BF16_LOSS), the card's launches held to the plan."""
+    """16a: the smoke configs of every LM family ``train_lm`` trains
+    (LMT_SMOKE: qwen3-32b, deepseek-67b, zamba2-7b, seamless-m4t-large-v2,
+    llama-3.2-vision-11b, gemma2-9b, stablelm-12b also at head_dim 160,
+    qwen3-moe-30b-a3b, dbrx-132b; the SSD's leaves and the cross gates off
+    their init), from one seed: f32 step-0 gradients card vs CPU leaf by
+    leaf, then LMT_SMOKE_STEPS ``lm_train_step``s on the CPU (plain
+    versions) and on the card (kernels) from the same params, batches and
+    stub inputs, f32 (losses within 1e-3) and bf16 (within
+    TOL_LM_BF16_LOSS), the card's launches held to the plan."""
     import torch
     from repro_torch.checkpoint.io import flatten
-    from repro_torch.configs import get_smoke
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
     from repro_torch.launch.train import lm_train_step, stub_inputs
     from repro_torch.models.api import get_model
     from repro_torch.optim.adamw import adamw_init, tree_leaves, tree_map
-    for name in LMT_NAMES:
-        cfg = get_smoke(name)
+    for name, over in LMT_SMOKE:
+        cfg = _lmt_smoke_cfg(name, over)
         api = get_model(cfg)
         it = token_batches(cfg.vocab_size, LMT_SMOKE_BATCH, LMT_SMOKE_SEQ, seed=16)
         sgen = torch.Generator().manual_seed(17)
@@ -4510,8 +4779,9 @@ def phase_lm_train_smoke(smi):
                     grads[dev] = torch.autograd.grad(loss, tree_leaves(live))
                 _compare_grads(f"{tag} step-0 gradients, card vs cpu", grads["cuda"],
                                grads["cpu"], [n for n, _ in flatten(params)[0]],
-                               cfg.d_ff + max(LMT_SMOKE_SEQ, cfg.num_audio_frames or 0,
-                                              cfg.num_image_tokens or 0))
+                               max(cfg.d_ff, cfg.expert_d_ff or 0)
+                               + max(LMT_SMOKE_SEQ, cfg.num_audio_frames or 0,
+                                     cfg.num_image_tokens or 0))
             losses = {}
             for dev in ("cpu", "cuda"):
                 p = tree_map(lambda t: t.detach().to(dev, copy=True), params)
@@ -4535,16 +4805,17 @@ def phase_lm_train_smoke(smi):
 
 
 def phase_lm_train_full(rows, smi):
-    """16b: seamless-m4t-large-v2 at full width and depth, qwen3-32b,
-    zamba2-7b and llama-3.2-vision-11b at full width with the depth one
-    card holds (``profile_train.lm_train_config``), bf16 params and f32
-    moments as ``train_lm`` makes them (the SSD's leaves and the cross
-    gates off their init), batch LMT_BATCH x LMT_SEQ tokens with the
-    stub audio frames or image embeddings: one warm-up step, then
-    LMT_TIMED steps with the launch counts set to 0 before them and held
-    to the depth after (the recompute's second forward included); loss and
-    grad norm finite.  Each model is freed before the next.  Returns
-    {name: (s/step, peak GiB)}."""
+    """16b: each run of LMT_FULL at full width with the depth one card holds
+    (``profile_train.lm_train_config``; seamless-m4t-large-v2 whole,
+    gemma2-9b also over 1 x 8,192 tokens at 2 layers, one local and one
+    global), bf16 params and f32 moments as ``train_lm`` makes them (the
+    SSD's leaves and the cross gates off their init), with the stub audio
+    frames or image embeddings: one warm-up step, then LMT_TIMED steps
+    with the launch counts set to 0 before them and held to the depth
+    after (the recompute's second forward included), flash's forward and
+    backward and ``expert_ffn_bwd`` counted by shape at their wrappers;
+    loss and grad norm finite.  Each model is freed before the next.
+    Returns {label: (s/step, peak GiB)}."""
     import torch
     from repro_torch.bridge import leaves
     from repro_torch.data.synthetic import token_batches
@@ -4554,8 +4825,8 @@ def phase_lm_train_full(rows, smi):
     from repro_torch.models.api import get_model
     from repro_torch.optim.adamw import adamw_init
     out, fwd_total = {}, 0
-    for name in LMT_FULL:
-        cfg = lm_train_config(name)
+    for label, arch, layers, batch, seq in LMT_FULL:
+        cfg = lm_train_config(arch, layers)
         api = get_model(cfg)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4564,13 +4835,12 @@ def phase_lm_train_full(rows, smi):
         _off_init(params, gen)
         opt = adamw_init(params)
         n_params = sum(t.numel() for t in leaves(params).values())
-        it = token_batches(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0,
-                           device="cuda")
+        it = token_batches(cfg.vocab_size, batch, seq, seed=0, device="cuda")
         sgen = torch.Generator(device="cuda").manual_seed(1)
 
         def step():
             nonlocal params, opt
-            b = dict(next(it), **stub_inputs(api, cfg, LM_TRAIN_BATCH, sgen))
+            b = dict(next(it), **stub_inputs(api, cfg, batch, sgen))
             params, opt, m = lm_train_step(params, opt, b, cfg, total=1 + LMT_TIMED)
             return m
 
@@ -4582,34 +4852,51 @@ def phase_lm_train_full(rows, smi):
         torch.cuda.synchronize()
         s_per_step = (time.perf_counter() - t0) / LMT_TIMED
         counts, by_shape = dict(ops.LAUNCHES), dict(ops.FLASH_BWD_SHAPES)
+        fwd_shapes, ffn_shapes = dict(ops.FLASH_SHAPES), dict(ops.FFN_BWD_SHAPES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         losses = [float(m["loss"]) for m in ms]
         gnorms = [float(m["grad_norm"]) for m in ms]
         want = _planned_train_launches(cfg, LMT_TIMED)
         layout = (f"{cfg.num_layers} layers + {cfg.encoder_layers} encoder layers"
                   if cfg.encoder_layers else f"{cfg.num_layers} layers")
-        log(f"  16b [{smi}] {name} ({layout}, d {cfg.d_model}, {cfg.num_heads} heads x "
+        log(f"  16b [{smi}] {label} ({layout}, d {cfg.d_model}, {cfg.num_heads} heads x "
             f"{cfg.head_dim} over {cfg.num_kv_heads}, {n_params / 1e9:.3f} B params bf16, "
-            f"moments f32), batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens: {s_per_step:.4f} "
-            f"s/train-step over {LMT_TIMED} steps ({LM_TRAIN_BATCH * LM_TRAIN_SEQ / s_per_step:.1f}"
+            f"moments f32), batch {batch} x {seq} tokens: {s_per_step:.4f} "
+            f"s/train-step over {LMT_TIMED} steps ({batch * seq / s_per_step:.1f}"
             f" tokens/s), max_memory_allocated {peak:.3f} GiB, losses "
             f"{[round(x, 5) for x in losses]}, grad norms {[round(x, 4) for x in gnorms]}, "
             f"launches { {k: v for k, v in counts.items() if v} }, planned "
             f"{ {k: v for k, v in want.items() if v} }; flash_attention_bwd by (B, Sq, Sk, "
-            f"H, KVH, Dh, causal) {by_shape}")
+            f"H, KVH, Dh, causal, window, softcap) {by_shape}; flash_attention by shape "
+            f"{fwd_shapes}; expert_ffn_bwd by (E, C, d, f, dtype) {ffn_shapes}")
         if counts != want or not all(math.isfinite(x) for x in losses + gnorms):
-            raise AssertionError(f"16b {name}: launches differ from the plan or the loss "
+            raise AssertionError(f"16b {label}: launches differ from the plan or the loss "
                                  f"or grad norm is not finite")
         mine = {shape: LMT_TIMED * per_step(cfg)
-                for _, shape, owner, per_step in LMT_FLASH_SHAPES if owner == name}
+                for _, shape, owner, per_step in LMT_FLASH_SHAPES if owner == label}
         if by_shape != mine:
-            raise AssertionError(f"16b {name}: flash_attention_bwd's launches by shape "
+            raise AssertionError(f"16b {label}: flash_attention_bwd's launches by shape "
                                  f"{by_shape} differ from the plan's {mine}")
-        for label, shape, owner, _ in LMT_FLASH_SHAPES:
-            if owner == name:
-                rows[f"flash_attention_bwd {label}"]["launches"] = by_shape[shape]
+        # the forward by shape: each backward's shape once more for its
+        # recompute (the VLM's cross blocks are not recomputed)
+        if set(fwd_shapes) != set(mine) or any(
+                not mine[sh] <= fwd_shapes[sh] <= 2 * mine[sh] for sh in mine):
+            raise AssertionError(f"16b {label}: flash_attention's launches by shape "
+                                 f"{fwd_shapes} do not follow the backward's {mine}")
+        ffn_mine = {(E, C, d, f, "bfloat16"): LMT_TIMED * cfg.num_layers
+                    for _, (E, C, d, f), owner in LMT_FFN_SHAPES if owner == label}
+        if ffn_shapes != ffn_mine:
+            raise AssertionError(f"16b {label}: expert_ffn_bwd's launches by shape "
+                                 f"{ffn_shapes} differ from the plan's {ffn_mine}")
+        for lab, shape, owner, _ in LMT_FLASH_SHAPES:
+            if owner == label:
+                rows[f"flash_attention_bwd {lab}"]["launches"] = by_shape[shape]
+                rows[f"flash_attention_bwd {lab}"]["launches_forward"] = fwd_shapes[shape]
+        for lab, (E, C, d, f), owner in LMT_FFN_SHAPES:
+            if owner == label:
+                rows[f"expert_ffn_bwd {lab}"]["launches"] = ffn_shapes[(E, C, d, f, "bfloat16")]
         fwd_total += counts["flash_attention"]
-        out[name] = (s_per_step, peak)
+        out[label] = (s_per_step, peak)
         del params, opt, ms
         torch.cuda.empty_cache()
     rows["flash_attention"]["launches_train_lm"] = fwd_total
@@ -4688,14 +4975,14 @@ def main() -> int:
                "width and depth; 3F ran in phase 3)"):
         phase_family_smoke_card(smi)
         phase_family_full(rows, smi)
-    with phase("16 main path 12 (training the dense, hybrid, audio and VLM families: the "
-               "smoke configs cpu vs card, four at full width; their 3B lines ran in "
-               "phase 3)"):
+    with phase("16 main path 12 (training every LM family but RWKV-6: the ten smoke configs "
+               "cpu vs card, eight runs at full width; their 3B lines ran in phase 3)"):
         phase_lm_train_smoke(smi)
         phase_lm_train_full(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "launches_train_lm",
+            "launches_forward",
             "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",
             "fp32_bound_ms", "fwd_ms", "bwd_over_fwd", "parent_events_ms",

@@ -1,8 +1,10 @@
-// Backward of the grouped gated expert MLP for Hopper (sm_90a), f32:
+// Backward of the grouped gated expert MLP for Hopper (sm_90a), f32 or
+// bf16:
 //   forward  G = X Wg,  U = X Wu,  H = act(G) * U,  Y = H Wd   (per expert)
 //   backward dH = dY Wd^T,  dG = dH * U * act'(G),  dU = dH * act(G)
 //            dWd = H^T dY,  dX = dG Wg^T + dU Wu^T,  dWg = X^T dG,  dWu = X^T dU
-// X (E, C, d), Wg/Wu (E, d, f), Wd (E, f, d), dY (E, C, d), all row-major.
+// X (E, C, d), Wg/Wu (E, d, f), Wd (E, f, d), dY (E, C, d), all row-major,
+// of one dtype; dX, dWg, dWu, dWd in that dtype.
 //
 // No Pallas kernel is replaced: the JAX package trains through XLA's
 // autodiff of repro.kernels.ref (use_pallas=False), so this backward is
@@ -53,6 +55,20 @@
 // nothing from them), so they add exactly 0 to every weight gradient.
 // Ragged edges of C, d and f are zero-filled by TMA and masked in the
 // epilogues.
+//
+// bf16 (the LM MoE family's params and tokens): a first launch widens X,
+// dY, Wg, Wu and Wd into an f32 copy (a stage the caller allocates), the
+// five passes run on it as for f32 inputs, and the epilogues round each
+// gradient to bf16 once from its f32 sum.  G, U, H, dG and dU stay f32 in
+// the scratch: the reference's bf16 einsums round them, but with them in
+// f32 every step-0 gradient of the MoE smoke configs meets the bf16
+// tolerance against jax.grad with room to spare
+// (tests/test_torch_moe_train.py), so one rounding at the end it is.  A
+// bf16 value is exact in tf32, so the small parts of the widened operands
+// are 0 and a third of the wgmmas add nothing; bf16 wgmma (k16, f32
+// accumulate) on the bf16 operands would run those products at three
+// times the rate, and is later work.  The widening pass reads the inputs
+// once and writes twice their bytes.
 #include <initializer_list>
 
 #include "expert_ffn_gemm.cuh"
@@ -73,12 +89,30 @@ __device__ __forceinline__ float activation_grad(float g, int act) {
 
 struct BwdArgs {
   float* s;       // scratch (3E, f, cp): G^T, U^T, H^T; then dG^T, dU^T
-  float* dx;
-  float* dwg;
-  float* dwu;
-  float* dwd;
+  void* dx;       // the gradients, of the epilogues' output type
+  void* dwg;
+  void* dwu;
+  void* dwd;
   int E, C, d, f, cp, act;
 };
+
+// dst[i] = src[i] in f32, i < n: 16-byte pieces of 8 elements (both
+// pointers 16-byte aligned), the last n % 8 one at a time
+__global__ void widen_kernel(const __nv_bfloat16* __restrict__ src, float* __restrict__ dst,
+                             long long n) {
+  const long long n8 = n / 8;
+  const long long i0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = i0; i < n8; i += stride) {
+    const uint4 raw = reinterpret_cast<const uint4*>(src)[i];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]),
+                 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
+    reinterpret_cast<float4*>(dst)[2 * i] = make_float4(a.x, a.y, b.x, b.y);
+    reinterpret_cast<float4*>(dst)[2 * i + 1] = make_float4(c.x, c.y, e.x, e.y);
+  }
+  if (i0 < n - 8 * n8) dst[8 * n8 + i0] = __bfloat162float(src[8 * n8 + i0]);
+}
 
 // the tensor maps of one pass: A operands a0 (a1), B operands b0 (b1)
 struct Maps {
@@ -118,7 +152,8 @@ __device__ __forceinline__ void each_pair(int wgi, int q, int g, int t, Fn&& fn)
     fn(64 * wgi + 16 * q + g + 8 * ((i >> 1) & 1), 8 * (i >> 2) + 2 * t, i);
 }
 
-template <int PASS>
+// TO: the gradients' type (float or __nv_bfloat16), each rounded once
+template <int PASS, typename TO>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 bwd_wgmma_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
   using C = typename PassCfg<PASS>::type;
@@ -209,12 +244,12 @@ bwd_wgmma_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
           wg::tma_load(st + b_at, &maps.b0, bar, kt * wg::BK, n0, 2 * E + e);
         },
         [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
-          float* dWd = a.dwd + (size_t)e * f * d;
+          TO* dWd = static_cast<TO*>(a.dwd) + (size_t)e * f * d;
           each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
             const int m = m0 + r, n = n0 + c;
             if (m >= d) return;
-            if (n < f) dWd[(size_t)n * d + m] = acc[0][i];
-            if (n + 1 < f) dWd[(size_t)(n + 1) * d + m] = acc[0][i + 1];
+            if (n < f) store_f32(dWd + (size_t)n * d + m, acc[0][i]);
+            if (n + 1 < f) store_f32(dWd + (size_t)(n + 1) * d + m, acc[0][i + 1]);
           });
         });
   } else if constexpr (PASS == 3) {     // dX = dG Wg^T + dU Wu^T: (C x d)
@@ -227,7 +262,7 @@ bwd_wgmma_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
           wg::tma_load(st + b_at, up ? &maps.b1 : &maps.b0, bar, k0, n0, e);
         },
         [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
-          float* dX = a.dx + (size_t)e * Cc * d;
+          TO* dX = static_cast<TO*>(a.dx) + (size_t)e * Cc * d;
           each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
             const int m = m0 + r, n = n0 + c;
             if (m >= Cc || n >= d) return;
@@ -244,8 +279,8 @@ bwd_wgmma_kernel(const __grid_constant__ Maps maps, const BwdArgs a) {
           wg::tma_load(st + b_at + C::B_TILE, &maps.b0, bar, kt * wg::BK, n0, E + e);
         },
         [&](float (&acc)[C::NACC][C::BN / 2], int wgi, int q, int g, int t) {
-          float* dWg = a.dwg + (size_t)e * d * f;
-          float* dWu = a.dwu + (size_t)e * d * f;
+          TO* dWg = static_cast<TO*>(a.dwg) + (size_t)e * d * f;
+          TO* dWu = static_cast<TO*>(a.dwu) + (size_t)e * d * f;
           each_pair<C::BN>(wgi, q, g, t, [&](int r, int c, int i) {
             const int m = m0 + r, n = n0 + c;
             if (m >= d || n >= f) return;
@@ -300,15 +335,26 @@ bool make_map(CUtensorMap* map, const float* base, long long inner, long long ro
          CUDA_SUCCESS;
 }
 
-template <int PASS>
+template <int PASS, typename TO>
 cudaError_t launch_pass(const Maps& maps, const BwdArgs& a, int M, int N, cudaStream_t stream) {
   using C = typename PassCfg<PASS>::type;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_wgmma_kernel<PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+      bwd_wgmma_kernel<PASS, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + C::BN - 1) / C::BN, (M + wg::BM - 1) / wg::BM, a.E);
-  bwd_wgmma_kernel<PASS><<<grid, wg::THREADS, C::BYTES, stream>>>(maps, a);
+  bwd_wgmma_kernel<PASS, TO><<<grid, wg::THREADS, C::BYTES, stream>>>(maps, a);
   return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t launch_passes(const Maps (&m)[5], const BwdArgs& a, cudaStream_t s) {
+  cudaError_t err;
+  // passes 0 and 1 write only the f32 scratch
+  if ((err = launch_pass<0, float>(m[0], a, a.f, a.C, s)) != cudaSuccess) return err;
+  if ((err = launch_pass<1, float>(m[1], a, a.f, a.C, s)) != cudaSuccess) return err;
+  if ((err = launch_pass<2, TO>(m[2], a, a.d, a.f, s)) != cudaSuccess) return err;
+  if ((err = launch_pass<3, TO>(m[3], a, a.C, a.d, s)) != cudaSuccess) return err;
+  return launch_pass<4, TO>(m[4], a, a.d, a.f, s);
 }
 
 }  // namespace
@@ -316,54 +362,68 @@ cudaError_t launch_pass(const Maps& maps, const BwdArgs& a, int M, int N, cudaSt
 
 // scratch: f32 (3, E, f, cp) the caller allocates (G^T, U^T, H^T), cp >= C
 // a multiple of 4; d and f multiples of 4; every pointer 16-byte aligned;
-// C > 0.  act: 0 silu, 1 gelu.  Returns cudaErrorInvalidValue for what it
-// does not take or a tensor map it cannot encode, else the first launch
-// error, else cudaGetLastError().
+// C > 0.  dtype: 0 f32, 1 bf16 (x, w_g, w_u, w_d, dy and the gradients);
+// for bf16, stage: f32 room for 2 E C d + 3 E d f elements (the widened
+// inputs), else unused.  act: 0 silu, 1 gelu.  Returns
+// cudaErrorInvalidValue for what it does not take or a tensor map it
+// cannot encode, else the first launch error, else cudaGetLastError().
 extern "C" int dice_expert_ffn_bwd(const void* x, const void* w_g, const void* w_u,
-                                   const void* w_d, const void* dy, void* scratch, void* dx,
-                                   void* dwg, void* dwu, void* dwd, int E, int C, int d,
-                                   int f, int cp, int act, int device, void* stream) {
+                                   const void* w_d, const void* dy, void* scratch, void* stage,
+                                   void* dx, void* dwg, void* dwu, void* dwd, int E, int C,
+                                   int d, int f, int cp, int act, int dtype, int device,
+                                   void* stream) {
   using namespace dice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (E <= 0 || C <= 0 || d <= 0 || f <= 0 || d % 4 || f % 4 || cp % 4 || cp < C)
+  if (E <= 0 || C <= 0 || d <= 0 || f <= 0 || d % 4 || f % 4 || cp % 4 || cp < C ||
+      (dtype != kF32 && dtype != kBF16) || (dtype == kBF16 && stage == nullptr))
     return (int)cudaErrorInvalidValue;
-  for (const void* p : {x, w_g, w_u, w_d, dy, (const void*)scratch})
+  for (const void* p : {x, w_g, w_u, w_d, dy, (const void*)scratch, (const void*)stage})
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
-  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long cd = (long long)C * d, df = (long long)d * f, fc = (long long)f * cp;
-  Maps m0{}, m1{}, m2{}, m3{}, m4{};
+  if (dtype == kBF16) {                 // widen the five inputs into the stage
+    float* st = static_cast<float*>(stage);
+    const void* src[5] = {x, dy, w_g, w_u, w_d};
+    const long long n[5] = {E * cd, E * cd, E * df, E * df, E * df};
+    float* dst[5];
+    for (int i = 0; i < 5; ++i) {
+      dst[i] = st;
+      st += n[i];
+      const long long blocks = (n[i] / 8 + 255) / 256 + 1;
+      widen_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(src[i]), dst[i], n[i]);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    x = dst[0], dy = dst[1], w_g = dst[2], w_u = dst[3], w_d = dst[4];
+  }
+  auto F = [](const void* p) { return static_cast<const float*>(p); };
+  Maps m[5] = {};
   bool ok = true;
   // A boxes: 32 x 32 (M-major) or 32 x 128 (K-major); B boxes: 32 x BN
   const int bn0 = PassCfg<0>::type::BN, bn1 = PassCfg<1>::type::BN,
             bn2 = PassCfg<2>::type::BN, bn3 = PassCfg<3>::type::BN,
             bn4 = PassCfg<4>::type::BN;
   // pass 0: A Wg^T, Wu^T (M-major boxes of f x d), B X (rows of C)
-  ok &= make_map(&m0.a0, F(w_g), f, d, E, f, df, 32, 32);
-  ok &= make_map(&m0.a1, F(w_u), f, d, E, f, df, 32, 32);
-  ok &= make_map(&m0.b0, F(x), d, C, E, d, cd, 32, bn0);
+  ok &= make_map(&m[0].a0, F(w_g), f, d, E, f, df, 32, 32);
+  ok &= make_map(&m[0].a1, F(w_u), f, d, E, f, df, 32, 32);
+  ok &= make_map(&m[0].b0, F(x), d, C, E, d, cd, 32, bn0);
   // pass 1: A Wd (K-major rows of f), B dY
-  ok &= make_map(&m1.a0, F(w_d), d, f, E, d, (long long)f * d, 32, wg::BM);
-  ok &= make_map(&m1.b0, F(dy), d, C, E, d, cd, 32, bn1);
+  ok &= make_map(&m[1].a0, F(w_d), d, f, E, d, (long long)f * d, 32, wg::BM);
+  ok &= make_map(&m[1].b0, F(dy), d, C, E, d, cd, 32, bn1);
   // pass 2: A dY^T (M-major boxes of d x C), B H^T (rows of f, K = C)
-  ok &= make_map(&m2.a0, F(dy), d, C, E, d, cd, 32, 32);
-  ok &= make_map(&m2.b0, F(scratch), C, f, 3LL * E, cp, fc, 32, bn2);
+  ok &= make_map(&m[2].a0, F(dy), d, C, E, d, cd, 32, 32);
+  ok &= make_map(&m[2].b0, F(scratch), C, f, 3LL * E, cp, fc, 32, bn2);
   // pass 3: A dG, dU (M-major boxes of C x f), B Wg, Wu (rows of d, K = f)
-  ok &= make_map(&m3.a0, F(scratch), C, f, 3LL * E, cp, fc, 32, 32);
-  ok &= make_map(&m3.b0, F(w_g), f, d, E, f, df, 32, bn3);
-  ok &= make_map(&m3.b1, F(w_u), f, d, E, f, df, 32, bn3);
+  ok &= make_map(&m[3].a0, F(scratch), C, f, 3LL * E, cp, fc, 32, 32);
+  ok &= make_map(&m[3].b0, F(w_g), f, d, E, f, df, 32, bn3);
+  ok &= make_map(&m[3].b1, F(w_u), f, d, E, f, df, 32, bn3);
   // pass 4: A X^T (M-major boxes of d x C), B dG^T, dU^T (rows of f, K = C)
-  ok &= make_map(&m4.a0, F(x), d, C, E, d, cd, 32, 32);
-  ok &= make_map(&m4.b0, F(scratch), C, f, 3LL * E, cp, fc, 32, bn4);
+  ok &= make_map(&m[4].a0, F(x), d, C, E, d, cd, 32, 32);
+  ok &= make_map(&m[4].b0, F(scratch), C, f, 3LL * E, cp, fc, 32, bn4);
   if (!ok) return (int)cudaErrorInvalidValue;
-  const BwdArgs a{static_cast<float*>(scratch), static_cast<float*>(dx),
-                  static_cast<float*>(dwg),     static_cast<float*>(dwu),
-                  static_cast<float*>(dwd),     E, C, d, f, cp, act};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((err = launch_pass<0>(m0, a, f, C, s)) != cudaSuccess) return (int)err;
-  if ((err = launch_pass<1>(m1, a, f, C, s)) != cudaSuccess) return (int)err;
-  if ((err = launch_pass<2>(m2, a, d, f, s)) != cudaSuccess) return (int)err;
-  if ((err = launch_pass<3>(m3, a, C, d, s)) != cudaSuccess) return (int)err;
-  if ((err = launch_pass<4>(m4, a, d, f, s)) != cudaSuccess) return (int)err;
+  const BwdArgs a{static_cast<float*>(scratch), dx, dwg, dwu, dwd, E, C, d, f, cp, act};
+  err = dtype == kF32 ? launch_passes<float>(m, a, s) : launch_passes<__nv_bfloat16>(m, a, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

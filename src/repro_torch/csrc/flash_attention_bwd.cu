@@ -1,606 +1,31 @@
-// Backward of GQA attention for Hopper (sm_90a), f32 or bf16, causal or
-// not, on the tensor cores, in the standard recompute form:
-//   q (B, Sq, H, Dh), k/v (B, Sk, KVH, Dh), dO (B, Sq, H, Dh), read through
-//   strides (head dim contiguous), query head h reading kv head h / G with
-//   G = H / KVH; o (B, Sq, H, Dh) the forward's f32 output (for bf16 inputs
-//   the unrounded one, flash_attention.cu's o32) and lse (B, H, Sq) f32;
-//   dq (B, Sq, H, Dh), dk/dv (B, Sk, KVH, Dh) contiguous, in the inputs'
-//   dtype.  With scale = 1/sqrt(Dh), S = (q k^T) scale, P = exp(S - lse)
-//   (0 where causal drops key j > query i), D = rowsum(dO * O):
-//     dV = P^T dO,  dS = P (dO V^T - D),  dQ = dS K scale,  dK = dS^T Q scale
-//   dK and dV of a kv head are summed over its G query heads.
-//
-// No Pallas kernel is replaced: the JAX package trains through XLA's
-// autodiff of repro.models.layers.attention (jnp, in f32 whatever the
-// inputs' dtype, rounded once at the end), so this is written for Hopper
-// from the formulas, with the reference's rounding points: every product
-// and sum in f32, D from the f32 output (the reference's sum of P dP;
-// with the bf16 output 19% of bf16 dq and dk elements land elsewhere),
-// dq/dk/dv rounded to bf16 once.  The wrapper (kernels/ops.py) raises for
-// a window, a softcap, KV-cache masks and Dh > 128.
-//
-// Bound: at the DiT-MoE-XL shape (8, 256, 16, 72) f32 the five products
-// are 6.04e9 FLOP against 75 MB, so operations bound it: 0.0366 ms at
-// 3xTF32 on the tensor cores (0.090 ms on the FP32 cores).  At the LM
-// training shapes in bf16 (qwen3-32b's (8, 128, 64 over 8, 128), causal)
-// the bytes of q, k, v, o, dO and the gradients are of the same order as
-// the work over the tensor cores' peak; chip_smoke.py 3B prints both.
-// The kernels do seven products (S and dP are formed in both).  Every
-// product runs as mma.sync m16n8k8 with tf32 operands (tf32_mma.cuh), with
-// the forward's building blocks:
-//   1. flash_bwd_dq: a block of 4 warps owns 64 queries of one (b, h);
-//      each warp owns 16 of them, the m16 of the mma.  It first sums
-//      D = rowsum(dO * O) for its rows from device memory and stores it
-//      (the dK/dV launch reads it), then loops over the keys in tiles of
-//      32 on a 2-stage cp.async ring of K and V (of kv head h / G):
-//      S = Q K^T and dP = dO V^T in register fragments, P and dS formed in
-//      the accumulator registers, dQ += dS K with dS taken straight from
-//      them as A fragments.  Causal: the key tiles whose first key lies
-//      past the block's last query are skipped.
-//   2. flash_bwd_dkdv: the same with keys as the m rows: a block owns 64
-//      keys of one (b, kv head), a warp 16, and loops over the kv head's G
-//      query heads and, for each, over its queries on a ring of Q, dO, lse
-//      and D (one ring across the heads, so the prefetch runs on from one
-//      head to the next); S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and
-//      dK += dS^T Q from the accumulator registers, which carry across the
-//      heads.  Causal: the query tiles whose last query lies before the
-//      block's first key are skipped.
-//   - The scale multiplies the S accumulators, not the q (or k) operand:
-//     bf16 q and k are exact in TF32, so for bf16 inputs S and dP are one
-//     TF32 pass of exact products with f32 sums, and dV, dK and dQ, whose
-//     f32 P or dS operand is split 3xTF32-wise, two passes (the bf16 side
-//     has no small part); f32 inputs take all three passes everywhere.
-//     Shared memory holds the inputs in their dtype (16-byte cp.async
-//     pieces), converted to f32 as the fragments are formed.
-//   - P and dS become A fragments with no shuffle and no staging through
-//     the forward's trick: the 8 columns of each k-step are taken in the
-//     order 0, 2, 4, 6 | 1, 3, 5, 7, which turns the C-fragment layout
-//     into the A-fragment layout; the B fragments of that step read rows
-//     2t and 2t + 1 (flash_attention.cu).
-//   - What the card's time goes to is the split, not the mma: a
-//     cvt.rna.tf32.f32 is four instructions (cuobjdump -sass), so the cvt
-//     split (two cvts and a subtraction) was nine instructions a value
-//     and 2.5x as many as the mmas.  The split here is tf32_mma.cuh's
-//     FastFrag: the same big part by two integer instructions, the small
-//     part truncated, four in all.  The two products that share the A rows
-//     are interleaved (S with dP, dV with dK) and each pass goes over all
-//     their accumulators before the next, so dependent mmas are 8 (S) or
-//     6 to 8 (dV/dK) apart.  Shared rows are Dh padded to 8 NT plus 16
-//     bytes, a compile-time stride, so fragment addresses are immediate
-//     offsets and the fragment loads, rows g / columns t and rows 2t /
-//     columns g alike, spread over the banks.  On an H100 SXM
-//     (launch/kernel_variants.py) the XL shape took 0.28 ms with this split
-//     and 0.40 ms with the cvt split; one TF32 pass, not f32-accurate,
-//     would take 0.17.
-//   - D is folded into the dQ launch, which reads O once more and saves a
-//     third launch that would read O and dO once more and wait its turn on
-//     the stream.
-//   - The register tiles are sized by a template argument NT (8-wide Dh
-//     tiles: 4, 8, 9, 12 or 16 in f32; 4, 8 or 16 in bf16), so the dK and
-//     dV accumulators (2 x NT x 4 floats a thread) stay in registers;
-//     Dh = 64 runs at NT = 8, 72 at 9, 88 at 12, 112 and 128 at 16
-//     (chip_smoke.py 3B prints ptxas's registers and spills of each).
-//   - No atomics: every output element is summed by one thread in a fixed
-//     order (a kv head's query heads in turn), so two runs agree bit for
-//     bit.
-//   - Keys past Sk, queries past Sq and pairs the causal mask drops get
-//     P = 0 and dS = 0 by selection, so a NaN query row gives NaN exactly
-//     where the plain version has it.
-#include <type_traits>
-
-#include "common.cuh"
-#include "tf32_mma.cuh"
-
-namespace dice {
-namespace {
-
-// Tiling.  The defaults are the port's; launch/kernel_variants.py builds
-// the other values with -D and times them against these: blocks of
-// DICE_FLASH_BWD_WARPS warps, streamed tiles of DICE_FLASH_BWD_TILE rows.
-#ifndef DICE_FLASH_BWD_WARPS
-#define DICE_FLASH_BWD_WARPS 4
-#endif
-#ifndef DICE_FLASH_BWD_TILE
-#define DICE_FLASH_BWD_TILE 32
-#endif
-constexpr int WARPS = DICE_FLASH_BWD_WARPS;   // warps a block, 16 owned rows each
-constexpr int BM = 16 * WARPS;          // rows a block owns
-constexpr int BT = DICE_FLASH_BWD_TILE; // rows of a streamed tile
-constexpr int SN = BT / 8;              // 8-wide tiles of S across a tile
-constexpr int STAGES = 2;               // ring depth
-constexpr bool SPLIT_F = kSplit<float>; // P and dS: 3xTF32 (one pass with DICE_TF32_ONE_PASS)
-
-// the 3xTF32 split: tf32_mma.cuh's FastFrag, or with -DDICE_BWD_CVT_SPLIT
-// its cvt.rna Frag (launch/kernel_variants.py times the two)
-#ifdef DICE_BWD_CVT_SPLIT
-template <bool S, int N>
-using BwdFrag = Frag<S, N>;
-#else
-template <bool S, int N>
-using BwdFrag = FastFrag<S, N>;
-#endif
-
-struct Strides {
-  long long b, s, h;
-};
-
-// elements a shared row: Dh padded to the head-dim class's 8 NT, plus 16
-// bytes; a compile-time constant, so every fragment address folds into
-// the load's immediate offset
-template <typename T, int NT>
-constexpr int LD = 8 * NT + 16 / (int)sizeof(T);
-
-// shared bytes: the owned rows of two tensors and a ring of two streamed
-// tensors in the inputs' dtype, then two f32 per-row vectors (lse, D) for
-// each stage
-template <typename T, int NT>
-constexpr size_t SMEM_BYTES = sizeof(T) * (size_t)(2 * BM + STAGES * 2 * BT) * LD<T, NT> +
-                              sizeof(float) * STAGES * 2 * BT;
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
-}
-
-// rows x 8 NT of a (B, S, heads, Dh) tensor (positions pos0 ...) into
-// shared memory, zero past S and past Dh.  vec: every row is 16-byte
-// aligned, so 16-byte cp.async pieces.
-template <typename T, int NT>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ss, int pos0,
-                                          int rows, int S, int Dh, bool vec) {
-  constexpr int dp = 8 * NT, ld = LD<T, NT>, VE = 16 / (int)sizeof(T);
-  if (vec) {
-    constexpr int cpr = dp / VE;
-    for (int idx = threadIdx.x; idx < rows * cpr; idx += WARPS * 32) {
-      const int r = idx / cpr, d0 = (idx % cpr) * VE;
-      const int p = pos0 + r;
-      const int n = p < S ? max(0, min(VE, Dh - d0)) : 0;
-      cp_async16(dst + r * ld + d0, n > 0 ? src + p * ss + d0 : src, n * (int)sizeof(T));
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * dp; idx += WARPS * 32) {
-      const int r = idx / dp, dd = idx % dp;
-      const int p = pos0 + r;
-      store_f32(dst + r * ld + dd, p < S && dd < Dh ? load_f32(src + p * ss + dd) : 0.0f);
-    }
-  }
-}
-
-// n values of a per-row (B, H, Sq) vector from pos0, zero past Sq
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int pos0, int n,
-                                         int S) {
-  for (int i = threadIdx.x; i < n; i += WARPS * 32) {
-    const int p = pos0 + i;
-    cp_async4(dst + i, p < S ? src + p : src, p < S ? 4 : 0);
-  }
-}
-
-// acc1[j] += A1 B1^T and acc2[j] += A2 B2^T over Dh, two S-like products
-// at once: A (16 x 8 at kk of this warp's rows) and B (rows j * 8 ... of a
-// tile) row-major in shared memory, both of the inputs' dtype T (exact in
-// TF32 for bf16: one pass).  Per k-step every fragment is formed first,
-// then each pass goes over all 2 SN accumulators, so that dependent mmas
-// are 2 SN apart.
-template <typename T, int NT>
-__device__ __forceinline__ void rows_by_rows(float (&acc1)[SN][4], const T* a1, const T* b1,
-                                             float (&acc2)[SN][4], const T* a2, const T* b2,
-                                             int nd) {
-  constexpr int ld = LD<T, NT>;
-  constexpr bool SP = kSplit<T>;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < NT; ++kk) {
-    if (kk < nd) {
-      BwdFrag<SP, 4> af1, af2;
-      const T* ap1 = a1 + g * ld + kk * 8 + t;
-      const T* ap2 = a2 + g * ld + kk * 8 + t;
-      af1.set(0, load_f32(ap1));
-      af1.set(1, load_f32(ap1 + 8 * ld));
-      af1.set(2, load_f32(ap1 + 4));
-      af1.set(3, load_f32(ap1 + 8 * ld + 4));
-      af2.set(0, load_f32(ap2));
-      af2.set(1, load_f32(ap2 + 8 * ld));
-      af2.set(2, load_f32(ap2 + 4));
-      af2.set(3, load_f32(ap2 + 8 * ld + 4));
-      BwdFrag<SP, 2> bf1[SN], bf2[SN];
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        const int o = (j * 8 + g) * ld + kk * 8 + t;
-        bf1[j].set(0, load_f32(b1 + o));
-        bf1[j].set(1, load_f32(b1 + o + 4));
-        bf2[j].set(0, load_f32(b2 + o));
-        bf2[j].set(1, load_f32(b2 + o + 4));
-      }
-      if constexpr (SP) {
-#pragma unroll
-        for (int j = 0; j < SN; ++j) {
-          mma_tf32(acc1[j], af1.small, bf1[j].big);
-          mma_tf32(acc2[j], af2.small, bf2[j].big);
-        }
-#pragma unroll
-        for (int j = 0; j < SN; ++j) {
-          mma_tf32(acc1[j], af1.big, bf1[j].small);
-          mma_tf32(acc2[j], af2.big, bf2[j].small);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < SN; ++j) {
-        mma_tf32(acc1[j], af1.big, bf1[j].big);
-        mma_tf32(acc2[j], af2.big, bf2[j].big);
-      }
-    }
-  }
-}
-
-// the A fragment of k-step kk of X (16 x BT, in C-fragment registers):
-// its 8 columns in the order 0, 2, 4, 6 | 1, 3, 5, 7
-__device__ __forceinline__ BwdFrag<SPLIT_F, 4> regs_frag(const float (&x)[SN][4], int kk) {
-  BwdFrag<SPLIT_F, 4> af;
-  af.set(0, x[kk][0]);
-  af.set(1, x[kk][2]);
-  af.set(2, x[kk][1]);
-  af.set(3, x[kk][3]);
-  return af;
-}
-
-// acc1[n] += X1 Y1 (and, with TWO, acc2[n] += X2 Y2): X (16 x BT, f32) in
-// C-fragment registers, Y (BT x Dh, of dtype T) row-major in shared
-// memory; dV/dK/dQ-like products over a tile's rows.  The B fragments of
-// k-step kk read rows kk * 8 + 2t and 2t + 1, the order of regs_frag's
-// columns.  Dh tiles go in chunks of CH: a chunk's fragments are formed
-// first, then the passes go over its accumulators, dependent mmas CH (2
-// CH) apart.  Passes: X small x Y big, X big x Y small (f32 Y only), X big
-// x Y big.
-template <typename T, int NT, int CH, bool TWO>
-__device__ __forceinline__ void regs_by_rows(float (&acc1)[NT][4], const float (&x1)[SN][4],
-                                             const T* y1, float (&acc2)[NT][4],
-                                             const float (&x2)[SN][4], const T* y2, int nd) {
-  constexpr int ld = LD<T, NT>;
-  constexpr bool SB = kSplit<T>;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < SN; ++kk) {
-    const BwdFrag<SPLIT_F, 4> af1 = regs_frag(x1, kk);
-    BwdFrag<SPLIT_F, 4> af2;
-    if constexpr (TWO) af2 = regs_frag(x2, kk);
-    const int row = (kk * 8 + 2 * t) * ld + g;
-#pragma unroll
-    for (int n0 = 0; n0 < NT; n0 += CH) {
-      BwdFrag<SB, 2> bf1[CH], bf2[CH];
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int n = n0 + c;
-        if (n < NT && n < nd) {
-          bf1[c].set(0, load_f32(y1 + row + n * 8));
-          bf1[c].set(1, load_f32(y1 + row + ld + n * 8));
-          if constexpr (TWO) {
-            bf2[c].set(0, load_f32(y2 + row + n * 8));
-            bf2[c].set(1, load_f32(y2 + row + ld + n * 8));
-          }
-        }
-      }
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass) {
-        if ((pass == 0 && !SPLIT_F) || (pass == 1 && !SB)) continue;
-#pragma unroll
-        for (int c = 0; c < CH; ++c) {
-          const int n = n0 + c;
-          if (n < NT && n < nd) {
-            const uint32_t(&a1)[4] = pass == 0 ? af1.small : af1.big;
-            const uint32_t(&b1)[2] = pass == 1 ? bf1[c].small : bf1[c].big;
-            mma_tf32(acc1[n], a1, b1);
-            if constexpr (TWO) {
-              const uint32_t(&a2)[4] = pass == 0 ? af2.small : af2.big;
-              const uint32_t(&b2)[2] = pass == 1 ? bf2[c].small : bf2[c].big;
-              mma_tf32(acc2[n], a2, b2);
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-}
-
-// dst (B, S, heads, Dh) contiguous rows row0 + g (+ 8) of this warp's
-// accumulators, times mul, rounded once to T, up to S and Dh
-template <typename T, int NT>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[NT][4], int b, int hh,
-                                           int row0, int S, int heads, int Dh, float mul) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int p = row0 + g + half * 8;
-    if (p >= S) continue;
-    T* base = dst + (((size_t)b * S + p) * heads + hh) * Dh;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int dd = n * 8 + 2 * t + c;
-        if (dd < Dh) store_f32(base + dd, acc[n][2 * half + c] * mul);
-      }
-  }
-}
-
-struct Dims {
-  int Sq, Sk, H, KVH, Dh, causal, aligned;   // aligned bit 0: q, 1: k, 2: v, 3: dO rows
-};
-
-template <typename T, int NT>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ o,
-                    const T* __restrict__ dO, const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq, Dims dm, Strides qs,
-                    Strides ks, Strides vs, Strides os, Strides dos, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = LD<T, NT>;
-  const int Sq = dm.Sq, Sk = dm.Sk, H = dm.H, Dh = dm.Dh;
-  const int nd = (Dh + 7) / 8;
-  T* Qs = reinterpret_cast<T*>(smem);   // BM x ld
-  T* dOs = Qs + BM * ld;
-  T* ring = dOs + BM * ld;              // STAGES x {K, V}, BT x ld each
-  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
-  const int kvh = hh / (H / dm.KVH);
-  const int q0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  // causal: tiles whose first key lies past the block's last query hold
-  // no kept pair
-  const int ntiles = dm.causal ? min((Sk + BT - 1) / BT, (min(q0 + BM, Sq) - 1) / BT + 1)
-                               : (Sk + BT - 1) / BT;
-  auto load_stage = [&](int stage, int kt) {
-    T* st = ring + stage * 2 * BT * ld;
-    load_rows<T, NT>(st, kb, ks.s, kt * BT, BT, Sk, Dh, dm.aligned & 2);
-    load_rows<T, NT>(st + BT * ld, vb, vs.s, kt * BT, BT, Sk, Dh, dm.aligned & 4);
-  };
-  load_rows<T, NT>(Qs, q + b * qs.b + hh * qs.h, qs.s, q0, BM, Sq, Dh, dm.aligned & 1);
-  load_rows<T, NT>(dOs, dO + b * dos.b + hh * dos.h, dos.s, q0, BM, Sq, Dh, dm.aligned & 8);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ntiles) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  // D for this warp's 16 rows, from device memory while the tiles land:
-  // lanes 2r and 2r + 1 sum the even and odd dims of row r
-  const int row0 = q0 + warp * 16;
-  float dl[2], ls[2] = {0.0f, 0.0f};
-  {
-    const int p = row0 + lane / 2;
-    float sum = 0.0f;
-    if (p < Sq) {
-      const float* orow = o + b * os.b + p * os.s + hh * os.h;
-      const T* drow = dO + b * dos.b + p * dos.s + hh * dos.h;
-#pragma unroll 4
-      for (int dd = lane & 1; dd < Dh; dd += 2) sum += orow[dd] * load_f32(drow + dd);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (p < Sq && (lane & 1) == 0) delta[(size_t)bh * Sq + p] = sum;
-    dl[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
-    dl[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int p = row0 + g + half * 8;
-    if (p < Sq) ls[half] = lse[(size_t)bh * Sq + p];
-  }
-
-  float acc[NT][4];
-  zero(acc);
-  const T* qa = Qs + warp * 16 * ld;
-  const T* da = dOs + warp * 16 * ld;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();                    // tile kt landed; tile kt - 1 consumed
-    {
-      const int nk = kt + STAGES - 1;
-      if (nk < ntiles) load_stage(nk % STAGES, nk);
-      cp_async_commit();
-    }
-    const T* Kt = ring + (kt % STAGES) * 2 * BT * ld;
-    const T* Vt = Kt + BT * ld;
-    float s[SN][4], dpv[SN][4];
-    zero(s);
-    zero(dpv);
-    rows_by_rows<T, NT>(s, qa, Kt, dpv, da, Vt, nd);
-#pragma unroll
-    for (int j = 0; j < SN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int pq = row0 + g + (e >> 1) * 8;
-        const int pk = kt * BT + j * 8 + 2 * t + (e & 1);
-        const bool in = pq < Sq && pk < Sk && (!dm.causal || pq >= pk);
-        const float p = in ? expf(s[j][e] * scale - ls[e >> 1]) : 0.0f;
-        s[j][e] = in ? p * (dpv[j][e] - dl[e >> 1]) : 0.0f;    // dS
-      }
-    regs_by_rows<T, NT, (NT < 8 ? NT : 8), false>(acc, s, Kt, acc, s, Kt, nd);
-  }
-  store_rows<T, NT>(dq, acc, b, hh, row0, Sq, H, Dh, scale);
-}
-
-template <typename T, int NT>
-__global__ void __launch_bounds__(WARPS * 32)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dO,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, Dims dm, Strides qs, Strides ks,
-                      Strides vs, Strides dos, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int ld = LD<T, NT>;
-  const int Sq = dm.Sq, Sk = dm.Sk, H = dm.H, KVH = dm.KVH, Dh = dm.Dh;
-  const int nd = (Dh + 7) / 8;
-  T* Ks = reinterpret_cast<T*>(smem);   // BM x ld
-  T* Vs = Ks + BM * ld;
-  T* ring = Vs + BM * ld;               // STAGES x {Q, dO}, BT x ld each
-  float* vecs = reinterpret_cast<float*>(ring + STAGES * 2 * BT * ld);  // STAGES x {lse, D}
-  const int bk = blockIdx.y, b = bk / KVH, kvh = bk % KVH, G = H / KVH;
-  const int k0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  // causal: query tiles whose last query lies before the block's first
-  // key hold no kept pair; the same tiles for each of the G query heads,
-  // walked as one sequence i = head * nqt + tile
-  const int nq_all = (Sq + BT - 1) / BT;
-  const int qt0 = dm.causal ? min(k0 / BT, nq_all) : 0;
-  const int nqt = nq_all - qt0;
-  const int ntiles = G * nqt;
-  auto load_stage = [&](int stage, int i) {
-    const int hh = kvh * G + i / nqt, qt = qt0 + i % nqt;
-    const size_t bh = (size_t)b * H + hh;
-    T* st = ring + stage * 2 * BT * ld;
-    load_rows<T, NT>(st, q + b * qs.b + hh * qs.h, qs.s, qt * BT, BT, Sq, Dh, dm.aligned & 1);
-    load_rows<T, NT>(st + BT * ld, dO + b * dos.b + hh * dos.h, dos.s, qt * BT, BT, Sq, Dh,
-                     dm.aligned & 8);
-    load_vec(vecs + stage * 2 * BT, lse + bh * Sq, qt * BT, BT, Sq);
-    load_vec(vecs + stage * 2 * BT + BT, delta + bh * Sq, qt * BT, BT, Sq);
-  };
-  load_rows<T, NT>(Ks, k + b * ks.b + kvh * ks.h, ks.s, k0, BM, Sk, Dh, dm.aligned & 2);
-  load_rows<T, NT>(Vs, v + b * vs.b + kvh * vs.h, vs.s, k0, BM, Sk, Dh, dm.aligned & 4);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ntiles) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  float adk[NT][4], adv[NT][4];
-  zero(adk);
-  zero(adv);
-  const int row0 = k0 + warp * 16;
-  const T* ka = Ks + warp * 16 * ld;
-  const T* va = Vs + warp * 16 * ld;
-  for (int i = 0; i < ntiles; ++i) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();                    // tile i landed; tile i - 1 consumed
-    {
-      const int ni = i + STAGES - 1;
-      if (ni < ntiles) load_stage(ni % STAGES, ni);
-      cp_async_commit();
-    }
-    const int qt = qt0 + i % nqt;
-    const T* Qt = ring + (i % STAGES) * 2 * BT * ld;
-    const T* dOt = Qt + BT * ld;
-    const float* lse_s = vecs + (i % STAGES) * 2 * BT;
-    const float* del_s = lse_s + BT;
-    // S^T = K Q^T and dP^T = V dO^T: keys x queries
-    float st[SN][4], dpt[SN][4];
-    zero(st);
-    zero(dpt);
-    rows_by_rows<T, NT>(st, ka, Qt, dpt, va, dOt, nd);
-#pragma unroll
-    for (int j = 0; j < SN; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int pk = row0 + g + (e >> 1) * 8;
-        const int jq = j * 8 + 2 * t + (e & 1);
-        const int pq = qt * BT + jq;
-        const bool in = pk < Sk && pq < Sq && (!dm.causal || pq >= pk);
-        const float p = in ? expf(st[j][e] * scale - lse_s[jq]) : 0.0f;
-        st[j][e] = p;                                           // P^T
-        dpt[j][e] = in ? p * (dpt[j][e] - del_s[jq]) : 0.0f;    // dS^T
-      }
-    regs_by_rows<T, NT, (NT % 4 == 0 ? 4 : 3), true>(adv, st, dOt, adk, dpt, Qt, nd);
-  }
-  store_rows<T, NT>(dk, adk, b, kvh, row0, Sk, KVH, Dh, scale);
-  store_rows<T, NT>(dv, adv, b, kvh, row0, Sk, KVH, Dh, 1.0f);
-}
-
-template <typename T, int NT>
-cudaError_t launch_nt(const void* q, const void* k, const void* v, const float* o,
-                      const float* lse, const void* dO, float* delta, void* dq, void* dk,
-                      void* dv, int B, Dims dm, Strides qs, Strides ks, Strides vs, Strides os,
-                      Strides dos, cudaStream_t stream) {
-  const size_t smem = SMEM_BYTES<T, NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, NT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long es = sizeof(T);
-  auto vec = [&](const void* p, Strides st) {
-    return int(rows_16b_aligned(p, st.b * es) && st.s * es % 16 == 0 && st.h * es % 16 == 0);
-  };
-  dm.aligned = vec(q, qs) | vec(k, ks) << 1 | vec(v, vs) << 2 | vec(dO, dos) << 3;
-  const float scale = (float)(1.0 / sqrt((double)dm.Dh));
-  auto in = [](const void* p) { return static_cast<const T*>(p); };
-  auto out = [](void* p) { return static_cast<T*>(p); };
-  // dQ first: it stores D, which the dK/dV launch reads
-  flash_bwd_dq_kernel<T, NT>
-      <<<dim3((dm.Sq + BM - 1) / BM, B * dm.H), WARPS * 32, smem, stream>>>(
-          in(q), in(k), in(v), o, in(dO), lse, delta, out(dq), dm, qs, ks, vs, os, dos, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<T, NT>
-      <<<dim3((dm.Sk + BM - 1) / BM, B * dm.KVH), WARPS * 32, smem, stream>>>(
-          in(q), in(k), in(v), in(dO), lse, delta, out(dk), out(dv), dm, qs, ks, vs, dos,
-          scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* o,
-                   const float* lse, const void* dO, float* delta, void* dq, void* dk, void* dv,
-                   int B, Dims dm, Strides qs, Strides ks, Strides vs, Strides os, Strides dos,
-                   cudaStream_t stream) {
-  auto run = [&](auto nt) {
-    constexpr int NT = decltype(nt)::value;
-    return launch_nt<T, NT>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, dm, qs, ks, vs, os,
-                            dos, stream);
-  };
-  const int nd = (dm.Dh + 7) / 8;
-  if (nd <= 4) return run(std::integral_constant<int, 4>{});
-  if (nd <= 8) return run(std::integral_constant<int, 8>{});
-  if constexpr (std::is_same<T, float>::value) {   // the DiT's Dh 72 and 88
-    if (nd <= 9) return run(std::integral_constant<int, 9>{});
-    if (nd <= 12) return run(std::integral_constant<int, 12>{});
-  }
-  return run(std::integral_constant<int, 16>{});
-}
-
-}  // namespace
-}  // namespace dice
+// Backward of GQA attention for Hopper (sm_90a) without a window or a
+// softcap: the instances of flash_attention_bwd.cuh (the design and its
+// bound are described there) with MASKS off.  The instances with the
+// window and softcap masks are built from flash_attention_bwd_masked.cu,
+// a translation unit of their own, so nvcc compiles the two in parallel.
+#include "flash_attention_bwd.cuh"
 
 // Strides in elements (batch, sequence, head) of q, k, v, o and dO; dq
 // (B, Sq, H, Dh), dk and dv (B, Sk, KVH, Dh) are written contiguous in the
 // inputs' dtype; o and lse are f32; delta: f32 (B, H, Sq) scratch.  H a
-// multiple of KVH, Dh in [1, 128]; causal: query i drops every key j > i.
-// dtype: 0 f32, 1 bf16 (q, k, v, dO, dq, dk, dv).  Returns the
-// first launch error, else cudaGetLastError().
+// multiple of KVH, Dh in [1, 256]; causal: query i drops every key j > i;
+// has_window: query i drops every key j with i - j >= window (window >= 0);
+// has_softcap: the logits are capped as softcap * tanh(x / softcap)
+// (softcap > 0).  dtype: 0 f32, 1 bf16 (q, k, v, dO, dq, dk, dv).  Returns
+// the first launch error, else cudaGetLastError().  This entry point
+// takes no window and no softcap (cudaErrorInvalidValue);
+// dice_flash_attention_bwd_masked (flash_attention_bwd_masked.cu) takes
+// them.
 extern "C" int dice_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* lse,
     const void* dO, void* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
     int KVH, int Dh, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh, long long do_sb, long long do_ss,
-    long long do_sh, int causal, int dtype, int device, void* stream) {
-  using namespace dice;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (KVH <= 0 || H % KVH || Dh <= 0 || Dh > 128) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0) return (int)cudaGetLastError();
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
-      os{o_sb, o_ss, o_sh}, dos{do_sb, do_ss, do_sh};
-  const Dims dm{Sq, Sk, H, KVH, Dh, causal != 0, 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* of = static_cast<const float*>(o);
-  const float* lf = static_cast<const float*>(lse);
-  float* df = static_cast<float*>(delta);
-  if (dtype == kF32)
-    err = launch<float>(q, k, v, of, lf, dO, df, dq, dk, dv, B, dm, qs, ks, vs, os, dos, s);
-  else
-    err = launch<__nv_bfloat16>(q, k, v, of, lf, dO, df, dq, dk, dv, B, dm, qs, ks, vs, os,
-                                dos, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+    long long do_sh, int causal, int has_window, int window, int has_softcap, float softcap,
+    int dtype, int device, void* stream) {
+  return dice::run_bwd<false>(q, k, v, o, lse, dO, delta, dq, dk, dv, B, Sq, Sk, H, KVH, Dh,
+                              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,
+                              o_sh, do_sb, do_ss, do_sh, causal, has_window, window,
+                              has_softcap, softcap, dtype, device, stream);
 }

@@ -32,8 +32,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("expert_ffn.cu", "flash_attention.cu", "residual_int8.cu",
            "rwkv6_scan.cu", "paced_copy.cu", "expert_ffn_bwd.cu",
-           "flash_attention_bwd.cu", "rwkv6_scan_bwd.cu")
-HEADERS = ("common.cuh", "tf32_mma.cuh", "expert_ffn_gemm.cuh", "expert_ffn_wgmma.cuh")
+           "flash_attention_bwd.cu", "flash_attention_bwd_masked.cu", "rwkv6_scan_bwd.cu")
+HEADERS = ("common.cuh", "tf32_mma.cuh", "expert_ffn_gemm.cuh", "expert_ffn_wgmma.cuh",
+           "flash_attention_bwd.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdice_kernels.so"
@@ -46,8 +47,11 @@ SIGNATURES = {
     "dice_expert_ffn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dice_flash_attention": [_P] * 7 + [_I] * 7 + [_L] * 12
     + [_I] * 5 + [_F, _I, _I, _P],
-    "dice_expert_ffn_bwd": [_P] * 10 + [_I] * 7 + [_P],
-    "dice_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 3 + [_P],
+    "dice_expert_ffn_bwd": [_P] * 11 + [_I] * 8 + [_P],
+    "dice_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_F]
+    + [_I] * 2 + [_P],
+    "dice_flash_attention_bwd_masked": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_F]
+    + [_I] * 2 + [_P],
     "dice_residual_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dice_rwkv6_scan": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I] * 4 + [_P],
     "dice_rwkv6_scan_bwd": [_P] * 15 + [_I] * 4 + [_L] * 15 + [_I] * 4 + [_P],
@@ -157,16 +161,20 @@ def library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 
 _KERNEL = re.compile(r"(gate_up|down|bwd_wgmma|flash_bwd_dkdv|flash_bwd_dq|flash"
                      r"|residual_int8_loop|residual_int8|rwkv6_scan_bwd_finish"
-                     r"|rwkv6_scan_bwd|rwkv6_scan)_kernel"
-                     r"(?:I(f|13__nv_bfloat16)?(?:Li(\d+)E)?)?")
+                     r"|rwkv6_scan_bwd|rwkv6_scan|widen)_kernel"
+                     r"(?:I(f|13__nv_bfloat16)?(?:Li(\d+)E)?(f|13__nv_bfloat16)?(Lb1E)?)?")
 _DTYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}   # mangled template arguments
 
 
 def _kernel_label(mangled: str) -> str:
+    """``name<dtype, int, dtype, masks>`` of a kernel's mangled symbol,
+    with the template arguments it has (``bwd_wgmma<2, bf16>``; a trailing
+    ``true``: ``flash_bwd_dq<bf16, 32, masks>``)."""
     m = _KERNEL.search(mangled)
     if m is None:
         return ""
-    args = ", ".join(a for a in (_DTYPES.get(m[2]), m[3]) if a)
+    args = ", ".join(a for a in (_DTYPES.get(m[2]), m[3], _DTYPES.get(m[4]),
+                                 "masks" if m[5] else None) if a)
     return f"{m[1]}<{args}>" if args else m[1]
 
 

@@ -10,8 +10,9 @@ if ``cudaGetLastError`` reports a fault.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
 count), so a run can show that its path went through the kernels;
-``FLASH_BWD_SHAPES`` splits ``flash_attention_bwd``'s by (B, Sq, Sk, H,
-KVH, Dh, causal).
+``FLASH_SHAPES`` and ``FLASH_BWD_SHAPES`` split ``flash_attention``'s and
+``flash_attention_bwd``'s by (B, Sq, Sk, H, KVH, Dh, causal, window,
+softcap), ``FFN_BWD_SHAPES`` ``expert_ffn_bwd``'s by (E, C, d, f, dtype).
 
 Training: ``expert_ffn``, ``flash_attention`` and ``rwkv6_scan`` go
 through the ``torch.autograd.Function``s :class:`ExpertFFNFn`,
@@ -36,20 +37,33 @@ LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
                             "residual_int8": 0, "rwkv6_scan": 0,
                             "expert_ffn_bwd": 0, "flash_attention_bwd": 0,
                             "rwkv6_scan_bwd": 0}
-FLASH_BWD_SHAPES: Dict[Tuple[int, int, int, int, int, int, bool], int] = {}
+FLASH_SHAPES: Dict[tuple, int] = {}
+FLASH_BWD_SHAPES: Dict[tuple, int] = {}
+FFN_BWD_SHAPES: Dict[tuple, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"silu": 0, "gelu": 1}
 MAX_HEAD_DIM = 256
 _INT32_MAX = 2 ** 31 - 1
-MAX_BWD_HEAD_DIM = 128
 RWKV6_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    FLASH_BWD_SHAPES.clear()
+    for counts in (FLASH_SHAPES, FLASH_BWD_SHAPES, FFN_BWD_SHAPES):
+        counts.clear()
+
+
+def _count(counts: Dict[tuple, int], key: tuple) -> None:
+    counts[key] = counts.get(key, 0) + 1
+
+
+def _flash_shape(q, k, causal, window, softcap) -> tuple:
+    """The key of ``FLASH_SHAPES`` and ``FLASH_BWD_SHAPES``: (B, Sq, Sk, H,
+    KVH, Dh, causal, window, softcap)."""
+    B, Sq, H, Dh = q.shape
+    return (B, Sq, k.shape[1], H, k.shape[2], Dh, bool(causal), window, softcap)
 
 
 def _check_cuda(name: str, tensors) -> int:
@@ -185,16 +199,15 @@ def _check_masks(q, k, q_offset, k_pos, window) -> None:
 def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
                          q_offset=0, k_pos=None, one_sided_window=False,
                          out=None, want_lse: bool = False):
-    """(o, lse, o32).  With ``want_lse`` (no window, softcap or KV-cache
-    masks: what the backward takes) ``lse`` is the (B, H, Sq) f32 row
-    log-sum-exp of the scaled logits and ``o32`` the output unrounded in
-    f32 (``o`` itself for f32 inputs), the backward's D = rowsum(dO * O);
-    else both are None.  The kernel's output is the same with or without
+    """(o, lse, o32).  With ``want_lse`` (no KV-cache masks: what the
+    backward takes) ``lse`` is the (B, H, Sq) f32 row log-sum-exp of the
+    scaled, capped, masked logits and ``o32`` the output unrounded in f32
+    (``o`` itself for f32 inputs), the backward's D = rowsum(dO * O); else
+    both are None.  The kernel's output is the same with or without
     them."""
-    if want_lse and (window is not None or softcap is not None or q_offset
-                     or k_pos is not None):
+    if want_lse and (q_offset or k_pos is not None):
         raise ValueError("flash_attention: the log-sum-exp is kept only "
-                         "without a window, softcap or KV-cache masks")
+                         "without KV-cache masks")
     if out is not None and (tuple(out.shape) != tuple(q.shape)
                             or out.dtype != q.dtype or out.device != q.device
                             or out.stride(-1) != 1):
@@ -259,6 +272,7 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
         code, q.device.index or 0, _stream(q.device))
     _raise_on("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
+    _count(FLASH_SHAPES, _flash_shape(q, k, causal, window, softcap))
     return o, lse, o32
 
 
@@ -269,20 +283,16 @@ def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
                    w_up: torch.Tensor, w_down: torch.Tensor, dy: torch.Tensor,
                    *, act: str = "silu"):
     """Gradients of :func:`expert_ffn` for the output gradient ``dy``
-    (E, C, d): (dX, dWg, dWu, dWd).  On the card f32 only (the forward's
-    ``G`` and ``U`` are recomputed inside; bf16 training is not ported:
-    ROADMAP.md A)."""
+    (E, C, d): (dX, dWg, dWu, dWd) in the inputs' dtype, f32 or bf16 (the
+    forward's ``G`` and ``U`` are recomputed inside, in f32; a bf16
+    gradient is rounded once from its f32 sum)."""
     if buf.device.type == "cpu":
         return ref.expert_ffn_bwd_ref(buf, w_gate, w_up, w_down, dy, act=act)
     if buf.device.type != "cuda":
         raise ValueError(f"expert_ffn_bwd: unsupported device {buf.device}")
     if act not in _ACTS:
         raise ValueError(f"expert_ffn_bwd: unknown activation {act!r}")
-    _check_cuda("expert_ffn_bwd", (buf, w_gate, w_up, w_down, dy))
-    if buf.dtype != torch.float32:
-        raise NotImplementedError(
-            f"expert_ffn_bwd: {buf.dtype} is not ported (the backward kernel "
-            f"is f32; bf16 training is queued in ROADMAP.md A)")
+    code = _check_cuda("expert_ffn_bwd", (buf, w_gate, w_up, w_down, dy))
     E, C, d, f = _check_expert_shapes("expert_ffn_bwd", buf, w_gate, w_up,
                                       w_down)
     if tuple(dy.shape) != (E, C, d):
@@ -291,7 +301,7 @@ def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
     for t in (buf, w_gate, w_up, w_down, dy):
         if not t.is_contiguous():
             raise ValueError("expert_ffn_bwd: inputs must be contiguous")
-    kw = dict(dtype=torch.float32, device=buf.device)
+    kw = dict(dtype=buf.dtype, device=buf.device)
     if E == 0 or C == 0:                # no rows: zero gradients, no launch
         return (torch.zeros((E, C, d), **kw), torch.zeros((E, d, f), **kw),
                 torch.zeros((E, d, f), **kw), torch.zeros((E, f, d), **kw))
@@ -299,26 +309,34 @@ def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
     args = stage_ffn_bwd_inputs(lay, buf, w_gate, w_up, w_down, dy)
     lib = library()
     dp, fp = lay.d, lay.f
-    scratch = torch.empty(lay.scratch, **kw)     # G^T, U^T, H^T (then dG^T, dU^T)
+    f32 = dict(dtype=torch.float32, device=buf.device)
+    scratch = torch.empty(lay.scratch, **f32)    # G^T, U^T, H^T (then dG^T, dU^T)
+    # bf16: the five inputs widened to f32 by the kernel's first launch
+    stage = (torch.empty((E * dp * (2 * C + 3 * fp),), **f32)
+             if buf.dtype == torch.bfloat16 else None)
     dx = torch.empty((E, C, dp), **kw)
     dwg = torch.empty((E, dp, fp), **kw)
     dwu = torch.empty((E, dp, fp), **kw)
     dwd = torch.empty((E, fp, dp), **kw)
     err = lib.dice_expert_ffn_bwd(
-        *(t.data_ptr() for t in args), scratch.data_ptr(), dx.data_ptr(),
+        *(t.data_ptr() for t in args), scratch.data_ptr(),
+        0 if stage is None else stage.data_ptr(), dx.data_ptr(),
         dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), E, C, dp, fp, lay.c,
-        _ACTS[act], buf.device.index or 0, _stream(buf.device))
+        _ACTS[act], code, buf.device.index or 0, _stream(buf.device))
     _raise_on("expert_ffn_bwd", err)
     LAUNCHES["expert_ffn_bwd"] += 1
+    _count(FFN_BWD_SHAPES, (E, C, d, f, str(buf.dtype)[6:]))
     return unstage_ffn_bwd_grads(lay, d, f, (dx, dwg, dwu, dwd))
 
 
 class FFNBwdLayout(NamedTuple):
     """Widths the ``expert_ffn_bwd`` kernel runs at: d and f padded to
-    multiples of 4 (TMA's 16-byte row strides), the scratch's capacity
-    stride ``c`` (C padded to a multiple of 4) and the scratch's shape
-    (3, E, f, c): G, U and H held transposed, C contiguous.  ``staged``:
-    d or f was padded, so the wrapper runs on zero-padded copies."""
+    multiples of 4 (TMA's 16-byte row strides of f32: the tensor maps read
+    f32 operands only, bf16 inputs widened to f32 first), the scratch's
+    capacity stride ``c`` (C padded to a multiple of 4) and the scratch's
+    shape (3, E, f, c): G, U and H held transposed, C contiguous.
+    ``staged``: d or f was padded, so the wrapper runs on zero-padded
+    copies."""
     d: int
     f: int
     c: int
@@ -367,23 +385,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     """Gradients (dq, dk, dv) of :func:`flash_attention` from its
     unrounded f32 output ``o`` (B, Sq, H, Dh), its row log-sum-exp ``lse``
     (B, H, Sq) f32 (both from ``_flash_attention_fwd(want_lse=True)``)
-    and the output gradient ``do``.  Causal or not, GQA (k and v (B, Sk,
-    KVH, Dh); dk and dv come back in that shape, summed over each kv
-    head's query heads), Sq and Sk free, f32 or bf16 (dq, dk, dv in that
-    dtype, rounded once from f32), Dh up to ``MAX_BWD_HEAD_DIM``, on the
-    card and on the CPU alike.  A window, a softcap and Dh above 128
-    raise NotImplementedError (gemma2 and stablelm's training, queued in
-    ROADMAP.md A)."""
-    missing = [name for name, on in (
-        ("window", window is not None), ("softcap", softcap is not None),
-        (f"head_dim {q.shape[-1]} > {MAX_BWD_HEAD_DIM}",
-         q.shape[-1] > MAX_BWD_HEAD_DIM)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"flash_attention backward: {', '.join(missing)} not ported "
-            f"(queued with gemma2's and stablelm's training, ROADMAP.md A)")
+    and the output gradient ``do``.  Causal or not, a one-sided ``window``
+    (``pq - pk < window``, as ``layers.attention`` applies it) and a logit
+    ``softcap`` or not, GQA (k and v (B, Sk, KVH, Dh); dk and dv come back
+    in that shape, summed over each kv head's query heads), Sq and Sk
+    free, f32 or bf16 (dq, dk, dv in that dtype, rounded once from f32),
+    Dh up to ``MAX_HEAD_DIM``, on the card and on the CPU alike."""
+    if window is not None and not 0 <= window <= _INT32_MAX:
+        raise ValueError(f"flash_attention_bwd: window {window} not in "
+                         f"[0, 2^31 - 1]")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention_bwd: softcap {softcap} must be > 0")
     if q.device.type == "cpu":
-        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                           window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     code = _check_cuda("flash_attention_bwd", (q, k, v, do))
@@ -398,6 +413,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                          f"agree")
     if KVH == 0 or H % KVH:
         raise ValueError(f"flash_attention_bwd: {H} heads over {KVH} kv heads")
+    if not 0 < Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: head_dim {Dh} not in "
+                         f"[1, {MAX_HEAD_DIM}]")
     if o.dtype != torch.float32 or o.device != q.device:
         raise ValueError("flash_attention_bwd: o must be the forward's f32 "
                          "output on q's device")
@@ -416,17 +434,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     dk = torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    err = lib.dice_flash_attention_bwd(
+    # the instances with the window and softcap masks are a launch of their
+    # own (flash_attention_bwd_masked.cu): without them the kernels keep
+    # the registers of the unmasked code
+    entry = (lib.dice_flash_attention_bwd_masked
+             if window is not None or softcap is not None else lib.dice_flash_attention_bwd)
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], int(causal), code, q.device.index or 0,
-        _stream(q.device))
+        *do.stride()[:3], int(causal), int(window is not None),
+        int(window) if window is not None else 0, int(softcap is not None),
+        float(softcap) if softcap is not None else 0.0, code,
+        q.device.index or 0, _stream(q.device))
     _raise_on("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
-    key = (B, Sq, Sk, H, KVH, Dh, bool(causal))
-    FLASH_BWD_SHAPES[key] = FLASH_BWD_SHAPES.get(key, 0) + 1
+    _count(FLASH_BWD_SHAPES, _flash_shape(q, k, causal, window, softcap))
     return dq, dk, dv
 
 
@@ -454,29 +478,32 @@ class FlashAttentionFn(torch.autograd.Function):
     then also stores the row log-sum-exp and, for bf16, the output in
     f32) and the ``flash_attention_bwd`` kernel on the card, the plain
     versions on the CPU.  Saves q, k, v, the f32 output and the
-    log-sum-exp.  A window, a softcap or KV-cache masks run the forward
-    and raise in the backward (not ported, ROADMAP.md A)."""
+    log-sum-exp.  Causal or not, with a one-sided window and a softcap or
+    not; KV-cache masks and the Pallas kernel's symmetric window (a window
+    without ``causal`` or ``one_sided_window``), which training never
+    passes, run the forward and raise in the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset=0,
                 k_pos=None, one_sided_window=False):
-        cache_masks = q_offset != 0 or k_pos is not None
-        ported = window is None and softcap is None and not cache_masks
+        symmetric = window is not None and not causal and not one_sided_window
+        ctx.refused = ("KV-cache masks (q_offset, k_pos)"
+                       if q_offset != 0 or k_pos is not None else
+                       "the symmetric window" if symmetric else None)
         o, lse, o32 = _flash_attention_fwd(
             q, k, v, causal=causal, window=window, softcap=softcap,
             q_offset=q_offset, k_pos=k_pos, one_sided_window=one_sided_window,
-            want_lse=ported)
+            want_lse=ctx.refused is None)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
-        ctx.cache_masks = cache_masks
         ctx.save_for_backward(q, k, v, o32, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        if ctx.cache_masks:
+        if ctx.refused:
             raise NotImplementedError(
-                "flash_attention backward: KV-cache masks (q_offset, k_pos) "
-                "not ported (training passes none; ROADMAP.md A)")
+                f"flash_attention backward: {ctx.refused} not ported (training "
+                f"passes none; ROADMAP.md A)")
         q, k, v, o32, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o32, lse, do.contiguous(),
                                          **ctx.opts)

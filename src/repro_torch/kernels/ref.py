@@ -177,29 +177,34 @@ def attention_lse_ref(q, k, *, causal: bool = False):
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = False,
-                            rows=None, magnitudes: bool = False):
-    """Gradients of GQA attention (no window, no softcap; causal or not,
-    Sq and Sk free) in the recompute form of the backward kernel: with
-    ``scale = 1/sqrt(Dh)``, ``P = exp(q k^T scale - lse)`` (0 where the
-    mask drops a key) and ``D = rowsum(dO * O)``::
+                            window=None, softcap=None, rows=None,
+                            magnitudes: bool = False):
+    """Gradients of GQA attention (causal or not, Sq and Sk free, a
+    one-sided ``window`` and a logit ``softcap`` or not) in the recompute
+    form of the backward kernel: with ``scale = 1/sqrt(Dh)``, the logits
+    ``S = c tanh(q k^T scale / c)`` under a softcap c (else ``q k^T
+    scale``), ``P = exp(S - lse)`` (0 where :func:`attention_mask` drops a
+    key: causal, and the window as ``layers.attention`` applies it, ``pq -
+    pk < window``) and ``D = rowsum(dO * O)``::
 
-        dV = P^T dO,  dS = P (dO V^T - D),  dQ = dS K scale,
-        dK = dS^T Q scale
+        dV = P^T dO,  dS = P (dO V^T - D) (1 - (S / c)^2),
+        dQ = dS K scale,  dK = dS^T Q scale
 
+    (the factor ``1 - (S / c)^2`` is the cap's derivative; 1 without one).
     q, o, do (B, Sq, H, Dh); k, v (B, Sk, KVH, Dh), query head h reading
-    kv head ``h // (H // KVH)``; lse (B, H, Sq).  ``o`` is the forward's
-    unrounded f32 output: the reference's softmax backward sums ``P dP``,
-    which is dO . O before O is rounded to the inputs' dtype (with a bf16
-    O, 19% of bf16 dq and dk elements land elsewhere).  Everything runs
-    in f32 over query chunks (:func:`_chunk_rows`); dK and dV are summed
-    over a kv head's G query heads and over the chunks in f32.  Returns
-    (dq, dk, dv) in the inputs' dtype, each rounded once.
+    kv head ``h // (H // KVH)``; lse (B, H, Sq), the capped logits'.  ``o``
+    is the forward's unrounded f32 output: the reference's softmax backward
+    sums ``P dP``, which is dO . O before O is rounded to the inputs' dtype
+    (with a bf16 O, 19% of bf16 dq and dk elements land elsewhere).
+    Everything runs in f32 over query chunks (:func:`_chunk_rows`); dK and
+    dV are summed over a kv head's G query heads and over the chunks in
+    f32.  Returns (dq, dk, dv) in the inputs' dtype, each rounded once.
 
     With ``magnitudes`` the same sums run over the magnitudes of every
     operand (|Q|, |K|, |V|, |O|, |dO|; dS as ``P (|dO| |V|^T + rowsum(|dO|
-    |O|))``) and come back in f32: what each gradient element's f32
-    roundoff scales with where its terms cancel (a causal first query's
-    dq is 0, and dP - D there is dO . V - dO . V)."""
+    |O|)) (1 - (S / c)^2)``) and come back in f32: what each gradient
+    element's f32 roundoff scales with where its terms cancel (a causal
+    first query's dq is 0, and dP - D there is dO . V - dO . V)."""
     B, Sq, H, Dh = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -213,11 +218,10 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = False,
     n = _chunk_rows(B, H, Sq, Sk, rows)
     for a in range(0, Sq, n):
         m = min(n, Sq - a)
-        s, mask = _logits(q[:, a:a + m], k32, causal=causal, q_offset=a)
+        s, mask = _logits(q[:, a:a + m], k32, causal=causal, window=window,
+                          softcap=softcap, q_offset=a, one_sided=True)
         ls = lse[:, :, a:a + m].to(f32).reshape(B, KVH, G, m)
-        p = torch.exp(s - ls[..., None])
-        if causal:
-            p = torch.where(mask, p, torch.zeros_like(p))
+        p = torch.where(mask, torch.exp(s - ls[..., None]), 0.0)
         qc, doc, oc = (t[:, a:a + m].to(f32).reshape(B, m, KVH, G, Dh)
                        for t in (q, do, o))
         if magnitudes:
@@ -225,6 +229,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = False,
         dd = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
         dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vt)
         ds = p * (dp + dd) if magnitudes else p * (dp - dd)
+        if softcap is not None:
+            ds = ds * (1.0 - torch.square(torch.where(mask, s, 0.0) / softcap))
         dv += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
         dq[:, a:a + m] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kt)
                           * scale).reshape(B, m, H, Dh)

@@ -32,7 +32,7 @@ from repro_torch.obs import ObsConfig
 # substrings of the port's kernel symbols (csrc/*.cu) -> wrapper name
 OWN_KERNELS = {"gate_up_kernel": "expert_ffn", "down_kernel": "expert_ffn",
                "flash_kernel": "flash_attention",
-               "bwd_wgmma_kernel": "expert_ffn_bwd",
+               "bwd_wgmma_kernel": "expert_ffn_bwd", "widen_kernel": "expert_ffn_bwd",
                "flash_bwd_": "flash_attention_bwd",
                "residual_int8_kernel": "residual_int8",
                "residual_int8_loop_kernel": "residual_int8",

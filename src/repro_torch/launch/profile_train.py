@@ -17,7 +17,8 @@ default: the f32 params, gradients, moments and clipped copy of 28 layers
 do not fit one 80 GB card), adaLN and the output layer perturbed from
 random weights, f32, ``rf_train_step``.  An LM (``rwkv6-3b`` and the
 families ``train_lm`` trains: ``qwen3-32b``, ``zamba2-7b``,
-``seamless-m4t-large-v2``, ``llama-3.2-vision-11b``): bf16 params and f32
+``seamless-m4t-large-v2``, ``llama-3.2-vision-11b``, ``gemma2-9b``,
+``stablelm-12b``, ``qwen3-moe-30b-a3b``): bf16 params and f32
 moments as ``train_lm`` makes them, the stub audio frames or image
 embeddings drawn each step, batches of ``--seq`` tokens,
 ``lm_train_step``, at the depth of :data:`LM_TRAIN_LAYERS` (what one card
@@ -37,7 +38,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import latent_batches, token_batches
 from repro_torch.launch.profile_serve import RANGES, kernel_groups, print_groups
-from repro_torch.launch.train import lm_train_step, refuse_untrainable, stub_inputs
+from repro_torch.launch.train import lm_train_step, stub_inputs
 from repro_torch.models.api import get_model
 from repro_torch.models.dit_moe import init_dit
 from repro_torch.optim.adamw import adamw_init
@@ -46,13 +47,20 @@ from repro_torch.sampling.rectified_flow import rf_draws, rf_train_step
 PART_NAMES = ("forward", "backward", "optimizer")
 RECOMPUTE = "recompute"
 # the LMs' depth for a training profile on one 80 GB card (bf16 params,
-# f32 moments: about 20 bytes a param): seamless-m4t-large-v2 and
-# rwkv6-3b whole; qwen3-32b 2 of 64 layers (1.56 B of embedding and
-# unembedding, 0.49 B a layer); zamba2-7b 12 of 81 (two uses of the shared
-# block); llama-3.2-vision-11b one superblock, 4 self layers and 1 cross
-LM_TRAIN_LAYERS = {"qwen3-32b": 2, "zamba2-7b": 12, "llama-3.2-vision-11b": 5}
+# f32 moments: about 21 bytes a param at 8 x 128 tokens): seamless-m4t-
+# large-v2 and rwkv6-3b whole; qwen3-32b 2 of 64 layers (1.56 B of
+# embedding and unembedding, 0.49 B a layer); zamba2-7b 12 of 81 (two uses
+# of the shared block); llama-3.2-vision-11b one superblock, 4 self layers
+# and 1 cross; gemma2-9b 4 of 42 (1.83 B of embedding and unembedding,
+# 0.20 B a layer: 2.63 B, two local and two global layers); stablelm-12b 6 of 40
+# (1.03 B of embeddings, 0.28 B a layer: 2.70 B); qwen3-moe-30b-a3b 3 of 48
+# (0.62 B of embeddings, 0.62 B a layer with all 128 experts: 2.49 B).
+# dbrx-132b is not here: one layer and its embeddings are 4.5 B params,
+# about 95 GB at those bytes a param
+LM_TRAIN_LAYERS = {"qwen3-32b": 2, "zamba2-7b": 12, "llama-3.2-vision-11b": 5,
+                   "gemma2-9b": 4, "stablelm-12b": 6, "qwen3-moe-30b-a3b": 3}
 LM_ARCHS = ("rwkv6-3b", "qwen3-32b", "zamba2-7b", "seamless-m4t-large-v2",
-            "llama-3.2-vision-11b")
+            "llama-3.2-vision-11b", "gemma2-9b", "stablelm-12b", "qwen3-moe-30b-a3b")
 
 
 def lm_train_config(arch: str, layers=None):
@@ -128,7 +136,6 @@ def _lm_step(args):
     (--layers), bf16 params from seed 0, the family's stub inputs drawn
     each step as ``train_lm`` draws them."""
     cfg = lm_train_config(args.arch, args.layers)
-    refuse_untrainable(cfg)
     api = get_model(cfg)
     params = api.init(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
     opt = adamw_init(params)
@@ -184,10 +191,10 @@ def main(argv=None):
         us = by_part[part]
         print(f"  {part:26s} {us / 1e3 / args.steps:10.3f} ms/step "
               f"{100.0 * us / total:6.1f}%")
-    flash = sum(groups[g][0] for g in ("flash_attention", "flash_attention_bwd")
-                if g in groups)
-    print(f"flash_attention + flash_attention_bwd {flash / 1e3 / args.steps:.3f} ms/step, "
-          f"{100.0 * flash / total:.1f}% of the kernel time")
+    for names in (("flash_attention", "flash_attention_bwd"), ("expert_ffn", "expert_ffn_bwd")):
+        us = sum(groups[g][0] for g in names if g in groups)
+        print(f"{' + '.join(names)} {us / 1e3 / args.steps:.3f} ms/step, "
+              f"{100.0 * us / total:.1f}% of the kernel time")
     print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
                       "wall_ms_per_step": wall_us / 1e3 / args.steps,
                       "busy_share": total / wall_us,

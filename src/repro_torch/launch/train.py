@@ -1,33 +1,32 @@
 """Training launcher of the port (port of ``repro.launch.train``).
 
 Trains the DiT-MoE diffusion model on synthetic class-conditional latents
-with rectified flow (``train_diffusion``, f32), and the language models on
-the synthetic token stream (``train_lm``, bf16 params as the reference's
-init gives them, f32 AdamW moments): RWKV-6 (``ssm``), the ``dense``
-family without a window or softcap and with head_dim <= 128 (qwen3-32b,
-deepseek-67b, stablelm-12b's smoke config), Zamba2 (``hybrid``),
-SeamlessM4T (``audio``, over stub audio frames) and the Llama-3.2-Vision
-VLM (``vlm``, over stub image embeddings), the stub inputs drawn each step
-from a generator on the run's device as the reference draws them.  All
-use AdamW and the cosine schedule, gradient clipping, and an optional
-checkpoint at the end (the reference's format 3, readable by either
-package).  Every step goes through the kernels' autograd Functions on the
-card (the backward kernels included) and through their plain versions on
-the CPU; the LMs recompute each layer in the backward as the reference
-does.
+with rectified flow (``train_diffusion``, f32), and every language model
+on the synthetic token stream (``train_lm``, bf16 params as the
+reference's init gives them, f32 AdamW moments): RWKV-6 (``ssm``), the
+``dense`` family (qwen3-32b, deepseek-67b, stablelm-12b at head_dim 160,
+gemma2-9b with its windowed and global layers and its logit softcaps),
+the ``moe`` family (qwen3-moe-30b-a3b, dbrx-132b, with the load-balance
+loss), Zamba2 (``hybrid``), SeamlessM4T (``audio``, over stub audio
+frames) and the Llama-3.2-Vision VLM (``vlm``, over stub image
+embeddings), the stub inputs drawn each step from a generator on the
+run's device as the reference draws them.  All use AdamW and the cosine
+schedule, gradient clipping, and an optional checkpoint at the end (the
+reference's format 3, readable by either package).  Every step goes
+through the kernels' autograd Functions on the card (the backward kernels
+included) and through their plain versions on the CPU; the LMs recompute
+each layer in the backward as the reference does.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-moe-xl \\
       --smoke --device cpu --steps 5 --batch 4
-  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b \\
       --smoke --device cpu --steps 3 --batch 2 --seq 16
 
 The flags are the reference's (``--arch --smoke --steps --batch --seq
 --mesh --ckpt``) plus ``--device``; the CLI prints every step's loss (the
-reference's every 10th).  Not ported yet, and refused before any params
-are drawn with a ``NotImplementedError`` that names ROADMAP.md
-(:func:`refuse_untrainable`): attention windows and logit softcaps
-(gemma2), head_dim above 128 (stablelm-12b), the ``moe`` family (its bf16
-``expert_ffn`` backward), and the ``local`` / ``prod`` training meshes.
+reference's every 10th).  The ``local`` and ``prod`` training meshes are
+not ported yet and raise ``NotImplementedError`` naming ROADMAP.md (A,
+order item 4) before any params are drawn.
 """
 from __future__ import annotations
 
@@ -47,30 +46,6 @@ from repro_torch.optim.adamw import (adamw_init, adamw_update,
                                      clip_by_global_norm, cosine_schedule,
                                      tree_leaves, tree_map)
 from repro_torch.sampling.rectified_flow import rf_draws, rf_train_step
-
-
-def refuse_untrainable(cfg) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md, for a language model
-    whose training needs what the port lacks: the flash backward of an
-    attention window or a logit softcap (gemma2), of head_dim above
-    ``ops.MAX_BWD_HEAD_DIM`` (stablelm-12b), and the bf16 ``expert_ffn``
-    backward (the ``moe`` family).  Called before any params are drawn,
-    on the CPU and the card alike."""
-    from repro_torch.kernels.ops import MAX_BWD_HEAD_DIM
-    if cfg.family == "ssm":
-        return
-    missing = [why for why, on in (
-        ("the moe family (the bf16 expert_ffn backward)", cfg.family == "moe"),
-        (f"attention windows (sliding_window {cfg.sliding_window})",
-         bool(cfg.local_global_pattern and cfg.sliding_window)),
-        (f"attention logit softcap {cfg.attn_logit_softcap}",
-         bool(cfg.attn_logit_softcap)),
-        (f"head_dim {cfg.head_dim} > {MAX_BWD_HEAD_DIM}",
-         cfg.head_dim > MAX_BWD_HEAD_DIM)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) needs {', '.join(missing)}, not "
-            f"ported yet (queued in ROADMAP.md A, order item 3)")
 
 
 def stub_inputs(api, cfg, batch: int, gen: torch.Generator):
@@ -124,11 +99,10 @@ def train_lm(cfg, *, steps: int, batch: int, seq: int, mesh=None,
     of the run's device seeded from ``seed``, in the init's dtype (bf16).
     Prints the reference's line every ``log_every`` steps and at the
     last, writes ``ckpt`` at the end when given, and returns the trained
-    params.  What is not ported raises first (:func:`refuse_untrainable`)."""
+    params.  A ``mesh`` raises first (not ported)."""
     if mesh is not None:
         raise NotImplementedError("train_lm over a mesh is not ported yet "
-                                  "(ROADMAP.md A)")
-    refuse_untrainable(cfg)
+                                  "(ROADMAP.md A, order item 4)")
     api = get_model(cfg)
     dev = resolve_device(device)
     params = api.init(cfg, generator=torch.Generator(device=dev).manual_seed(seed))
@@ -199,9 +173,7 @@ def main(argv=None):
     if args.mesh != "none":
         raise NotImplementedError(
             f"--mesh {args.mesh}: training meshes are not ported yet "
-            f"(ROADMAP.md A)")
-    if cfg.family != "dit_moe":
-        refuse_untrainable(cfg)
+            f"(ROADMAP.md A, order item 4)")
     print(f"training {cfg.name} ({cfg.family}), "
           f"{cfg.param_count() / 1e6:.1f}M params")
     if cfg.family == "dit_moe":

@@ -6,7 +6,8 @@ One implementation, config-driven variants:
     norms, embedding scale and final-logit softcap (gemma2); alternating
     local/global sliding windows (gemma2); gated MLP (silu or gelu).
   * MoE FFN (qwen3-moe, dbrx) through :func:`repro_torch.core.moe.moe_forward`
-    on one device: the hand-written ``expert_ffn`` kernel on the card.
+    on one device: the hand-written ``expert_ffn`` kernel on the card, its
+    load-balance loss summed over the layers.
 
 Attention always goes through :func:`repro_torch.models.layers.attention`,
 the hand-written flash kernel on the card (its plain version on the CPU):
@@ -19,8 +20,13 @@ tensor per leaf stacked over a leading layer axis; the layers run in a
 Python loop where the JAX package scans, over views unbound once a call
 (:func:`~repro_torch.models.layers.unstack_layers`).  In training each
 layer is recomputed in the backward (``remat``, the reference's
-``jax.checkpoint``), and attention's gradients come from the flash
-backward kernel (causal, GQA, bf16).  The KV cache's
+``jax.checkpoint``; a MoE layer routes its tokens again from the same
+inputs, so the recompute rebuilds the same dispatch plan).  Attention's
+gradients come from the flash backward kernel (causal, GQA, bf16, gemma2's
+one-sided windows on its local layers and its logit softcap, head_dim up
+to 256), the experts' from the ``expert_ffn_bwd`` kernel (f32 or bf16),
+and the router's through the top-k scores that weight the combine and
+through the load-balance loss's probabilities.  The KV cache's
 ``pos`` is a host int, so no step reads a device scalar back; decode writes
 its k and v into the cache tensors in place.  Expert parallelism over a
 mesh (``mesh``, ``seq_shard``, ``attn_shard``) is not ported (ROADMAP.md
@@ -218,9 +224,7 @@ def forward(params, tokens: torch.Tensor, cfg, **kw):
 def loss_fn(params, batch, cfg, *, lb_weight: float = 0.01, **fwd_kw):
     """(cross-entropy + ``lb_weight`` x the load-balance loss, metrics) of
     the teacher-forced forward; keywords as :func:`forward_hidden`.  Its
-    backward runs the flash backward kernel; a window, a softcap and Dh
-    above 128 raise there (``launch.train.refuse_untrainable`` refuses
-    such configs before any init)."""
+    backward runs the flash and expert backward kernels on the card."""
     logits, lb = forward(params, batch["tokens"], cfg, **fwd_kw)
     ce = L.softmax_cross_entropy(logits, batch["labels"])
     return ce + lb_weight * lb, {"ce": ce, "lb": lb}

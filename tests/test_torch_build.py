@@ -206,6 +206,23 @@ def test_kernel_labels_tell_the_scan_from_its_backward(mangled, label):
     assert build._kernel_label(mangled) == label
 
 
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN4dice12_GLOBAL__N_119flash_bwd_dq_kernelI13__nv_bfloat16Li32ELb1EEEvPKT_S5_",
+     "flash_bwd_dq<bf16, 32, masks>"),
+    ("_ZN4dice12_GLOBAL__N_121flash_bwd_dkdv_kernelIfLi20ELb0EEEvPKT_S4_",
+     "flash_bwd_dkdv<f32, 20>"),
+    ("_ZN4dice12_GLOBAL__N_116bwd_wgmma_kernelILi2E13__nv_bfloat16EEvNS0_4MapsENS0_7BwdArgsE",
+     "bwd_wgmma<2, bf16>"),
+    ("_ZN4dice12_GLOBAL__N_116bwd_wgmma_kernelILi0EfEEvNS0_4MapsENS0_7BwdArgsE",
+     "bwd_wgmma<0, f32>"),
+    ("_ZN4dice12_GLOBAL__N_112widen_kernelEPK13__nv_bfloat16Pfx", "widen")])
+def test_kernel_labels_tell_the_masked_and_bf16_instances(mangled, label):
+    """The flash backward's instances with the window and softcap masks
+    and the expert backward's bf16-output passes get labels of their own
+    in ptxas's report and the SASS counts."""
+    assert build._kernel_label(mangled) == label
+
+
 @pytest.mark.parametrize("name,group", [
     ("void dice::(anonymous namespace)::rwkv6_scan_bwd_kernel<__nv_bfloat16, 64>"
      "(dice::(anonymous namespace)::ChunkArgs)", "rwkv6_scan_bwd"),

@@ -930,7 +930,7 @@ def test_flash_attention_bwd_kernel_at_lm_shapes(gen, B, Sq, Sk, H, KVH, Dh, cau
     ops.reset_launches()
     got = _launched("flash_attention_bwd", lambda: ops.flash_attention_bwd(
         q, k, v, o32, lse, do, causal=causal))
-    assert ops.FLASH_BWD_SHAPES == {(B, Sq, Sk, H, KVH, Dh, causal): 1}
+    assert ops.FLASH_BWD_SHAPES == {(B, Sq, Sk, H, KVH, Dh, causal, None, None): 1}
     want = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, causal=causal)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape
@@ -961,9 +961,118 @@ def test_autograd_goes_through_the_backward_kernels(gen):
     torch.cuda.synchronize()
     for name in ("expert_ffn", "flash_attention", "expert_ffn_bwd", "flash_attention_bwd"):
         assert ops.LAUNCHES[name] == before[name] + 1, name
-    with pytest.raises(NotImplementedError):
-        ops.expert_ffn_bwd(*(t.detach().bfloat16() for t in (x, wg, wu, wd)),
-                           dy.bfloat16())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):       # the Pallas kernel's symmetric window
         o = ops.flash_attention(q, k, v, window=16)
         o.sum().backward()
+    with pytest.raises(NotImplementedError):       # KV-cache masks
+        o = ops.flash_attention(q, k, v, causal=True, q_offset=3)
+        o.sum().backward()
+
+
+# gemma2's and stablelm's training: a one-sided window (causal or not),
+# the logit softcap, Dh 160 (NT 20) and 256 (NT 32; f32 on 16-row tiles),
+# Dh 200 (a ragged last tile in the second column half), windows that
+# skip key and query tiles and one of 0 (every pair dropped but the
+# non-causal keys past the query)
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,Dh,causal,window,softcap", [
+    (2, 128, 128, 4, 2, 256, True, 48, 50.0), (2, 96, 96, 8, 2, 160, True, None, None),
+    (1, 200, 200, 4, 2, 256, True, 64, 30.0), (2, 70, 90, 4, 2, 160, False, 20, 5.0),
+    (1, 130, 130, 2, 1, 200, True, 40, None), (1, 64, 80, 2, 2, 32, False, 0, 2.0),
+    (2, 128, 128, 4, 4, 64, True, None, 3.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_with_window_softcap_and_wide_heads(
+        gen, B, Sq, Sk, H, KVH, Dh, causal, window, softcap, dtype):
+    q = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((B, Sk, KVH, Dh), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, Sq, H, Dh), generator=gen, device="cuda").to(dtype)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    o, lse, o32 = ops._flash_attention_fwd(q, k, v, one_sided_window=True, want_lse=True,
+                                           **opts)
+    want_o32, want_lse = ref.flash_attention_ref(q, k, v, one_sided_window=True, stats=True,
+                                                 **opts)
+    _close(lse, want_lse, torch.float32)
+    _close(o32, want_o32, torch.float32)
+    ops.reset_launches()
+    got = _launched("flash_attention_bwd",
+                    lambda: ops.flash_attention_bwd(q, k, v, o32, lse, do, **opts))
+    assert ops.FLASH_BWD_SHAPES == {(B, Sq, Sk, H, KVH, Dh, causal, window, softcap): 1}
+    want = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, **opts)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        _grad_close(g, w, dtype)
+    again = ops.flash_attention_bwd(q, k, v, o32, lse, do, **opts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_autograd_goes_through_the_flash_backward_with_gemma2_s_masks(gen):
+    """``layers.attention`` under grad: a local layer's window and the
+    softcap at Dh 256, bf16, both flash kernels, the plain gradients."""
+    from repro_torch.models import layers
+    q, k, v = (torch.randn((1, 96, 4, 256), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    k, v = k[:, :, :2].contiguous(), v[:, :, :2].contiguous()
+    live = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launches()
+    o = layers.attention(*live, causal=True, window=40, softcap=50.0)
+    do = torch.randn(o.shape, generator=gen, device="cuda").bfloat16()
+    got = torch.autograd.grad(o, live, do)
+    o32, lse = ref.flash_attention_ref(q, k, v, causal=True, window=40, softcap=50.0,
+                                       one_sided_window=True, stats=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o32, lse, do, causal=True, window=40,
+                                       softcap=50.0)
+    for g, w in zip(got, want):
+        _grad_close(g, w, torch.bfloat16)
+    assert ops.FLASH_SHAPES == {(1, 96, 96, 4, 2, 256, True, 40, 50.0): 1}
+    assert ops.FLASH_BWD_SHAPES == {(1, 96, 96, 4, 2, 256, True, 40, 50.0): 1}
+
+
+def _close_bf16_sum(got, want32, n):
+    """A bf16 gradient against the plain version's f32 sum of ``n``
+    products: one rounding (half a bf16 ulp, 2^-8 relative) of a sum that
+    drifts as ``_close_sum`` allows."""
+    g, w = got.float(), want32
+    atol = 1e-4 + max(1e-4, n * 2.0 ** -24) * float(w.abs().max())
+    assert bool(((g - w).abs() <= 2.0 ** -8 * w.abs() + atol).all()), \
+        float((g - w).abs().max())
+
+
+# the MoE family's bf16 training: qwen3-moe's experts cut (128 experts of
+# f 768 over d 2048, here 8 of 96 over 256), d and f off the 16-byte
+# rows (staged), C off the 4-row scratch stride, the smoke configs' 4 x 64
+@pytest.mark.parametrize("E,C,d,f", [(8, 80, 256, 96), (2, 40, 73, 97), (3, 129, 64, 768),
+                                     (4, 18, 128, 64)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_expert_ffn_bwd_kernel_bf16(gen, E, C, d, f, act):
+    x, wg, wu, wd = _expert_inputs(gen, E, C, d, f, torch.bfloat16)
+    x[:, C // 2:] = 0.0                     # empty capacity rows
+    dy = torch.randn((E, C, d), generator=gen, device="cuda").bfloat16()
+    dy[:, C // 2:] = 0.0
+    ops.reset_launches()
+    got = _launched("expert_ffn_bwd",
+                    lambda: ops.expert_ffn_bwd(x, wg, wu, wd, dy, act=act))
+    assert ops.FFN_BWD_SHAPES == {(E, C, d, f, "bfloat16"): 1}
+    want = ref.expert_ffn_bwd_ref(*(t.float() for t in (x, wg, wu, wd, dy)), act=act)
+    for g, w, x_, n in zip(got, want, (x, wg, wu, wd), (2 * f + d, C + d, C + d, C + d)):
+        assert g.dtype == torch.bfloat16 and g.shape == x_.shape
+        _close_bf16_sum(g, w, n)
+    assert not bool(got[0][:, C // 2:].any())
+    again = ops.expert_ffn_bwd(x, wg, wu, wd, dy, act=act)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_autograd_goes_through_the_bf16_expert_backward(gen):
+    x, wg, wu, wd = (t.requires_grad_() for t in
+                     _expert_inputs(gen, 4, 40, 128, 96, torch.bfloat16))
+    before = dict(ops.LAUNCHES)
+    y = ops.expert_ffn(x, wg, wu, wd, act="gelu")
+    dy = torch.randn(y.shape, generator=gen, device="cuda").bfloat16()
+    got = torch.autograd.grad(y, [x, wg, wu, wd], dy)
+    want = ref.expert_ffn_bwd_ref(*(t.detach().float() for t in (x, wg, wu, wd)),
+                                  dy.float(), act="gelu")
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _close_bf16_sum(g, w, 2 * 96 + 128)
+    torch.cuda.synchronize()
+    for name in ("expert_ffn", "expert_ffn_bwd"):
+        assert ops.LAUNCHES[name] == before[name] + 1, name

@@ -15,7 +15,9 @@ with numpy in bf16: the step-0 gradients of ``loss_fn`` against
 ``jax.grad`` of the reference's, leaf by leaf; ``lm_train_step`` against
 the reference's jitted step (``launch/train.py``'s value_and_grad, clip and
 AdamW) fed the same batches; the recompute (``remat``) against none, bit
-for bit; and ``train_lm``'s refusals, before any params are drawn.
+for bit; and the CLI on every LM family's smoke config (gemma2-9b,
+stablelm-12b and the MoE family's gradients: ``test_torch_gemma2_train.py``
+and ``test_torch_moe_train.py``).
 
 Tolerances, with their reasons:
   * the plain backward against ``jax.vjp``: f32 within ``1e-5 *
@@ -379,32 +381,10 @@ def test_remat_policies_other_than_full_raise():
 
 
 # ---------------------------------------------------------------------------
-# (5) train_lm: the stub inputs, and the refusals before any init
+# (5) train_lm: the CLI on every LM family, the stub inputs, the cuts
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name,smoke", [
-    ("gemma2-9b", True), ("gemma2-9b", False), ("stablelm-12b", False),
-    ("qwen3-moe-30b-a3b", True), ("dbrx-132b", True), ("dbrx-132b", False)])
-def test_train_lm_refuses_what_is_not_ported_before_any_init(name, smoke, monkeypatch):
-    cfg = get_smoke(name) if smoke else get_config(name)
-
-    def no_init(*a, **kw):
-        raise AssertionError("params were drawn before the refusal")
-
-    monkeypatch.setattr(train_cli, "get_model", no_init)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.train_lm(cfg, steps=1, batch=1, seq=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--arch", name, "--device", "cpu", "--steps", "1"]
-                       + (["--smoke"] if smoke else []))
-
-
-def test_stablelm_smoke_at_head_dim_32_is_not_refused():
-    train_cli.refuse_untrainable(get_smoke("stablelm-12b"))
-    with pytest.raises(NotImplementedError, match="head_dim 160"):
-        train_cli.refuse_untrainable(get_config("stablelm-12b"))
-
-
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ("gemma2-9b", "stablelm-12b", "qwen3-moe-30b-a3b",
+                                          "dbrx-132b"))
 def test_train_cli_trains_the_smoke_configs(name, capsys):
     params = train_cli.main(["--arch", name, "--smoke", "--device", "cpu", "--steps", "3",
                              "--batch", "2", "--seq", "16"])
@@ -434,10 +414,11 @@ def test_profile_train_cuts_follow_each_family_s_layout():
     """``profile_train.lm_train_config`` (the depth phase 16b and the
     profile train at): seamless whole, encoder and decoder cut together
     when asked; zamba2's 12 blocks two superblocks of 5 + 1; the VLM's 5
-    layers one superblock of 4 self layers and 1 cross; every cut
-    trainable."""
+    layers one superblock of 4 self layers and 1 cross; gemma2 at 4
+    layers, two local and two global; stablelm 6; qwen3-moe 3 with all
+    128 experts; every cut small enough for one 80 GB card."""
     from repro_torch.launch.profile_train import lm_train_config
-    from repro_torch.models import zamba2
+    from repro_torch.models import dense, zamba2
     s = lm_train_config("seamless-m4t-large-v2")
     assert (s.num_layers, s.encoder_layers) == (24, 24)
     s = lm_train_config("seamless-m4t-large-v2", 4)
@@ -448,8 +429,35 @@ def test_profile_train_cuts_follow_each_family_s_layout():
     assert v.num_layers // v.cross_attn_every == 1 and v.num_layers == 5
     q = lm_train_config("qwen3-32b")
     assert (q.num_layers, q.d_model, q.head_dim) == (2, 5120, 128)
-    for cfg in (s, z, v, q):
-        train_cli.refuse_untrainable(cfg)
+    g = lm_train_config("gemma2-9b")
+    assert (g.num_layers, g.d_model, g.head_dim) == (4, 3584, 256)
+    assert dense.layer_windows(g) == [4096, None, 4096, None]
+    assert lm_train_config("gemma2-9b", 2).num_layers == 2
+    st = lm_train_config("stablelm-12b")
+    assert (st.num_layers, st.head_dim) == (6, 160)
+    m = lm_train_config("qwen3-moe-30b-a3b")
+    assert (m.num_layers, m.num_experts, m.expert_d_ff) == (3, 128, 768)
+    for cfg in (s, z, v, q, g, st, m):
+        assert cfg.param_count() < 3.3e9     # about 21 bytes a param on 80 GB
+
+
+def test_train_lm_refuses_only_a_mesh_before_any_init(monkeypatch):
+    """With the training meshes not ported, ``--mesh`` and ``train_lm(mesh=)``
+    raise naming ROADMAP.md before any params are drawn; nothing else is
+    refused (``refuse_untrainable`` is gone)."""
+    assert not hasattr(train_cli, "refuse_untrainable")
+
+    def no_init(*a, **kw):
+        raise AssertionError("params were drawn before the refusal")
+
+    monkeypatch.setattr(train_cli, "get_model", no_init)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_cli.train_lm(get_config("dbrx-132b"), steps=1, batch=1, seq=8, device="cpu",
+                           mesh="local")
+    for name in ("gemma2-9b", "stablelm-12b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A, order item 4"):
+            train_cli.main(["--arch", name, "--device", "cpu", "--steps", "1", "--mesh",
+                            "prod"])
 
 
 def test_ssd_scan_gradients_stay_finite_where_the_decays_underflow():

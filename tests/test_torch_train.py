@@ -286,13 +286,16 @@ def test_autograd_functions_run_the_plain_backward_on_cpu():
         ops.flash_attention(q, k, v, out=torch.empty_like(o))
 
 
-@pytest.mark.parametrize("opts", [dict(causal=True), dict(window=4),
-                                  dict(softcap=30.0), "gqa", "bf16", "dh160"])
+@pytest.mark.parametrize("opts", [
+    dict(causal=True), dict(window=4, one_sided_window=True), dict(softcap=30.0), "gqa",
+    "bf16", "dh160", dict(causal=True, window=3, softcap=5.0), dict(window=4),
+    dict(causal=True, q_offset=2)])
 def test_flash_backward_raises_for_what_is_not_ported(opts):
-    """A window, a softcap and Dh 160 run the forward and raise in the
-    backward, naming ROADMAP.md (gemma2's and stablelm's training); the
-    causal, GQA and bf16 cases, ported, give the plain backward's
-    gradients bit for bit, dk and dv in k's (B, Sk, KVH, Dh)."""
+    """What training passes (causal, a one-sided window, a softcap, GQA,
+    bf16, Dh 160) gives the plain backward's gradients bit for bit, dk and
+    dv in k's (B, Sk, KVH, Dh); the Pallas kernel's symmetric window and
+    the KV-cache masks, which training never passes, run the forward and
+    raise in the backward, naming ROADMAP.md."""
     g = torch.Generator().manual_seed(5)
     kvh, dtype, dh, kw = 3, torch.float32, 16, {}
     if opts == "gqa":
@@ -307,19 +310,21 @@ def test_flash_backward_raises_for_what_is_not_ported(opts):
     k, v = (torch.randn((1, 8, kvh, dh), generator=g).to(dtype)
             .requires_grad_() for _ in range(2))
     o = ops.flash_attention(q, k, v, **kw)     # the forward runs
-    if opts in ("gqa", "bf16") or kw.get("causal"):
-        do = torch.randn(o.shape, generator=g).to(dtype)
-        got = torch.autograd.grad(o, (q, k, v), do)
-        plain = [t.detach() for t in (q, k, v)]
-        causal = bool(kw.get("causal"))
-        o32, lse = ref.flash_attention_ref(*plain, causal=causal, stats=True)
-        want = ref.flash_attention_bwd_ref(*plain, o32, lse, do, causal=causal)
-        for a, b, x in zip(got, want, plain):
-            assert a.dtype == dtype and a.shape == x.shape
-            assert torch.equal(a, b)
+    if "q_offset" in kw or ("window" in kw and not (kw.get("causal")
+                                                     or kw.get("one_sided_window"))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            o.sum().backward()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        o.sum().backward()
+    do = torch.randn(o.shape, generator=g).to(dtype)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    plain = [t.detach() for t in (q, k, v)]
+    masks = dict(causal=bool(kw.get("causal")), window=kw.get("window"),
+                 softcap=kw.get("softcap"))
+    o32, lse = ref.flash_attention_ref(*plain, one_sided_window=True, stats=True, **masks)
+    want = ref.flash_attention_bwd_ref(*plain, o32, lse, do, **masks)
+    for a, b, x in zip(got, want, plain):
+        assert a.dtype == dtype and a.shape == x.shape
+        assert torch.equal(a, b)
 
 
 def test_rf_draws_distributions():
@@ -515,8 +520,9 @@ def test_train_cli_checkpoint_reads_in_reference_bit_for_bit(tmp_path, capsys):
                                    "local"],
                                   ["--arch", "rwkv6-3b", "--smoke", "--mesh",
                                    "local"],
-                                  ["--arch", "gemma2-9b", "--smoke"],
-                                  ["--arch", "qwen3-moe-30b-a3b", "--smoke"]])
+                                  ["--arch", "gemma2-9b", "--smoke", "--mesh", "local"],
+                                  ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--mesh",
+                                   "local"]])
 def test_train_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(argv + ["--device", "cpu", "--steps", "1"])

@@ -303,6 +303,22 @@ non-zero and no phase's failure is caught:
      ``FLASH_BWD_SHAPES``, ``FFN_BWD_SHAPES``) give the 3B rows' launches.
      dbrx-132b does not train at full width: one layer with its
      embeddings (4.5 B params) needs more than the card's 80 GB.
+ 17. training over a data x model mesh (``launch/mesh.make_local_mesh``,
+     ``train_lm(mesh=)``, the expert-parallel MoE block with its
+     differentiable all-to-alls): (a) ``make_local_mesh()`` on one NCCL
+     rank, qwen3-moe smoke ``train_lm`` for 2 steps bit-identical to the
+     mesh-less card run, launches held to the plan; (b) data 2 x model 2,
+     four gloo ranks sharing the card against the same mesh on four CPU
+     gloo ranks, qwen3-moe smoke for 3 steps from params drawn on the CPU
+     (CUDA's generator draws other numbers): losses within 16a's bf16
+     bound, every leaf but the experts bit-identical across the card's
+     ranks, each rank's launches held to the plan; (c) qwen3-moe-30b-a3b
+     at full width, 2 of 48 layers, model 2 (64 experts a rank) over two
+     gloo ranks sharing the card, batch 8 x 128 bf16: a warm-up and 4
+     timed steps, s/step, ``max_memory_allocated`` per rank, the
+     all-to-alls' calls and bytes a step (the (128, 40, 2048) bf16 buffer
+     of 512 local tokens at capacity 40, six calls a layer: forward,
+     recompute, backward), launches by shape held to the plan.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -311,6 +327,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -364,7 +381,12 @@ def phase(name: str):
     t0 = time.perf_counter()
     log(f"== phase {name}")
     yield
-    log(f"== phase {name} done in {time.perf_counter() - t0:.3f} s")
+    mem = ""
+    if "torch" in sys.modules and sys.modules["torch"].cuda.is_initialized():
+        cuda = sys.modules["torch"].cuda
+        mem = (f" (this process then holds {cuda.memory_allocated() / 2**30:.3f} GiB "
+               f"allocated, {cuda.memory_reserved() / 2**30:.3f} reserved on the card)")
+    log(f"== phase {name} done in {time.perf_counter() - t0:.3f} s{mem}")
 
 
 def compare(name: str, got, want, tol) -> float:
@@ -4903,6 +4925,290 @@ def phase_lm_train_full(rows, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training over a data x model mesh (the functions named _tm_*
+# run in spawned ranks, so they live at the top level)
+# ---------------------------------------------------------------------------
+TM_NAME = "qwen3-moe-30b-a3b"
+TM_SMOKE_BATCH, TM_SMOKE_SEQ = 4, 32      # 17a / 17b
+TM_A_STEPS, TM_B_STEPS = 2, 3
+TM_LAYERS, TM_BATCH, TM_SEQ, TM_MODEL = 2, 8, 128, 2    # 17c
+TM_TIMED = 4                              # 17c, after a warm-up step
+TM_TIMEOUT_S = 600
+# 17c's peak a rank, 22.32 GiB measured at 2 layers (PERF.md), with 1 GiB for
+# the rank's CUDA context and cache
+TM_NEED_GIB = 23.4
+
+
+def _tm_digests(params):
+    """sha256 of every leaf but the routed experts, in leaf order."""
+    import hashlib
+    import torch
+    from repro_torch.checkpoint.io import flatten
+    from repro_torch.common.sharding import is_lm_expert
+    return [hashlib.sha256(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                           .numpy().tobytes()).hexdigest()
+            for path, t in flatten(params)[0] if not is_lm_expert(path)]
+
+
+def _tm_step0_grads(mesh, cfg, batch: int, seq: int):
+    """17b in each rank: the f32 gradients of the first batch, reduced over
+    the mesh (``lm_grads``) from params drawn on the CPU, the experts
+    gathered, as they are and with the planted fault of the router's share
+    not summed over ``model``; returns ({"right" | "router_not_summed":
+    leaves}, paths)."""
+    import torch
+    from repro_torch.checkpoint.io import flatten
+    from repro_torch.common import sharding as shard_lib
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.train import lm_grads
+    from repro_torch.models.api import get_model
+    params = get_model(cfg).init(cfg, generator=torch.Generator().manual_seed(0),
+                                 dtype=torch.float32)
+    params = shard_lib.shard_lm_experts(_to(params, mesh.device), mesh)
+    rows = shard_lib.local_rows(batch, mesh)
+    b = {k: v[rows].to(mesh.device)
+         for k, v in next(token_batches(cfg.vocab_size, batch, seq, seed=0)).items()}
+    out, paths = {}, None
+    right = shard_lib.is_lm_token_local
+    for name in ("right", "router_not_summed"):
+        if name == "router_not_summed":
+            shard_lib.is_lm_token_local = lambda path: False
+        try:
+            _, g = lm_grads(params, b, cfg, mesh=mesh)
+        finally:
+            shard_lib.is_lm_token_local = right
+        leaves = flatten(shard_lib.gather_lm_experts(g, mesh))[0]
+        out[name] = [t for _, t in leaves]
+        paths = [p for p, _ in leaves]
+    return out, paths
+
+
+def _tm_train_job(mesh, steps: int, batch: int, seq: int, cpu_init: bool = False):
+    """17a / 17b in each rank: ``train_lm`` of the smoke config over the
+    mesh, from its own init on the rank's device or (``cpu_init``, 17b)
+    from params drawn on the CPU, the same on either device, and then
+    first :func:`_tm_step0_grads`; returns (the losses and grad norms, the
+    params with the experts gathered, every rank's digests of its other
+    leaves, the step-0 gradients)."""
+    import torch
+    from repro_torch.common.sharding import gather_lm_experts
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.api import get_model
+    _tf32_off()
+    cfg = get_smoke(TM_NAME)
+    init = None
+    if cpu_init:
+        init = _to(get_model(cfg).init(cfg, generator=torch.Generator().manual_seed(0)),
+                   mesh.device)
+    grads = _tm_step0_grads(mesh, cfg, batch, seq) if cpu_init else None
+    ops.reset_launches()                 # the counts the spawn reports are train_lm's
+    hist = []
+    params = train_lm(cfg, steps=steps, batch=batch, seq=seq, mesh=mesh, log_every=steps,
+                      history=hist, params=init)
+    return dict(losses=[float(m["loss"]) for m in hist],
+                gnorms=[float(m["grad_norm"]) for m in hist],
+                params=gather_lm_experts(params, mesh),
+                digests=_every_rank(_tm_digests(params)), grads=grads)
+
+
+def _tm_full_job(mesh, layers: int, batch: int, seq: int, timed: int):
+    """17c in each rank: qwen3-moe-30b-a3b at full width cut to ``layers``,
+    this rank's experts, a warm-up step, then ``timed`` steps with the
+    launch counts and the all-to-alls' bytes counted; returns every rank's
+    numbers."""
+    import torch
+    from repro_torch.bridge import leaves
+    from repro_torch.common.sharding import local_rows, shard_lm_experts
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.train import lm_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import adamw_init
+    cfg = get_config(TM_NAME).replace(num_layers=layers)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(cfg, generator=torch.Generator(device=mesh.device).manual_seed(0))
+    params = shard_lm_experts(params, mesh)
+    torch.cuda.empty_cache()
+    opt = adamw_init(params)
+    n_params = sum(t.numel() for t in leaves(params).values())
+    it = token_batches(cfg.vocab_size, batch, seq, seed=0, device=mesh.device)
+    rows = local_rows(batch, mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sent = []
+    a2a = mesh_lib.EPMesh.all_to_all
+
+    def counted(self, t):
+        sent.append(t.numel() * t.element_size())
+        return a2a(self, t)
+
+    mesh_lib.EPMesh.all_to_all = counted
+
+    def step():
+        nonlocal params, opt
+        b = {k: v[rows] for k, v in next(it).items()}
+        params, opt, m = lm_train_step(params, opt, b, cfg, total=1 + timed, mesh=mesh)
+        return m
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        sent.clear()
+        t0 = time.perf_counter()
+        ms = [step() for _ in range(timed)]
+        torch.cuda.synchronize()
+        s_per_step = (time.perf_counter() - t0) / timed
+    finally:
+        mesh_lib.EPMesh.all_to_all = a2a
+    return _every_rank(dict(
+        s_per_step=s_per_step, init_s=init_s, n_params=n_params,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        losses=[float(m["loss"]) for m in ms], gnorms=[float(m["grad_norm"]) for m in ms],
+        a2a_calls=len(sent) / timed, a2a_bytes=sum(sent) / timed, a2a_sizes=sorted(set(sent)),
+        counts=dict(ops.LAUNCHES), ffn_bwd=dict(ops.FFN_BWD_SHAPES),
+        flash_bwd=dict(ops.FLASH_BWD_SHAPES), flash=dict(ops.FLASH_SHAPES)))
+
+
+def phase_train_mesh(rows, smi):
+    """17: see the module docstring."""
+    import torch
+    from repro_torch.checkpoint.io import flatten
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.core.moe import default_capacity
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.train import train_lm
+    _tf32_off()
+    cfg = get_smoke(TM_NAME)
+    # (a) make_local_mesh() on one NCCL rank against the mesh-less card run
+    t0 = time.perf_counter()
+    hist = []
+    want = train_lm(cfg, steps=TM_A_STEPS, batch=TM_SMOKE_BATCH, seq=TM_SMOKE_SEQ,
+                    device="cuda", log_every=TM_A_STEPS, history=hist)
+    want_losses = [float(m["loss"]) for m in hist]
+    got, counts = mesh_lib.spawn(_tm_train_job, 1, backend="nccl", data=1, model=1,
+                                 timeout_s=TM_TIMEOUT_S,
+                                 args=(TM_A_STEPS, TM_SMOKE_BATCH, TM_SMOKE_SEQ))
+    pairs = list(zip(flatten(got["params"])[0], flatten(want)[0]))
+    same = all(torch.equal(g, w.cpu()) for (_, g), (_, w) in pairs)
+    plan = _planned_train_launches(cfg, TM_A_STEPS)
+    log(f"  17a [{smi}] make_local_mesh() on one nccl rank, {cfg.name} train_lm "
+        f"{TM_A_STEPS} steps at {TM_SMOKE_BATCH} x {TM_SMOKE_SEQ}: losses "
+        f"{got['losses']} vs the mesh-less card run {want_losses}, {len(pairs)} leaves "
+        f"{'bit-identical' if same else 'NOT bit-identical'}; launches {counts[0]} "
+        f"(planned {plan}); {time.perf_counter() - t0:.1f} s with the spawn")
+    if not same or got["losses"] != want_losses:
+        raise AssertionError("17a: the 1 x 1 mesh differs from the mesh-less run")
+    if counts[0] != plan:
+        raise AssertionError(f"17a: launches {counts[0]} differ from the plan's {plan}")
+
+    # (b) data 2 x model 2: gloo ranks sharing the card against CPU gloo ranks
+    t0 = time.perf_counter()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        runs[dev] = mesh_lib.spawn(_tm_train_job, 4, backend="gloo", device=dev, data=2,
+                                   model=2, timeout_s=TM_TIMEOUT_S,
+                                   args=(TM_B_STEPS, TM_SMOKE_BATCH, TM_SMOKE_SEQ, True))
+    (cpu, _), (card, card_counts) = runs["cpu"], runs["cuda"]
+    plan = _planned_train_launches(cfg, TM_B_STEPS)
+    same = all(d == card["digests"][0] for d in card["digests"])
+    log(f"  17b [{smi}] data 2 x model 2, {cfg.name} train_lm {TM_B_STEPS} steps at "
+        f"{TM_SMOKE_BATCH} x {TM_SMOKE_SEQ} (bf16, params drawn on the cpu), four gloo "
+        f"ranks sharing the card vs four cpu gloo ranks: losses card {card['losses']}, cpu {cpu['losses']}; "
+        f"{len(card['digests'][0])} leaves but the experts "
+        f"{'bit-identical' if same else 'NOT bit-identical'} across the card's ranks; "
+        f"launches per rank {card_counts} (planned {plan}); "
+        f"{time.perf_counter() - t0:.1f} s with the spawns")
+    compare(f"17b [{smi}] losses card vs cpu", torch.tensor(card["losses"]),
+            torch.tensor(cpu["losses"]), dict(rtol=TOL_LM_BF16_LOSS, atol=0.0))
+    compare(f"17b [{smi}] grad norms card vs cpu", torch.tensor(card["gnorms"]),
+            torch.tensor(cpu["gnorms"]), dict(rtol=TOL_LM_BF16_LOSS, atol=0.0))
+    # the mesh's backward (the all-to-alls', the slice's and gather's, the
+    # group means') and the reduction, f32 at 16a's bounds; the planted
+    # fault must fail the same comparison
+    (want, names), (got, _) = cpu["grads"], card["grads"]
+    n_sum = max(cfg.d_ff, cfg.expert_d_ff or 0) + TM_SMOKE_SEQ
+    _compare_grads(f"17b [{smi}] f32 step-0 gradients reduced over the mesh, card vs cpu",
+                   got["right"], want["right"], names, n_sum)
+    try:
+        _compare_grads(f"17b [{smi}] planted fault, the router not summed over model "
+                       f"(must FAIL)", got["router_not_summed"], want["right"], names, n_sum)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError("17b: the gradient comparison passed the planted fault")
+    if not same:
+        raise AssertionError("17b: the replicated leaves differ across the ranks")
+    if any(c != plan for c in card_counts):
+        raise AssertionError(f"17b: launches {card_counts} differ from the plan's {plan}")
+
+    # (c) qwen3-moe-30b-a3b at full width, 2 layers, model 2
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = TM_MODEL * TM_NEED_GIB * 2**30
+    log(f"  17c [{smi}] before the spawn this process holds {held / 2**30:.3f} GiB "
+        f"allocated, {torch.cuda.memory_allocated() / 2**30:.3f} after gc.collect(), "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} reserved; the card has "
+        f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free, two ranks of "
+        f"{TM_LAYERS} layers need {need / 2**30:.3f}")
+    if free < need:
+        raise AssertionError(f"17c: {free / 2**30:.3f} GiB free on the card, "
+                             f"{need / 2**30:.3f} needed")
+    full = get_config(TM_NAME).replace(num_layers=TM_LAYERS)
+    res, _ = mesh_lib.spawn(_tm_full_job, TM_MODEL, backend="gloo", device="cuda", data=1,
+                            model=TM_MODEL, timeout_s=TM_TIMEOUT_S,
+                            args=(TM_LAYERS, TM_BATCH, TM_SEQ, TM_TIMED))
+    e_loc = full.num_experts // TM_MODEL
+    C = default_capacity(TM_BATCH * TM_SEQ // TM_MODEL, full)
+    wire = full.num_experts * C * full.d_model * 2
+    plan = _planned_train_launches(full, TM_TIMED)
+    ffn_plan = {(e_loc, TM_MODEL * C, full.d_model, full.expert_d_ff, "bfloat16"):
+                TM_TIMED * TM_LAYERS}
+    flash_plan = {(TM_BATCH, TM_SEQ, TM_SEQ, full.num_heads, full.num_kv_heads,
+                   full.head_dim, True, None, None): TM_TIMED * TM_LAYERS}
+    for r, x in enumerate(res):
+        log(f"  17c [{smi}] {TM_NAME} full width, {TM_LAYERS} of 48 layers, model "
+            f"{TM_MODEL} ({e_loc} experts a rank), rank {r}: {x['n_params'] / 1e9:.4f} B "
+            f"params bf16 (moments f32), batch {TM_BATCH} x {TM_SEQ}: "
+            f"{x['s_per_step']:.4f} s/train-step over {TM_TIMED} steps "
+            f"({TM_BATCH * TM_SEQ / x['s_per_step']:.1f} tokens/s), max_memory_allocated "
+            f"{x['peak_gib']:.3f} GiB, init {x['init_s']:.2f} s; all-to-alls "
+            f"{x['a2a_calls']:.0f} a step of {x['a2a_sizes']} B ({x['a2a_bytes']:.0f} B a "
+            f"step; planned 6 a layer of {wire} B); losses "
+            f"{[round(v, 5) for v in x['losses']]}, grad norms "
+            f"{[round(v, 4) for v in x['gnorms']]}; launches "
+            f"{ {k: v for k, v in x['counts'].items() if v} } (planned "
+            f"{ {k: v for k, v in plan.items() if v} }); expert_ffn_bwd by shape "
+            f"{x['ffn_bwd']}; flash_attention_bwd by shape {x['flash_bwd']}; "
+            f"flash_attention by shape {x['flash']}")
+        bad = (x["counts"] != plan or x["ffn_bwd"] != ffn_plan or x["flash_bwd"] != flash_plan
+               or x["a2a_calls"] != 6 * TM_LAYERS or x["a2a_sizes"] != [wire]
+               or not all(math.isfinite(v) for v in x["losses"] + x["gnorms"]))
+        if bad:
+            raise AssertionError(f"17c rank {r}: launches, shapes or all-to-alls differ "
+                                 f"from the plan, or a loss is not finite")
+    if len({tuple(x["losses"]) for x in res}) != 1:
+        raise AssertionError("17c: the ranks report different losses")
+    log(f"  17c: the spawn took {time.perf_counter() - t0:.1f} s; both ranks share one "
+        f"card and a host-staged gloo wire, so these are not NCCL numbers")
+    for name, key in (("expert_ffn", "expert_ffn"), ("flash_attention", "flash_attention"),
+                      ("expert_ffn_bwd qwen3-moe-30b-a3b (128 experts top-8)",
+                       "expert_ffn_bwd"),
+                      ("flash_attention_bwd qwen3-moe-30b-a3b (GQA 32 over 4)",
+                       "flash_attention_bwd")):
+        rows[name]["launches_train_mesh_per_rank"] = [x["counts"][key] for x in res]
+
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -4979,9 +5285,14 @@ def main() -> int:
                "cpu vs card, eight runs at full width; their 3B lines ran in phase 3)"):
         phase_lm_train_smoke(smi)
         phase_lm_train_full(rows, smi)
+    with phase("17 main path 13 (training over a data x model mesh: make_local_mesh on one "
+               "nccl rank, data 2 x model 2 gloo ranks card vs cpu, qwen3-moe-30b-a3b at "
+               "full width over model 2)"):
+        phase_train_mesh(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "launches_train_lm",
+            "launches_train_mesh_per_rank",
             "launches_forward",
             "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",

@@ -108,15 +108,18 @@ def leaves(tree) -> Dict[str, torch.Tensor]:
     """Flat {path: leaf} view of a param tree (either framework's), in a
     fixed order."""
     out: Dict[str, Any] = {}
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], f"{path}.{k}" if path else k)
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, f"{path}[{i}]")
-        else:
-            out[path] = node
-    walk(tree, "")
+    _leaves_walk(tree, "", out)
     return out
+
+
+def _leaves_walk(node, path: str, out: Dict[str, Any]) -> None:
+    # not a closure: one that calls itself is a reference cycle, which
+    # would keep ``out`` and its leaves alive until the next collection
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _leaves_walk(node[k], f"{path}.{k}" if path else k, out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _leaves_walk(v, f"{path}[{i}]", out)
+    else:
+        out[path] = node

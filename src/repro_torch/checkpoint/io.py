@@ -58,44 +58,48 @@ def flatten(tree) -> Tuple[List[Tuple[str, Any]], str]:
     """((path, leaf) pairs in JAX's flattening order, the structure string
     ``str(jax.tree_util.tree_structure(tree))`` gives)."""
     leaves: List[Tuple[str, Any]] = []
+    return leaves, f"PyTreeDef({_flatten_walk(tree, '', leaves)})"
 
-    def walk(node, path):
-        if isinstance(node, dict):
-            items = []
-            for k in sorted(node):
-                items.append(f"{k!r}: {walk(node[k], f'{path}.{k}')}")
-            return "{" + ", ".join(items) + "}"
-        if isinstance(node, list):
-            return "[" + ", ".join(walk(v, f"{path}[{i}]")
-                                   for i, v in enumerate(node)) + "]"
-        if isinstance(node, tuple):
-            inner = [walk(v, f"{path}[{i}]") for i, v in enumerate(node)]
-            return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") + ")"
-        if node is None:
-            return "None"
-        leaves.append((path, node))
-        return "*"
 
-    return leaves, f"PyTreeDef({walk(tree, '')})"
+# the walks are module-level functions, not closures: a nested function
+# that calls itself holds its own cell, a reference cycle that would keep
+# every leaf (a train step's whole gradient tree) alive until the next
+# collection
+def _flatten_walk(node, path: str, leaves: List[Tuple[str, Any]]) -> str:
+    if isinstance(node, dict):
+        items = []
+        for k in sorted(node):
+            items.append(f"{k!r}: {_flatten_walk(node[k], f'{path}.{k}', leaves)}")
+        return "{" + ", ".join(items) + "}"
+    if isinstance(node, list):
+        return "[" + ", ".join(_flatten_walk(v, f"{path}[{i}]", leaves)
+                               for i, v in enumerate(node)) + "]"
+    if isinstance(node, tuple):
+        inner = [_flatten_walk(v, f"{path}[{i}]", leaves) for i, v in enumerate(node)]
+        return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") + ")"
+    if node is None:
+        return "None"
+    leaves.append((path, node))
+    return "*"
 
 
 def unflatten(like, leaves: List[Any]):
     """``like``'s structure with its leaves replaced, in flattening
     order."""
-    it = iter(leaves)
+    return _unflatten_walk(like, iter(leaves))
 
-    def walk(node):
-        if isinstance(node, dict):
-            out = {k: None for k in node}       # keep the caller's key order
-            for k in sorted(node):
-                out[k] = walk(node[k])
-            return out
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        if node is None:
-            return None
-        return next(it)
-    return walk(like)
+
+def _unflatten_walk(node, it):
+    if isinstance(node, dict):
+        out = {k: None for k in node}       # keep the caller's key order
+        for k in sorted(node):
+            out[k] = _unflatten_walk(node[k], it)
+        return out
+    if isinstance(node, (list, tuple)):
+        return type(node)(_unflatten_walk(v, it) for v in node)
+    if node is None:
+        return None
+    return next(it)
 
 
 def _leaf_meta(leaf) -> Tuple[str, Tuple[int, ...]]:

@@ -1,5 +1,5 @@
-"""Sharding of params, batches and image tokens over the serving mesh
-(port of the serving part of ``repro.common.sharding``).
+"""Sharding of params, batches and image tokens over the serving and
+training meshes (port of ``repro.common.sharding``).
 
 On a mesh (:mod:`repro_torch.launch.mesh`) each rank keeps rows
 ``[i * e_loc, (i + 1) * e_loc)`` of every routed-expert stack (the leaves
@@ -10,6 +10,15 @@ patch group holds the experts once; and a full copy of everything else
 "lane", dp-major), the image tokens over ``patch``.  The reference
 expresses the same layout as ``PartitionSpec``\\ s; here a spec is the
 axis name or ``None``.
+
+The training mesh (:class:`~repro_torch.launch.mesh.TrainMesh`) keeps the
+reference's rules: :func:`param_spec`, :func:`tree_param_specs`,
+:func:`opt_state_spec` and :func:`batch_spec` return a spec as a tuple with
+one entry per dim, ``"model"``, ``"data"`` or ``None``, the entries of the
+reference's ``PartitionSpec``.  Only the stacked routed experts are placed
+on a training mesh (:func:`shard_lm_experts`), as in the reference's
+``train_lm``; the rules are for the dry run, which reads the layout
+without placing it.
 """
 from __future__ import annotations
 
@@ -182,3 +191,154 @@ def place_experts(params, placements: Sequence[Optional[
     if next(it, False) is not False:
         raise ValueError("more placements than the model has MoE layers")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the training mesh's rules (the reference's param_spec & co.)
+# ---------------------------------------------------------------------------
+def batch_spec(mesh) -> Any:
+    """The spec entry of the batch dim: ``("pod", "data")`` when the mesh
+    has a ``pod`` axis, else ``"data"``."""
+    return ("pod", "data") if "pod" in mesh.axis_names else "data"
+
+
+def _divisible(dim: int, mesh, axis: str) -> bool:
+    return axis in mesh.axis_names and dim % mesh.shape[axis] == 0
+
+
+# (leaf names, the dim they shard over "model") of the 2-D projections, in
+# the reference's order
+_PROJECTION_RULES = (
+    (("wq", "wkv_a", "w_qkv", "wk", "wv", "wq_s", "wk_s", "wv_s"), 1),
+    (("wo",), 0),
+    (("w_in", "w_gate", "w_up"), 1),
+    (("w_out", "w_down"), 0),
+    (("embed", "unembed", "lm_head"), 0),
+    (("w_xz", "w_inner_up"), 1),
+    (("w_inner_down",), 0),
+)
+
+
+def param_spec(path: str, shape, mesh) -> Tuple[Any, ...]:
+    """Rule-based spec of the param at ``path`` ('/'-joined tree path) of
+    ``shape`` on ``mesh`` (anything with ``axis_names`` and ``shape``): one
+    entry per dim, ``"model"`` or ``None``.  The rules match the leaf names
+    the models use, in the reference's order: routed experts on their
+    expert dim (dim 1 of a layer-stacked (L, E, d, f) leaf), the 2-D
+    projections and the vocab on their head / hidden / vocab dim, then a
+    stacked leaf on its largest trailing dim that divides, then a 2-D leaf
+    on its last dim that divides, else replicated."""
+    name = path.split("/")[-1]
+    ndim = len(shape)
+
+    def ok(i):
+        return _divisible(shape[i], mesh, "model")
+
+    def on(i):
+        return tuple("model" if j == i else None for j in range(ndim))
+
+    if name.startswith(("experts_", "moe_")) or "expert" in path:
+        e_dim = 1 if ndim >= 4 else 0
+        if ndim >= 2 and ok(e_dim):
+            return on(e_dim)
+    for names, dim in _PROJECTION_RULES:
+        if name in names and ndim == 2 and ok(dim):
+            return on(dim)
+    if ndim >= 3:
+        for i in sorted(range(1, ndim), key=lambda i: -shape[i]):
+            if ok(i):
+                return on(i)
+    if ndim == 2:
+        for i in (1, 0):
+            if ok(i):
+                return on(i)
+    return (None,) * ndim
+
+
+def tree_param_specs(params, mesh):
+    """The tree of ``params`` with each leaf (anything with a ``shape``)
+    replaced by its :func:`param_spec`."""
+    def walk(node, names):
+        if isinstance(node, dict):
+            return {k: walk(v, names + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, names + (str(i),))
+                              for i, v in enumerate(node))
+        return param_spec("/".join(names), tuple(node.shape), mesh)
+    return walk(params, ())
+
+
+def opt_state_spec(pspec, shape, mesh) -> Tuple[Any, ...]:
+    """ZeRO: the param's spec with its largest unsharded dim that divides
+    over ``data`` sharded over ``data`` as well."""
+    parts = list(pspec) + [None] * (len(shape) - len(pspec))
+    cand = [i for i, p in enumerate(parts)
+            if p is None and _divisible(shape[i], mesh, "data")]
+    if cand:
+        parts[max(cand, key=lambda i: shape[i])] = "data"
+    return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# the LMs' routed experts on a training mesh
+# ---------------------------------------------------------------------------
+def _names(path) -> Tuple[str, ...]:
+    if isinstance(path, str):
+        return tuple(n for n in path.replace("/", ".").split(".") if n)
+    return tuple(path)
+
+
+def is_lm_expert(path) -> bool:
+    """Whether ``path`` (a '/'- or '.'-joined tree path, or its names) is a
+    stacked routed-expert leaf of an LM, ``.../moe/experts_*``: the leaves
+    a training mesh shards over ``model``."""
+    names = _names(path)
+    return len(names) >= 2 and names[-2] == "moe" \
+        and names[-1].startswith("experts_")
+
+
+def is_lm_token_local(path) -> bool:
+    """Whether ``path`` is a leaf that ``moe_forward`` applies to the
+    rank's own tokens on a training mesh (the router and the shared
+    experts), of whose gradient each ``model`` rank holds a share."""
+    names = _names(path)
+    return len(names) >= 2 and names[-2] == "moe" \
+        and names[-1].startswith(("router", "shared_"))
+
+
+def lm_expert_slice(num_experts: int, mesh) -> slice:
+    """The experts this rank holds on a training mesh, its slice along
+    ``model``; raises unless they divide."""
+    n, i = _axis(mesh, "model")
+    if num_experts % n:
+        raise ValueError(f"num_experts={num_experts} must divide over the "
+                         f"{n}-way 'model' mesh axis for expert parallelism")
+    e_loc = num_experts // n
+    return slice(i * e_loc, (i + 1) * e_loc)
+
+
+def shard_lm_experts(params, mesh):
+    """``params`` with every stacked expert leaf (L, E, ...) cut to this
+    rank's experts on dim 1 (``ep_shard_params`` cuts dim 0, the layer axis
+    here); the cut is a copy, so the full stack can be freed, and the other
+    leaves are the same tensors."""
+    def walk(node, names):
+        if isinstance(node, dict):
+            return {k: walk(v, names + (str(k),)) for k, v in node.items()}
+        if is_lm_expert(names) and mesh.shape["model"] > 1:
+            return node[:, lm_expert_slice(node.shape[1], mesh)].clone()
+        return node
+    return walk(params, ())
+
+
+def gather_lm_experts(params, mesh):
+    """The inverse of :func:`shard_lm_experts`: every stacked expert leaf
+    all-gathered over ``model`` on dim 1 (a collective: every rank of the
+    group calls it)."""
+    def walk(node, names):
+        if isinstance(node, dict):
+            return {k: walk(v, names + (str(k),)) for k, v in node.items()}
+        if is_lm_expert(names):
+            return mesh.model_gather(node, dim=1)
+        return node
+    return walk(params, ())

@@ -21,6 +21,13 @@ buffer's experts and serves the pairs of replicated experts locally.
 ``num_wire_experts`` widens the wire to expert paging's padded expert
 count (:mod:`repro_torch.core.paging`): phantom experts no token reaches.
 
+With grad enabled (training over a ``TrainMesh``'s ``model`` group) the
+two all-to-alls are differentiable: the backward sends each piece of the
+cotangent back to the rank it came from, the same tiled all-to-all; and
+the load-balance loss's means over the ranks give each rank its share of
+the gradient (:func:`group_mean`).  Without grad both are the plain
+collectives.
+
 ``fresh_mask`` / ``h_cache`` implement Conditional Communication: masked
 pairs are not dispatched (they take no buffer capacity) and their
 contribution comes from the cached expert output of an earlier step.
@@ -244,8 +251,51 @@ def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor, E: int,
     products)."""
     terms = lb_terms(probs, idx, E)
     if mesh is not None:
-        terms = mesh.all_reduce_mean(terms)
+        terms = group_mean(terms, mesh)
     return lb_from_terms(terms, idx.shape[1])
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean over an ep group, whose backward hands each rank its share
+    of the gradient: the group mean of the cotangent, over n."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce_mean(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_mean(g) / ctx.mesh.size, None
+
+
+def group_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``mesh.all_reduce_mean(t)`` (the reference's ``pmean`` over the ep
+    axis).  Where ``t`` requires grad the mean is differentiable in the
+    convention of a training mesh, whose ranks then SUM the gradients of
+    the leaves applied to their own tokens (the router, shared experts):
+    every rank's loss holds the same mean, so the backward gives rank r
+    ``d mean / d t_r = 1/n`` of the (group-averaged) cotangent, its share
+    of the one loss.  The reference's ``shard_map`` transpose does the same
+    (``tests/test_torch_train_mesh.py`` holds the router's gradient to
+    it)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GroupMean.apply(t, mesh)
+    return mesh.all_reduce_mean(t)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all (piece j to rank j), whose backward runs the
+    same all-to-all on the cotangent: piece j goes back to rank j."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_to_all(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g), None
 
 
 # ---------------------------------------------------------------------------
@@ -584,13 +634,19 @@ def _ep_exchange(p, buf: torch.Tensor, cfg, mesh, *, ring: bool,
             f"repro_torch.common.sharding.ep_shard_params, or page them "
             f"(repro_torch.core.paging)")
     chunks = buf.reshape(n, e_loc, C, d)
+    grad = torch.is_grad_enabled() and (
+        buf.requires_grad or any(v.requires_grad for v in local.values()))
     if ring:
+        if grad:
+            raise ValueError("the ring engine has no backward: train over the "
+                             "blocking all-to-alls (overlap off)")
         out = overlap_lib.ring_expert_exchange(
             chunks, lambda c: expert_ffn(local, c, act=cfg.act), mesh=mesh,
             wire_dtype=wire_dtype, hop_schedule=hop_schedule)
         return out.reshape(E, C, d)
-    b = mesh.all_to_all(chunks)            # piece j: rank j's rows for us
+    a2a = (lambda t: _AllToAll.apply(t, mesh)) if grad else mesh.all_to_all
+    b = a2a(chunks)                        # piece j: rank j's rows for us
     b = b.transpose(0, 1).reshape(e_loc, n * C, d)
     b = expert_ffn(local, b, act=cfg.act)
     b = b.reshape(e_loc, n, C, d).transpose(0, 1).to(wire_dtype)
-    return mesh.all_to_all(b).reshape(E, C, d)
+    return a2a(b).reshape(E, C, d)

@@ -20,6 +20,12 @@ of size 1 drop out: :func:`make_mesh` with ``dp = patch = 1`` builds the
 flat :class:`EPMesh` it always did, and any other shape a
 :class:`HierMesh`.
 
+Training runs on the reference's other mesh, ``("data", "model")`` or
+``("pod", "data", "model")`` (:class:`TrainMesh`, from
+:func:`make_local_mesh` or :func:`make_production_mesh`): the batch
+shards over ``pod x data`` (:func:`batch_axes`), the routed experts over
+``model``, whose ranks exchange the MoE tokens with the two all-to-alls.
+
 The backend is the caller's choice, never this module's:
 
 * ``nccl`` when every rank has a card of its own (``cuda:{rank}``).  NCCL
@@ -269,6 +275,112 @@ class HierMesh:
                          + tuple(x.shape[2:]))
 
 
+# training mesh axes, outermost first
+TRAIN_AXES = ("pod", "data", "model")
+
+
+@dataclass(frozen=True)
+class TrainMesh:
+    """One rank's view of the training mesh ``("data", "model")``, or
+    ``("pod", "data", "model")`` when ``pod`` is given.
+
+    ``rank`` is the world rank, ``(pod_i * data + data_i) * model +
+    model_i``: ``pod`` outermost, ``model`` innermost.  ``groups`` holds
+    this rank's process group of ``model`` (same pod and data) and of
+    ``batch`` (same model index: the ``pod x data`` ranks the batch shards
+    over) where that group has more than one rank.  Unlike
+    :class:`HierMesh`, axes of size 1 stay (the reference's
+    ``make_local_mesh`` keeps them): ``axis_names``, ``shape`` and
+    :meth:`rank_in` mirror its mesh.  With a one-rank world there are no
+    groups and every collective below is the identity."""
+    rank: int
+    data: int
+    model: int
+    pod: Optional[int] = None
+    backend: Optional[str] = None
+    device: torch.device = torch.device("cpu")
+    groups: Dict[str, Any] = field(default_factory=dict, compare=False)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return TRAIN_AXES if self.pod is not None else TRAIN_AXES[1:]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {a: getattr(self, a) for a in self.axis_names}
+
+    def rank_in(self, axis: str) -> int:
+        """This rank's index along ``axis`` (0 for an absent axis)."""
+        if axis == "model":
+            return self.rank % self.model
+        if axis == "data":
+            return (self.rank // self.model) % self.data
+        if axis == "pod" and self.pod is not None:
+            return self.rank // (self.data * self.model)
+        return 0
+
+    @property
+    def world_size(self) -> int:
+        return (self.pod or 1) * self.data * self.model
+
+    @property
+    def lanes(self) -> int:
+        """Batch shards: one per ``pod x data`` index (the ``model`` ranks
+        of one data group hold the same rows)."""
+        return (self.pod or 1) * self.data
+
+    @property
+    def lane(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def ep_mesh(self) -> Optional[EPMesh]:
+        """The rank's ``model`` group as an :class:`EPMesh`, what the MoE
+        exchanges run over; None when ``model == 1``."""
+        if self.model == 1:
+            return None
+        return EPMesh(group=self.groups["model"], rank=self.rank_in("model"),
+                      size=self.model, backend=self.backend, device=self.device)
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of ``t`` over the ``model`` group (``t`` itself at 1)."""
+        if self.model == 1:
+            return t
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=self.groups["model"])
+        return out
+
+    def model_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ``model`` group's ``t`` concatenated along ``dim`` in model
+        order (``t`` itself at 1)."""
+        if self.model == 1:
+            return t
+        g = _all_gather(t.movedim(dim, 0), self.model, self.groups["model"])
+        return g.movedim(0, dim)
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of ``t`` over the ``pod x data`` ranks of this model index
+        (``t`` itself with one batch shard)."""
+        if self.lanes == 1:
+            return t
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=self.groups["batch"])
+        return out
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """Mean of ``t`` over the batch group (``t`` itself with one batch
+        shard)."""
+        return t if self.lanes == 1 else self.batch_sum(t) / self.lanes
+
+    def batch_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The batch group's ``t`` concatenated along dim 0 in lane order:
+        the global batch from every shard's rows (``t`` itself with one
+        batch shard)."""
+        if self.lanes == 1:
+            return t
+        return _all_gather(t, self.lanes, self.groups["batch"])
+
+
 def _all_gather(t: torch.Tensor, n: int, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
@@ -411,6 +523,105 @@ def make_ep_mesh(ep: int = 0, *, backend: str,
                   device=dev)
 
 
+# ---------------------------------------------------------------------------
+# the training mesh
+# ---------------------------------------------------------------------------
+def _train_mesh(pod: Optional[int], data: int, model: int, *,
+                backend: Optional[str],
+                device: Optional[Union[str, torch.device]]) -> TrainMesh:
+    """This rank's :class:`TrainMesh` over the default process group, which
+    must hold exactly ``pod x data x model`` ranks; a one-rank world needs
+    none.  Every rank creates every group in the same order."""
+    for name, size in (("pod", pod or 1), ("data", data), ("model", model)):
+        if not isinstance(size, int) or size < 1:
+            raise ValueError(f"{name}={size!r}: axis sizes must be integers "
+                             f">= 1")
+    want = (pod or 1) * data * model
+    live = dist.is_initialized()
+    world = dist.get_world_size() if live else 1
+    shape = (((pod,) if pod is not None else ()) + (data, model))
+    if want != world:
+        raise ValueError(f"mesh {shape} = {want} ranks must equal the world "
+                         f"size {world}: the port's mesh is one process per "
+                         f"rank")
+    if not live:
+        return TrainMesh(rank=0, data=data, model=model, pod=pod,
+                         backend=backend, device=resolve_device(device))
+    if backend is None:
+        backend = dist.get_backend()
+    if dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
+                         f"not the requested {backend!r}")
+    rank = dist.get_rank()
+    dev = rank_device(backend, rank, world, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    lanes = want // model
+    layouts = {
+        "model": [[lane * model + m for m in range(model)]
+                  for lane in range(lanes)],
+        "batch": [[lane * model + m for lane in range(lanes)]
+                  for m in range(model)],
+    }
+    groups = {}
+    for axis, members in layouts.items():
+        for ranks in members:
+            if len(ranks) < 2:
+                continue
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = g
+    return TrainMesh(rank=rank, data=data, model=model, pod=pod,
+                     backend=backend, device=dev, groups=groups)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, *,
+                    backend: Optional[str] = None,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> TrainMesh:
+    """A ``("data", "model")`` training mesh over the running world, with
+    the reference's clamp: where ``data x model`` exceeds the world it
+    becomes ``1 x min(model, world)``.  The reference then takes the first
+    ``data x model`` devices; the port's mesh is one process per rank, so
+    the shape must cover the world exactly (``ValueError`` otherwise).
+    Without an initialised process group the world is one rank: a 1 x 1
+    mesh that needs no ``torch.distributed``.  ``backend`` defaults to the
+    group's and must match it; ``device`` as in :func:`rank_device`."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data * model > world:
+        data, model = 1, min(model, world)
+    return _train_mesh(None, data, model, backend=backend, device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         backend: Optional[str] = None,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> TrainMesh:
+    """The reference's 16 x 16 ``("data", "model")`` mesh of 256 ranks, or
+    2 x 16 x 16 ``("pod", "data", "model")`` of 512 with ``multi_pod``;
+    raises ``ValueError`` naming the shape and the world size unless the
+    world holds exactly that many ranks."""
+    pod = 2 if multi_pod else None
+    return _train_mesh(pod, 16, 16, backend=backend, device=device)
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The axes the global batch shards over (``pod`` included if
+    present)."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def data_axis_size(mesh) -> int:
+    size = mesh.shape["data"]
+    if "pod" in mesh.axis_names:
+        size *= mesh.shape["pod"]
+    return size
+
+
+def model_axis_size(mesh) -> int:
+    return mesh.shape["model"]
+
+
 def axis_size(mesh, name: str) -> int:
     """Size of a named axis, 1 when absent."""
     if mesh is None or name not in mesh.axis_names:
@@ -440,9 +651,11 @@ def _to_cpu(obj):
 
 def _rank_main(fn, args, rank: int, size: int, backend: str, device,
                port: int, timeout_s: float, threads: int, results,
-               dp: int = 1, patch: int = 1) -> None:
+               dp: int = 1, patch: int = 1,
+               train: Optional[Tuple[int, int]] = None) -> None:
     """Body of one spawned rank: init the process group, build the
-    ``dp x ep x patch`` mesh, run ``fn(mesh, *args)`` with the launch
+    ``dp x ep x patch`` mesh (the ``data x model`` training mesh when
+    ``train`` gives its shape), run ``fn(mesh, *args)`` with the launch
     counts set to 0, and report (rank 0's result, this rank's counts) or
     the traceback."""
     from repro_torch.kernels import ops
@@ -452,8 +665,11 @@ def _rank_main(fn, args, rank: int, size: int, backend: str, device,
         dist.init_process_group(
             backend, init_method=f"tcp://127.0.0.1:{port}", world_size=size,
             rank=rank, timeout=timedelta(seconds=timeout_s))
-        mesh = make_mesh(ep=size // (dp * patch), dp=dp, patch=patch,
-                         backend=backend, device=device)
+        if train is not None:
+            mesh = make_local_mesh(*train, backend=backend, device=device)
+        else:
+            mesh = make_mesh(ep=size // (dp * patch), dp=dp, patch=patch,
+                             backend=backend, device=device)
         ops.reset_launches()
         out = fn(mesh, *args)
         if mesh.device.type == "cuda":
@@ -471,11 +687,14 @@ def _rank_main(fn, args, rank: int, size: int, backend: str, device,
 def spawn(fn: Callable, n: int, *, backend: str,
           device: Optional[Union[str, torch.device]] = None,
           args: Sequence = (), timeout_s: float = DEFAULT_TIMEOUT_S,
-          threads: int = 1, dp: int = 1, patch: int = 1
+          threads: int = 1, dp: int = 1, patch: int = 1,
+          data: Optional[int] = None, model: Optional[int] = None
           ) -> Tuple[Any, List[Dict[str, int]]]:
     """Run ``fn(mesh, *args)`` in ``n`` spawned ranks over ``backend``, on
     the mesh ``dp x (n / (dp * patch)) x patch`` (the flat ep mesh by
-    default).
+    default), or, when ``data`` or ``model`` is given, on the training mesh
+    ``make_local_mesh(data, model)`` (the other defaults to ``n`` over it;
+    ``data x model`` must be ``n``).
 
     ``fn`` must be importable (a module-level function) and ``args``
     picklable.  Each rank sets ``torch.set_num_threads(threads)`` (0
@@ -489,6 +708,14 @@ def spawn(fn: Callable, n: int, *, backend: str,
     if n % (dp * patch):
         raise ValueError(f"{n} ranks do not split into dp={dp} x patch="
                          f"{patch} groups")
+    train = None
+    if data is not None or model is not None:
+        model = model or n // (data or 1)
+        data = data or n // model
+        if data * model != n or (dp, patch) != (1, 1):
+            raise ValueError(f"{n} ranks are not a training mesh data={data} "
+                             f"x model={model} (dp and patch are serving axes)")
+        train = (data, model)
     for r in range(n):                 # fail here, before any rank starts
         rank_device(backend, r, n, device)
     ctx = mp.get_context("spawn")
@@ -497,7 +724,8 @@ def spawn(fn: Callable, n: int, *, backend: str,
     dev = None if device is None else str(device)
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, tuple(args), r, n, backend, dev, port,
-                               timeout_s, threads, results, dp, patch))
+                               timeout_s, threads, results, dp, patch,
+                               train))
              for r in range(n)]
     for p in procs:
         p.start()

@@ -45,19 +45,22 @@ def device_ms(fn, iters: int, launches_per_call: Optional[int] = None,
               attempts: int = 3) -> float:
     """Mean device time per call of ``fn``: the durations of the CUDA
     kernels in a ``torch.profiler`` trace of ``iters`` calls (after a
-    warm-up call and a warm-up profiler step), averaged over the launches the trace holds, times the
-    launches a call makes (the traced launches over ``iters``, rounded: the
-    trace can miss a few of many short launches).  Host time between
-    launches is not counted, so a kernel shorter than its wrapper's host
-    path is timed as itself.  ``fn`` should launch only the kernels to be
-    timed (a wrapper's ``torch.empty`` launches none).  A trace that holds
-    fewer launches than half the calls (late in a whole chip_smoke.py run
-    one held none for 50 calls) or, given ``launches_per_call``, another
-    number of launches than ``iters`` times that is never averaged (it
-    dropped kernels, and its mean would be wrong): a fresh trace is taken,
-    up to ``attempts`` in all, and then it raises.  (In a
-    whole chip_smoke.py run a trace of 40 launches of 0.13-0.15 ms once
-    held 39.)"""
+    warm-up call and a warm-up profiler step).  Each traced kernel name
+    gives the mean of its traced launches times its launches a call (its
+    traced launches over ``iters``, rounded), and their sum is the call's
+    time: the trace can miss a few of many short launches, and a kernel's
+    own mean is not biased by that, where a mean over every launch of the
+    trace would be whenever the missed ones were of another kernel.  Host
+    time between launches is not counted, so a kernel shorter than its
+    wrapper's host path is timed as itself.  ``fn`` should launch only the
+    kernels to be timed (a wrapper's ``torch.empty`` launches none).  A
+    trace whose kernels round to no launch a call (late in a whole
+    chip_smoke.py run one held none for 50 calls) or, given
+    ``launches_per_call``, to another number a call, or that lost more
+    than a tenth of the ``iters`` times ``launches_per_call`` launches, is
+    never used: a fresh trace is taken, up to ``attempts`` in all, and then
+    it raises.  (Whole chip_smoke.py runs have traced 39 of 40 launches
+    once, and 38 of 40 in each of three traces.)"""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -75,12 +78,13 @@ def device_ms(fn, iters: int, launches_per_call: Optional[int] = None,
             prof.step()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not _annotation(e)]
+                   and not _annotation(e) and e.count]
         launches = sum(e.count for e in kernels)
-        per_call = round(launches / iters)
-        if launches_per_call is None and per_call >= 1:
+        per_call = [round(e.count / iters) for e in kernels]
+        if launches_per_call is None and sum(per_call) >= 1:
             break
-        if launches_per_call is not None and launches == iters * launches_per_call:
+        if (launches_per_call is not None and sum(per_call) == launches_per_call
+                and 10 * launches >= 9 * iters * launches_per_call):
             break
     else:
         if launches_per_call is None:
@@ -88,7 +92,7 @@ def device_ms(fn, iters: int, launches_per_call: Optional[int] = None,
                                f"calls, {attempts} times; the profiler saw no device time")
         raise RuntimeError(f"device_ms: {launches} kernel launches traced for "
                            f"{iters} calls of {launches_per_call}, {attempts} times")
-    return sum(device_us(e) for e in kernels) / 1e3 / launches * per_call
+    return sum(device_us(e) / e.count * n for e, n in zip(kernels, per_call)) / 1e3
 
 
 def kernel_ms(fn, iters: int, names: Sequence[str], attempts: int = 3) -> Dict[str, float]:

@@ -17,29 +17,50 @@ through the kernels' autograd Functions on the card (the backward kernels
 included) and through their plain versions on the CPU; the LMs recompute
 each layer in the backward as the reference does.
 
+Over a training mesh (``train_lm(mesh=)``, ``--mesh local|prod``;
+:class:`~repro_torch.launch.mesh.TrainMesh`, one process per rank) every
+family trains data-parallel: each rank draws the whole global batch and
+keeps its rows over the batch axes (``pod x data``), and the ``dense``,
+``moe`` and ``vlm`` families also get ``mesh`` and ``batch_axes`` in
+``loss_fn``, as in the reference, which runs the MoE block expert-parallel
+over ``model`` (each rank holds its ``E / model`` experts).  The gradients
+are reduced as :func:`reduce_grads` says, the clip sees the global norm,
+and AdamW runs on each rank.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-moe-xl \\
       --smoke --device cpu --steps 5 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b \\
       --smoke --device cpu --steps 3 --batch 2 --seq 16
 
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen3-moe-30b-a3b --smoke --device cpu --mesh local --model 2
+
 The flags are the reference's (``--arch --smoke --steps --batch --seq
---mesh --ckpt``) plus ``--device``; the CLI prints every step's loss (the
-reference's every 10th).  The ``local`` and ``prod`` training meshes are
-not ported yet and raise ``NotImplementedError`` naming ROADMAP.md (A,
-order item 4) before any params are drawn.
+--mesh --ckpt``) plus ``--device`` and ``--model``; the CLI prints every
+step's loss (the reference's every 10th; over a mesh rank 0 prints the
+mean over the batch group).  ``--mesh local`` is ``make_local_mesh(data=
+world / model, model)`` over the running world: one rank, or torchrun's
+``WORLD_SIZE`` ranks, whose default group it initialises from torchrun's
+environment (NCCL when every rank has a card of its own, gloo otherwise).
+``--mesh prod`` is ``make_production_mesh()``, which raises unless the
+world holds 256 ranks.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.checkpoint.io import save_checkpoint, unflatten
+from repro_torch.checkpoint.io import flatten, save_checkpoint, unflatten
+from repro_torch.common import sharding as shard_lib
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data.synthetic import latent_batches, token_batches
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.api import get_model
 from repro_torch.models.dit_moe import init_dit
 from repro_torch.optim.adamw import (adamw_init, adamw_update,
@@ -58,13 +79,56 @@ def stub_inputs(api, cfg, batch: int, gen: torch.Generator):
             for name, shape, dtype in api.extra_inputs}
 
 
-def lm_train_step(params, opt_state, batch, cfg, *, total: int):
-    """One step of the reference's ``train_lm``: the gradients of the
-    family's ``loss_fn`` on ``batch`` (tokens, labels), clipped to global
-    norm 1.0, and AdamW at ``cosine_schedule(step, base_lr=3e-4,
-    warmup=20, total=total)``.  ``params`` and the moments are updated in
-    place; the metrics (``loss``, ``grad_norm``, ``lr``) stay 0-d device
-    tensors.  Returns (params, opt_state, metrics)."""
+def mesh_kwargs(cfg, mesh):
+    """``loss_fn``'s mesh keywords: ``mesh`` and ``batch_axes`` for the
+    ``dense``, ``moe`` and ``vlm`` families (as the reference's
+    ``train_lm`` passes them), none for the others, which a mesh trains
+    data-parallel only."""
+    if mesh is None or cfg.family not in ("dense", "moe", "vlm"):
+        return {}
+    return {"mesh": mesh, "batch_axes": mesh_lib.batch_axes(mesh)}
+
+
+def reduce_grads(grads, paths, mesh):
+    """The rank's gradients (in the order of ``paths``) reduced over a
+    training mesh, one collective a leaf in f32:
+
+    (i) the routed experts (the rank's own): the mean over the batch group;
+    (ii) the leaves applied to the rank's own tokens, the router and shared
+        experts (:func:`~repro_torch.common.sharding.is_lm_token_local`),
+        of which each ``model`` rank holds a share: the sum over ``model``,
+        then the mean over the batch group;
+    (iii) every other leaf, the same on every ``model`` rank: the mean over
+        the batch group, which leaves it bit-identical across ``model``.
+    """
+    out = list(grads)
+    for i, path in enumerate(paths):
+        summed = mesh.shape["model"] > 1 and shard_lib.is_lm_token_local(path)
+        if summed or mesh.lanes > 1:
+            g = out[i].to(torch.float32)
+            if summed:
+                g = mesh.model_sum(g)
+            out[i] = mesh.batch_mean(g).to(out[i].dtype)
+    return out
+
+
+def reduce_square_sums(sq, paths, mesh):
+    """The per-leaf sums of squares that the global norm adds up: the
+    routed experts' summed over ``model`` (each rank holds a slice), the
+    replicated leaves' counted once."""
+    sq = list(sq)
+    experts = [i for i, p in enumerate(paths) if shard_lib.is_lm_expert(p)]
+    if experts and mesh.shape["model"] > 1:
+        summed = mesh.model_sum(torch.stack([sq[i] for i in experts]))
+        for j, i in enumerate(experts):
+            sq[i] = summed[j]
+    return sq
+
+
+def lm_grads(params, batch, cfg, *, mesh=None):
+    """(loss, gradient tree) of the family's ``loss_fn`` on ``batch``; over
+    a ``mesh`` ``batch`` holds the rank's rows, the gradients are reduced
+    (:func:`reduce_grads`) and the loss is the batch group's mean."""
     api = get_model(cfg)
     rng = torch.profiler.record_function   # named ranges for profile_train
     with torch.enable_grad():
@@ -73,53 +137,104 @@ def lm_train_step(params, opt_state, batch, cfg, *, total: int):
         # later takes the kernels' no-grad path
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with rng("lm_train_step.forward"):
-            loss, _ = api.loss_fn(live, batch, cfg)
+            loss, _ = api.loss_fn(live, batch, cfg, **mesh_kwargs(cfg, mesh))
         leaves = tree_leaves(live)
         with rng("lm_train_step.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    with rng("lm_train_step.optimizer"):
-        grads = unflatten(params, [torch.zeros_like(p) if g is None else g
-                                   for g, p in zip(grads, leaves)])
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    loss = loss.detach()
+    if mesh is not None:
+        with rng("lm_train_step.reduce"):
+            grads = reduce_grads(grads, [p for p, _ in flatten(params)[0]],
+                                 mesh)
+            loss = mesh.batch_mean(loss)
+    return loss, unflatten(params, grads)
+
+
+def lm_train_step(params, opt_state, batch, cfg, *, total: int, mesh=None):
+    """One step of the reference's ``train_lm``: the gradients of the
+    family's ``loss_fn`` on ``batch`` (tokens, labels), clipped to global
+    norm 1.0, and AdamW at ``cosine_schedule(step, base_lr=3e-4,
+    warmup=20, total=total)``.  ``params`` and the moments are updated in
+    place; the metrics (``loss``, ``grad_norm``, ``lr``) stay 0-d device
+    tensors.  Over a training ``mesh`` ``batch`` is the rank's rows and
+    ``params`` hold the rank's experts: the gradients are reduced
+    (:func:`lm_grads`) and the norm is the global one
+    (:func:`reduce_square_sums`).  Returns (params, opt_state, metrics)."""
+    loss, grads = lm_grads(params, batch, cfg, mesh=mesh)
+    with torch.profiler.record_function("lm_train_step.optimizer"):
+        reduce = None
+        if mesh is not None:
+            paths = [p for p, _ in flatten(params)[0]]
+            reduce = lambda sq: reduce_square_sums(sq, paths, mesh)  # noqa: E731
+        grads, gnorm = clip_by_global_norm(grads, 1.0, reduce=reduce)
         lr = cosine_schedule(opt_state.step, base_lr=3e-4, warmup=20,
                              total=total)
         params, opt_state = adamw_update(grads, opt_state, params, lr=lr)
-    return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm,
-                               "lr": lr}
+    return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
 
 def train_lm(cfg, *, steps: int, batch: int, seq: int, mesh=None,
              ckpt: Optional[str] = None, log_every: int = 10, device=None,
-             seed: int = 0):
+             seed: int = 0, history: Optional[list] = None, params=None):
     """Train the language model ``cfg`` for ``steps`` steps on batches of
     ``batch`` x ``seq`` tokens from ``token_batches(..., seed=seed)`` (the
     reference's stream for the same seed), with the family's stub inputs
     (:func:`stub_inputs`) from a generator of the run's device seeded from
     ``seed + 1``.  The params come from the family's init on a generator
-    of the run's device seeded from ``seed``, in the init's dtype (bf16).
+    of the run's device seeded from ``seed``, in the init's dtype (bf16),
+    unless ``params`` gives them (a whole tree on the run's device, which
+    the steps update in place; CUDA's and the CPU's generators draw
+    different numbers, so a run on each device from one seed starts from
+    other weights).
     Prints the reference's line every ``log_every`` steps and at the
-    last, writes ``ckpt`` at the end when given, and returns the trained
-    params.  A ``mesh`` raises first (not ported)."""
+    last, appends each step's metrics (:func:`lm_train_step`'s, device
+    tensors) to ``history`` when given, writes ``ckpt`` at the end when
+    given, and returns the trained params.
+
+    Over a training ``mesh`` (the run's device is ``mesh.device``) every
+    rank draws the same params and the whole global batch, keeps its
+    experts (:func:`~repro_torch.common.sharding.shard_lm_experts`) and its
+    rows over the batch axes (the ``model`` ranks of a data group the same
+    ones; ``batch`` must divide over them), and steps with
+    :func:`lm_train_step`.  Rank 0 prints; the returned params hold the
+    rank's experts; the checkpoint gathers them and rank 0 writes it."""
+    rows = slice(0, batch)
     if mesh is not None:
-        raise NotImplementedError("train_lm over a mesh is not ported yet "
-                                  "(ROADMAP.md A, order item 4)")
+        if batch % mesh.lanes:
+            raise ValueError(f"batch {batch} must divide over the "
+                             f"{mesh.lanes} ranks of the batch axes "
+                             f"{mesh_lib.batch_axes(mesh)}")
+        rows = shard_lib.local_rows(batch, mesh)
     api = get_model(cfg)
-    dev = resolve_device(device)
-    params = api.init(cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+    dev = resolve_device(device) if mesh is None else mesh.device
+    if params is None:
+        params = api.init(cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+    if mesh is not None:
+        params = shard_lib.shard_lm_experts(params, mesh)
     opt = adamw_init(params)
     it = token_batches(cfg.vocab_size, batch, seq, seed=seed, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    talk = mesh is None or mesh.rank == 0
     t0 = time.time()
     for i in range(steps):
         b = dict(next(it), **stub_inputs(api, cfg, batch, gen))
-        params, opt, m = lm_train_step(params, opt, b, cfg, total=steps)
-        if i % log_every == 0 or i == steps - 1:
+        b = {k: v[rows] for k, v in b.items()}
+        params, opt, m = lm_train_step(params, opt, b, cfg, total=steps,
+                                       mesh=mesh)
+        if history is not None:
+            history.append(m)
+        if talk and (i % log_every == 0 or i == steps - 1):
             print(f"step {i:5d}  loss {float(m['loss']):.4f}  "
                   f"gnorm {float(m['grad_norm']):.3f}  "
                   f"({(time.time() - t0) / (i + 1):.2f}s/step)", flush=True)
     if ckpt:
-        save_checkpoint(ckpt, params, step=steps)
-        print(f"saved {ckpt}")
+        whole = params if mesh is None \
+            else shard_lib.gather_lm_experts(params, mesh)
+        if talk:
+            save_checkpoint(ckpt, whole, step=steps)
+            print(f"saved {ckpt}")
     return params
 
 
@@ -167,20 +282,53 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a card) or cpu")
+    ap.add_argument("--model", type=int, default=1,
+                    help="--mesh local: the 'model' axis (expert parallelism); "
+                         "'data' takes the rest of the world")
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training meshes are not ported yet "
-            f"(ROADMAP.md A, order item 4)")
-    print(f"training {cfg.name} ({cfg.family}), "
-          f"{cfg.param_count() / 1e6:.1f}M params")
-    if cfg.family == "dit_moe":
-        return train_diffusion(cfg, steps=args.steps, batch=args.batch,
-                               ckpt=args.ckpt, log_every=1, device=args.device)
-    return train_lm(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                    ckpt=args.ckpt, log_every=1, device=args.device)
+    started = args.mesh != "none" and _init_world(args.device)
+    try:
+        mesh = None
+        if args.mesh == "local":
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            mesh = mesh_lib.make_local_mesh(max(1, world // args.model),
+                                            args.model, device=args.device)
+        elif args.mesh == "prod":
+            mesh = mesh_lib.make_production_mesh(device=args.device)
+        if mesh is None or mesh.rank == 0:
+            print(f"training {cfg.name} ({cfg.family}), "
+                  f"{cfg.param_count() / 1e6:.1f}M params"
+                  + (f", mesh {mesh.shape}" if mesh is not None else ""))
+        if cfg.family == "dit_moe":
+            # as in the reference, train_diffusion takes no mesh
+            return train_diffusion(cfg, steps=args.steps, batch=args.batch,
+                                   ckpt=args.ckpt, log_every=1,
+                                   device=args.device)
+        return train_lm(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                        mesh=mesh, ckpt=args.ckpt, log_every=1,
+                        device=args.device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _init_world(device) -> bool:
+    """Initialise the default process group from torchrun's environment
+    (``WORLD_SIZE`` > 1, not yet initialised): NCCL when every rank has a
+    card of its own, gloo on the CPU or for ranks that share a card (the
+    ``rank_device`` rules).  Returns whether it did."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1 or dist.is_initialized():
+        return False
+    dev = torch.device(device) if device is not None else None
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    own_card = (dev is None or (dev.type == "cuda" and dev.index is None)) \
+        and cards >= world
+    dist.init_process_group("nccl" if own_card else "gloo",
+                            init_method="env://")
+    return True
 
 
 if __name__ == "__main__":

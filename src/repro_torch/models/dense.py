@@ -5,9 +5,10 @@ One implementation, config-driven variants:
   * GQA with RoPE; qk-norm (qwen3); attention-logit softcap, sandwich
     norms, embedding scale and final-logit softcap (gemma2); alternating
     local/global sliding windows (gemma2); gated MLP (silu or gelu).
-  * MoE FFN (qwen3-moe, dbrx) through :func:`repro_torch.core.moe.moe_forward`
-    on one device: the hand-written ``expert_ffn`` kernel on the card, its
-    load-balance loss summed over the layers.
+  * MoE FFN (qwen3-moe, dbrx) through :func:`repro_torch.core.moe.moe_forward`:
+    the hand-written ``expert_ffn`` kernel on the card, its load-balance
+    loss summed over the layers; on one device, or expert-parallel over the
+    ``model`` axis of a training mesh (:func:`_moe_block`).
 
 Attention always goes through :func:`repro_torch.models.layers.attention`,
 the hand-written flash kernel on the card (its plain version on the CPU):
@@ -28,9 +29,17 @@ to 256), the experts' from the ``expert_ffn_bwd`` kernel (f32 or bf16),
 and the router's through the top-k scores that weight the combine and
 through the load-balance loss's probabilities.  The KV cache's
 ``pos`` is a host int, so no step reads a device scalar back; decode writes
-its k and v into the cache tensors in place.  Expert parallelism over a
-mesh (``mesh``, ``seq_shard``, ``attn_shard``) is not ported (ROADMAP.md
-A, order item 4) and raises.
+its k and v into the cache tensors in place.
+
+``mesh`` (a :class:`~repro_torch.launch.mesh.TrainMesh` with a ``model``
+axis) and ``batch_axes`` reach the MoE block, the only place the
+reference's mesh changes a number: each rank holds its batch rows (its
+``batch_axes`` shard) and its ``E / model`` experts, and the block runs
+expert-parallel over the ``model`` group (:func:`_moe_block`).  A mesh
+without a ``model`` axis runs the one-device path, as in the reference.
+``seq_shard`` and ``attn_shard`` are layout hints that only the reference's
+dry run passes; they are queued with it (ROADMAP.md A, order item 5) and
+raise.
 """
 from __future__ import annotations
 
@@ -44,12 +53,12 @@ from repro_torch.core import moe as moe_lib
 from repro_torch.models import layers as L
 
 
-def _refuse_mesh(mesh=None, seq_shard: bool = False, attn_shard=None) -> None:
-    if mesh is not None or seq_shard or attn_shard:
+def _refuse_mesh(seq_shard: bool = False, attn_shard=None) -> None:
+    if seq_shard or attn_shard:
         raise NotImplementedError(
-            "models.dense: mesh, seq_shard and attn_shard shard the model over "
-            "a device mesh, which the port does not do for the LM families yet "
-            "(ROADMAP.md A, order item 4: training meshes)")
+            "models.dense: seq_shard and attn_shard are layout hints of the "
+            "reference's dry run (sequence-sharded residuals, head-sharded "
+            "attention), not ported yet (ROADMAP.md A, order item 5: dryrun)")
 
 
 # ---------------------------------------------------------------------------
@@ -109,25 +118,179 @@ def init_lm(cfg, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # one transformer layer
 # ---------------------------------------------------------------------------
-def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None):
-    """MoE FFN on (B, S, d), the reference's single-device path; returns
-    (y, load-balance loss)."""
-    _refuse_mesh(mesh)
+class _ModelSlice(torch.autograd.Function):
+    """This rank's 1 / model slice of ``x`` along ``dim`` (``x`` the same on
+    every ``model`` rank); the backward all-gathers the slices' cotangents
+    over ``model``, so what produced ``x`` gets the whole cotangent, the
+    same on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        k = x.shape[dim] // mesh.model
+        return x.narrow(dim, mesh.rank_in("model") * k, k).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.model_gather(g, ctx.dim), None, None
+
+
+class _ModelGather(torch.autograd.Function):
+    """The ``model`` group's slices concatenated along ``dim``; the backward
+    keeps this rank's slice of the cotangent (the same on every rank: all
+    that reads the result is replicated)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.model_gather(y, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = g.shape[ctx.dim] // ctx.mesh.model
+        return g.narrow(ctx.dim, ctx.mesh.rank_in("model") * k, k), None, None
+
+
+class _BatchGather(torch.autograd.Function):
+    """Every batch shard's rows in lane order: the global batch, the same on
+    every rank.  The backward sums the cotangents over the batch group and
+    keeps this rank's rows: each rank's loss is its share of the one whose
+    gradients the trainer averages over that group."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.batch_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = g.shape[0] // ctx.mesh.lanes
+        return ctx.mesh.batch_sum(g).narrow(0, ctx.mesh.lane * k, k), None
+
+
+class _BatchMean(torch.autograd.Function):
+    """The mean over the batch group (the ``pod x data`` ranks); its
+    backward is the batch group's mean of the cotangent, since the trainer
+    averages the gradients over that group."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.batch_mean(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.batch_mean(g), None
+
+
+class _Share(torch.autograd.Function):
+    """The identity, whose backward is 1 / n of the cotangent: a leaf that
+    every ``model`` rank applies to the same tokens holds a 1 / n share of
+    its gradient, which the trainer's sum over ``model`` adds up."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None, *,
+               batch_axes=("data",), capacity_floor: int = 8):
+    """MoE FFN on (B, S, d); returns (y, load-balance loss).
+
+    Without a mesh with a ``model`` axis: the reference's single-device
+    path.  With one (:class:`~repro_torch.launch.mesh.TrainMesh`; ``x`` the
+    rank's batch rows, the same on every ``model`` rank; ``p_moe``'s
+    expert stacks the rank's ``E / model`` experts), the reference's
+    ``shard_map`` over ``model`` in its three branches:
+
+    * ``S % model == 0``: each rank takes its ``S / model`` slice of the
+      sequence, runs ``moe_forward`` over the ``model`` group (the two
+      all-to-alls) at the capacity of its ``B * S / model`` tokens, and the
+      slices are gathered back; the load-balance loss takes the group's
+      means of its two terms, then the mean over the batch group
+      (``batch_axes``, which must be the mesh's: the reference's
+      ``lb_axes``);
+    * else the reference's two other branches, which see the global batch:
+      each rank gathers every batch shard's rows (:class:`_BatchGather`)
+      and keeps its own rows of the result.  Where the global ``B``
+      divides over ``model`` (decode), the same as above over a
+      ``B / model`` slice of its rows, the loss averaged over ``model``
+      only; otherwise every rank runs the one-device path on all the
+      tokens, over the experts all-gathered from the ``model`` group.
+
+    With grad, the slice's backward all-gathers the slices' cotangents and
+    the gather's keeps the rank's own, so everything outside the block gets
+    the whole cotangent on every ``model`` rank; the router and shared
+    experts get the rank's share of theirs (the trainer sums them over
+    ``model``), the experts theirs from every rank's tokens."""
     B, S, d = x.shape
-    y, aux = moe_lib.moe_forward(p_moe, x.reshape(B * S, d), cfg)
+    if mesh is None or "model" not in getattr(mesh, "axis_names", ()):
+        y, aux = moe_lib.moe_forward(p_moe, x.reshape(B * S, d), cfg)
+        return y.reshape(B, S, d), aux.lb_loss
+    ep = mesh.shape["model"]
+    if tuple(batch_axes) != tuple(a for a in ("pod", "data") if a in mesh.axis_names):
+        raise ValueError(f"batch_axes {tuple(batch_axes)}: the port's batch group is "
+                         f"the mesh's batch axes, launch.mesh.batch_axes(mesh)")
+    if S % ep == 0:
+        dim, t_local, over_batch = 1, B * (S // ep), True
+    else:
+        x = x if mesh.lanes == 1 else _BatchGather.apply(x, mesh)
+        if x.shape[0] % ep:
+            y, lb = _moe_replicated(p_moe, x, cfg, mesh)
+            return _own_rows(y, mesh, B), lb
+        dim, t_local, over_batch = 0, (x.shape[0] // ep) * S, False
+    capacity = moe_lib.default_capacity(t_local, cfg, floor=capacity_floor)
+    group = mesh.ep_mesh
+    xl = x if group is None else _ModelSlice.apply(x, mesh, dim)
+    b, s, _ = xl.shape
+    y, aux = moe_lib.moe_forward(p_moe, xl.reshape(b * s, d), cfg,
+                                 capacity=capacity, mesh=group)
+    terms = aux.lb_terms if group is None \
+        else moe_lib.group_mean(aux.lb_terms, group)
+    lb = moe_lib.lb_from_terms(terms, cfg.experts_per_token)
+    if over_batch and mesh.lanes > 1:
+        lb = _BatchMean.apply(lb, mesh)
+    y = y.reshape(b, s, d)
+    y = y if group is None else _ModelGather.apply(y, mesh, dim)
+    return _own_rows(y, mesh, B), lb
+
+
+def _own_rows(y: torch.Tensor, mesh, B: int) -> torch.Tensor:
+    """This rank's ``B`` rows of ``y``, which holds the global batch where
+    the block gathered it."""
+    return y if y.shape[0] == B else y.narrow(0, mesh.lane * B, B)
+
+
+def _moe_replicated(p_moe, x: torch.Tensor, cfg, mesh):
+    """The reference's fallback where the tokens split over ``model``
+    neither way: the one-device path on every rank, the expert stacks
+    all-gathered over ``model`` (their backward keeps this rank's slice)
+    and the router and shared experts through :class:`_Share`."""
+    B, S, d = x.shape
+    n = mesh.shape["model"]
+    p = {k: _ModelGather.apply(v, mesh, 0) if k.startswith("experts_")
+         else _Share.apply(v, n) for k, v in p_moe.items()}
+    y, aux = moe_lib.moe_forward(p, x.reshape(B * S, d), cfg)
     return y.reshape(B, S, d), aux.lb_loss
 
 
-def _ffn(p, h: torch.Tensor, cfg):
+def _ffn(p, h: torch.Tensor, cfg, mesh=None, batch_axes=("data",),
+         capacity_floor: int = 8):
     if cfg.is_moe:
-        return _moe_block(p["moe"], h, cfg)
+        return _moe_block(p["moe"], h, cfg, mesh, batch_axes=batch_axes,
+                          capacity_floor=capacity_floor)
     return (L.mlp_apply(p["mlp"], h, act=cfg.act),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
            window: Optional[int], kv_cache=None, cache_pos=None,
-           kv_valid_len=None):
+           kv_valid_len=None, mesh=None, batch_axes=("data",)):
     """(x, (k, v), lb) of one pre-norm block: attention, then the MLP or
     MoE, each with gemma2's post-norm when the config has it."""
     h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
@@ -137,17 +300,20 @@ def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     if cfg.post_norm:
         attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
     x, h = L.add_rmsnorm(x, attn_out, p["ln2"], eps=cfg.norm_eps)
-    ffn, lb = _ffn(p, h, cfg)
+    ffn, lb = _ffn(p, h, cfg, mesh, batch_axes)
     if cfg.post_norm:
         ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)
     return x + ffn, new_kv, lb
 
 
 def _train_layer(p, x: torch.Tensor, *, positions: torch.Tensor, cfg,
-                 window: Optional[int]):
+                 window: Optional[int], mesh=None, batch_axes=("data",)):
     """(x, lb) of :func:`_layer` without a cache: the unit the teacher-
-    forced forward recomputes in the backward."""
-    x, _, lb = _layer(p, x, positions, cfg, window=window)
+    forced forward recomputes in the backward (over a mesh the recompute
+    runs the MoE block's collectives again, in the same order on every
+    rank)."""
+    x, _, lb = _layer(p, x, positions, cfg, window=window, mesh=mesh,
+                      batch_axes=batch_axes)
     return x, lb
 
 
@@ -192,15 +358,18 @@ def _positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def forward_hidden(params, tokens: torch.Tensor, cfg, *,
                    long_context: bool = False, mesh=None,
-                   seq_shard: bool = False, attn_shard=None,
-                   remat: bool = True, remat_policy: str = "full"):
+                   batch_axes=("data",), seq_shard: bool = False,
+                   attn_shard=None, remat: bool = True,
+                   remat_policy: str = "full"):
     """tokens (B, S) -> (final-normed hidden states (B, S, d), summed
     load-balance loss): :func:`forward` before the unembedding, so a caller
     can unembed only the positions it reads.  ``remat`` (the reference's
     default): with grad enabled each layer is recomputed in the backward
     (:func:`layers.remat`), the same values with less memory;
-    ``remat_policy`` as :func:`check_remat_policy`."""
-    _refuse_mesh(mesh, seq_shard, attn_shard)
+    ``remat_policy`` as :func:`check_remat_policy`.  ``mesh`` and
+    ``batch_axes`` reach the MoE block (:func:`_moe_block`); ``seq_shard``
+    and ``attn_shard`` raise."""
+    _refuse_mesh(seq_shard, attn_shard)
     check_remat_policy(remat_policy)
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
@@ -209,7 +378,8 @@ def forward_hidden(params, tokens: torch.Tensor, cfg, *,
     layers = L.unstack_layers(params["layers"], cfg.num_layers)
     for p, win in zip(layers, layer_windows(cfg, long_context=long_context)):
         x, lb_l = L.remat(partial(_train_layer, positions=positions, cfg=cfg,
-                                  window=win), p, x, enabled=remat)
+                                  window=win, mesh=mesh, batch_axes=batch_axes),
+                          p, x, enabled=remat)
         lb = lb + lb_l
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), lb
 
@@ -242,12 +412,11 @@ def init_cache(cfg, batch: int, max_len: int, *,
 
 
 def prefill(params, tokens: torch.Tensor, cfg, *, long_context: bool = False,
-            cache_len: Optional[int] = None, mesh=None):
+            cache_len: Optional[int] = None, mesh=None, batch_axes=("data",)):
     """tokens (B, S) -> (last-token logits (B, V), cache).  The cache holds
     the prompt's post-RoPE k and v in its first S slots; ``cache_len`` (at
     least S; default S) sizes it for the decode steps to come, the slots
-    past S zero."""
-    _refuse_mesh(mesh)
+    past S zero.  ``mesh`` and ``batch_axes`` as :func:`forward_hidden`."""
     B, S = tokens.shape
     n = S if cache_len is None else cache_len
     if n < S:
@@ -261,7 +430,8 @@ def prefill(params, tokens: torch.Tensor, cfg, *, long_context: bool = False,
     layers = L.unstack_layers(params["layers"], cfg.num_layers)
     for i, (p, win) in enumerate(zip(layers, layer_windows(
             cfg, long_context=long_context))):
-        x, (k, v), _ = _layer(p, x, positions, cfg, window=win)
+        x, (k, v), _ = _layer(p, x, positions, cfg, window=win, mesh=mesh,
+                              batch_axes=batch_axes)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
     x = L.rmsnorm(params["final_norm"], x[:, -1:], eps=cfg.norm_eps)
@@ -270,7 +440,8 @@ def prefill(params, tokens: torch.Tensor, cfg, *, long_context: bool = False,
 
 
 def decode_step(params, token: torch.Tensor, cache, cfg, *,
-                long_context: bool = False, mesh=None):
+                long_context: bool = False, mesh=None, batch_axes=("data",),
+                capacity_floor: int = 8):
     """One-token decode.  token (B,); cache from :func:`init_cache` or
     :func:`prefill`, whose k and v this step writes in place at
     ``pos % cache_len`` (post-RoPE, so slot order is irrelevant).
@@ -278,8 +449,10 @@ def decode_step(params, token: torch.Tensor, cache, cfg, *,
     Ring semantics: when the cache is shorter than the position, writes
     wrap; slot s holds the largest position p <= pos with p % cache_len ==
     s, and that position masks it (``k_pos``, built once a step and shared
-    by every layer; -1 for a slot not yet written)."""
-    _refuse_mesh(mesh)
+    by every layer; -1 for a slot not yet written).  ``mesh`` and
+    ``batch_axes`` as :func:`forward_hidden`; a single token splits the
+    MoE block's tokens over ``model`` by batch rows where B divides, and
+    ``capacity_floor`` rounds that block's capacity."""
     B = token.shape[0]
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cache_len = cache["k"].shape[2]
@@ -310,7 +483,7 @@ def decode_step(params, token: torch.Tensor, cache, cfg, *,
         if cfg.post_norm:
             attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
         x, h2 = L.add_rmsnorm(x, attn_out, p["ln2"], eps=cfg.norm_eps)
-        ffn, _ = _ffn(p, h2, cfg)
+        ffn, _ = _ffn(p, h2, cfg, mesh, batch_axes, capacity_floor)
         if cfg.post_norm:
             ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)
         x = x + ffn

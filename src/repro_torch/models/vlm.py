@@ -18,7 +18,9 @@ gate's tanh (f32) times a block's output is an f32 product in JAX, rounded
 to x's dtype after; torch would keep it in bf16, so the port upcasts.
 ``prefill`` takes ``cache_len`` as ``dense.prefill`` does (default: the
 prompt's S slots, the reference's); ``pos`` is a host int and decode writes
-k and v into the cache in place.  A device mesh raises, as in ``dense``.
+k and v into the cache in place.  ``mesh`` and ``batch_axes`` pass through
+to the self layers as in the reference (``dense._layer``); the published
+model has no MoE block, so a training mesh changes no number here.
 """
 from __future__ import annotations
 
@@ -119,12 +121,14 @@ def _grouped(cfg):
 
 
 def _run(params, x, positions, img_k, img_v, cfg, *, long_context: bool,
-         ks=None, vs=None, remat: bool = False):
+         ks=None, vs=None, remat: bool = False, mesh=None,
+         batch_axes=("data",)):
     """The decoder over a prompt (superblocks, then trailing self layers);
     each self layer's (k, v) written into ``ks``/``vs`` when given, else,
     with ``remat``, each self layer recomputed in the backward (the
-    reference checkpoints the self layers, not the cross blocks).
-    Returns the final-normed hidden states."""
+    reference checkpoints the self layers, not the cross blocks).  ``mesh``
+    and ``batch_axes`` reach the self layers.  Returns the final-normed
+    hidden states."""
     layers = L.unstack_layers(params["layers"], _n_self(cfg))
     cross = L.unstack_layers(params["cross"], _n_cross(cfg))
     windows = dense.layer_windows(_self_cfg(cfg), long_context=long_context)
@@ -132,36 +136,41 @@ def _run(params, x, positions, img_k, img_v, cfg, *, long_context: bool,
         for i in idx:
             if ks is None:
                 x, _ = L.remat(partial(dense._train_layer, positions=positions, cfg=cfg,
-                                       window=windows[i]), layers[i], x, enabled=remat)
+                                       window=windows[i], mesh=mesh,
+                                       batch_axes=batch_axes),
+                               layers[i], x, enabled=remat)
                 continue
             x, (ks[i], vs[i]), _ = dense._layer(layers[i], x, positions, cfg,
-                                                window=windows[i])
+                                                window=windows[i], mesh=mesh,
+                                                batch_axes=batch_axes)
         if s is not None:
             x = _cross_block(cross[s], x, (img_k[s], img_v[s]), cfg)
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
 
 
 def forward_hidden(params, tokens: torch.Tensor, image_embeds: torch.Tensor,
-                   cfg, *, mesh=None, long_context: bool = False,
-                   remat: bool = True):
+                   cfg, *, mesh=None, batch_axes=("data",),
+                   long_context: bool = False, remat: bool = True):
     """tokens (B, S) -> final-normed hidden states (B, S, d): :func:`forward`
     before the unembedding, so a caller can unembed only the positions it
     reads.  ``remat``: with grad enabled each self layer is recomputed in
     the backward."""
-    dense._refuse_mesh(mesh)
     B, S = tokens.shape
     x = dense._embed(params, tokens, cfg)
     img_k, img_v = _image_kv(params, image_embeds, cfg)
     return _run(params, x, dense._positions(B, S, x.device), img_k, img_v, cfg,
-                long_context=long_context, remat=remat)
+                long_context=long_context, remat=remat, mesh=mesh,
+                batch_axes=batch_axes)
 
 
 def forward(params, tokens: torch.Tensor, image_embeds: torch.Tensor, cfg, *,
-            mesh=None, long_context: bool = False, remat: bool = True, **_):
+            mesh=None, batch_axes=("data",), long_context: bool = False,
+            remat: bool = True, **_):
     """Teacher-forced logits (B, S, V) with interleaved cross-attention, and
     a zero auxiliary loss (the reference's second output)."""
     x = forward_hidden(params, tokens, image_embeds, cfg, mesh=mesh,
-                       long_context=long_context, remat=remat)
+                       batch_axes=batch_axes, long_context=long_context,
+                       remat=remat)
     return (dense._unembed(params, x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -173,13 +182,12 @@ def loss_fn(params, batch, cfg, **kw):
 
 
 def prefill(params, tokens: torch.Tensor, image_embeds: torch.Tensor, cfg, *,
-            mesh=None, long_context: bool = False,
+            mesh=None, batch_axes=("data",), long_context: bool = False,
             cache_len: Optional[int] = None, **_):
     """(last-token logits (B, V), cache): the self layers' k and v (n_self,
     B, cache_len, KVH, Dh; the prompt in the first S slots, the rest zero),
     the image K/V ``img_k``, ``img_v`` (n_cross, B, Ti, KVH, Dh), ``pos``
     S.  ``cache_len`` defaults to S, the reference's cache."""
-    dense._refuse_mesh(mesh)
     B, S = tokens.shape
     n = S if cache_len is None else cache_len
     if n < S:
@@ -191,7 +199,8 @@ def prefill(params, tokens: torch.Tensor, image_embeds: torch.Tensor, cfg, *,
     ks = alloc(shape, dtype=x.dtype, device=x.device)
     vs = alloc(shape, dtype=x.dtype, device=x.device)
     x = _run(params, x, dense._positions(B, S, x.device), img_k, img_v, cfg,
-             long_context=long_context, ks=ks[:, :, :S], vs=vs[:, :, :S])
+             long_context=long_context, ks=ks[:, :, :S], vs=vs[:, :, :S],
+             mesh=mesh, batch_axes=batch_axes)
     logits = dense._unembed(params, x[:, -1:], cfg)[:, 0]
     return logits, {"k": ks, "v": vs, "img_k": img_k, "img_v": img_v, "pos": S}
 
@@ -208,12 +217,13 @@ def init_cache(cfg, batch: int, max_len: int, *,
 
 
 def decode_step(params, token: torch.Tensor, cache, cfg, *, mesh=None,
-                long_context: bool = False, **_):
+                batch_axes=("data",), long_context: bool = False, **_):
     """One-token decode (B,): the self layers against their ring-buffer
     cache (slot ``pos % slots``, ``dense.ring_k_pos``), the cross blocks
     against the cached image K/V.  Returns (logits (B, V), cache), k and v
-    written in place."""
-    dense._refuse_mesh(mesh)
+    written in place.  The self layers' MLP is dense, so ``mesh`` and
+    ``batch_axes`` change nothing here (the reference's decode takes them
+    too)."""
     B = token.shape[0]
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     cache_len = cache["k"].shape[2]

@@ -83,14 +83,22 @@ def adamw_update(grads, state: AdamWState, params, *, lr,
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, reduce=None) -> torch.Tensor:
+    """The square root of the sum of every leaf's sum of squares, in leaf
+    order.  ``reduce`` maps the list of per-leaf sums of squares to the
+    list to add up (a sharded run adds the other ranks' squares of its
+    sharded leaves there)."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    if reduce is not None:
+        sq = reduce(sq)
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(tree scaled by ``min(1, max_norm / (norm + 1e-9))``, norm)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, reduce=None):
+    """(tree scaled by ``min(1, max_norm / (norm + 1e-9))``, norm);
+    ``reduce`` as :func:`global_norm`."""
+    norm = global_norm(tree, reduce)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
                     tree), norm

@@ -488,3 +488,27 @@ def test_each_rank_reads_its_own_experts(dit_params, tmp_path):
             if p.rsplit(".", 1)[-1].startswith("experts_"):
                 ref = ref[rank * e_loc:(rank + 1) * e_loc]
             assert torch.equal(t, ref), (rank, p)
+
+
+def test_tree_walks_hold_no_reference_cycle():
+    """ROADMAP C.13: ``flatten``, ``unflatten`` and ``bridge.leaves`` leave
+    nothing in a reference cycle, so a leaf (a train step's gradient) is
+    freed with its last reference, not at the collector's next pass."""
+    import gc
+    import weakref
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        like = {"a": {"b": [torch.ones(3), (torch.zeros(2),)], "c": None}}
+        rebuilt = tio.unflatten(like, [torch.full((4,), 7.0), torch.ones(1)])
+        leaves, structure = tio.flatten(rebuilt)
+        flat = bridge.leaves(rebuilt)
+        assert structure == "PyTreeDef({'a': {'b': [*, (*,)], 'c': None}})"
+        assert [p for p, _ in leaves] == [".a.b[0]", ".a.b[1][0]"]
+        assert list(flat) == ["a.b[0]", "a.b[1][0]", "a.c"]
+        probe = weakref.ref(rebuilt["a"]["b"][0])
+        del rebuilt, leaves, flat
+        assert probe() is None
+    finally:
+        if was:
+            gc.enable()

@@ -385,19 +385,39 @@ def test_get_model_and_get_config_refuse_unknown_names():
         get_smoke("zamba3-7b")
 
 
-@pytest.mark.parametrize("call", [
-    lambda p, t, c: dense.forward(p, t, c, mesh=object()),
-    lambda p, t, c: dense.forward(p, t, c, seq_shard=True),
-    lambda p, t, c: dense.forward(p, t, c, attn_shard="heads"),
-    lambda p, t, c: dense.prefill(p, t, c, mesh=object()),
-    lambda p, t, c: dense._moe_block(p["layers"]["moe"], torch.zeros(1, 2, c.d_model),
-                                     c, object()),
+def _first_moe(p):
+    return {k: v[0] for k, v in p["layers"]["moe"].items()}
+
+
+@pytest.mark.parametrize("call,raises", [
+    (lambda p, t, c, **kw: dense.forward(p, t, c, **kw), False),
+    (lambda p, t, c, **kw: dense.forward(p, t, c, seq_shard=True, **kw), True),
+    (lambda p, t, c, **kw: dense.forward(p, t, c, attn_shard="heads", **kw), True),
+    (lambda p, t, c, **kw: dense.prefill(p, t, c, **kw), False),
+    (lambda p, t, c, **kw: dense._moe_block(
+        _first_moe(p), torch.linspace(-1, 1, 2 * c.d_model).view(1, 2, c.d_model), c,
+        kw.get("mesh")), False),
 ], ids=["forward", "seq_shard", "attn_shard", "prefill", "moe_block"])
-def test_mesh_options_raise_and_name_roadmap(call):
+def test_mesh_options_raise_and_name_roadmap(call, raises):
+    """``seq_shard`` and ``attn_shard``, the reference dry run's layout hints,
+    raise and name ROADMAP.  A ``mesh`` is ported (the training mesh,
+    ``tests/test_torch_train_mesh.py``): one without a ``model`` axis runs the
+    one-device path, as the reference's ``_moe_block`` does, and gives the
+    mesh-less numbers bit for bit.  (The name is kept from when every mesh
+    option raised.)"""
     cfg = get_smoke("qwen3-moe-30b-a3b")
     _, tp = _params(cfg, "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(tp, torch.zeros((1, 4), dtype=torch.int32), cfg)
+    tokens = torch.arange(4, dtype=torch.int32)[None]
+    if raises:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call(tp, tokens, cfg, mesh=object())
+        return
+    got, want = call(tp, tokens, cfg, mesh=object()), call(tp, tokens, cfg)
+    flat = [x for out in (got, want) for x in out]
+    flat = [v for x in flat for v in (x.values() if isinstance(x, dict) else [x])]
+    n = len(flat) // 2
+    assert all(a == b if isinstance(a, int) else torch.equal(a, b)
+               for a, b in zip(flat[:n], flat[n:]))
 
 
 def test_backward_through_the_lm_raises():

@@ -442,20 +442,25 @@ def test_profile_train_cuts_follow_each_family_s_layout():
 
 
 def test_train_lm_refuses_only_a_mesh_before_any_init(monkeypatch):
-    """With the training meshes not ported, ``--mesh`` and ``train_lm(mesh=)``
-    raise naming ROADMAP.md before any params are drawn; nothing else is
-    refused (``refuse_untrainable`` is gone)."""
+    """The training meshes are ported (``tests/test_torch_train_mesh.py``);
+    what a mesh still refuses, it refuses before any params are drawn: a
+    batch that does not divide over the mesh's batch axes
+    (``train_lm(mesh=)``) and ``--mesh prod`` on a world that is not 256
+    ranks, both ``ValueError``; nothing else is refused
+    (``refuse_untrainable`` is gone).  (The name is kept from when every
+    mesh raised naming ROADMAP.)"""
+    from repro_torch.launch.mesh import TrainMesh
     assert not hasattr(train_cli, "refuse_untrainable")
 
     def no_init(*a, **kw):
         raise AssertionError("params were drawn before the refusal")
 
     monkeypatch.setattr(train_cli, "get_model", no_init)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.train_lm(get_config("dbrx-132b"), steps=1, batch=1, seq=8, device="cpu",
-                           mesh="local")
+    with pytest.raises(ValueError, match="divide"):
+        train_cli.train_lm(get_config("dbrx-132b"), steps=1, batch=3, seq=8, device="cpu",
+                           mesh=TrainMesh(rank=0, data=2, model=1))
     for name in ("gemma2-9b", "stablelm-12b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A, order item 4"):
+        with pytest.raises(ValueError, match=r"\(16, 16\) = 256 ranks .* world size 1"):
             train_cli.main(["--arch", name, "--device", "cpu", "--steps", "1", "--mesh",
                             "prod"])
 

@@ -1,7 +1,9 @@
 """``launch/timing.device_ms`` on the CPU, with a stand-in for the profiler.
 
-A trace that holds fewer launches than the calls made is never averaged: a
-fresh one is taken, and after ``attempts`` short traces the call raises.
+Each kernel of a trace is averaged over its own traced launches, so a trace
+that missed a few launches is used; one that lost more than a tenth of them
+is never used: a fresh one is taken, and after ``attempts`` short traces the
+call raises.
 Each trace runs one warm-up step before the timed calls.
 The stand-in profiler hands out prepared traces; no card is needed.
 """
@@ -51,8 +53,8 @@ def fake_profiler(monkeypatch):
 
 
 def test_a_short_trace_is_retaken_not_averaged(fake_profiler):
-    # 20 calls of 2 kernels: the first trace dropped one launch
-    fake_profiler += [_trace([(19, 1900.0), (20, 3000.0)]),
+    # 20 calls of 2 kernels: the first trace dropped 5 of the 40 launches
+    fake_profiler += [_trace([(15, 1500.0), (20, 3000.0)]),
                       _trace([(20, 2000.0), (20, 3000.0)])]
     calls = []
     ms = timing.device_ms(lambda: calls.append(1), 20, launches_per_call=2)
@@ -62,10 +64,30 @@ def test_a_short_trace_is_retaken_not_averaged(fake_profiler):
 
 
 def test_only_short_traces_raise(fake_profiler):
-    fake_profiler += [_trace([(39, 3900.0)]) for _ in range(3)]
-    with pytest.raises(RuntimeError, match="39 kernel launches traced for 20 calls of 2, "
+    fake_profiler += [_trace([(30, 3000.0)]) for _ in range(3)]
+    with pytest.raises(RuntimeError, match="30 kernel launches traced for 20 calls of 2, "
                                            "3 times"):
         timing.device_ms(lambda: None, 20, launches_per_call=2)
+
+
+def test_a_trace_that_missed_a_few_launches_is_averaged_by_kernel(fake_profiler):
+    # 38 of 40 launches, one of each kernel missed; each kernel's mean is its
+    # own (0.1 and 0.2 ms), not the trace's mean over all 38 launches
+    fake_profiler += [_trace([(19, 1900.0), (19, 3800.0)])]
+    calls = []
+    ms = timing.device_ms(lambda: calls.append(1), 20, launches_per_call=2)
+    assert ms == pytest.approx(0.1 + 0.2)
+    assert len(calls) == 1 + 1 + 20          # one trace
+    assert not fake_profiler
+
+
+def test_a_trace_of_another_launch_count_is_retaken(fake_profiler):
+    # a third kernel in every call: the call is not the one planned
+    fake_profiler += [_trace([(20, 2000.0), (20, 3000.0), (20, 1000.0)]),
+                      _trace([(20, 2000.0), (20, 3000.0)])]
+    ms = timing.device_ms(lambda: None, 20, launches_per_call=2)
+    assert ms == pytest.approx(0.1 + 0.15)
+    assert not fake_profiler
 
 
 def test_without_a_launch_count_the_first_trace_is_used(fake_profiler):

@@ -21,6 +21,7 @@ Tolerances, with their reasons:
     at every step (f32 rounding differences, compounded over 30 AdamW
     steps, observed well below that).
 """
+import re
 import importlib
 
 import jax
@@ -523,6 +524,13 @@ def test_train_cli_checkpoint_reads_in_reference_bit_for_bit(tmp_path, capsys):
                                   ["--arch", "gemma2-9b", "--smoke", "--mesh", "local"],
                                   ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--mesh",
                                    "local"]])
-def test_train_cli_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(argv + ["--device", "cpu", "--steps", "1"])
+def test_train_cli_refuses_what_is_not_ported(argv, capsys):
+    """``--mesh local`` is ported: on one rank it is the 1 x 1 training mesh,
+    and every family prints the losses it prints without a mesh (DiT-MoE
+    trains as the reference does, its ``train_diffusion`` taking no mesh).
+    (The name is kept from when ``--mesh`` raised.)"""
+    losses = {}
+    for mesh in ("local", "none"):
+        train_cli.main(argv[:-1] + [mesh, "--device", "cpu", "--steps", "1", "--batch", "2"])
+        losses[mesh] = re.findall(r"loss (\S+)", capsys.readouterr().out)
+    assert len(losses["none"]) == 1 and losses["local"] == losses["none"]

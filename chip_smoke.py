@@ -318,7 +318,26 @@ non-zero and no phase's failure is caught:
      timed steps, s/step, ``max_memory_allocated`` per rank, the
      all-to-alls' calls and bytes a step (the (128, 40, 2048) bf16 buffer
      of 512 local tokens at capacity 40, six calls a layer: forward,
-     recompute, backward), launches by shape held to the plan.
+     recompute, backward), launches by shape held to the plan; then one
+     profiled step under remat "full" (12 all-to-alls by
+     ``hlo_cost.collective_counts``) and one under "save_ffn" (8).
+ 18. the dry run against the card (``launch/dryrun.py``: the step on
+     ``meta`` tensors for rank 0 of a fake world, host only, each run a
+     process of its own, all started at once): (a) the fake backend and
+     ``FakeStore`` import and a world-256 ``new_group`` runs an all-to-all
+     on ``meta``; (b) the dry run of 16b's qwen3-moe cut (3 layers, 8 x
+     128, a 1 x 1 mesh): its parameter, gradient and optimizer bytes equal
+     what 16b held (its params, ``lm_grads``' gradient tree and AdamW's
+     state), exactly, and its peak is within 2% of 16b's
+     ``max_memory_allocated``; of 17c's (2 layers, model 2, a world of 2):
+     its all-to-alls (count and bytes) equal 17c's profiled step's, exactly,
+     and its peak is within 2% of 17c's per rank; (c) 16b's cut on the
+     card under the remat policies "full", "dots" and "save_ffn": step-0
+     losses and gradients bit-identical to "full", s/step and
+     ``max_memory_allocated`` beside the dry run's for that policy; (d) the
+     production dry runs of qwen3-moe-30b-a3b train_4k and dit-moe-g
+     dit_serve on 16 x 16: fits, peak bytes, dominant roofline term
+     (modelled from the data sheet's peaks).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -340,12 +359,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit):
-# FP32 outside the tensor cores, TF32 on the tensor cores, and HBM3
-# bandwidth.  An f32-accurate 3xTF32 product costs three TF32 products.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_HBM_BYTES = 3.35e12
+try:
+    from repro_torch.common.config import HW
+except ImportError:                       # not a checkout: main() says so
+    HW = None
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit;
+# common/config.HW holds them): FP32 outside the tensor cores, TF32 on the
+# tensor cores, and HBM3 bandwidth.  An f32-accurate 3xTF32 product costs
+# three TF32 products.
+PEAK_FP32_FLOPS = HW.peak_flops_fp32 if HW else None
+PEAK_TF32_FLOPS = HW.peak_flops_tf32 if HW else None
+PEAK_HBM_BYTES = HW.hbm_bw if HW else None
 
 TOL_F32 = dict(rtol=1e-4, atol=1e-4)      # f32 sums of up to 4608 terms
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)     # bf16 in/out, f32 accumulate
@@ -3492,7 +3516,7 @@ def phase_train_lm_full(rows, smi):
 # phase 14: the dense and MoE LMs (3L, their kernels at the LMs' shapes, runs
 # in phase 3)
 # ---------------------------------------------------------------------------
-PEAK_BF16_FLOPS = 989e12                  # H100 SXM tensor cores, dense, 700 W
+PEAK_BF16_FLOPS = HW.peak_flops_bf16 if HW else None   # H100 SXM tensor cores, dense
 LM_NAMES = ("gemma2-9b", "qwen3-moe-30b-a3b", "qwen3-32b", "stablelm-12b",
             "deepseek-67b", "dbrx-132b")
 SMOKE_PROMPT, SMOKE_DECODE = 16, 8        # past gemma2 smoke's window of 8
@@ -4836,14 +4860,16 @@ def phase_lm_train_full(rows, smi):
     with the launch counts set to 0 before them and held to the depth
     after (the recompute's second forward included), flash's forward and
     backward and ``expert_ffn_bwd`` counted by shape at their wrappers;
-    loss and grad norm finite.  Each model is freed before the next.
-    Returns {label: (s/step, peak GiB)}."""
+    loss and grad norm finite; then one ``lm_grads``, whose gradient tree's
+    bytes 18b reads.  Each model is freed before the next.
+    Returns {label: {s_per_step, peak_gib, param_bytes, grad_bytes,
+    opt_bytes}}."""
     import torch
     from repro_torch.bridge import leaves
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
     from repro_torch.launch.profile_train import lm_train_config
-    from repro_torch.launch.train import lm_train_step, stub_inputs
+    from repro_torch.launch.train import lm_grads, lm_train_step, stub_inputs
     from repro_torch.models.api import get_model
     from repro_torch.optim.adamw import adamw_init
     out, fwd_total = {}, 0
@@ -4918,8 +4944,11 @@ def phase_lm_train_full(rows, smi):
             if owner == label:
                 rows[f"expert_ffn_bwd {lab}"]["launches"] = ffn_shapes[(E, C, d, f, "bfloat16")]
         fwd_total += counts["flash_attention"]
-        out[label] = (s_per_step, peak)
-        del params, opt, ms
+        grads = lm_grads(params, dict(next(it), **stub_inputs(api, cfg, batch, sgen)), cfg)[1]
+        out[label] = dict(s_per_step=s_per_step, peak_gib=peak,
+                          param_bytes=_tree_bytes(params), grad_bytes=_tree_bytes(grads),
+                          opt_bytes=_tree_bytes(opt))
+        del params, opt, ms, grads
         torch.cuda.empty_cache()
     rows["flash_attention"]["launches_train_lm"] = fwd_total
     return out
@@ -4938,6 +4967,14 @@ TM_TIMEOUT_S = 600
 # 17c's peak a rank, 22.32 GiB measured at 2 layers (PERF.md), with 1 GiB for
 # the rank's CUDA context and cache
 TM_NEED_GIB = 23.4
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of every tensor of ``tree`` (params, AdamW's state)."""
+    from repro_torch.bridge import leaves
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    return sum(t.numel() * t.element_size() for t in leaves(tree).values())
 
 
 def _tm_digests(params):
@@ -5026,6 +5063,7 @@ def _tm_full_job(mesh, layers: int, batch: int, seq: int, timed: int):
     from repro_torch.data.synthetic import token_batches
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.hlo_cost import collective_counts
     from repro_torch.launch.train import lm_train_step
     from repro_torch.models.api import get_model
     from repro_torch.optim.adamw import adamw_init
@@ -5044,9 +5082,9 @@ def _tm_full_job(mesh, layers: int, batch: int, seq: int, timed: int):
     sent = []
     a2a = mesh_lib.EPMesh.all_to_all
 
-    def counted(self, t):
+    def counted(self, t, **kw):
         sent.append(t.numel() * t.element_size())
-        return a2a(self, t)
+        return a2a(self, t, **kw)
 
     mesh_lib.EPMesh.all_to_all = counted
 
@@ -5068,13 +5106,27 @@ def _tm_full_job(mesh, layers: int, batch: int, seq: int, timed: int):
         s_per_step = (time.perf_counter() - t0) / timed
     finally:
         mesh_lib.EPMesh.all_to_all = a2a
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    counts, ffn_bwd = dict(ops.LAUNCHES), dict(ops.FFN_BWD_SHAPES)
+    flash_bwd, flash = dict(ops.FLASH_BWD_SHAPES), dict(ops.FLASH_SHAPES)
+    # one profiled step under "full" and one under "save_ffn": the
+    # collectives each issues, by the c10d dispatcher's events
+    profiled = {}
+    for policy in ("full", "save_ffn"):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            b = {k: v[rows] for k, v in next(it).items()}
+            params, opt, m = lm_train_step(params, opt, b, cfg, total=1 + timed, mesh=mesh,
+                                           remat_policy=policy)
+            torch.cuda.synchronize()
+        profiled[policy] = dict(counts=collective_counts(prof), loss=float(m["loss"]),
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     return _every_rank(dict(
-        s_per_step=s_per_step, init_s=init_s, n_params=n_params,
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        s_per_step=s_per_step, init_s=init_s, n_params=n_params, peak_gib=peak_gib,
         losses=[float(m["loss"]) for m in ms], gnorms=[float(m["grad_norm"]) for m in ms],
         a2a_calls=len(sent) / timed, a2a_bytes=sum(sent) / timed, a2a_sizes=sorted(set(sent)),
-        counts=dict(ops.LAUNCHES), ffn_bwd=dict(ops.FFN_BWD_SHAPES),
-        flash_bwd=dict(ops.FLASH_BWD_SHAPES), flash=dict(ops.FLASH_SHAPES)))
+        counts=counts, ffn_bwd=ffn_bwd, flash_bwd=flash_bwd, flash=flash,
+        profiled=profiled))
 
 
 def phase_train_mesh(rows, smi):
@@ -5191,14 +5243,27 @@ def phase_train_mesh(rows, smi):
             f"{ {k: v for k, v in plan.items() if v} }); expert_ffn_bwd by shape "
             f"{x['ffn_bwd']}; flash_attention_bwd by shape {x['flash_bwd']}; "
             f"flash_attention by shape {x['flash']}")
+        pf, ps = x["profiled"]["full"], x["profiled"]["save_ffn"]
+        log(f"  17c [{smi}] rank {r}, one profiled step each: remat 'full' issues "
+            f"{pf['counts']['all_to_all']} all-to-alls (planned {6 * TM_LAYERS}), loss "
+            f"{pf['loss']:.5f}, max_memory_allocated {pf['peak_gib']:.3f} GiB; 'save_ffn' "
+            f"{ps['counts']['all_to_all']} (planned {4 * TM_LAYERS}: the recompute reads "
+            f"the exchange's saved buffers), loss {ps['loss']:.5f}, max_memory_allocated "
+            f"{ps['peak_gib']:.3f} GiB; collectives {pf['counts']} / {ps['counts']}")
         bad = (x["counts"] != plan or x["ffn_bwd"] != ffn_plan or x["flash_bwd"] != flash_plan
                or x["a2a_calls"] != 6 * TM_LAYERS or x["a2a_sizes"] != [wire]
-               or not all(math.isfinite(v) for v in x["losses"] + x["gnorms"]))
+               or pf["counts"]["all_to_all"] != 6 * TM_LAYERS
+               or ps["counts"]["all_to_all"] != 4 * TM_LAYERS
+               or not all(math.isfinite(v) for v in x["losses"] + x["gnorms"]
+                          + [pf["loss"], ps["loss"]]))
         if bad:
             raise AssertionError(f"17c rank {r}: launches, shapes or all-to-alls differ "
                                  f"from the plan, or a loss is not finite")
     if len({tuple(x["losses"]) for x in res}) != 1:
         raise AssertionError("17c: the ranks report different losses")
+    mesh_run = dict(peak_gib=res[0]["peak_gib"], a2a_sizes=res[0]["a2a_sizes"],
+                    a2a_full=res[0]["profiled"]["full"]["counts"]["all_to_all"],
+                    a2a_save_ffn=res[0]["profiled"]["save_ffn"]["counts"]["all_to_all"])
     log(f"  17c: the spawn took {time.perf_counter() - t0:.1f} s; both ranks share one "
         f"card and a host-staged gloo wire, so these are not NCCL numbers")
     for name, key in (("expert_ffn", "expert_ffn"), ("flash_attention", "flash_attention"),
@@ -5207,7 +5272,223 @@ def phase_train_mesh(rows, smi):
                       ("flash_attention_bwd qwen3-moe-30b-a3b (GQA 32 over 4)",
                        "flash_attention_bwd")):
         rows[name]["launches_train_mesh_per_rank"] = [x["counts"][key] for x in res]
+    return mesh_run
 
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the dry run against the card (host-only dry runs, each a process
+# of its own, started together; 18c on the card meanwhile)
+# ---------------------------------------------------------------------------
+DRY_TIMEOUT_S = 300
+DRY_PEAK_REL = 0.02                       # 18b: |dry-run peak / measured - 1|
+DRY_POLICIES = (("full", ""), ("dots", "remat_dots"), ("save_ffn", "save_ffn"))
+DRY_FAKE_WORLD = """
+import json, torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=256)
+g = dist.new_group(list(range(16)))
+x = torch.empty(16, 4, device="meta")
+out = torch.empty_like(x)
+dist.all_to_all_single(out, x, group=g)
+print(json.dumps({"torch": torch.__version__, "backend": dist.get_backend(),
+                  "world": dist.get_world_size(), "group": dist.get_world_size(g),
+                  "out": [list(out.shape), str(out.device)]}))
+"""
+
+
+def _dry_cmd(arch: str, shape: str, *extra: str):
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+            "--shape", shape, "--quiet", *extra]
+
+
+def _dry_start(cmd):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _dry_finish(label: str, proc):
+    """The last JSON line a dry-run process printed; raises with its error
+    output if it failed."""
+    try:
+        out, err = proc.communicate(timeout=DRY_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"18 {label}: the dry run took over {DRY_TIMEOUT_S} s")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"18 {label}: the dry run exited {proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-3000:]}")
+    rec = json.loads(lines[-1])
+    if "error" in rec:
+        raise AssertionError(f"18 {label}: {rec['error']}")
+    return rec
+
+
+def _policy_runs(smi, cfg, batch: int, seq: int):
+    """18c: cfg on the card under each remat policy: the step-0 loss and
+    gradients against "full"'s, then a warm-up and LMT_TIMED steps with the
+    peak reset before the warm-up and the launch counts set to 0 after it,
+    held to the plan (every policy recomputes the kernels' forwards: a
+    selective checkpoint keeps aten ops' outputs, and the kernels are not
+    aten ops).  Returns {policy: (s/step, peak GiB, launches)}."""
+    import torch
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_grads, lm_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    api = get_model(cfg)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(cfg, generator=gen)
+    opt = adamw_init(params)
+    it = token_batches(cfg.vocab_size, batch, seq, seed=0, device="cuda")
+    b0 = next(it)
+    loss0, want = lm_grads(params, b0, cfg)
+    want = tree_leaves(want)
+    names = [f"leaf {i}" for i in range(len(want))]
+    n_sum = max(cfg.d_ff, cfg.expert_d_ff or 0) + seq
+    for policy, _ in DRY_POLICIES[1:]:
+        loss, got = lm_grads(params, b0, cfg, remat_policy=policy)
+        got = tree_leaves(got)
+        same = bool(torch.equal(loss, loss0)) and all(torch.equal(g, w)
+                                                       for g, w in zip(got, want))
+        log(f"  18c [{smi}] remat '{policy}' step-0 loss {float(loss):.6f} vs 'full' "
+            f"{float(loss0):.6f}; {len(got)} gradient leaves "
+            f"{'bit-identical to full' if same else 'NOT bit-identical to full'}")
+        if not same:
+            _compare_grads(f"18c [{smi}] '{policy}' gradients vs 'full'", got, want, names,
+                           n_sum)
+        del got, loss
+    del want
+    out = {}
+    for policy, _ in DRY_POLICIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = lambda: lm_train_step(params, opt, next(it), cfg, total=1 + LMT_TIMED,  # noqa: E731
+                                     remat_policy=policy)
+        params, opt, m = step()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(LMT_TIMED):
+            params, opt, m = step()
+        torch.cuda.synchronize()
+        out[policy] = ((time.perf_counter() - t0) / LMT_TIMED,
+                       torch.cuda.max_memory_allocated() / 2**30, dict(ops.LAUNCHES))
+        plan = _planned_train_launches(cfg, LMT_TIMED)
+        if out[policy][2] != plan or not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"18c {policy}: launches {out[policy][2]} differ from the "
+                                 f"plan's {plan}, or the loss is not finite")
+    del params, opt, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dry_run(rows, smi, train16, train17):
+    """18: see the module docstring."""
+    t0 = time.perf_counter()
+    cut = ("--layers", "3", "--batch", "8", "--seq", "128")
+    procs = {"18a fake world": _dry_start([sys.executable, "-c", DRY_FAKE_WORLD])}
+    for policy, opt in DRY_POLICIES:
+        procs[f"16b {policy}"] = _dry_start(_dry_cmd(TM_NAME, "train_4k", "--mesh", "1x1",
+                                                     *cut, "--opts", opt))
+    for policy, opt in DRY_POLICIES[::2]:
+        procs[f"17c {policy}"] = _dry_start(_dry_cmd(
+            TM_NAME, "train_4k", "--mesh", f"1x{TM_MODEL}", "--layers", str(TM_LAYERS),
+            "--batch", str(TM_BATCH), "--seq", str(TM_SEQ), "--opts", opt))
+    procs["18d qwen3-moe"] = _dry_start(_dry_cmd(TM_NAME, "train_4k"))
+    procs["18d dit-moe-g"] = _dry_start(_dry_cmd("dit-moe-g", "dit_serve"))
+
+    # (c) on the card while the dry runs trace on the host
+    from repro_torch.launch.profile_train import lm_train_config
+    cfg = lm_train_config(TM_NAME)
+    card = _policy_runs(smi, cfg, 8, 128)
+
+    rec = {label: _dry_finish(label, p) for label, p in procs.items()}
+    fake = rec.pop("18a fake world")
+    log(f"  18a torch {fake['torch']}: backend {fake['backend']}, world {fake['world']}, a "
+        f"new_group of {fake['group']} ranks ran an all-to-all on meta {fake['out']}")
+    if (fake["backend"], fake["world"], fake["group"]) != ("fake", 256, 16):
+        raise AssertionError("18a: the fake world is not what was asked")
+
+    def gib(n):
+        return n / 2**30
+
+    # (b) 16b's cut: the bytes it held, and its peak
+    want16 = train16[TM_NAME]
+    dry = rec["16b full"]
+    mem = dry["memory"]
+    held = want16["param_bytes"] + want16["grad_bytes"] + want16["opt_bytes"]
+    pgo = mem["param_bytes"] + mem["grad_bytes"] + mem["opt_bytes"]
+    ratio16 = gib(mem["peak_bytes"]) / want16["peak_gib"]
+    log(f"  18b {TM_NAME} at 16b's cut ({cfg.num_layers} layers, 8 x 128, a 1 x 1 mesh): the "
+        f"dry run's params + grads + AdamW state {pgo} B (grads {mem['grad_bytes']}), 16b "
+        f"held {held} B (params {want16['param_bytes']}, lm_grads' tree "
+        f"{want16['grad_bytes']}, moments and step {want16['opt_bytes']}); peak "
+        f"{gib(mem['peak_bytes']):.3f} GiB modelled vs 16b's max_memory_allocated "
+        f"{want16['peak_gib']:.3f} GiB measured [{smi}] (ratio {ratio16:.4f}); the dry run "
+        f"took {dry['t_trace_s']} s")
+    if pgo != held:
+        raise AssertionError("18b: the dry run's parameter, gradient and optimizer bytes "
+                             "differ from 16b's")
+    if abs(ratio16 - 1) > DRY_PEAK_REL:
+        raise AssertionError(f"18b: the dry run's peak is {ratio16:.3f} of 16b's")
+    # (b) 17c's cut: the all-to-alls, and the peak a rank
+    dry = rec["17c full"]
+    calls = dry["collective_counts"].get("all_to_all", 0)
+    each = dry["collectives"].get("all_to_all", 0) / max(calls, 1)
+    ratio17 = gib(dry["memory"]["peak_bytes"]) / train17["peak_gib"]
+    save = rec["17c save_ffn"]["collective_counts"].get("all_to_all", 0)
+    log(f"  18b {TM_NAME} at 17c's cut ({TM_LAYERS} layers, model {TM_MODEL}, a world of "
+        f"{TM_MODEL}): the dry run's all-to-alls {calls:.0f} a step of {each:.0f} B "
+        f"('save_ffn' {save:.0f}), 17c's profiled step {train17['a2a_full']} of "
+        f"{train17['a2a_sizes']} B ('save_ffn' {train17['a2a_save_ffn']}); peak a rank "
+        f"{gib(dry['memory']['peak_bytes']):.3f} GiB modelled vs 17c's "
+        f"{train17['peak_gib']:.3f} GiB measured [{smi}] (ratio {ratio17:.4f})")
+    if (calls, save, [each]) != (train17["a2a_full"], train17["a2a_save_ffn"],
+                                 train17["a2a_sizes"]):
+        raise AssertionError("18b: the dry run's all-to-alls differ from 17c's")
+    if abs(ratio17 - 1) > DRY_PEAK_REL:
+        raise AssertionError(f"18b: the dry run's peak is {ratio17:.3f} of 17c's")
+    # (c) the card's runs beside the dry run's predictions
+    for policy, _ in DRY_POLICIES:
+        d = rec[f"16b {policy}"]
+        rl = d["roofline"]
+        s_step, peak, launches = card[policy]
+        log(f"  18c [{smi}] remat '{policy}': launches over {LMT_TIMED} steps "
+            f"{ {k: v for k, v in launches.items() if v} } (as planned); {s_step:.4f} "
+            f"s/train-step measured (the "
+            f"dry run's roofline {max(rl['t_compute'], rl['t_memory']):.4f} s, "
+            f"{rl['dominant']}-bound, modelled from data-sheet peaks: {rl['flops']:.4e} FLOP, "
+            f"{rl['bytes']:.4e} B), max_memory_allocated {peak:.3f} GiB measured vs "
+            f"{gib(d['memory']['peak_bytes']):.3f} GiB modelled "
+            f"(ratio {gib(d['memory']['peak_bytes']) / peak:.4f})")
+    for name, key in (("expert_ffn", "expert_ffn"), ("flash_attention", "flash_attention"),
+                      ("expert_ffn_bwd qwen3-moe-30b-a3b (128 experts top-8)",
+                       "expert_ffn_bwd"),
+                      ("flash_attention_bwd qwen3-moe-30b-a3b (GQA 32 over 4)",
+                       "flash_attention_bwd")):
+        rows[name]["launches_remat_policies"] = {p: card[p][2][key] for p, _ in DRY_POLICIES}
+    # (d) the production mesh, host only; fits is peak <= HW.hbm_bytes
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  18d [{smi}] the card's total_memory {total} B ({gib(total):.3f} GiB); the dry "
+        f"run's fits compares with HW.hbm_bytes {HW.hbm_bytes:.0f} B (data sheet)")
+    for label in ("18d qwen3-moe", "18d dit-moe-g"):
+        d = rec[label]
+        rl = d["roofline"]
+        log(f"  {label}: {d['arch']} {d['shape']} on {d['mesh']} ({d['n_chips']} ranks, "
+            f"rank 0 on meta, {d['t_trace_s']} s): fits {d['fits']}, peak "
+            f"{d['memory']['peak_bytes']} B ({gib(d['memory']['peak_bytes']):.2f} GiB; held "
+            f"{d['memory']['argument_bytes']} B, under the reference's specs "
+            f"{d['spec_argument_bytes']} B), dominant {rl['dominant']} (compute "
+            f"{rl['t_compute']:.4f} s, memory {rl['t_memory']:.4f} s, collective "
+            f"{rl['t_collective']:.4f} s: {rl['modeled']})")
+    log(f"  18: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -5284,15 +5565,19 @@ def main() -> int:
     with phase("16 main path 12 (training every LM family but RWKV-6: the ten smoke configs "
                "cpu vs card, eight runs at full width; their 3B lines ran in phase 3)"):
         phase_lm_train_smoke(smi)
-        phase_lm_train_full(rows, smi)
+        train16 = phase_lm_train_full(rows, smi)
     with phase("17 main path 13 (training over a data x model mesh: make_local_mesh on one "
                "nccl rank, data 2 x model 2 gloo ranks card vs cpu, qwen3-moe-30b-a3b at "
                "full width over model 2)"):
-        phase_train_mesh(rows, smi)
+        train17 = phase_train_mesh(rows, smi)
+    with phase("18 the dry run against the card (the fake world; 16b's and 17c's cuts "
+               "modelled and measured; the remat policies on the card; the production mesh, "
+               "host only)"):
+        phase_dry_run(rows, smi, train16, train17)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "launches_train_lm",
-            "launches_train_mesh_per_rank",
+            "launches_train_mesh_per_rank", "launches_remat_policies",
             "launches_forward",
             "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",

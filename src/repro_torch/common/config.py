@@ -1,15 +1,38 @@
-"""Model configuration: the port's copy of ``repro.common.config.ModelConfig``.
+"""Configuration: the port's copy of ``repro.common.config``.
 
 One flat :class:`ModelConfig` covers every architecture family of the JAX
 package; the fields are kept identical so configs compare field-equal
-across the two packages.  The JAX package's TPU hardware constants are not
-carried over: the port measures its card instead of modelling a TPU.
+across the two packages.  :class:`ShapeConfig` and :data:`INPUT_SHAPES`
+are the reference's assigned input shapes.  :data:`HW` holds the card's
+peaks in place of the reference's TPU v5e ones: NVIDIA's data-sheet
+values for the H100 SXM5 80GB, which the dry run's roofline and the
+kernels' bounds divide by (modelled figures, not measurements).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+# ---------------------------------------------------------------------------
+# hardware peaks (H100 SXM5 80GB data sheet, dense, at the 700 W limit; used
+# by the roofline and the kernels' bounds, not by the runtime)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class _HW:
+    peak_flops_bf16: float = 989e12     # data sheet: BF16 tensor cores, dense
+    peak_flops_tf32: float = 495e12     # data sheet: TF32 tensor cores, dense
+    peak_flops_fp32: float = 67e12      # data sheet: FP32 outside the tensor cores
+    hbm_bw: float = 3.35e12             # data sheet: HBM3 bytes/s
+    hbm_bytes: float = 80e9             # data sheet: 80 GB of HBM3 (the card's
+                                        # total_memory: 85,017,493,504 B, chip_smoke.py 18d)
+    nvlink_bw: float = 450e9            # data sheet: NVLink 4, 900 GB/s both ways
+    devices_per_host: int = 8           # a DGX H100 / HGX H100 8-GPU host
+    inter_host_bw: float = 50e9         # one 400 Gb/s NIC a GPU, as in a DGX H100
+
+
+HW = _HW()
 
 
 @dataclass(frozen=True)
@@ -132,3 +155,22 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
+}

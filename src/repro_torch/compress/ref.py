@@ -53,3 +53,15 @@ def topk_decode(vals: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Tensor:
     out = torch.zeros(vals.shape[:-1] + (d,), dtype=vals.dtype,
                       device=vals.device)
     return out.scatter_(-1, idx.to(torch.int64), vals)
+
+
+def int8_roundtrip(r: torch.Tensor, *, eps: float = INT8_EPS) -> torch.Tensor:
+    """What the receiver of an int8-coded ``r`` reconstructs."""
+    q, scale = int8_encode(r, eps=eps)
+    return int8_decode(q, scale)
+
+
+def topk_roundtrip(r: torch.Tensor, keep: int) -> torch.Tensor:
+    """What the receiver of a top-``keep``-coded ``r`` reconstructs."""
+    vals, idx = topk_encode(r, keep)
+    return topk_decode(vals, idx, r.shape[-1])

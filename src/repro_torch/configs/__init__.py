@@ -24,6 +24,9 @@ _MODULES = {
     "dit-moe-g": "dit_moe_g",
 }
 
+# the ten assigned LM architectures (the reference's dry-run sweep)
+ASSIGNED_ARCHS = list(_MODULES)[:10]
+
 
 def _module(name: str):
     if name not in _MODULES:

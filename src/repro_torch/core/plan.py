@@ -243,6 +243,11 @@ def register_schedule(name: str, planner_fn: Optional[Planner] = None):
     return _register
 
 
+def registered_schedules() -> List[str]:
+    """The names of every registered planner, sorted."""
+    return sorted(_REGISTRY)
+
+
 def get_planner(schedule) -> Planner:
     name = schedule_name(schedule)
     try:

@@ -46,6 +46,36 @@ class MoELayerState:
                    if a is not None)
 
 
+def init_layer_states(num_moe_layers: int) -> Dict[int, MoELayerState]:
+    """One empty state a MoE layer (the synchronous schedule's)."""
+    return {i: MoELayerState() for i in range(num_moe_layers)}
+
+
+def flatten_state(s: MoELayerState) -> MoELayerState:
+    """(B, T, ...) factored buffers -> flat (B*T, ...) rows, the shape
+    :func:`apply_layer_action` computes in; batch-major, as the model
+    forward's ``reshape(B * T, d)``."""
+    def _f(a):
+        return None if a is None else a.reshape((-1,) + tuple(a.shape[2:]))
+    return MoELayerState(y_buf=_f(s.y_buf), x_prev=_f(s.x_prev),
+                         h_cache=_f(s.h_cache), c_base=_f(s.c_base))
+
+
+def unflatten_state(s: MoELayerState, b: int, t: int) -> MoELayerState:
+    """Inverse of :func:`flatten_state`."""
+    def _u(a):
+        return None if a is None else a.reshape((b, t) + tuple(a.shape[1:]))
+    return MoELayerState(y_buf=_u(s.y_buf), x_prev=_u(s.x_prev),
+                         h_cache=_u(s.h_cache), c_base=_u(s.c_base))
+
+
+def staleness_of(schedule) -> int:
+    """Worst-case staleness of ``schedule`` (a ``Schedule`` or a registered
+    name) at steady state, from its steady-state plan."""
+    from repro_torch.core.plan import steady_state_plan
+    return steady_state_plan(schedule).step_staleness
+
+
 def init_planned_states(splan, *, num_tokens: int, d_model: int, k: int,
                         dtype=torch.float32,
                         device=None) -> Dict[int, MoELayerState]:

@@ -21,6 +21,15 @@ and an input requires it; their backward runs the backward kernels
 (``expert_ffn_bwd``, ``flash_attention_bwd``, ``rwkv6_scan_bwd``) on the
 card and their plain versions on the CPU.
 Otherwise the forward path is the serving one, unchanged.
+
+Given ``meta`` tensors (the dry run, :mod:`repro_torch.launch.dryrun`)
+every wrapper runs neither the kernel nor its plain version (flash's
+plain version would hold the (B, H, Sq, Sk) scores the kernel never
+does): it allocates on ``meta`` each output and scratch buffer it
+allocates on the card, through the same ``_*_buffers`` function as its
+CUDA branch, and records the kernel's work in
+:data:`repro_torch.kernels.cost.LEDGER` (the ``_*_costed`` functions).
+``LAUNCHES`` and the ``*_SHAPES`` counts do not move.
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.compress.ref import INT8_EPS
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 from repro_torch.kernels.build import library
 
 LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
@@ -96,6 +105,13 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _costed(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` takes the dry run's branch (``t`` on
+    ``meta``): the card's buffers, the work in the cost ledger, no
+    launch."""
+    return t.device.type == "meta"
+
+
 def expert_ffn(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     """buf (E, C, d); w_gate/w_up (E, d, f); w_down (E, f, d) -> (E, C, d).
@@ -122,6 +138,8 @@ def _check_expert_shapes(name, buf, w_gate, w_up, w_down):
 
 
 def _expert_ffn_fwd(buf, w_gate, w_up, w_down, act):
+    if _costed(buf):
+        return _expert_ffn_costed(buf, w_gate, w_up, w_down)
     if buf.device.type == "cpu":
         return ref.expert_ffn_ref(buf, w_gate, w_up, w_down, act=act)
     if buf.device.type != "cuda":
@@ -134,14 +152,32 @@ def _expert_ffn_fwd(buf, w_gate, w_up, w_down, act):
         if not t.is_contiguous():
             raise ValueError("expert_ffn: inputs must be contiguous")
     lib = library()
-    h = torch.empty((E, C, f), dtype=torch.float32, device=buf.device)
-    out = torch.empty_like(buf)
+    h, out = _expert_ffn_buffers(buf, f)
     err = lib.dice_expert_ffn(
         buf.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
         h.data_ptr(), out.data_ptr(), E, C, d, f, _ACTS[act], code,
         buf.device.index or 0, _stream(buf.device))
     _raise_on("expert_ffn", err)
     LAUNCHES["expert_ffn"] += 1
+    return out
+
+
+def _expert_ffn_buffers(buf, f: int):
+    """(h, out): what an ``expert_ffn`` launch writes, on buf's device: the
+    f32 hidden scratch (E, C, f) and the output."""
+    E, C, _ = buf.shape
+    return (torch.empty((E, C, f), dtype=torch.float32, device=buf.device),
+            torch.empty_like(buf))
+
+
+def _expert_ffn_costed(buf, w_gate, w_up, w_down):
+    """:func:`_expert_ffn_fwd` on ``meta``: its buffers, its work in the
+    ledger."""
+    E, C, d, f = _check_expert_shapes("expert_ffn", buf, w_gate, w_up, w_down)
+    h, out = _expert_ffn_buffers(buf, f)
+    del h
+    cost.record("expert_ffn", cost.expert_ffn_flops(E, C, d, f),
+                cost.nbytes(buf, w_gate, w_up, w_down, out))
     return out
 
 
@@ -216,6 +252,11 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
                          f"{q.dtype} on its device, head dim contiguous")
     if q.dim() == 4 and k.dim() == 4:
         _check_masks(q, k, q_offset, k_pos, window)
+    if _costed(q):
+        return _flash_attention_costed(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            k_pos=k_pos, one_sided_window=one_sided_window, out=out,
+            want_lse=want_lse)
     if q.device.type == "cpu":
         o32, lse = ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, softcap=softcap,
@@ -249,14 +290,7 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
             raise ValueError(f"flash_attention: {name}'s head dim must be "
                              f"contiguous")
     lib = library()
-    o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device) \
-        if out is None else out
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
-        if want_lse else None
-    o32 = None
-    if want_lse:
-        o32 = o if q.dtype == torch.float32 else torch.empty(
-            (B, Sq, H, Dh), dtype=torch.float32, device=q.device)
+    o, lse, o32 = _flash_buffers(q, out, want_lse)
     err = lib.dice_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         0 if lse is None else lse.data_ptr(),
@@ -276,6 +310,42 @@ def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
     return o, lse, o32
 
 
+def _flash_pairs(q, k, causal, window, q_offset, k_pos, one_sided_window):
+    return cost.kept_pairs(q.shape[1], k.shape[1], causal=bool(causal),
+                           window=window, q_offset=q_offset,
+                           one_sided_window=one_sided_window,
+                           k_pos_given=k_pos is not None)
+
+
+def _flash_buffers(q, out, want_lse: bool):
+    """(o, lse, o32): what a ``flash_attention`` launch writes, on q's
+    device: the output (``out`` when given) and, with ``want_lse``, the
+    (B, H, Sq) f32 log-sum-exp and the f32 output (``o`` itself for f32
+    inputs), else None."""
+    B, Sq, H, Dh = q.shape
+    o = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device) \
+        if out is None else out
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if want_lse else None
+    o32 = None
+    if want_lse:
+        o32 = o if q.dtype == torch.float32 else torch.empty(
+            (B, Sq, H, Dh), dtype=torch.float32, device=q.device)
+    return o, lse, o32
+
+
+def _flash_attention_costed(q, k, v, *, causal, window, q_offset, k_pos,
+                            one_sided_window, out, want_lse):
+    """:func:`_flash_attention_fwd` on ``meta``: its buffers, its work in
+    the ledger."""
+    B, Sq, H, Dh = q.shape
+    o, lse, o32 = _flash_buffers(q, out, want_lse)
+    pairs = _flash_pairs(q, k, causal, window, q_offset, k_pos, one_sided_window)
+    cost.record("flash_attention", cost.flash_flops(B, H, Dh, pairs),
+                cost.nbytes(q, k, v, o, lse, None if o32 is o else o32))
+    return o, lse, o32
+
+
 # ---------------------------------------------------------------------------
 # backward kernels and the autograd wiring
 # ---------------------------------------------------------------------------
@@ -286,6 +356,8 @@ def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
     (E, C, d): (dX, dWg, dWu, dWd) in the inputs' dtype, f32 or bf16 (the
     forward's ``G`` and ``U`` are recomputed inside, in f32; a bf16
     gradient is rounded once from its f32 sum)."""
+    if _costed(buf):
+        return _expert_ffn_bwd_costed(buf, w_gate, w_up, w_down, dy)
     if buf.device.type == "cpu":
         return ref.expert_ffn_bwd_ref(buf, w_gate, w_up, w_down, dy, act=act)
     if buf.device.type != "cuda":
@@ -301,23 +373,13 @@ def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
     for t in (buf, w_gate, w_up, w_down, dy):
         if not t.is_contiguous():
             raise ValueError("expert_ffn_bwd: inputs must be contiguous")
-    kw = dict(dtype=buf.dtype, device=buf.device)
     if E == 0 or C == 0:                # no rows: zero gradients, no launch
-        return (torch.zeros((E, C, d), **kw), torch.zeros((E, d, f), **kw),
-                torch.zeros((E, d, f), **kw), torch.zeros((E, f, d), **kw))
+        return _zero_ffn_grads(buf, f)
     lay = ffn_bwd_layout(E, C, d, f)
-    args = stage_ffn_bwd_inputs(lay, buf, w_gate, w_up, w_down, dy)
+    args, scratch, stage, (dx, dwg, dwu, dwd) = _expert_ffn_bwd_buffers(
+        lay, buf, w_gate, w_up, w_down, dy)
     lib = library()
     dp, fp = lay.d, lay.f
-    f32 = dict(dtype=torch.float32, device=buf.device)
-    scratch = torch.empty(lay.scratch, **f32)    # G^T, U^T, H^T (then dG^T, dU^T)
-    # bf16: the five inputs widened to f32 by the kernel's first launch
-    stage = (torch.empty((E * dp * (2 * C + 3 * fp),), **f32)
-             if buf.dtype == torch.bfloat16 else None)
-    dx = torch.empty((E, C, dp), **kw)
-    dwg = torch.empty((E, dp, fp), **kw)
-    dwu = torch.empty((E, dp, fp), **kw)
-    dwd = torch.empty((E, fp, dp), **kw)
     err = lib.dice_expert_ffn_bwd(
         *(t.data_ptr() for t in args), scratch.data_ptr(),
         0 if stage is None else stage.data_ptr(), dx.data_ptr(),
@@ -327,6 +389,51 @@ def expert_ffn_bwd(buf: torch.Tensor, w_gate: torch.Tensor,
     LAUNCHES["expert_ffn_bwd"] += 1
     _count(FFN_BWD_SHAPES, (E, C, d, f, str(buf.dtype)[6:]))
     return unstage_ffn_bwd_grads(lay, d, f, (dx, dwg, dwu, dwd))
+
+
+def _zero_ffn_grads(buf, f: int):
+    """``expert_ffn_bwd``'s gradients without rows (E or C zero): zeros,
+    no launch."""
+    E, C, d = buf.shape
+    kw = dict(dtype=buf.dtype, device=buf.device)
+    return (torch.zeros((E, C, d), **kw), torch.zeros((E, d, f), **kw),
+            torch.zeros((E, d, f), **kw), torch.zeros((E, f, d), **kw))
+
+
+def _expert_ffn_bwd_buffers(lay, buf, w_gate, w_up, w_down, dy):
+    """(staged inputs, scratch, stage, (dx, dwg, dwu, dwd)): what an
+    ``expert_ffn_bwd`` launch reads and writes at the layout's widths, on
+    buf's device.  ``stage`` (bf16 only, else None) holds the five inputs
+    widened to f32 by the kernel's first launch; the scratch holds G^T,
+    U^T, H^T (then dG^T, dU^T)."""
+    E, C = buf.shape[:2]
+    args = stage_ffn_bwd_inputs(lay, buf, w_gate, w_up, w_down, dy)
+    dp, fp = lay.d, lay.f
+    kw = dict(dtype=buf.dtype, device=buf.device)
+    f32 = dict(dtype=torch.float32, device=buf.device)
+    scratch = torch.empty(lay.scratch, **f32)
+    stage = (torch.empty((E * dp * (2 * C + 3 * fp),), **f32)
+             if buf.dtype == torch.bfloat16 else None)
+    grads = (torch.empty((E, C, dp), **kw), torch.empty((E, dp, fp), **kw),
+             torch.empty((E, dp, fp), **kw), torch.empty((E, fp, dp), **kw))
+    return args, scratch, stage, grads
+
+
+def _expert_ffn_bwd_costed(buf, w_gate, w_up, w_down, dy):
+    """:func:`expert_ffn_bwd` on ``meta``: its buffers, its work in the
+    ledger."""
+    E, C, d, f = _check_expert_shapes("expert_ffn_bwd", buf, w_gate, w_up,
+                                      w_down)
+    if E == 0 or C == 0:
+        return _zero_ffn_grads(buf, f)
+    lay = ffn_bwd_layout(E, C, d, f)
+    args, scratch, stage, grads = _expert_ffn_bwd_buffers(
+        lay, buf, w_gate, w_up, w_down, dy)
+    del args, scratch, stage
+    out = unstage_ffn_bwd_grads(lay, d, f, grads)
+    cost.record("expert_ffn_bwd", cost.expert_ffn_bwd_flops(E, C, d, f),
+                cost.nbytes(buf, w_gate, w_up, w_down, dy, *out))
+    return out
 
 
 class FFNBwdLayout(NamedTuple):
@@ -361,8 +468,8 @@ def stage_ffn_bwd_inputs(lay: FFNBwdLayout, buf, w_gate, w_up, w_down, dy):
     element is not 16-byte aligned (a view into a larger tensor), which
     TMA cannot read, is copied."""
     if not lay.staged:
-        return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
-                     for t in (buf, w_gate, w_up, w_down, dy))
+        return tuple(t if t.device.type == "meta" or t.data_ptr() % 16 == 0
+                     else t.clone() for t in (buf, w_gate, w_up, w_down, dy))
     d, f = buf.shape[-1], w_gate.shape[-1]
     pd, pf = lay.d - d, lay.f - f
     return (F.pad(buf, (0, pd)), F.pad(w_gate, (0, pf, 0, pd)),
@@ -396,6 +503,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                          f"[0, 2^31 - 1]")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention_bwd: softcap {softcap} must be > 0")
+    if _costed(q):
+        return _flash_attention_bwd_costed(q, k, v, o, lse, do, causal, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                            window=window, softcap=softcap)
@@ -430,10 +539,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
             raise ValueError(f"flash_attention_bwd: {name}'s head dim must "
                              f"be contiguous")
     lib = library()
-    dq = torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv, delta = _flash_bwd_buffers(q, k)
     # the instances with the window and softcap masks are a launch of their
     # own (flash_attention_bwd_masked.cu): without them the kernels keep
     # the registers of the unmasked code
@@ -451,6 +557,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     _raise_on("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
     _count(FLASH_BWD_SHAPES, _flash_shape(q, k, causal, window, softcap))
+    return dq, dk, dv
+
+
+def _flash_bwd_buffers(q, k):
+    """(dq, dk, dv, delta): what a ``flash_attention_bwd`` launch writes,
+    on q's device; delta is the (B, H, Sq) f32 D = rowsum(dO * O)."""
+    B, Sq, H, Dh = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    return (torch.empty((B, Sq, H, Dh), dtype=q.dtype, device=q.device),
+            torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device),
+            torch.empty((B, Sk, KVH, Dh), dtype=q.dtype, device=q.device),
+            torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
+
+
+def _flash_attention_bwd_costed(q, k, v, o, lse, do, causal, window):
+    """:func:`flash_attention_bwd` on ``meta``: its buffers, its work in the
+    ledger."""
+    B, Sq, H, Dh = q.shape
+    dq, dk, dv, delta = _flash_bwd_buffers(q, k)
+    del delta
+    pairs = _flash_pairs(q, k, causal, window, 0, None, True)
+    cost.record("flash_attention_bwd", cost.flash_bwd_flops(B, H, Dh, pairs),
+                cost.nbytes(q, k, v, o, lse, do, dq, dk, dv))
     return dq, dk, dv
 
 
@@ -514,6 +643,8 @@ def residual_int8(value: torch.Tensor, base: torch.Tensor, *,
                   eps: float = INT8_EPS):
     """(N, d) payload + residual base -> (q int8 (N, d), scale f32 (N, 1),
     recon (N, d) value.dtype)."""
+    if _costed(value):
+        return _residual_int8_costed(value, base)
     if value.device.type == "cpu":
         return ref.residual_int8_ref(value, base, eps=eps)
     if value.device.type != "cuda":
@@ -526,15 +657,32 @@ def residual_int8(value: torch.Tensor, base: torch.Tensor, *,
         raise ValueError("residual_int8: inputs must be contiguous")
     N, d = value.shape
     lib = library()
-    q = torch.empty((N, d), dtype=torch.int8, device=value.device)
-    scale = torch.empty((N, 1), dtype=torch.float32, device=value.device)
-    recon = torch.empty_like(value)
+    q, scale, recon = _residual_int8_buffers(value)
     err = lib.dice_residual_int8(
         value.data_ptr(), base.data_ptr(), q.data_ptr(), scale.data_ptr(),
         recon.data_ptr(), N, d, float(eps), code, value.device.index or 0,
         _stream(value.device))
     _raise_on("residual_int8", err)
     LAUNCHES["residual_int8"] += 1
+    return q, scale, recon
+
+
+def _residual_int8_buffers(value):
+    """(q, scale, recon): what a ``residual_int8`` launch writes, on
+    value's device."""
+    N, d = value.shape
+    return (torch.empty((N, d), dtype=torch.int8, device=value.device),
+            torch.empty((N, 1), dtype=torch.float32, device=value.device),
+            torch.empty_like(value))
+
+
+def _residual_int8_costed(value, base):
+    """:func:`residual_int8` on ``meta``: its buffers, its work in the
+    ledger."""
+    N, d = value.shape
+    q, scale, recon = _residual_int8_buffers(value)
+    cost.record("residual_int8", cost.residual_int8_flops(N, d),
+                cost.nbytes(value, base, q, scale, recon))
     return q, scale, recon
 
 
@@ -599,14 +747,15 @@ def _check_rwkv6_cuda(name, r, k, v, logw, u, s0):
 
 def _rwkv6_scan_fwd(r, k, v, logw, u, s0):
     B, H, T, DK = _check_rwkv6_shapes("rwkv6_scan", r, k, v, logw, u, s0)
+    if _costed(r):
+        return _rwkv6_scan_costed(r, k, v, logw, u, s0)
     if r.device.type == "cpu":
         return ref.rwkv6_scan_ref(r, k, v, logw, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: unsupported device {r.device}")
     _check_rwkv6_cuda("rwkv6_scan", r, k, v, logw, u, s0)
     lib = library()
-    out = torch.empty((B, H, T, DK), dtype=torch.float32, device=r.device)
-    s_T = torch.empty((B, H, DK, DK), dtype=torch.float32, device=r.device)
+    out, s_T = _rwkv6_scan_buffers(r)
     err = lib.dice_rwkv6_scan(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_T.data_ptr(),
@@ -639,6 +788,8 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dS_T is not None and tuple(dS_T.shape) != (B, H, DK, DK):
         raise ValueError(f"rwkv6_scan_bwd: dS_T {tuple(dS_T.shape)} is not "
                          f"{(B, H, DK, DK)}")
+    if _costed(r):
+        return _rwkv6_scan_bwd_costed(r, k, v, logw, u, s0, dout, dS_T)
     if r.device.type == "cpu":
         return ref.rwkv6_scan_bwd_ref(r, k, v, logw, u, s0, dout, dS_T)
     if r.device.type != "cuda":
@@ -654,14 +805,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dS_T is not None and not dS_T.is_contiguous():
         raise ValueError("rwkv6_scan_bwd: dS_T must be contiguous")
     lib = library()
-    kw = dict(dtype=torch.float32, device=r.device)
-    dr, dk, dv = (torch.empty((B, H, T, DK), dtype=r.dtype, device=r.device)
-                  for _ in range(3))
-    dlogw = torch.empty((B, H, T, DK), **kw)
-    ds0 = torch.empty((B, H, DK, DK), **kw)
-    # k (.) dk^st (B, H, T, DK), du's parts and Q_T (B, H, DK each)
-    scratch = torch.empty((B * H * DK * (T + 2),), **kw)
-    du = torch.empty((H, DK), dtype=u.dtype, device=r.device)
+    dr, dk, dv, dlogw, du, ds0, scratch = _rwkv6_scan_bwd_buffers(r, u)
     err = lib.dice_rwkv6_scan_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s0.data_ptr(), dout.data_ptr(),
@@ -673,6 +817,50 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         r.device.index or 0, _stream(r.device))
     _raise_on("rwkv6_scan_bwd", err)
     LAUNCHES["rwkv6_scan_bwd"] += 1
+    return dr, dk, dv, dlogw, du, ds0
+
+
+def _rwkv6_scan_buffers(r):
+    """(out, S_T): what an ``rwkv6_scan`` launch writes, f32, on r's
+    device."""
+    B, H, T, DK = r.shape
+    return (torch.empty((B, H, T, DK), dtype=torch.float32, device=r.device),
+            torch.empty((B, H, DK, DK), dtype=torch.float32, device=r.device))
+
+
+def _rwkv6_scan_bwd_buffers(r, u):
+    """(dr, dk, dv, dlogw, du, ds0, scratch): what an ``rwkv6_scan_bwd``
+    launch writes, on r's device.  The scratch holds k (.) dk^st
+    (B, H, T, DK), du's parts and Q_T (B, H, DK each)."""
+    B, H, T, DK = r.shape
+    kw = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv = (torch.empty((B, H, T, DK), dtype=r.dtype, device=r.device)
+                  for _ in range(3))
+    return (dr, dk, dv, torch.empty((B, H, T, DK), **kw),
+            torch.empty((H, DK), dtype=u.dtype, device=r.device),
+            torch.empty((B, H, DK, DK), **kw),
+            torch.empty((B * H * DK * (T + 2),), **kw))
+
+
+def _rwkv6_scan_costed(r, k, v, logw, u, s0):
+    """:func:`_rwkv6_scan_fwd` on ``meta``: its buffers, its work in the
+    ledger."""
+    B, H, T, DK = r.shape
+    out, s_T = _rwkv6_scan_buffers(r)
+    cost.record("rwkv6_scan", cost.rwkv6_scan_flops(B, H, T, DK),
+                cost.nbytes(r, k, v, logw, u, s0, out, s_T))
+    return out, s_T
+
+
+def _rwkv6_scan_bwd_costed(r, k, v, logw, u, s0, dout, dS_T):
+    """:func:`rwkv6_scan_bwd` on ``meta``: its buffers, its work in the
+    ledger."""
+    B, H, T, DK = r.shape
+    dr, dk, dv, dlogw, du, ds0, scratch = _rwkv6_scan_bwd_buffers(r, u)
+    del scratch
+    cost.record("rwkv6_scan_bwd", cost.rwkv6_scan_bwd_flops(B, H, T, DK),
+                cost.nbytes(r, k, v, logw, u, s0, dout, dS_T,
+                             dr, dk, dv, dlogw, du, ds0))
     return dr, dk, dv, dlogw, du, ds0
 
 

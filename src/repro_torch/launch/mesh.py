@@ -113,11 +113,16 @@ class EPMesh:
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Piece ``j`` of dim 0 goes to rank ``j``; piece ``j`` of the
         result came from rank ``j`` (``lax.all_to_all`` with
-        ``split_axis=concat_axis=0, tiled=True``)."""
+        ``split_axis=concat_axis=0, tiled=True``).  Through
+        ``_c10d_functional.all_to_all_single``, an op that returns its
+        output (which a selective checkpoint can save: the ``"save_ffn"``
+        remat policy), waited at once."""
         t = t.contiguous()
-        out = torch.empty_like(t)
-        dist.all_to_all_single(out, t, group=self.group)
-        return out
+        group = self.group if self.group is not None else dist.group.WORLD
+        split = [t.shape[0] // self.size] * self.size
+        out = torch.ops._c10d_functional.all_to_all_single(
+            t, split, split, group.group_name)
+        return torch.ops._c10d_functional.wait_tensor(out)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked along dim 0, in rank order."""
@@ -454,7 +459,10 @@ def make_mesh(*, ep: int = 1, dp: int = 1, patch: int = 1, backend: str,
     want = dp * ep * patch
     live = dist.is_initialized()
     rank = dist.get_rank() if live else 0
-    dev = rank_device(backend, rank, want, device)
+    # device "meta": the dry run's rank of a fake world (backend "fake")
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else rank_device(backend, rank, want,
+                                                        device)
     if not live:
         raise RuntimeError("make_mesh needs an initialised process group "
                            "(torch.distributed.init_process_group, or "
@@ -553,7 +561,11 @@ def _train_mesh(pod: Optional[int], data: int, model: int, *,
         raise ValueError(f"the process group runs {dist.get_backend()!r}, "
                          f"not the requested {backend!r}")
     rank = dist.get_rank()
-    dev = rank_device(backend, rank, world, device)
+    # device "meta": the dry run's rank of a fake world (backend "fake"),
+    # which holds no storage and moves no bytes
+    dev = torch.device("meta") if device is not None \
+        and torch.device(device).type == "meta" \
+        else rank_device(backend, rank, world, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     lanes = want // model
@@ -600,7 +612,10 @@ def make_production_mesh(*, multi_pod: bool = False,
     """The reference's 16 x 16 ``("data", "model")`` mesh of 256 ranks, or
     2 x 16 x 16 ``("pod", "data", "model")`` of 512 with ``multi_pod``;
     raises ``ValueError`` naming the shape and the world size unless the
-    world holds exactly that many ranks."""
+    world holds exactly that many ranks.  ``device="meta"`` over a world
+    of the ``fake`` backend (``torch.testing._internal.distributed.
+    fake_pg.FakeStore``) gives the dry run's rank: its groups exist, its
+    collectives return at once and its tensors hold no storage."""
     pod = 2 if multi_pod else None
     return _train_mesh(pod, 16, 16, backend=backend, device=device)
 

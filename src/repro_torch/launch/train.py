@@ -125,11 +125,27 @@ def reduce_square_sums(sq, paths, mesh):
     return sq
 
 
-def lm_grads(params, batch, cfg, *, mesh=None):
+def loss_kwargs(cfg, mesh=None, remat_policy: str = "full"):
+    """``loss_fn``'s keywords as the reference's dry run passes them:
+    :func:`mesh_kwargs`, and ``remat_policy`` for the ``dense`` and ``moe``
+    families (the other families recompute each layer whole and refuse
+    another policy)."""
+    kw = mesh_kwargs(cfg, mesh)
+    if cfg.family in ("dense", "moe"):
+        kw["remat_policy"] = remat_policy
+    elif remat_policy != "full":
+        raise ValueError(f"remat_policy {remat_policy!r}: only the dense and moe "
+                         f"families take a policy other than 'full'")
+    return kw
+
+
+def lm_grads(params, batch, cfg, *, mesh=None, remat_policy: str = "full"):
     """(loss, gradient tree) of the family's ``loss_fn`` on ``batch``; over
     a ``mesh`` ``batch`` holds the rank's rows, the gradients are reduced
-    (:func:`reduce_grads`) and the loss is the batch group's mean."""
+    (:func:`reduce_grads`) and the loss is the batch group's mean.
+    ``remat_policy`` as :func:`loss_kwargs`."""
     api = get_model(cfg)
+    kw = loss_kwargs(cfg, mesh, remat_policy)
     rng = torch.profiler.record_function   # named ranges for profile_train
     with torch.enable_grad():
         # leaves that require grad, sharing the params' storage; the
@@ -137,7 +153,7 @@ def lm_grads(params, batch, cfg, *, mesh=None):
         # later takes the kernels' no-grad path
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with rng("lm_train_step.forward"):
-            loss, _ = api.loss_fn(live, batch, cfg, **mesh_kwargs(cfg, mesh))
+            loss, _ = api.loss_fn(live, batch, cfg, **kw)
         leaves = tree_leaves(live)
         with rng("lm_train_step.backward"):
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -152,7 +168,8 @@ def lm_grads(params, batch, cfg, *, mesh=None):
     return loss, unflatten(params, grads)
 
 
-def lm_train_step(params, opt_state, batch, cfg, *, total: int, mesh=None):
+def lm_train_step(params, opt_state, batch, cfg, *, total: int, mesh=None,
+                  remat_policy: str = "full"):
     """One step of the reference's ``train_lm``: the gradients of the
     family's ``loss_fn`` on ``batch`` (tokens, labels), clipped to global
     norm 1.0, and AdamW at ``cosine_schedule(step, base_lr=3e-4,
@@ -161,8 +178,11 @@ def lm_train_step(params, opt_state, batch, cfg, *, total: int, mesh=None):
     tensors.  Over a training ``mesh`` ``batch`` is the rank's rows and
     ``params`` hold the rank's experts: the gradients are reduced
     (:func:`lm_grads`) and the norm is the global one
-    (:func:`reduce_square_sums`).  Returns (params, opt_state, metrics)."""
-    loss, grads = lm_grads(params, batch, cfg, mesh=mesh)
+    (:func:`reduce_square_sums`).  ``remat_policy`` (:func:`loss_kwargs`)
+    chooses what the backward recomputes; the values are the same.
+    Returns (params, opt_state, metrics)."""
+    loss, grads = lm_grads(params, batch, cfg, mesh=mesh,
+                           remat_policy=remat_policy)
     with torch.profiler.record_function("lm_train_step.optimizer"):
         reduce = None
         if mesh is not None:

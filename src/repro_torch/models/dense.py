@@ -38,8 +38,9 @@ reference's mesh changes a number: each rank holds its batch rows (its
 expert-parallel over the ``model`` group (:func:`_moe_block`).  A mesh
 without a ``model`` axis runs the one-device path, as in the reference.
 ``seq_shard`` and ``attn_shard`` are layout hints that only the reference's
-dry run passes; they are queued with it (ROADMAP.md A, order item 5) and
-raise.
+dry run passes; they need the dense weights placed over ``model`` (ROADMAP.md
+A) and raise.  ``remat_policy`` (``"full"``, ``"dots"``, ``"save_ffn"``:
+:func:`check_remat_policy`) chooses what the backward recomputes.
 """
 from __future__ import annotations
 
@@ -58,7 +59,8 @@ def _refuse_mesh(seq_shard: bool = False, attn_shard=None) -> None:
         raise NotImplementedError(
             "models.dense: seq_shard and attn_shard are layout hints of the "
             "reference's dry run (sequence-sharded residuals, head-sharded "
-            "attention), not ported yet (ROADMAP.md A, order item 5: dryrun)")
+            "attention); they need the dense weights placed over 'model', "
+            "not ported yet (ROADMAP.md A, the next bring-up slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -77,13 +79,14 @@ def layer_windows(cfg, *, long_context: bool = False) -> List[Optional[int]]:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_lm(cfg, *, generator: torch.Generator,
+def init_lm(cfg, *, generator: Optional[torch.Generator] = None,
             dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """Random params on ``generator.device`` in the layout of
     ``repro.models.dense.init_lm`` (other numbers than the reference's for
     the same seed; its weights come over by
-    :func:`repro_torch.bridge.from_jax_params`)."""
-    g, dev = generator, generator.device
+    :func:`repro_torch.bridge.from_jax_params`).  ``generator`` None: the
+    same tree of ``meta`` tensors (:func:`layers.init_device`)."""
+    g, dev = generator, L.init_device(generator)
 
     def one_layer():
         p = {
@@ -288,22 +291,42 @@ def _ffn(p, h: torch.Tensor, cfg, mesh=None, batch_axes=("data",),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
-def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
-           window: Optional[int], kv_cache=None, cache_pos=None,
-           kv_valid_len=None, mesh=None, batch_axes=("data",)):
-    """(x, (k, v), lb) of one pre-norm block: attention, then the MLP or
-    MoE, each with gemma2's post-norm when the config has it."""
+def _attn_part(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+               window: Optional[int], kv_cache=None, cache_pos=None,
+               kv_valid_len=None):
+    """(attention output, (k, v)) of :func:`_layer`'s first half: the
+    pre-norm and attention, with gemma2's post-norm when the config has
+    it."""
     h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
     attn_out, new_kv = L.attn_apply(
         p["attn"], h, positions, cfg, kv_cache=kv_cache, cache_pos=cache_pos,
         window=window, kv_valid_len=kv_valid_len)
     if cfg.post_norm:
         attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
+    return attn_out, new_kv
+
+
+def _ffn_part(p, x: torch.Tensor, attn_out: torch.Tensor, *, cfg, mesh=None,
+              batch_axes=("data",)):
+    """(x, lb) of :func:`_layer`'s second half: the residual add and norm,
+    the MLP or MoE, gemma2's post-norm, the residual add."""
     x, h = L.add_rmsnorm(x, attn_out, p["ln2"], eps=cfg.norm_eps)
     ffn, lb = _ffn(p, h, cfg, mesh, batch_axes)
     if cfg.post_norm:
         ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)
-    return x + ffn, new_kv, lb
+    return x + ffn, lb
+
+
+def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+           window: Optional[int], kv_cache=None, cache_pos=None,
+           kv_valid_len=None, mesh=None, batch_axes=("data",)):
+    """(x, (k, v), lb) of one pre-norm block: attention, then the MLP or
+    MoE, each with gemma2's post-norm when the config has it."""
+    attn_out, new_kv = _attn_part(p, x, positions, cfg, window=window,
+                                  kv_cache=kv_cache, cache_pos=cache_pos,
+                                  kv_valid_len=kv_valid_len)
+    x, lb = _ffn_part(p, x, attn_out, cfg=cfg, mesh=mesh, batch_axes=batch_axes)
+    return x, new_kv, lb
 
 
 def _train_layer(p, x: torch.Tensor, *, positions: torch.Tensor, cfg,
@@ -317,17 +340,30 @@ def _train_layer(p, x: torch.Tensor, *, positions: torch.Tensor, cfg,
     return x, lb
 
 
+def _saved_attn(p, x: torch.Tensor, *, positions: torch.Tensor, cfg,
+                window: Optional[int]) -> torch.Tensor:
+    """The first of a ``"save_ffn"`` layer's two recomputed regions: the
+    attention output, which the second region's checkpoint keeps as its
+    input."""
+    return _attn_part(p, x, positions, cfg, window=window)[0]
+
+
+REMAT_POLICIES = ("full", "dots", "save_ffn")
+
+
 def check_remat_policy(remat_policy: str) -> None:
-    """The reference's policies: ``"full"`` recomputes each layer; ``"dots"``
-    and ``"save_ffn"`` (keep the matrix products' or the named FFN outputs)
-    are not ported and raise, queued with ``dryrun``'s ``remat_dots``
-    (ROADMAP.md A, order item 5)."""
-    if remat_policy in ("dots", "save_ffn"):
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r} is not ported (queued with dryrun's "
-            f"remat_dots, ROADMAP.md A order item 5); 'full' recomputes each layer")
-    if remat_policy != "full":
-        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    """The reference's policies, which give the same values and differ in
+    what the backward recomputes: ``"full"`` recomputes each layer;
+    ``"dots"`` (``dots_with_no_batch_dims_saveable``) keeps the outputs of
+    the 2-D weight products (``layers.SAVE_DOTS``); ``"save_ffn"``
+    (``save_only_these_names("moe_out", "attn_out", "ep_recv")``) keeps the
+    attention output, as the input of a layer's second recomputed region
+    (:func:`_ffn_part`), and the MoE exchange's received buffers
+    (``layers.SAVE_EXCHANGE``), so the recompute issues no all-to-all.
+    Anything else raises ``ValueError``."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r} (one of "
+                         f"{REMAT_POLICIES})")
 
 
 def _embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -377,9 +413,18 @@ def forward_hidden(params, tokens: torch.Tensor, cfg, *,
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = L.unstack_layers(params["layers"], cfg.num_layers)
     for p, win in zip(layers, layer_windows(cfg, long_context=long_context)):
-        x, lb_l = L.remat(partial(_train_layer, positions=positions, cfg=cfg,
-                                  window=win, mesh=mesh, batch_axes=batch_axes),
-                          p, x, enabled=remat)
+        if remat_policy == "save_ffn":
+            a = L.remat(partial(_saved_attn, positions=positions, cfg=cfg,
+                                window=win), p, x, enabled=remat)
+            x, lb_l = L.remat(partial(_ffn_part, cfg=cfg, mesh=mesh,
+                                      batch_axes=batch_axes), p, x, a,
+                              enabled=remat, save=L.SAVE_EXCHANGE)
+        else:
+            x, lb_l = L.remat(partial(_train_layer, positions=positions,
+                                      cfg=cfg, window=win, mesh=mesh,
+                                      batch_axes=batch_axes), p, x,
+                              enabled=remat,
+                              save=L.SAVE_DOTS if remat_policy == "dots" else None)
         lb = lb + lb_l
     return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), lb
 

@@ -35,14 +35,15 @@ from repro_torch.models import dense
 from repro_torch.models import layers as L
 
 
-def init_encdec(cfg, *, generator: torch.Generator,
+def init_encdec(cfg, *, generator: Optional[torch.Generator] = None,
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """Random params on ``generator.device`` in the layout of
     ``repro.models.encdec.init_encdec``: ``enc_layers`` and ``dec_layers``
     stacked over their layers.  The draws differ from JAX's for the same
     seed; the reference's weights come over by
-    :func:`repro_torch.bridge.from_jax_params`."""
-    g, dev, d = generator, generator.device, cfg.d_model
+    :func:`repro_torch.bridge.from_jax_params`.
+    ``generator`` None: the same tree of ``meta`` tensors."""
+    g, dev, d = generator, L.init_device(generator), cfg.d_model
 
     def attn():
         return L.attn_init(g, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,

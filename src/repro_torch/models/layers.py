@@ -7,6 +7,7 @@ projection weight is (in, out) and applies as ``x @ w``.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import torch
@@ -16,11 +17,22 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act_fn
 
 
-def dense_init(gen: torch.Generator, shape, *, scale: Optional[float] = None,
+def init_device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where an init puts its params: ``gen``'s device, or ``meta`` when
+    ``gen`` is None (the abstract init: shapes and dtypes without storage,
+    the counterpart of the reference's ``jax.eval_shape(init)``)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def dense_init(gen: Optional[torch.Generator], shape, *,
+               scale: Optional[float] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Normal draw from ``gen`` on its device, times ``scale`` (default
     1/sqrt(fan_in), fan-in the second-to-last dim: leading dims stack
-    experts or layers).  Drawn in f32, then cast."""
+    experts or layers).  Drawn in f32, then cast.  ``gen`` None: an empty
+    ``meta`` tensor of that shape and dtype."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(shape, generator=gen, device=gen.device,
@@ -64,18 +76,44 @@ def unstack_layers(stack, n: int):
     return [{k: v[i] for k, v in cols.items()} for i in range(n)]
 
 
-def remat(fn, *args, enabled: bool = True):
+def remat(fn, *args, enabled: bool = True, save=None):
     """``fn(*args)``, its activations recomputed in the backward when grad
     is enabled (``torch.utils.checkpoint`` without reentry): the
     counterpart of the reference's ``jax.checkpoint`` around a layer.
     Otherwise, or with ``enabled`` False, a plain call.  ``fn`` must bind
     everything else it reads (``functools.partial``), since it runs again
     in the backward; the layers draw no random numbers, so no RNG state
-    is kept."""
+    is kept.  ``save``: a policy of selective checkpointing
+    (:data:`SAVE_DOTS`, :data:`SAVE_EXCHANGE`), whose saved op outputs the
+    recompute reads instead of running the op again; None recomputes
+    everything (the reference's policy None)."""
     if enabled and torch.is_grad_enabled():
+        kw = {}
+        if save is not None:
+            from torch.utils.checkpoint import create_selective_checkpoint_contexts
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts, save)
         return torch.utils.checkpoint.checkpoint(_ranged, fn, *args, use_reentrant=False,
-                                                 preserve_rng_state=False)
+                                                 preserve_rng_state=False, **kw)
     return fn(*args)
+
+
+def _policy(saved):
+    def policy(ctx, func, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+        return (CheckpointPolicy.MUST_SAVE if func in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+# the reference's dots_with_no_batch_dims_saveable: the outputs of the 2-D
+# weight products (a (..., d) @ (d, f) matmul is an aten mm); batched
+# products, norms, attention, the expert kernel and elementwise ops are
+# recomputed
+SAVE_DOTS = _policy({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+# the MoE exchange's received buffers (EPMesh.all_to_all's functional
+# collective): the recompute issues no all-to-all, as the reference's
+# "ep_recv" name keeps its dispatch buffer
+SAVE_EXCHANGE = _policy({torch.ops._c10d_functional.all_to_all_single.default})
 
 
 def _ranged(fn, *args):
@@ -166,8 +204,8 @@ def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
         "wo": dense_init(gen, (num_heads * head_dim, d_model), dtype=dtype),
     }
     if qk_norm:
-        p["q_norm"] = rmsnorm_init(head_dim, gen.device)
-        p["k_norm"] = rmsnorm_init(head_dim, gen.device)
+        p["q_norm"] = rmsnorm_init(head_dim, init_device(gen))
+        p["k_norm"] = rmsnorm_init(head_dim, init_device(gen))
     return p
 
 

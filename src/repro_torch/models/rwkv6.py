@@ -40,14 +40,15 @@ def _heads(cfg) -> int:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_rwkv6(cfg, *, generator: torch.Generator,
+def init_rwkv6(cfg, *, generator: Optional[torch.Generator] = None,
                dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """Random params on ``generator.device`` in the layout of
     ``repro.models.rwkv6.init_rwkv6``, stacked by
     :func:`~repro_torch.models.layers.stack_layers`.  The
     draws differ from JAX's for the same seed; to run the reference's
-    weights use :func:`repro_torch.bridge.from_jax_params`."""
-    g, dev = generator, generator.device
+    weights use :func:`repro_torch.bridge.from_jax_params`.
+    ``generator`` None: the same tree of ``meta`` tensors."""
+    g, dev = generator, L.init_device(generator)
     d, H, f = cfg.d_model, _heads(cfg), cfg.d_ff
 
     def const(shape, value):

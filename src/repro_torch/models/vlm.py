@@ -45,14 +45,15 @@ def _self_cfg(cfg):
     return cfg.replace(num_layers=_n_self(cfg))
 
 
-def init_vlm(cfg, *, generator: torch.Generator,
+def init_vlm(cfg, *, generator: Optional[torch.Generator] = None,
              dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """``dense.init_lm`` over the self layers plus ``cross`` stacked over
     the cross blocks, in the layout of ``repro.models.vlm.init_vlm``; the
     gates start at 0 (tanh-gated, zero-init).  The draws differ from JAX's
     for the same seed; the reference's weights come over by
-    :func:`repro_torch.bridge.from_jax_params`."""
-    g, dev, d = generator, generator.device, cfg.d_model
+    :func:`repro_torch.bridge.from_jax_params`.
+    ``generator`` None: the same tree of ``meta`` tensors."""
+    g, dev, d = generator, L.init_device(generator), cfg.d_model
     params = dense.init_lm(_self_cfg(cfg), generator=g, dtype=dtype)
 
     def one_cross():

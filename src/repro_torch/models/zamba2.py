@@ -65,14 +65,15 @@ def _dims(cfg) -> Tuple[int, int]:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_zamba2(cfg, *, generator: torch.Generator,
+def init_zamba2(cfg, *, generator: Optional[torch.Generator] = None,
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
     """Random params on ``generator.device`` in the layout of
     ``repro.models.zamba2.init_zamba2``: ``mamba`` stacked over the mamba
     blocks, one ``shared_attn`` block.  The draws differ from JAX's for the
     same seed; the reference's weights come over by
-    :func:`repro_torch.bridge.from_jax_params`."""
-    g, dev = generator, generator.device
+    :func:`repro_torch.bridge.from_jax_params`.
+    ``generator`` None: the same tree of ``meta`` tensors."""
+    g, dev = generator, L.init_device(generator)
     d, n = cfg.d_model, cfg.ssm_state
     inner, heads = _dims(cfg)
     f32 = dict(dtype=torch.float32, device=dev)

@@ -269,6 +269,45 @@ def make_rf_step(params, cfg, *, dt: float, guidance: float = 1.5,
                   patch_compose=patch_compose, expert_pool=expert_pool)
 
 
+def make_sample_step(params, cfg, dcfg, classes, *, dt: float,
+                     guidance: float = 1.5, patch_parallel_ndev: int = 0,
+                     mesh=None, patch_compose: bool = False,
+                     hop_schedule=None, expert_pool=None, obs=None):
+    """One Euler step with ``classes`` bound: the whole-loop sampler's
+    view of :class:`RFStep`::
+
+        one_step(x, states, states_u, patch_states, patch_states_u, t, *,
+                 plan, patch_fresh=None, generator=None, tick=None)
+            -> (x_next, states, states_u, patch_states, patch_states_u, aux)
+
+    ``one_step._cache_size()`` counts the distinct ``(plan, slotted)`` keys
+    it has run, the counterpart of the reference's jit cache size: equal
+    plans, however many step indices map to them, share one key.  With a
+    ``mesh`` ``classes`` are the global ones and the step keeps its lane's
+    rows; ``dcfg``'s placements lay out the experts and its ring schedule
+    and resilience apply as in :func:`rf_sample`."""
+    classes = torch.as_tensor(classes)
+    n_ep = mesh_axis(mesh, "ep")
+    if mesh is not None:
+        classes = shard_lib.hier_place_batch(classes, mesh)
+    rf_step = make_rf_step(
+        params, cfg, dt=dt, guidance=guidance, mesh=mesh, obs=obs,
+        resilience=fault_lib.resilience_of(dcfg),
+        placements=plan_lib.placements_of(plan_lib.normalize_placement(dcfg, n_ep)),
+        hop_schedule=plan_lib.normalize_hop_schedule(hop_schedule, n_ep),
+        patch_parallel_ndev=patch_parallel_ndev, patch_compose=patch_compose,
+        expert_pool=expert_pool)
+
+    def one_step(x, states, states_u, patch_states, patch_states_u, t, *,
+                 plan, patch_fresh=None, generator=None, tick=None):
+        return rf_step(x, classes, states, states_u, t, plan=plan,
+                       patch_states=patch_states, patch_states_u=patch_states_u,
+                       patch_fresh=patch_fresh, generator=generator, tick=tick)
+
+    one_step._cache_size = lambda: len(rf_step.keys)
+    return one_step
+
+
 def rank_generator(generator: Optional[torch.Generator], mesh
                    ) -> Optional[torch.Generator]:
     """The "random" policy's generator on a rank: over a mesh, one seeded

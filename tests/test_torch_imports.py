@@ -78,6 +78,19 @@ def test_the_model_family_modules_are_checked(rel):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("rel", ["launch/dryrun.py", "launch/roofline_report.py",
+                                 "launch/hlo_cost.py", "kernels/cost.py",
+                                 "common/config.py", "core/staleness.py",
+                                 "compress/ref.py"])
+def test_the_dry_run_slice_modules_are_checked(rel):
+    """The dry run, its report, the step cost analysis, the kernels' work
+    formulas, the shapes and peaks, and the leftover helpers are among the
+    sources checked above, and import neither JAX nor the JAX package."""
+    path = PORT / rel
+    assert path in _sources()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     env.pop("PYTHONSTARTUP", None)

@@ -210,13 +210,31 @@ def test_residual_int8_follows_the_jitted_encoder_at_seed_34():
     np.testing.assert_allclose(recon.numpy(), np.asarray(pr), rtol=1e-6, atol=1e-6)
 
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports another device, one with no kernel."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrappers_refuse_a_device_without_a_kernel():
-    """A tensor neither on the CPU nor on CUDA is refused, not computed."""
-    x = torch.empty((2, 8, 16), device="meta")
-    w = torch.empty((2, 16, 32), device="meta")
+    """A tensor on a device with neither a kernel nor a plain version is
+    refused, not computed.  ``meta`` tensors (the dry run) get the card's
+    allocations on ``meta`` and launch nothing (``tests/test_torch_dryrun.py``)."""
+    def elsewhere(shape):
+        return torch.Tensor._make_subclass(_Elsewhere, torch.zeros(shape))
+
+    x, w = elsewhere((2, 8, 16)), elsewhere((2, 16, 32))
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.expert_ffn(x, w, w, w.transpose(1, 2))
+        ops.expert_ffn(x, w, w, elsewhere((2, 32, 16)))
+    q = elsewhere((1, 2, 8, 16))
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_attention(x[None], x[None], x[None])
+        ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.residual_int8(x[0], x[0])
+        ops.residual_int8(elsewhere((8, 16)), elsewhere((8, 16)))
+    launches = dict(ops.LAUNCHES)
+    m = torch.empty((2, 8, 16), device="meta")
+    mw = torch.empty((2, 16, 32), device="meta")
+    out = ops.expert_ffn(m, mw, mw, mw.transpose(1, 2).contiguous())
+    assert out.device.type == "meta" and ops.LAUNCHES == launches

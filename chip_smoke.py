@@ -331,13 +331,40 @@ non-zero and no phase's failure is caught:
      state), exactly, and its peak is within 2% of 16b's
      ``max_memory_allocated``; of 17c's (2 layers, model 2, a world of 2):
      its all-to-alls (count and bytes) equal 17c's profiled step's, exactly,
-     and its peak is within 2% of 17c's per rank; (c) 16b's cut on the
+     and it holds the reference's placement (the dry run's train steps
+     of the dense and moe families place every leaf by its spec, while
+     17c runs ``train_lm``'s layout: the peaks of that placement are held
+     to the card in phase 19); (c) 16b's cut on the
      card under the remat policies "full", "dots" and "save_ffn": step-0
      losses and gradients bit-identical to "full", s/step and
      ``max_memory_allocated`` beside the dry run's for that policy; (d) the
      production dry runs of qwen3-moe-30b-a3b train_4k and dit-moe-g
      dit_serve on 16 x 16: fits, peak bytes, dominant roofline term
      (modelled from the data sheet's peaks).
+ 19. tensor parallelism (``models/tp.py``; every leaf cut by the
+     reference's ``param_spec`` over ``model``, the AdamW moments also over
+     ``data`` by ``opt_state_spec``; ``sharding.shard_lm_params`` /
+     ``shard_lm_moments``): (a) in phase 3 after 3B, the flash forward's
+     log-sum-exp and f32 output and the backward at a query offset (the
+     ``"seq"`` layout's rows) against their plain versions, qwen3-32b's (8,
+     128, 64 over 8, 128) causal and gemma2's local and global layers over 1
+     x 6,144, each cut into 2 query halves, bf16, to 3B's tolerances; the
+     planted fault "offset ignored" rejected by 10x; each half timed beside
+     its bound and the backward of ``scaled_dot_product_attention`` with an
+     offset bool ``attn_mask``; (b) 16b's qwen3-32b cut (2 layers at full
+     width, 8 x 128, bf16 params, f32 moments) under model 2 on two gloo
+     ranks sharing the card, ``seq_shard`` + ``attn_seq``: the step-0 loss
+     and the gathered gradients of ``embed`` (the batch's rows; every other
+     row 0), layer 0's ``wq`` and ``wk`` and ``ln1`` against the single-rank
+     step from the same params (run first, then freed), within 16a's bf16
+     bound (loss) and 5e-2 of each leaf's largest (bf16 gradients); a
+     warm-up and 2 timed steps (1 in (c)): s/step, launches per rank held to the plan
+     (the offset backward's among them), ``max_memory_allocated`` per rank
+     within 2% of the dry run's peak for the same cut and mesh, the
+     collectives of a profiled step equal to the dry run's by kind; (c) the
+     same cut at data 2 x model 2 (four ranks), the default layout and the
+     moments cut over ``data`` (ZeRO): step-0 loss against (b)'s single
+     rank, s/step, launches, memory and collectives against the dry run's.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -5437,23 +5464,28 @@ def phase_dry_run(rows, smi, train16, train17):
                              "differ from 16b's")
     if abs(ratio16 - 1) > DRY_PEAK_REL:
         raise AssertionError(f"18b: the dry run's peak is {ratio16:.3f} of 16b's")
-    # (b) 17c's cut: the all-to-alls, and the peak a rank
+    # (b) 17c's cut: the all-to-alls, which the MoE block issues alike in
+    # train_lm's layout (17c: the experts alone over model) and the
+    # reference's (tensor parallelism), which the dry run's train steps
+    # place; its peak is that placement's, held to the card in phase 19
     dry = rec["17c full"]
     calls = dry["collective_counts"].get("all_to_all", 0)
     each = dry["collectives"].get("all_to_all", 0) / max(calls, 1)
-    ratio17 = gib(dry["memory"]["peak_bytes"]) / train17["peak_gib"]
     save = rec["17c save_ffn"]["collective_counts"].get("all_to_all", 0)
     log(f"  18b {TM_NAME} at 17c's cut ({TM_LAYERS} layers, model {TM_MODEL}, a world of "
         f"{TM_MODEL}): the dry run's all-to-alls {calls:.0f} a step of {each:.0f} B "
         f"('save_ffn' {save:.0f}), 17c's profiled step {train17['a2a_full']} of "
         f"{train17['a2a_sizes']} B ('save_ffn' {train17['a2a_save_ffn']}); peak a rank "
-        f"{gib(dry['memory']['peak_bytes']):.3f} GiB modelled vs 17c's "
-        f"{train17['peak_gib']:.3f} GiB measured [{smi}] (ratio {ratio17:.4f})")
+        f"{gib(dry['memory']['peak_bytes']):.3f} GiB modelled with every leaf placed by its "
+        f"spec (held {dry['memory']['argument_bytes']} B, the reference's "
+        f"{dry['spec_argument_bytes']} B) vs 17c's {train17['peak_gib']:.3f} GiB measured "
+        f"with the experts alone cut [{smi}]")
     if (calls, save, [each]) != (train17["a2a_full"], train17["a2a_save_ffn"],
                                  train17["a2a_sizes"]):
         raise AssertionError("18b: the dry run's all-to-alls differ from 17c's")
-    if abs(ratio17 - 1) > DRY_PEAK_REL:
-        raise AssertionError(f"18b: the dry run's peak is {ratio17:.3f} of 17c's")
+    if dry["memory"]["argument_bytes"] != dry["spec_argument_bytes"]:
+        raise AssertionError("18b: the dry run's train step holds other than the "
+                             "reference's placement")
     # (c) the card's runs beside the dry run's predictions
     for policy, _ in DRY_POLICIES:
         d = rec[f"16b {policy}"]
@@ -5491,6 +5523,364 @@ def phase_dry_run(rows, smi, train16, train17):
     log(f"  18: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 19: tensor parallelism
+# ---------------------------------------------------------------------------
+TP_NAME = "qwen3-32b"                     # 16b's cut: 2 layers at full width
+TP_BATCH, TP_SEQ, TP_SEED = 8, 128, 0
+TP_TIMEOUT_S = 600
+# (label, data, model, the dry run's opts, timed steps after the warm-up;
+# 19c's step is about 10 s over four host-staged gloo ranks)
+TP_RUNS = (("19b", 1, 2, "seq_shard,attn_seq", 2), ("19c", 2, 2, "", 1))
+# the leaves (b) compares, with the layer taken from the stacked ones
+TP_LEAVES = ("embed", "layers/attn/wq", "layers/attn/wk", "layers/ln1/scale")
+TOL_TP_BF16_GRAD = 5e-2                   # of each leaf's largest element (bf16 gradients)
+# 19a: (label, shape as LMT_FLASH_SHAPES', query parts)
+TP_FLASH_OFFSETS = (
+    ("qwen3-32b self-attention (GQA 64 over 8), a rank's query half",
+     (8, 128, 128, 64, 8, 128, True, None, None), 2),
+    ("gemma2-9b local layer over 6,144 tokens, a rank's query half",
+     (1, G2_TRAIN_SEQ, G2_TRAIN_SEQ, 16, 8, 256, True, 4096, 50.0), 2),
+    ("gemma2-9b global layer over 6,144 tokens, a rank's query half",
+     (1, G2_TRAIN_SEQ, G2_TRAIN_SEQ, 16, 8, 256, True, None, 50.0), 2),
+)
+
+
+def _flash_offset_row(smi, gen, label, shape, parts: int, iters: int):
+    """One 19a line: the queries of ``shape`` cut into ``parts`` row blocks,
+    each at its ``q_offset`` against every key, bf16: the forward's
+    log-sum-exp and f32 output against the plain version's (TOL_F32), the
+    backward kernel's dq, dk, dv against the plain backward at the offset
+    to TOL_BF16 in units of each row's RMS plus ROUNDOFF_TERMS of the
+    terms' magnitudes, as 3B holds it; two runs bit for bit; the planted
+    fault "offset ignored" (the plain backward at offset 0) must fail by
+    10x.  The last block (the most kept pairs) is timed: device time, the
+    plain version, the backward of ``scaled_dot_product_attention`` with
+    the block's bool ``attn_mask`` (``is_causal`` is top-left aligned), the
+    bound over its kept pairs.  Returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.timing import device_ms, time_ms
+    B, Sq, Sk, H, KVH, Dh, causal, window, softcap = shape
+    masks = dict(causal=causal, window=window, softcap=softcap)
+    dtype, tol = torch.bfloat16, TOL_BF16
+    kw = dict(generator=gen, device="cuda")
+    q, do = (torch.randn((B, Sq, H, Dh), **kw).to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Sk, KVH, Dh), **kw).to(dtype) for _ in range(2))
+    n = Sq // parts
+    extra = "".join(f" {nm} {x}" for nm, x in (("window", window), ("softcap", softcap)) if x)
+    err = ratio = 0.0
+    for i in range(parts):
+        off = i * n
+        qi, doi = q[:, off:off + n], do[:, off:off + n]
+        name = (f"19a [{smi}] flash_attention_bwd at q_offset {off} {label} B={B} Sq={n} "
+                f"Sk={Sk} H={H} KVH={KVH} Dh={Dh}{' causal' if causal else ''} bf16{extra}")
+        o, lse, o32 = ops._flash_attention_fwd(qi, k, v, q_offset=off, one_sided_window=True,
+                                               want_lse=True, **masks)
+        want_o32, want_lse = ref.flash_attention_ref(qi, k, v, q_offset=off,
+                                                     one_sided_window=True, stats=True, **masks)
+        fwd_err = max(_close_quiet(f"{name} lse", lse, want_lse, TOL_F32),
+                      _close_quiet(f"{name} f32 output", o32, want_o32, TOL_F32))
+        del want_o32, want_lse
+        run = lambda: ops.flash_attention_bwd(qi, k, v, o32, lse, doi,  # noqa: E731
+                                              q_offset=off, **masks)
+        got, again = run(), run()
+        want = ref.flash_attention_bwd_ref(qi, k, v, o32, lse, doi, q_offset=off, **masks)
+        terms = ref.flash_attention_bwd_ref(qi, k, v, o32, lse, doi, q_offset=off,
+                                            magnitudes=True, **masks)
+        torch.cuda.synchronize()
+        res = [_row_tol_ratio(g, w, tol, terms=t) for g, w, t in zip(got, want, terms)]
+        e, r = max(x[0] for x in res), max(x[2] for x in res)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        fault = ""
+        if off:
+            wrong = ref.flash_attention_bwd_ref(qi, k, v, o32, lse, doi, **masks)
+            f_ratio = max(_row_tol_ratio(g, w, tol, terms=t)[2]
+                          for g, w, t in zip(got, wrong, terms))
+            fault = (f"; planted fault (offset ignored): {f_ratio:.3f} of the tolerance "
+                     f"{'rejected' if f_ratio > 10 else 'NOT REJECTED by 10x'}")
+            del wrong
+        log(f"  {name}: forward lse / f32 output max_abs_err {fwd_err:.3e} (TOL_F32); dQ, dK, "
+            f"dV max_abs_err {e:.3e}, {r:.3f} of the tolerance {'ok' if r <= 1 else 'FAIL'}; "
+            f"two runs bit-identical {same}{fault}")
+        if r > 1 or not same:
+            raise AssertionError(f"{name}: the kernel disagrees with its plain version or "
+                                 f"two runs differ")
+        if off and f_ratio <= 10:
+            raise AssertionError(f"{name}: the check does not reject the offset ignored")
+        err, ratio = max(err, e), max(ratio, r)
+        del again, want, terms
+    ms = time_ms(run, iters)
+    dev = device_ms(run, iters, launches_per_call=FLASH_BWD_LAUNCHES)
+    plain = time_ms(lambda: ref.flash_attention_bwd_ref(qi, k, v, o32, lse, doi, q_offset=off,
+                                                        **masks), 1)
+    mask = ref.attention_mask(n, Sk, causal=causal, window=window, device="cuda",
+                              q_offset=off, one_sided=True)
+    kept = int(mask.sum())
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (qi, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    dot = doi.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,  # noqa: E731
+                                           retain_graph=True)
+    lib_events = time_ms(sdpa_bwd, iters)
+    lib = device_ms(sdpa_bwd, iters)
+    flops = 2.5 * 4.0 * B * H * kept * Dh
+    nq, nk = B * n * H * Dh, B * Sk * KVH * Dh
+    nbytes = 2 * (2 * nq + 2 * nk) + 4 * nq + 4 * B * H * n + 2 * (nq + 2 * nk)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  19a [{smi}] flash_attention_bwd at q_offset {off} {label} bf16: kernel {ms:.4f} ms "
+        f"events, {dev:.4f} ms device ({FLASH_BWD_LAUNCHES} launches), plain {plain:.4f} ms, "
+        f"backward of scaled_dot_product_attention (bool attn_mask at the offset, enable_gqa"
+        f"{'; no softcap, which SDPA does not take' if softcap else ''}) through autograd "
+        f"{lib:.4f} ms device ({lib_events:.4f} ms events), kernel / SDPA backward "
+        f"{dev / lib:.3f} (device), bound {b_ms:.4f} ms ({b_by}; {kept} kept (query, key) "
+        f"pairs, {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB)")
+    del q, k, v, do, o, o32, lse, got, qt, kt, vt, ot, mask
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu", replaces=NO_PALLAS,
+                launches=0, max_abs_err=err, ms=ms, device_ms=dev, events_ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library_events_ms=lib_events, yardstick_ratio=dev / lib,
+                shape=f"{label}: B={B} Sq={n} at q_offset {off} Sk={Sk} H={H} KVH={KVH} "
+                      f"Dh={Dh}{' causal' if causal else ''}{extra} bf16")
+
+
+def phase_tp_kernels(rows, smi):
+    """19a, in phase 3 after 3B: see the module docstring."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    for label, shape, parts in TP_FLASH_OFFSETS:
+        big = shape[1] * shape[2] > 1 << 20
+        rows[f"flash_attention_bwd at a query offset {label}"] = _flash_offset_row(
+            smi, gen, label, shape, parts, iters=3 if big else 20)
+
+
+def _tp_params(cfg, mesh):
+    """This rank's slices of the cut's params (drawn whole on its card from
+    TP_SEED, the same on every rank, then cut) and its AdamW state, the
+    moments cut over ``data`` where ``opt_state_spec`` says."""
+    import torch
+    from repro_torch.common import sharding as shard_lib
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import adamw_init
+    api = get_model(cfg)
+    whole = api.init(cfg, generator=torch.Generator(device=mesh.device).manual_seed(TP_SEED))
+    params = shard_lib.shard_lm_params(whole, mesh)
+    del whole
+    dims = shard_lib.lm_moment_dims(api.init(cfg, generator=None), mesh)
+    return params, shard_lib.shard_lm_moments(adamw_init(params), dims, mesh)
+
+
+def _tp_leaf(tree, path: str):
+    node = tree
+    for k in path.split("/"):
+        node = node[k]
+    return node
+
+
+def _tp_job(mesh, opts: str, timed: int, want_grads: bool):
+    """19b / 19c in each rank: the cut's tensor-parallel step under the dry
+    run's ``opts``; with ``want_grads`` first the step-0 loss and rank 0's
+    gathered gradients of TP_LEAVES (``embed`` at the batch's rows, with the
+    count of other rows not 0); then a warm-up and ``timed`` steps with the
+    peak reset before the warm-up and the launch counts set to 0 after it,
+    and one profiled step's collectives.  Returns (every rank's numbers,
+    rank 0's gradients)."""
+    import torch
+    from repro_torch.common import sharding as shard_lib
+    from repro_torch.common.config import ShapeConfig
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import train_kwargs
+    from repro_torch.launch.hlo_cost import collective_counts
+    from repro_torch.launch.profile_train import lm_train_config
+    from repro_torch.launch.train import lm_grads, lm_train_step
+    from repro_torch.models import dense
+    cfg = lm_train_config(TP_NAME)
+    t0 = time.perf_counter()
+    params, opt = _tp_params(cfg, mesh)
+    kw = train_kwargs(cfg, ShapeConfig("train_4k", TP_SEQ, TP_BATCH, "train"),
+                      tuple(o for o in opts.split(",") if o))
+    it = token_batches(cfg.vocab_size, TP_BATCH, TP_SEQ, seed=0, device=mesh.device)
+    rows = shard_lib.local_rows(TP_BATCH, mesh)
+    b0 = next(it)
+    picked, loss0 = {}, None
+    if want_grads:
+        loss0, g = lm_grads(params, {k: v[rows] for k, v in b0.items()}, cfg, mesh=mesh, **kw)
+        cuts = dense.param_cuts(params, cfg, mesh)
+        used = torch.unique(b0["tokens"].long())
+        for path in TP_LEAVES:
+            c = _tp_leaf(cuts, path)
+            t = _tp_leaf(g, path)
+            t = t if c is None else mesh.model_gather(t, c)
+            if path == "embed":
+                other = t.abs().sum(1) != 0
+                other[used] = False
+                picked["embed_other_rows"] = int(other.sum())
+                t = t[used]
+            else:
+                t = t[0]
+            picked[path] = t.float().cpu()
+            del t
+        loss0 = float(loss0)
+        del g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+
+    def step(b):
+        return lm_train_step(params, opt, {k: v[rows] for k, v in b.items()}, cfg,
+                             total=1 + timed, mesh=mesh, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, m = step(b0)
+    first = float(m["loss"])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ms = []
+    for _ in range(timed):
+        params, opt, m = step(next(it))
+        ms.append(m)
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / timed
+    peak = torch.cuda.max_memory_allocated()
+    counts, offsets = dict(ops.LAUNCHES), dict(ops.FLASH_BWD_OFFSETS)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        params, opt, m = step(next(it))
+        torch.cuda.synchronize()
+    coll = {k: v for k, v in collective_counts(prof).items() if v}
+    return _every_rank(dict(
+        init_s=init_s, s_per_step=s_per_step, peak=peak, loss0=loss0, first=first,
+        losses=[float(x["loss"]) for x in ms], gnorms=[float(x["grad_norm"]) for x in ms],
+        counts=counts, offsets=offsets, collectives=coll)), picked
+
+
+def _tp_single_rank(cfg):
+    """(b)'s reference: the single-rank step-0 loss and gradients of
+    TP_LEAVES on the card from the same params and batch, on the CPU, the
+    card freed after."""
+    import torch
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch.train import lm_grads
+    from repro_torch.models.api import get_model
+    params = get_model(cfg).init(cfg, generator=torch.Generator(device="cuda")
+                                 .manual_seed(TP_SEED))
+    b0 = next(token_batches(cfg.vocab_size, TP_BATCH, TP_SEQ, seed=0, device="cuda"))
+    loss, g = lm_grads(params, b0, cfg)
+    used = torch.unique(b0["tokens"].long())
+    out = {p: (_tp_leaf(g, p)[used] if p == "embed" else _tp_leaf(g, p)[0]).float().cpu()
+           for p in TP_LEAVES}
+    loss = float(loss)
+    del params, g
+    torch.cuda.empty_cache()
+    return loss, out
+
+
+def phase_tensor_parallel(rows, smi):
+    """19 (b) and (c): see the module docstring."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.profile_train import lm_train_config
+    t_phase = time.perf_counter()
+    cfg = lm_train_config(TP_NAME)
+    cut = ("--layers", str(cfg.num_layers), "--batch", str(TP_BATCH), "--seq", str(TP_SEQ))
+    procs = {label: _dry_start(_dry_cmd(TP_NAME, "train_4k", "--mesh", f"{data}x{model}",
+                                        *cut, "--opts", opts))
+             for label, data, model, opts, _ in TP_RUNS}
+    loss1, want = _tp_single_rank(cfg)
+    out = {}
+    # four ranks of about 15.4 GiB each share the card in (c): the ranks'
+    # allocators grow their segments in place, not leaving blocks of
+    # reserved and unused memory beside the peak (max_memory_allocated
+    # counts allocations either way)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        spawned = {label: mesh_lib.spawn(
+            _tp_job, data * model, data=data, model=model, backend="gloo", device="cuda",
+            timeout_s=TP_TIMEOUT_S, args=(opts, timed, label == "19b"))
+            for label, data, model, opts, timed in TP_RUNS}
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    for label, data, model, opts, timed in TP_RUNS:
+        (ranks, picked), counts = spawned[label]
+        plan = _planned_train_launches(cfg, timed)
+        plan_run = _planned_train_launches(cfg, timed + 1)     # with the profiled step
+        dry = _dry_finish(f"{label} dry run", procs[label])
+        peak_dry = dry["memory"]["peak_bytes"]
+        coll_dry = {k: int(v) for k, v in dry["collective_counts"].items() if v}
+        r0 = ranks[0]
+        log(f"  {label} [{smi}] {TP_NAME} at 16b's cut ({cfg.num_layers} layers, "
+            f"{TP_BATCH} x {TP_SEQ}, bf16 params, f32 moments) on data {data} x model {model} "
+            f"gloo ranks sharing the card, opts {opts or 'none'}: setup {r0['init_s']:.1f} s, "
+            f"{[round(r['s_per_step'], 4) for r in ranks]} s/train-step a rank; step-0 "
+            f"loss {r0['first']:.5f} (single rank {loss1:.5f}); losses "
+            f"{[round(x, 4) for x in r0['losses']]}, grad norms "
+            f"{[round(x, 3) for x in r0['gnorms']]}; launches a rank over {timed} steps "
+            f"{ {k: v for k, v in r0['counts'].items() if v} } (offset backward by shape: "
+            f"{[r['offsets'] for r in ranks]}); max_memory_allocated a rank "
+            f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB measured vs "
+            f"{peak_dry / 2**30:.3f} GiB modelled by the dry run (held "
+            f"{dry['memory']['argument_bytes']} B, under the reference's specs "
+            f"{dry['spec_argument_bytes']} B); collectives a step (rank 0's profile) "
+            f"{r0['collectives']}, the dry run's {coll_dry}")
+        if not math.isclose(r0["first"], loss1, rel_tol=TOL_LM_BF16_LOSS):
+            raise AssertionError(f"{label}: the step-0 loss {r0['first']} is not the single "
+                                 f"rank's {loss1}")
+        for r, c in zip(ranks, counts):
+            if r["counts"] != plan or c != plan_run:
+                raise AssertionError(f"{label}: launches {r['counts']} over the timed steps "
+                                     f"({c} over the run) differ from the plan's {plan} "
+                                     f"({plan_run})")
+            if not all(math.isfinite(x) for x in r["losses"] + r["gnorms"]):
+                raise AssertionError(f"{label}: a loss or grad norm is not finite")
+            if abs(r["peak"] / peak_dry - 1) > DRY_PEAK_REL:
+                raise AssertionError(f"{label}: the peak {r['peak']} B is not within "
+                                     f"{DRY_PEAK_REL} of the dry run's {peak_dry} B")
+            if r["collectives"] != coll_dry:
+                raise AssertionError(f"{label}: the collectives {r['collectives']} differ "
+                                     f"from the dry run's {coll_dry}")
+        if dry["memory"]["argument_bytes"] != dry["spec_argument_bytes"]:
+            raise AssertionError(f"{label}: the dry run holds other than the reference's "
+                                 f"placement")
+        if picked:
+            if picked.pop("embed_other_rows"):
+                raise AssertionError(f"{label}: embed's gradient is not 0 outside the "
+                                     f"batch's rows")
+            for path, w in want.items():
+                g = picked[path]
+                e, top = float((g - w).abs().max()), float(w.abs().max())
+                log(f"  {label} [{smi}] step-0 gradient of {path}"
+                    f"{' (the batch rows)' if path == 'embed' else ' (layer 0)'} "
+                    f"{tuple(g.shape)} vs the single rank: max_abs_err {e:.3e}, "
+                    f"{e / top:.3e} of its largest {top:.3e} (bound {TOL_TP_BF16_GRAD})")
+                if not e <= TOL_TP_BF16_GRAD * top:
+                    raise AssertionError(f"{label}: {path}'s gradient differs from the "
+                                         f"single rank's")
+            if abs(r0["loss0"] - loss1) > TOL_LM_BF16_LOSS * abs(loss1):
+                raise AssertionError(f"{label}: lm_grads' loss differs")
+        out[label] = dict(ranks=ranks, counts=counts, dry=dry)
+    tp = out["19b"]["ranks"]
+    key = (TP_BATCH, TP_SEQ // 2, TP_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+           True, None, None)
+    row = rows[f"flash_attention_bwd at a query offset {TP_FLASH_OFFSETS[0][0]}"]
+    row["launches"] = sum(r["offsets"].get(key, 0) for r in tp)
+    if not row["launches"]:
+        raise AssertionError(f"19b: no offset backward at {key} launched")
+    row["launches_tp_per_rank"] = [r["counts"]["flash_attention_bwd"] for r in tp]
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if name in rows:
+            rows[name]["launches_tp_per_rank"] = {lab: [r["counts"][name] for r in o["ranks"]]
+                                                  for lab, o in out.items()}
+    log(f"  19: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repository "
@@ -5513,6 +5903,7 @@ def main() -> int:
         phase_lm_kernels(rows, smi)
         phase_family_kernels(rows, smi)
         phase_lm_train_kernels(rows, smi)
+        phase_tp_kernels(rows, smi)
         phase_g_kernels(rows, smi)
         phase_backward_kernels(rows, smi)
         phase_scan_backward(rows, smi)
@@ -5574,10 +5965,14 @@ def main() -> int:
                "modelled and measured; the remat policies on the card; the production mesh, "
                "host only)"):
         phase_dry_run(rows, smi, train16, train17)
+    with phase("19 main path 14 (tensor parallelism: qwen3-32b at 16b's cut over model 2, "
+               "seq_shard + attn_seq, against the single rank and the dry run; ZeRO on data 2 x "
+               "model 2; 19a ran in phase 3)"):
+        phase_tensor_parallel(rows, smi)
     keys = ("name", "route", "source", "replaces", "launches", "launches_continuous",
             "launches_ep2_per_rank", "launches_distrifusion", "launches_hier_per_rank",
             "launches_placed_per_rank", "launches_train", "launches_train_lm",
-            "launches_train_mesh_per_rank", "launches_remat_policies",
+            "launches_train_mesh_per_rank", "launches_remat_policies", "launches_tp_per_rank",
             "launches_forward",
             "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "yardstick_ms", "yardstick_ratio",

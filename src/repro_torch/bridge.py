@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import sharding as shard_lib
 from repro_torch.common.device import resolve_device
 
 TOP_KEYS = ("patch_embed", "pos_embed", "t_mlp1", "t_mlp2", "class_embed",
@@ -42,12 +43,23 @@ ENCDEC_ENC_KEYS = ("ln1", "ln2", "attn", "mlp")
 ENCDEC_DEC_KEYS = ("ln1", "ln_x", "ln2", "attn", "xattn", "mlp")
 
 
-def _convert(node, device, path: str):
+def _convert(node, device, path: str, mesh=None, names=()):
     if isinstance(node, dict):
-        return {k: _convert(v, device, f"{path}.{k}") for k, v in node.items()}
+        return {k: _convert(v, device, f"{path}.{k}", mesh, names + (str(k),))
+                for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return [_convert(v, device, f"{path}[{i}]") for i, v in enumerate(node)]
+        return [_convert(v, device, f"{path}[{i}]", mesh, names + (str(i),))
+                for i, v in enumerate(node)]
     arr = np.asarray(node)
+    if mesh is not None:
+        # this rank's slice of the leaf's spec over "model", cut before the
+        # leaf leaves numpy, so only the slice is copied and moved
+        spec = shard_lib.param_spec("/".join(names), arr.shape, mesh)
+        if "model" in spec:
+            dim, n = spec.index("model"), mesh.shape["model"]
+            k = arr.shape[dim] // n
+            arr = np.take(arr, range(mesh.rank_in("model") * k,
+                                     (mesh.rank_in("model") + 1) * k), axis=dim)
     if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
         # numpy has no bf16 of its own: reinterpret the 16-bit patterns
         bits = torch.from_numpy(np.array(arr.view(np.int16), copy=True))
@@ -57,10 +69,14 @@ def _convert(node, device, path: str):
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def from_jax_params(tree: Dict[str, Any],
-                    device: Optional[str] = None) -> Dict[str, Any]:
+def from_jax_params(tree: Dict[str, Any], device: Optional[str] = None,
+                    mesh=None) -> Dict[str, Any]:
     """numpy tree of one of the JAX package's ``init_*`` (module docstring)
-    -> port params on ``device`` (``cuda`` unless given).  The tree is told
+    -> port params on ``device`` (``cuda`` unless given).  ``mesh`` (a
+    training mesh): each leaf cut to this rank's slice of its
+    ``param_spec`` over ``model`` first, the tree
+    ``common/sharding.shard_lm_params`` makes of the whole one (the
+    reference dry run's placement, tensor parallelism).  The tree is told
     by its keys: ``mamba`` is zamba2's, ``enc_layers`` the encoder-decoder's;
     a ``layers`` stack with an ``attn`` block (with ``mlp`` or ``moe``) is
     the dense/MoE LM's, the VLM's when it also has ``cross``; any other
@@ -95,7 +111,7 @@ def from_jax_params(tree: Dict[str, Any],
         _require(tree, TOP_KEYS, "not a DiT-MoE param tree")
         for i, blk in enumerate(tree["blocks"]):
             _require(blk, BLOCK_KEYS, f"block {i}")
-    return _convert(tree, resolve_device(device), "params")
+    return _convert(tree, resolve_device(device), "params", mesh)
 
 
 def _require(node, keys, what: str) -> None:

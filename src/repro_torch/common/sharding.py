@@ -15,10 +15,16 @@ The training mesh (:class:`~repro_torch.launch.mesh.TrainMesh`) keeps the
 reference's rules: :func:`param_spec`, :func:`tree_param_specs`,
 :func:`opt_state_spec` and :func:`batch_spec` return a spec as a tuple with
 one entry per dim, ``"model"``, ``"data"`` or ``None``, the entries of the
-reference's ``PartitionSpec``.  Only the stacked routed experts are placed
-on a training mesh (:func:`shard_lm_experts`), as in the reference's
-``train_lm``; the rules are for the dry run, which reads the layout
-without placing it.
+reference's ``PartitionSpec``.  Two layouts place an LM on it:
+
+* ``train_lm``'s, the reference's ``train_lm``: only the stacked routed
+  experts cut over ``model`` (:func:`shard_lm_experts`);
+* the reference dry run's, tensor parallelism: every leaf cut to its
+  ``param_spec`` slice (:func:`shard_lm_params`, which
+  :func:`gather_lm_params` puts back), and the AdamW moments also cut over
+  ``data`` by ``opt_state_spec`` (ZeRO, :func:`shard_lm_moments`).  The
+  models find which leaves a rank holds cut by their shapes
+  (:func:`held_cuts`; ``models/dense.tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -342,3 +348,94 @@ def gather_lm_experts(params, mesh):
             return mesh.model_gather(node, dim=1)
         return node
     return walk(params, ())
+
+
+# ---------------------------------------------------------------------------
+# the LMs under the reference's specs (tensor parallelism, ZeRO)
+# ---------------------------------------------------------------------------
+def tree_items(tree, names=()):
+    """(path, leaf) of a nested dict in key order (JAX's flattening
+    order), ``path`` '/'-joined."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_items(tree[k], names + (str(k),))]
+    return [("/".join(names), tree)]
+
+
+def _map(fn, tree, *rest, names=()):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest), names=names + (str(k),))
+                for k, v in tree.items()}
+    return fn("/".join(names), tree, *rest)
+
+
+def tree_map_leaves(fn, tree):
+    """``fn`` of every leaf of a nested dict."""
+    return _map(lambda path, t: fn(t), tree)
+
+
+def _model_dim(spec) -> Optional[int]:
+    return spec.index("model") if "model" in spec else None
+
+
+def lm_param_cuts(params, mesh):
+    """The tree of ``params`` (whole leaves, or anything with a ``shape``)
+    with each leaf replaced by the dim its :func:`param_spec` cuts over
+    ``model``, None where it is whole."""
+    return _map(lambda path, t: _model_dim(param_spec(path, tuple(t.shape), mesh)),
+                params)
+
+
+def held_cuts(params, whole, cuts):
+    """``cuts`` (:func:`lm_param_cuts` of the whole tree ``whole``) where a
+    rank's ``params`` hold the leaf cut (its shape differs from the whole
+    leaf's), None where they hold it whole."""
+    return _map(lambda path, t, w, c: None if tuple(t.shape) == tuple(w.shape) else c,
+                params, whole, cuts)
+
+
+def _cut(t: torch.Tensor, dim: Optional[int], n: int, i: int) -> torch.Tensor:
+    if dim is None or n == 1:
+        return t
+    k = t.shape[dim] // n
+    return t.narrow(dim, i * k, k).clone()
+
+
+def shard_lm_params(params, mesh):
+    """``params`` (whole) with every leaf cut to this rank's slice of its
+    :func:`param_spec` over ``model`` (the routed experts on their expert
+    dim, as :func:`shard_lm_experts`; the reference dry run's
+    ``tree_param_specs`` placement).  The cuts are copies, so the whole
+    tree can be freed; a leaf the spec leaves whole is the same tensor."""
+    n, i = _axis(mesh, "model")
+    return _map(lambda path, t, c: _cut(t, c, n, i), params,
+                lm_param_cuts(params, mesh))
+
+
+def gather_lm_params(params, mesh, cuts):
+    """The inverse of :func:`shard_lm_params`: every leaf with a cut dim in
+    ``cuts`` (:func:`held_cuts`) all-gathered over ``model`` (a collective:
+    every rank of the group calls it)."""
+    return _map(lambda path, t, c: t if c is None else mesh.model_gather(t, c),
+                params, cuts)
+
+
+def lm_moment_dims(params, mesh):
+    """The tree of ``params`` (whole) with each leaf replaced by the dim
+    ``opt_state_spec`` cuts its AdamW moments over ``data`` (ZeRO), None
+    where they are not cut."""
+    def dim(path, t):
+        spec = opt_state_spec(param_spec(path, tuple(t.shape), mesh),
+                              tuple(t.shape), mesh)
+        return spec.index("data") if "data" in spec else None
+    return _map(dim, params)
+
+
+def shard_lm_moments(state, dims, mesh):
+    """An AdamW state whose moments (shaped like a rank's params) are cut
+    to this rank's slice over ``data`` on ``dims`` (:func:`lm_moment_dims`):
+    each rank of a data group then updates its slice of each leaf
+    (``optim.adamw.adamw_update``)."""
+    n, i = _axis(mesh, "data")
+    cut = lambda path, t, d: _cut(t, d, n, i)  # noqa: E731
+    return type(state)(step=state.step, mu=_map(cut, state.mu, dims),
+                       nu=_map(cut, state.nu, dims))

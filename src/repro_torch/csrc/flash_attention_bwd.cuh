@@ -8,7 +8,8 @@
 //   dq (B, Sq, H, Dh), dk/dv (B, Sk, KVH, Dh) contiguous, in the inputs'
 //   dtype.  With scale = 1/sqrt(Dh), X = (q k^T) scale, S = c tanh(X / c)
 //   with a softcap c (S = X without), P = exp(S - lse) (0 where a mask
-//   drops key j: causal j > i, window i - j >= window), D = rowsum(dO * O):
+//   drops key j for query row i at position pq = q_offset + i: causal
+//   j > pq, window pq - j >= window), D = rowsum(dO * O):
 //     dV = P^T dO,  dS = P (dO V^T - D) (1 - (S / c)^2),
 //     dQ = dS K scale,  dK = dS^T Q scale
 //   dK and dV of a kv head are summed over its G query heads.
@@ -20,9 +21,11 @@
 // and sum in f32, D from the f32 output (the reference's sum of P dP;
 // with the bf16 output 19% of bf16 dq and dk elements land elsewhere),
 // dq/dk/dv rounded to bf16 once.  The window is the one layers.attention
-// applies (i - j < window, whether causal or not); the wrapper
+// applies (pq - j < window, whether causal or not); the wrapper
 // (kernels/ops.py) raises for the Pallas kernel's symmetric window and for
-// KV-cache masks, which training never passes.
+// ring-cache key positions (k_pos), which training never passes.  A query
+// offset is a sequence split over ranks (tensor parallelism's "seq"
+// attention layout): a rank's rows sit at q_offset on, against every key.
 //
 // Bound: at the DiT-MoE-XL shape (8, 256, 16, 72) f32 the five products
 // are 6.04e9 FLOP against 75 MB, so operations bound it: 0.0366 ms at
@@ -41,17 +44,17 @@
 //      S = Q K^T and dP = dO V^T in register fragments, P and dS formed in
 //      the accumulator registers, dQ += dS K with dS taken straight from
 //      them as A fragments.  Causal: the key tiles whose first key lies
-//      past the block's last query are skipped; window: the key tiles that
-//      lie wholly before the block's first query's window.
+//      past the block's last query's position are skipped; window: the
+//      key tiles that lie wholly before the block's first query's window.
 //   2. flash_bwd_dkdv: the same with keys as the m rows: a block owns 64
 //      keys of one (b, kv head), a warp 16, and loops over the kv head's G
 //      query heads and, for each, over its queries on a ring of Q, dO, lse
 //      and D (one ring across the heads, so the prefetch runs on from one
 //      head to the next); S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and
 //      dK += dS^T Q from the accumulator registers, which carry across the
-//      heads.  Causal: the query tiles whose last query lies before the
-//      block's first key are skipped; window: the query tiles that lie
-//      wholly past the block's last key's window.
+//      heads.  Causal: the query tiles whose last query's position lies
+//      before the block's first key are skipped; window: the query tiles
+//      that lie wholly past the block's last key's window.
 //   - The scale multiplies the S accumulators, not the q (or k) operand:
 //     bf16 q and k are exact in TF32, so for bf16 inputs S and dP are one
 //     TF32 pass of exact products with f32 sums, and dV, dK and dQ, whose
@@ -374,23 +377,26 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[NC][4], in
 
 struct Dims {
   int Sq, Sk, H, KVH, Dh, causal, aligned;   // aligned bit 0: q, 1: k, 2: v, 3: dO rows
-  int has_window, window;                    // keep i - j < window
+  int qoff;                                  // position of query row 0
+  int has_window, window;                    // keep pq - pk < window
   int has_softcap;
   float softcap;
 };
 
-// (P, dS) of one (query pq, key pk) pair from its unscaled logit x and its
-// dP: P = exp(S - lse) with S the scaled (MASKS: and capped) logit, dS =
+// (P, dS) of one (query row i, key pk) pair from its unscaled logit x and
+// its dP: P = exp(S - lse) with S the scaled (MASKS: and capped) logit, dS =
 // P (dP - D) (MASKS: times 1 - (S / c)^2); both 0 where a mask drops the
-// pair or past Sq / Sk.  MASKS is a compile-time switch: the window and
-// softcap tests and the cap's tanhf are not in the other instance's code
+// pair or past Sq / Sk.  Row i sits at position pq = qoff + i.  MASKS is
+// a compile-time switch: the window and softcap tests and the cap's tanhf
+// are not in the other instance's code
 // (with them its registers rose from 164 to 181 at NT 8, bf16, a block
 // fewer on each SM, and the seamless encoder's backward took 33.4 ms
 // against 26.2)
 template <bool MASKS>
-__device__ __forceinline__ float2 p_ds(Dims dm, int pq, int pk, float x, float dp,
+__device__ __forceinline__ float2 p_ds(Dims dm, int i, int pk, float x, float dp,
                                        float lse, float d, float scale) {
-  bool in = pq < dm.Sq && pk < dm.Sk && (!dm.causal || pq >= pk);
+  const int pq = dm.qoff + i;
+  bool in = i < dm.Sq && pk < dm.Sk && (!dm.causal || pq >= pk);
   x *= scale;
   float cap = 1.0f;
   if constexpr (MASKS) {
@@ -430,13 +436,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * ks.b + kvh * ks.h;
   const T* vb = v + b * vs.b + kvh * vs.h;
   // key tiles kt0 .. kt1 - 1.  Causal: tiles whose first key lies past the
-  // block's last query hold no kept pair; window: nor do tiles that end
-  // before the block's first query's first visible key, q0 - window + 1
+  // block's last query's position hold no kept pair; window: nor do tiles
+  // that end before the block's first query's first visible key,
+  // qoff + q0 - window + 1
   int kt1 = (Sk + BT - 1) / BT;
-  if (dm.causal) kt1 = min(kt1, (min(q0 + BM, Sq) - 1) / BT + 1);
+  if (dm.causal)
+    kt1 = (int)min((long long)kt1, ((long long)dm.qoff + min(q0 + BM, Sq) - 1) / BT + 1);
   int kt0 = 0;
   if (MASKS && dm.has_window) {
-    const long long first = (long long)q0 - dm.window + 1;
+    const long long first = (long long)dm.qoff + q0 - dm.window + 1;
     if (first > 0) kt0 = (int)min(first / BT, (long long)kt1);
   }
   const int ntiles = kt1 - kt0;
@@ -533,16 +541,17 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  // query tiles qt0 .. qt1 - 1.  Causal: tiles whose last query lies
-  // before the block's first key hold no kept pair; window: nor do tiles
-  // that start past the block's last key's last visible query, k_last +
-  // window - 1.  The same tiles for each of the G query heads, walked as
-  // one sequence i = head * nqt + tile
+  // query tiles qt0 .. qt1 - 1.  Causal: tiles whose last query's
+  // position lies before the block's first key hold no kept pair; window:
+  // nor do tiles that start past the block's last key's last visible
+  // query, k_last + window - 1 - qoff.  The same tiles for each of the G
+  // query heads, walked as one sequence i = head * nqt + tile
   const int nq_all = (Sq + BT - 1) / BT;
-  const int qt0 = dm.causal ? min(k0 / BT, nq_all) : 0;
+  const int qt0 = dm.causal ? min(max(k0 - dm.qoff, 0) / BT, nq_all) : 0;
   int qt1 = nq_all;
   if (MASKS && dm.has_window) {
-    const long long last = (long long)min(k0 + BM, Sk) - 1 + dm.window - 1;
+    const long long last =
+        (long long)min(k0 + BM, Sk) - 1 + dm.window - 1 - dm.qoff;
     qt1 = last < 0 ? 0 : (int)min(last / BT + 1, (long long)nq_all);
   }
   const int nqt = max(0, qt1 - qt0);
@@ -670,17 +679,19 @@ int run_bwd(const void* q, const void* k, const void* v, const void* o, const vo
             int H, int KVH, int Dh, long long q_sb, long long q_ss, long long q_sh,
             long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
             long long v_sh, long long o_sb, long long o_ss, long long o_sh, long long do_sb,
-            long long do_ss, long long do_sh, int causal, int has_window, int window,
-            int has_softcap, float softcap, int dtype, int device, void* stream) {
+            long long do_ss, long long do_sh, int causal, int q_offset, int has_window,
+            int window, int has_softcap, float softcap, int dtype, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (KVH <= 0 || H % KVH || Dh <= 0 || Dh > 256 || (has_window && (!MASKS || window < 0)) ||
+  if (KVH <= 0 || H % KVH || Dh <= 0 || Dh > 256 || q_offset < 0 ||
+      (has_window && (!MASKS || window < 0)) ||
       (has_softcap && (!MASKS || !(softcap > 0.0f))))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0) return (int)cudaGetLastError();
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
       os{o_sb, o_ss, o_sh}, dos{do_sb, do_ss, do_sh};
-  const Dims dm{Sq, Sk, H, KVH, Dh, causal != 0, 0, has_window != 0, window,
+  const Dims dm{Sq, Sk, H, KVH, Dh, causal != 0, 0, q_offset, has_window != 0, window,
                 has_softcap != 0, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* of = static_cast<const float*>(o);

@@ -48,9 +48,9 @@ SIGNATURES = {
     "dice_flash_attention": [_P] * 7 + [_I] * 7 + [_L] * 12
     + [_I] * 5 + [_F, _I, _I, _P],
     "dice_expert_ffn_bwd": [_P] * 11 + [_I] * 8 + [_P],
-    "dice_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_F]
+    "dice_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 5 + [_F]
     + [_I] * 2 + [_P],
-    "dice_flash_attention_bwd_masked": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 4 + [_F]
+    "dice_flash_attention_bwd_masked": [_P] * 10 + [_I] * 6 + [_L] * 15 + [_I] * 5 + [_F]
     + [_I] * 2 + [_P],
     "dice_residual_int8": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "dice_rwkv6_scan": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I] * 4 + [_P],

@@ -12,7 +12,8 @@ if ``cudaGetLastError`` reports a fault.
 count), so a run can show that its path went through the kernels;
 ``FLASH_SHAPES`` and ``FLASH_BWD_SHAPES`` split ``flash_attention``'s and
 ``flash_attention_bwd``'s by (B, Sq, Sk, H, KVH, Dh, causal, window,
-softcap), ``FFN_BWD_SHAPES`` ``expert_ffn_bwd``'s by (E, C, d, f, dtype).
+softcap), ``FLASH_BWD_OFFSETS`` the same for its launches at a query
+offset, ``FFN_BWD_SHAPES`` ``expert_ffn_bwd``'s by (E, C, d, f, dtype).
 
 Training: ``expert_ffn``, ``flash_attention`` and ``rwkv6_scan`` go
 through the ``torch.autograd.Function``s :class:`ExpertFFNFn`,
@@ -48,6 +49,7 @@ LAUNCHES: Dict[str, int] = {"expert_ffn": 0, "flash_attention": 0,
                             "rwkv6_scan_bwd": 0}
 FLASH_SHAPES: Dict[tuple, int] = {}
 FLASH_BWD_SHAPES: Dict[tuple, int] = {}
+FLASH_BWD_OFFSETS: Dict[tuple, int] = {}
 FFN_BWD_SHAPES: Dict[tuple, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,7 +62,7 @@ RWKV6_HEAD_DIMS = (16, 32, 64, 128)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for counts in (FLASH_SHAPES, FLASH_BWD_SHAPES, FFN_BWD_SHAPES):
+    for counts in (FLASH_SHAPES, FLASH_BWD_SHAPES, FLASH_BWD_OFFSETS, FFN_BWD_SHAPES):
         counts.clear()
 
 
@@ -235,15 +237,15 @@ def _check_masks(q, k, q_offset, k_pos, window) -> None:
 def _flash_attention_fwd(q, k, v, *, causal=False, window=None, softcap=None,
                          q_offset=0, k_pos=None, one_sided_window=False,
                          out=None, want_lse: bool = False):
-    """(o, lse, o32).  With ``want_lse`` (no KV-cache masks: what the
-    backward takes) ``lse`` is the (B, H, Sq) f32 row log-sum-exp of the
-    scaled, capped, masked logits and ``o32`` the output unrounded in f32
-    (``o`` itself for f32 inputs), the backward's D = rowsum(dO * O); else
-    both are None.  The kernel's output is the same with or without
-    them."""
-    if want_lse and (q_offset or k_pos is not None):
+    """(o, lse, o32).  With ``want_lse`` (no ring-cache key positions
+    ``k_pos``: what the backward takes; a ``q_offset`` is fine) ``lse`` is
+    the (B, H, Sq) f32 row log-sum-exp of the scaled, capped, masked
+    logits and ``o32`` the output unrounded in f32 (``o`` itself for f32
+    inputs), the backward's D = rowsum(dO * O); else both are None.  The
+    kernel's output is the same with or without them."""
+    if want_lse and k_pos is not None:
         raise ValueError("flash_attention: the log-sum-exp is kept only "
-                         "without KV-cache masks")
+                         "without ring-cache key positions (k_pos)")
     if out is not None and (tuple(out.shape) != tuple(q.shape)
                             or out.dtype != q.dtype or out.device != q.device
                             or out.stride(-1) != 1):
@@ -488,26 +490,34 @@ def unstage_ffn_bwd_grads(lay: FFNBwdLayout, d: int, f: int, grads):
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                         window: Optional[int] = None,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None, q_offset: int = 0):
     """Gradients (dq, dk, dv) of :func:`flash_attention` from its
     unrounded f32 output ``o`` (B, Sq, H, Dh), its row log-sum-exp ``lse``
     (B, H, Sq) f32 (both from ``_flash_attention_fwd(want_lse=True)``)
     and the output gradient ``do``.  Causal or not, a one-sided ``window``
     (``pq - pk < window``, as ``layers.attention`` applies it) and a logit
-    ``softcap`` or not, GQA (k and v (B, Sk, KVH, Dh); dk and dv come back
-    in that shape, summed over each kv head's query heads), Sq and Sk
-    free, f32 or bf16 (dq, dk, dv in that dtype, rounded once from f32),
-    Dh up to ``MAX_HEAD_DIM``, on the card and on the CPU alike."""
+    ``softcap`` or not, query row i at position ``pq = q_offset + i`` (the
+    rank's rows of a sequence split over ``model``; key j at j), GQA (k and
+    v (B, Sk, KVH, Dh); dk and dv come back in that shape, summed over each
+    kv head's query heads), Sq and Sk free, f32 or bf16 (dq, dk, dv in that
+    dtype, rounded once from f32), Dh up to ``MAX_HEAD_DIM``, on the card
+    and on the CPU alike."""
     if window is not None and not 0 <= window <= _INT32_MAX:
         raise ValueError(f"flash_attention_bwd: window {window} not in "
                          f"[0, 2^31 - 1]")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention_bwd: softcap {softcap} must be > 0")
+    if not isinstance(q_offset, int) or q_offset < 0 \
+            or q_offset + q.shape[1] > _INT32_MAX:
+        raise ValueError(f"flash_attention_bwd: q_offset {q_offset!r} must be "
+                         f"an int in [0, 2^31 - Sq]")
     if _costed(q):
-        return _flash_attention_bwd_costed(q, k, v, o, lse, do, causal, window)
+        return _flash_attention_bwd_costed(q, k, v, o, lse, do, causal, window,
+                                           q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                           window=window, softcap=softcap)
+                                           window=window, softcap=softcap,
+                                           q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     code = _check_cuda("flash_attention_bwd", (q, k, v, do))
@@ -550,13 +560,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, Dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *do.stride()[:3], int(causal), int(window is not None),
+        *do.stride()[:3], int(causal), q_offset, int(window is not None),
         int(window) if window is not None else 0, int(softcap is not None),
         float(softcap) if softcap is not None else 0.0, code,
         q.device.index or 0, _stream(q.device))
     _raise_on("flash_attention_bwd", err)
     LAUNCHES["flash_attention_bwd"] += 1
     _count(FLASH_BWD_SHAPES, _flash_shape(q, k, causal, window, softcap))
+    if q_offset:
+        _count(FLASH_BWD_OFFSETS, _flash_shape(q, k, causal, window, softcap))
     return dq, dk, dv
 
 
@@ -571,13 +583,13 @@ def _flash_bwd_buffers(q, k):
             torch.empty((B, H, Sq), dtype=torch.float32, device=q.device))
 
 
-def _flash_attention_bwd_costed(q, k, v, o, lse, do, causal, window):
+def _flash_attention_bwd_costed(q, k, v, o, lse, do, causal, window, q_offset):
     """:func:`flash_attention_bwd` on ``meta``: its buffers, its work in the
     ledger."""
     B, Sq, H, Dh = q.shape
     dq, dk, dv, delta = _flash_bwd_buffers(q, k)
     del delta
-    pairs = _flash_pairs(q, k, causal, window, 0, None, True)
+    pairs = _flash_pairs(q, k, causal, window, q_offset, None, True)
     cost.record("flash_attention_bwd", cost.flash_bwd_flops(B, H, Dh, pairs),
                 cost.nbytes(q, k, v, o, lse, do, dq, dk, dv))
     return dq, dk, dv
@@ -608,7 +620,8 @@ class FlashAttentionFn(torch.autograd.Function):
     f32) and the ``flash_attention_bwd`` kernel on the card, the plain
     versions on the CPU.  Saves q, k, v, the f32 output and the
     log-sum-exp.  Causal or not, with a one-sided window and a softcap or
-    not; KV-cache masks and the Pallas kernel's symmetric window (a window
+    not, at a query offset or not (a sequence split over ranks); ring-cache
+    key positions and the Pallas kernel's symmetric window (a window
     without ``causal`` or ``one_sided_window``), which training never
     passes, run the forward and raise in the backward."""
 
@@ -616,14 +629,14 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, softcap, q_offset=0,
                 k_pos=None, one_sided_window=False):
         symmetric = window is not None and not causal and not one_sided_window
-        ctx.refused = ("KV-cache masks (q_offset, k_pos)"
-                       if q_offset != 0 or k_pos is not None else
-                       "the symmetric window" if symmetric else None)
+        ctx.refused = ("ring-cache key positions (k_pos)" if k_pos is not None
+                       else "the symmetric window" if symmetric else None)
         o, lse, o32 = _flash_attention_fwd(
             q, k, v, causal=causal, window=window, softcap=softcap,
             q_offset=q_offset, k_pos=k_pos, one_sided_window=one_sided_window,
             want_lse=ctx.refused is None)
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o32, lse)
         return o
 

@@ -177,15 +177,16 @@ def attention_lse_ref(q, k, *, causal: bool = False):
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = False,
-                            window=None, softcap=None, rows=None,
-                            magnitudes: bool = False):
+                            window=None, softcap=None, q_offset: int = 0,
+                            rows=None, magnitudes: bool = False):
     """Gradients of GQA attention (causal or not, Sq and Sk free, a
     one-sided ``window`` and a logit ``softcap`` or not) in the recompute
     form of the backward kernel: with ``scale = 1/sqrt(Dh)``, the logits
     ``S = c tanh(q k^T scale / c)`` under a softcap c (else ``q k^T
     scale``), ``P = exp(S - lse)`` (0 where :func:`attention_mask` drops a
     key: causal, and the window as ``layers.attention`` applies it, ``pq -
-    pk < window``) and ``D = rowsum(dO * O)``::
+    pk < window``, query row i at ``pq = q_offset + i``) and ``D =
+    rowsum(dO * O)``::
 
         dV = P^T dO,  dS = P (dO V^T - D) (1 - (S / c)^2),
         dQ = dS K scale,  dK = dS^T Q scale
@@ -219,7 +220,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = False,
     for a in range(0, Sq, n):
         m = min(n, Sq - a)
         s, mask = _logits(q[:, a:a + m], k32, causal=causal, window=window,
-                          softcap=softcap, q_offset=a, one_sided=True)
+                          softcap=softcap, q_offset=q_offset + a, one_sided=True)
         ls = lse[:, :, a:a + m].to(f32).reshape(B, KVH, G, m)
         p = torch.where(mask, torch.exp(s - ls[..., None]), 0.0)
         qc, doc, oc = (t[:, a:a + m].to(f32).reshape(B, m, KVH, G, Dh)

@@ -14,8 +14,12 @@ of a fake world on ``meta`` tensors, which hold no storage:
   gradient reduction, clip, AdamW) for train shapes, the family's
   ``prefill`` / ``decode_step`` (``models/api.get_model``) for serving
   shapes, and one interweaved DiT-MoE denoise step at batch 4096 for
-  ``dit_serve`` (:func:`make_dit_step`), each on the rank's own params
-  (its routed experts), rows and cache;
+  ``dit_serve`` (:func:`make_dit_step`), each on the rank's own params,
+  rows and cache.  A train shape of the dense and moe families places
+  the params and moments as the reference does (every leaf by
+  ``param_spec`` over ``model``, the AdamW moments also over ``data`` by
+  ``opt_state_spec``) and runs tensor-parallel (``models/tp.py``); the
+  other steps hold their routed experts cut, the rest whole;
 * the kernels: their wrappers allocate on ``meta`` what the card would and
   record their work (``kernels/cost.py``);
 * the counts: ``launch/hlo_cost.analyze_step`` (FLOPs, bytes, collectives,
@@ -26,7 +30,8 @@ lowering and compile times) plus ``spec_argument_bytes``, the per-rank
 bytes of the arguments under the reference's specs (``tree_param_specs``,
 ``opt_state_spec``, :func:`batch_input_spec`, :func:`cache_spec`), what
 the reference places, beside ``memory.argument_bytes``, what the port
-holds (it places only the routed experts over ``model``); and ``fits``,
+holds (the same for the dense and moe train steps; the routed experts
+alone cut elsewhere); and ``fits``,
 whether the peak is within the card's memory.  The roofline divides by the
 H100 SXM5's data-sheet peaks (``common/config.HW``): its times are
 modelled, not measured.
@@ -53,8 +58,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.common.config import HW, INPUT_SHAPES, ModelConfig, ShapeConfig
-from repro_torch.common.sharding import (opt_state_spec, param_spec,
-                                         shard_lm_experts)
+from repro_torch.common.sharding import (lm_moment_dims, opt_state_spec,
+                                         param_spec, shard_lm_experts,
+                                         shard_lm_moments, shard_lm_params)
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, get_smoke
 from repro_torch.launch import hlo_cost
 from repro_torch.launch.mesh import (batch_axes, data_axis_size, make_local_mesh,
@@ -70,9 +76,6 @@ LONG_CONTEXT_WINDOWED = {
 }
 MODELED = ("modelled from the H100 SXM5 80GB data-sheet peaks "
            "(common/config.HW), not measured")
-# the layout hints that place the dense weights over "model"
-# (tensor parallelism), which the port does not have yet
-UNPORTED_OPTS = ("seq_shard", "attn_shard", "attn_seq")
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -206,8 +209,9 @@ def _param_spec_bytes(params, mesh, *, opt: bool) -> int:
 
 
 def _local_rows(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """Rank 0's block of a batch-leading input under ``spec``."""
-    return t if spec[0] is None else t[: t.shape[0] // data_axis_size(mesh)]
+    """Rank 0's block of a batch-leading input under ``spec`` (a copy, so
+    the rank holds its rows only)."""
+    return t if spec[0] is None else t[: t.shape[0] // data_axis_size(mesh)].clone()
 
 
 # ---------------------------------------------------------------------------
@@ -269,10 +273,13 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     optimizer state, rows and cache, all ``meta``.
 
     ``opts`` are the reference's levers: ``cap1`` (capacity_factor 1.0),
-    ``cap_floor4`` (decode capacity rounded to 4), ``remat_dots`` /
-    ``save_ffn`` (the remat policies, train shapes of the dense and moe
-    families); ``seq_shard``, ``attn_shard`` and ``attn_seq`` raise where
-    the reference would pass them (not ported: ROADMAP.md A)."""
+    ``cap_floor4`` (decode capacity rounded to 4), and for train shapes of
+    the dense and moe families ``remat_dots`` / ``save_ffn`` (the remat
+    policies), ``seq_shard`` (the sequence-sharded residual stream),
+    ``attn_shard`` / ``attn_seq`` (the attention's ``"heads"`` / ``"seq"``
+    layout: :func:`train_kwargs`).  Those train steps hold every param cut
+    by its spec and the moments cut over ``data`` too (ZeRO), what the
+    reference places."""
     from repro_torch.launch.train import lm_train_step
     from repro_torch.optim.adamw import adamw_init
 
@@ -290,21 +297,12 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         kw["long_context"] = True
     if shape.kind == "decode" and cfg.family == "moe" and "cap_floor4" in opts:
         kw["capacity_floor"] = 4
-    policy = "full"
-    if shape.kind == "train" and cfg.family in ("dense", "moe"):
-        unported = [o for o in UNPORTED_OPTS if o in opts]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)}: the dense weights over 'model' "
-                f"(tensor parallelism, sequence-sharded residuals) are not "
-                f"ported yet (ROADMAP.md A, the next bring-up slice)")
-        if "remat_dots" in opts:
-            policy = "dots"
-        if "save_ffn" in opts:
-            policy = "save_ffn"
+    spec_placed = shape.kind == "train" and cfg.family in ("dense", "moe")
+    train_kw = train_kwargs(cfg, shape, opts)
 
     params_g = api.init(cfg, generator=None)
-    params = shard_lm_experts(params_g, mesh)
+    params = shard_lm_params(params_g, mesh) if spec_placed \
+        else shard_lm_experts(params_g, mesh)
     inputs_g = input_specs(cfg, shape)
     in_specs = {k: batch_input_spec(k, v.shape, mesh) for k, v in inputs_g.items()}
     inputs = {k: _local_rows(v, in_specs[k], mesh) for k, v in inputs_g.items()}
@@ -313,10 +311,15 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
 
     if shape.kind == "train":
         opt = adamw_init(params)
+        if spec_placed:
+            opt = shard_lm_moments(opt, lm_moment_dims(params_g, mesh), mesh)
+            # the cut dims' cache (shapes only) filled outside the analysis
+            from repro_torch.models.dense import param_cuts
+            param_cuts(params, cfg, mesh)
 
         def train_step(params, opt_state, batch):
             return lm_train_step(params, opt_state, batch, cfg, total=1000,
-                                 mesh=mesh, remat_policy=policy)
+                                 mesh=mesh, **train_kw)
 
         spec_b = _param_spec_bytes(params_g, mesh, opt=True) + in_spec_b
         return train_step, (params, opt, inputs), spec_b
@@ -341,6 +344,29 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
 
     spec_b = _param_spec_bytes(params_g, mesh, opt=False) + in_spec_b + cache_b
     return decode_fn, (params, inputs, cache), spec_b
+
+
+def train_kwargs(cfg: ModelConfig, shape: ShapeConfig,
+                 opts: Tuple[str, ...]) -> Dict[str, Any]:
+    """``lm_train_step``'s keywords for a train shape of the dense and moe
+    families under ``opts``, as the reference's ``make_step`` maps them:
+    ``remat_dots`` / ``save_ffn`` the remat policy, ``seq_shard``,
+    ``attn_shard`` (``"heads"``) and ``attn_seq`` (``"seq"``, which wins
+    when both are given)."""
+    kw: Dict[str, Any] = {}
+    if shape.kind != "train" or cfg.family not in ("dense", "moe"):
+        return kw
+    if "remat_dots" in opts:
+        kw["remat_policy"] = "dots"
+    if "save_ffn" in opts:
+        kw["remat_policy"] = "save_ffn"
+    if "seq_shard" in opts:
+        kw["seq_shard"] = True
+    if "attn_shard" in opts:
+        kw["attn_shard"] = "heads"
+    if "attn_seq" in opts:
+        kw["attn_shard"] = "seq"
+    return kw
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +456,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         # the gradient tree the step's lm_grads makes, measured (another
         # run of it on the same arguments, outside the analysis)
         from repro_torch.launch.train import lm_grads
-        grad_b = _bytes(lm_grads(args[0], args[2], cfg, mesh=mesh)[1])
+        grad_b = _bytes(lm_grads(args[0], args[2], cfg, mesh=mesh,
+                                 **train_kwargs(cfg, shape, opts))[1])
     rl = roofline(totals.flops, totals.bytes, totals, n_dev=n_dev)
     # 6ND for train (fwd+bwd), 2ND for inference; N = routed-active params
     n_active = cfg.active_param_count()
@@ -517,7 +544,8 @@ def main(argv=None) -> int:
     ap.add_argument("--archs", default=None, help="comma list filter")
     ap.add_argument("--shapes", default=None, help="comma list filter")
     ap.add_argument("--opts", default="", help="comma list of perf levers "
-                    "(cap1, cap_floor4, remat_dots, save_ffn)")
+                    "(cap1, cap_floor4, remat_dots, save_ffn, seq_shard, "
+                    "attn_shard, attn_seq)")
     ap.add_argument("--out", default=None, help="JSONL, appended per combo")
     ap.add_argument("--quiet", action="store_true",
                     help="print the record on one line, not indented")

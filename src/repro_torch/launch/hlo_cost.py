@@ -56,6 +56,8 @@ C10D_OPS = {
     "all_reduce": ("c10d::allreduce_",),
     "all_gather": ("c10d::allgather_", "c10d::_allgather_base_",
                    "c10d::allgather_into_tensor_coalesced_"),
+    "reduce_scatter": ("c10d::_reduce_scatter_base_", "c10d::reduce_scatter_",
+                       "c10d::reduce_scatter_tensor_coalesced_"),
 }
 # the ops a dispatch mode sees: EPMesh.all_to_all's functional collective
 # runs c10d::alltoall_base_ below the mode (none on meta tensors), which a
@@ -233,6 +235,8 @@ def _step_mode(tracker: _StorageTracker, totals: CostTotals, coll: list):
                 moved = outs or ins
                 if name.startswith("c10d::alltoall") or "allgather" in name:
                     moved = ins[:1]            # the output buffer comes first
+                elif name == "c10d::_reduce_scatter_base_":
+                    moved = ins[1:2]           # the input, after the output
                 coll.append((_KIND_OF[name], sum(map(_nbytes, moved))))
             elif not func.is_view and name.split("::")[-1] not in _NO_TRAFFIC:
                 held = {_storage_key(t) for t in ins}

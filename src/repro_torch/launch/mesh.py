@@ -24,7 +24,11 @@ Training runs on the reference's other mesh, ``("data", "model")`` or
 ``("pod", "data", "model")`` (:class:`TrainMesh`, from
 :func:`make_local_mesh` or :func:`make_production_mesh`): the batch
 shards over ``pod x data`` (:func:`batch_axes`), the routed experts over
-``model``, whose ranks exchange the MoE tokens with the two all-to-alls.
+``model``, whose ranks exchange the MoE tokens with the two all-to-alls;
+under tensor parallelism every param over ``model`` too, whose ranks
+all-gather, all-reduce and reduce-scatter (``models/tp.py`` wraps
+:class:`TrainMesh`'s collectives for autograd), and the AdamW moments over
+``data``.
 
 The backend is the caller's choice, never this module's:
 
@@ -293,7 +297,9 @@ class TrainMesh:
     model_i``: ``pod`` outermost, ``model`` innermost.  ``groups`` holds
     this rank's process group of ``model`` (same pod and data) and of
     ``batch`` (same model index: the ``pod x data`` ranks the batch shards
-    over) where that group has more than one rank.  Unlike
+    over) where that group has more than one rank, and with ``pod`` of
+    ``data`` (same pod and model index: the ranks ZeRO cuts the moments
+    over).  Unlike
     :class:`HierMesh`, axes of size 1 stay (the reference's
     ``make_local_mesh`` keeps them): ``axis_names``, ``shape`` and
     :meth:`rank_in` mirror its mesh.  With a one-rank world there are no
@@ -363,6 +369,35 @@ class TrainMesh:
         g = _all_gather(t.movedim(dim, 0), self.model, self.groups["model"])
         return g.movedim(0, dim)
 
+    def model_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max of ``t`` over the ``model`` group (``t`` itself
+        at 1)."""
+        if self.model == 1:
+            return t
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.groups["model"])
+        return out
+
+    def model_reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's 1 / model slice along ``dim`` of the sum of ``t`` over
+        the ``model`` group (``t`` itself at 1): the reduce-scatter of the
+        all-reduce's bytes, what a sequence-sharded residual and the
+        gradient of a leaf gathered on use take."""
+        if self.model == 1:
+            return t
+        return _reduce_scatter(t.movedim(dim, 0), self.model,
+                               self.groups["model"]).movedim(0, dim)
+
+    def data_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ``data`` group's ``t`` (this rank's pod and model index)
+        concatenated along ``dim`` in data order: what a leaf whose AdamW
+        moments are cut over ``data`` (ZeRO) puts back together after its
+        update.  ``t`` itself at 1."""
+        if self.data == 1:
+            return t
+        group = self.groups["batch"] if self.pod is None else self.groups["data"]
+        return _all_gather(t.movedim(dim, 0), self.data, group).movedim(0, dim)
+
     def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of ``t`` over the ``pod x data`` ranks of this model index
         (``t`` itself with one batch shard)."""
@@ -391,6 +426,14 @@ def _all_gather(t: torch.Tensor, n: int, group) -> torch.Tensor:
     out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
                       device=t.device)
     dist.all_gather_into_tensor(out, t, group=group)
+    return out
+
+
+def _reduce_scatter(t: torch.Tensor, n: int, group) -> torch.Tensor:
+    t = t.contiguous()
+    out = torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, t, group=group)
     return out
 
 
@@ -575,6 +618,10 @@ def _train_mesh(pod: Optional[int], data: int, model: int, *,
         "batch": [[lane * model + m for lane in range(lanes)]
                   for m in range(model)],
     }
+    if pod is not None:
+        # the data ranks of one pod and model index: ZeRO's moment slices
+        layouts["data"] = [[(p * data + d) * model + m for d in range(data)]
+                           for p in range(pod) for m in range(model)]
     groups = {}
     for axis, members in layouts.items():
         for ranks in members:

@@ -25,7 +25,11 @@ keeps its rows over the batch axes (``pod x data``), and the ``dense``,
 ``loss_fn``, as in the reference, which runs the MoE block expert-parallel
 over ``model`` (each rank holds its ``E / model`` experts).  The gradients
 are reduced as :func:`reduce_grads` says, the clip sees the global norm,
-and AdamW runs on each rank.
+and AdamW runs on each rank.  :func:`lm_train_step` also takes the
+reference dry run's layout for the ``dense`` and ``moe`` families: params
+cut by their specs over ``model`` (tensor parallelism, with the
+``seq_shard`` / ``attn_shard`` hints) and the moments also over ``data``
+(ZeRO); ``train_lm`` keeps the reference ``train_lm``'s.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-moe-xl \\
       --smoke --device cpu --steps 5 --batch 4
@@ -89,7 +93,7 @@ def mesh_kwargs(cfg, mesh):
     return {"mesh": mesh, "batch_axes": mesh_lib.batch_axes(mesh)}
 
 
-def reduce_grads(grads, paths, mesh):
+def reduce_grads(grads, paths, mesh, *, tensor_parallel: bool = False):
     """The rank's gradients (in the order of ``paths``) reduced over a
     training mesh, one collective a leaf in f32:
 
@@ -100,10 +104,17 @@ def reduce_grads(grads, paths, mesh):
         then the mean over the batch group;
     (iii) every other leaf, the same on every ``model`` rank: the mean over
         the batch group, which leaves it bit-identical across ``model``.
+
+    ``tensor_parallel`` (the step of :mod:`repro_torch.models.tp`): the
+    backward has already summed over ``model`` every gradient a rank holds
+    a share of (a cut leaf's by its gather's reduce-scatter, a whole leaf
+    read for the rank's share of the work by an all-reduce), so every leaf
+    takes the mean over the batch group only.
     """
     out = list(grads)
     for i, path in enumerate(paths):
-        summed = mesh.shape["model"] > 1 and shard_lib.is_lm_token_local(path)
+        summed = mesh.shape["model"] > 1 and not tensor_parallel \
+            and shard_lib.is_lm_token_local(path)
         if summed or mesh.lanes > 1:
             g = out[i].to(torch.float32)
             if summed:
@@ -112,40 +123,81 @@ def reduce_grads(grads, paths, mesh):
     return out
 
 
-def reduce_square_sums(sq, paths, mesh):
-    """The per-leaf sums of squares that the global norm adds up: the
-    routed experts' summed over ``model`` (each rank holds a slice), the
-    replicated leaves' counted once."""
+def reduce_square_sums(sq, paths, mesh, cut=None):
+    """The per-leaf sums of squares that the global norm adds up: those of
+    the leaves cut over ``model`` (each rank holds a slice) summed over
+    ``model``, the whole leaves' counted once.  ``cut``: one flag a leaf
+    (default: the routed experts, ``train_lm``'s layout)."""
     sq = list(sq)
-    experts = [i for i, p in enumerate(paths) if shard_lib.is_lm_expert(p)]
-    if experts and mesh.shape["model"] > 1:
-        summed = mesh.model_sum(torch.stack([sq[i] for i in experts]))
-        for j, i in enumerate(experts):
+    if cut is None:
+        cut = [shard_lib.is_lm_expert(p) for p in paths]
+    held = [i for i, c in enumerate(cut) if c]
+    if held and mesh.shape["model"] > 1:
+        summed = mesh.model_sum(torch.stack([sq[i] for i in held]))
+        for j, i in enumerate(held):
             sq[i] = summed[j]
     return sq
 
 
-def loss_kwargs(cfg, mesh=None, remat_policy: str = "full"):
+def loss_kwargs(cfg, mesh=None, remat_policy: str = "full", *,
+                seq_shard: bool = False, attn_shard=None):
     """``loss_fn``'s keywords as the reference's dry run passes them:
-    :func:`mesh_kwargs`, and ``remat_policy`` for the ``dense`` and ``moe``
-    families (the other families recompute each layer whole and refuse
-    another policy)."""
+    :func:`mesh_kwargs`, and ``remat_policy`` and the layout hints
+    ``seq_shard`` / ``attn_shard`` for the ``dense`` and ``moe`` families
+    (the other families recompute each layer whole and refuse another
+    policy or a hint)."""
     kw = mesh_kwargs(cfg, mesh)
     if cfg.family in ("dense", "moe"):
         kw["remat_policy"] = remat_policy
-    elif remat_policy != "full":
-        raise ValueError(f"remat_policy {remat_policy!r}: only the dense and moe "
-                         f"families take a policy other than 'full'")
+        if seq_shard:
+            kw["seq_shard"] = True
+        if attn_shard:
+            kw["attn_shard"] = attn_shard
+    elif remat_policy != "full" or seq_shard or attn_shard:
+        raise ValueError(f"remat_policy {remat_policy!r}, seq_shard, attn_shard: "
+                         f"only the dense and moe families take another policy "
+                         f"or a layout hint")
     return kw
 
 
-def lm_grads(params, batch, cfg, *, mesh=None, remat_policy: str = "full"):
+def _tensor_parallel(params, cfg, mesh, kw):
+    """The cut dims of a tensor-parallel step (``models/dense.
+    tensor_parallel``), None for any other."""
+    if mesh is None or cfg.family not in ("dense", "moe"):
+        return None
+    from repro_torch.models import dense
+    return dense.tensor_parallel(params, cfg, mesh,
+                                 seq_shard=kw.get("seq_shard", False),
+                                 attn_shard=kw.get("attn_shard"))[1]
+
+
+def _held_cut(params, cfg, mesh):
+    """One flag a leaf (in leaf order): whether the rank holds it cut over
+    ``model``, where a leaf other than the routed experts is (the
+    reference's specs, dense and moe families); None where only the
+    experts are (``train_lm``'s layout, :func:`reduce_square_sums`'
+    default)."""
+    if cfg.family not in ("dense", "moe"):
+        return None
+    from repro_torch.models import dense
+    cuts = shard_lib.tree_items(dense.param_cuts(params, cfg, mesh))
+    if all(c is None or shard_lib.is_lm_expert(p) for p, c in cuts):
+        return None
+    return [c is not None for _, c in cuts]
+
+
+def lm_grads(params, batch, cfg, *, mesh=None, remat_policy: str = "full",
+             seq_shard: bool = False, attn_shard=None):
     """(loss, gradient tree) of the family's ``loss_fn`` on ``batch``; over
     a ``mesh`` ``batch`` holds the rank's rows, the gradients are reduced
     (:func:`reduce_grads`) and the loss is the batch group's mean.
-    ``remat_policy`` as :func:`loss_kwargs`."""
+    ``remat_policy``, ``seq_shard`` and ``attn_shard`` as
+    :func:`loss_kwargs`.  ``params`` hold the rank's slices: its experts
+    (``train_lm``), or every leaf cut by its spec
+    (``sharding.shard_lm_params``), which runs the step tensor-parallel."""
     api = get_model(cfg)
-    kw = loss_kwargs(cfg, mesh, remat_policy)
+    kw = loss_kwargs(cfg, mesh, remat_policy, seq_shard=seq_shard,
+                     attn_shard=attn_shard)
     rng = torch.profiler.record_function   # named ranges for profile_train
     with torch.enable_grad():
         # leaves that require grad, sharing the params' storage; the
@@ -163,35 +215,54 @@ def lm_grads(params, batch, cfg, *, mesh=None, remat_policy: str = "full"):
     if mesh is not None:
         with rng("lm_train_step.reduce"):
             grads = reduce_grads(grads, [p for p, _ in flatten(params)[0]],
-                                 mesh)
+                                 mesh, tensor_parallel=_tensor_parallel(
+                                     params, cfg, mesh, kw) is not None)
             loss = mesh.batch_mean(loss)
     return loss, unflatten(params, grads)
 
 
+def clip_lm_grads(grads, params, cfg, mesh=None):
+    """(``grads`` clipped to global norm 1.0, the norm): over a ``mesh`` the
+    norm of the whole tree (:func:`reduce_square_sums` adds the other
+    ranks' squares of the leaves the rank holds cut over ``model``),
+    taken before any ZeRO cut.  Rebind the caller's tree to the result
+    (``grads, gnorm = clip_lm_grads(grads, ...)``): the unclipped tree is
+    then freed before AdamW, which holds its own temporaries."""
+    reduce = None
+    if mesh is not None:
+        paths = [p for p, _ in flatten(params)[0]]
+        cut = _held_cut(params, cfg, mesh)
+        reduce = (lambda sq: reduce_square_sums(sq, paths, mesh)) if cut is None \
+            else (lambda sq: reduce_square_sums(sq, paths, mesh, cut))
+    return clip_by_global_norm(grads, 1.0, reduce=reduce)
+
+
 def lm_train_step(params, opt_state, batch, cfg, *, total: int, mesh=None,
-                  remat_policy: str = "full"):
+                  remat_policy: str = "full", seq_shard: bool = False,
+                  attn_shard=None):
     """One step of the reference's ``train_lm``: the gradients of the
     family's ``loss_fn`` on ``batch`` (tokens, labels), clipped to global
     norm 1.0, and AdamW at ``cosine_schedule(step, base_lr=3e-4,
     warmup=20, total=total)``.  ``params`` and the moments are updated in
     place; the metrics (``loss``, ``grad_norm``, ``lr``) stay 0-d device
     tensors.  Over a training ``mesh`` ``batch`` is the rank's rows and
-    ``params`` hold the rank's experts: the gradients are reduced
-    (:func:`lm_grads`) and the norm is the global one
-    (:func:`reduce_square_sums`).  ``remat_policy`` (:func:`loss_kwargs`)
-    chooses what the backward recomputes; the values are the same.
-    Returns (params, opt_state, metrics)."""
+    ``params`` hold the rank's slices (its experts, or every leaf by the
+    reference's specs: tensor parallelism, the moments then optionally cut
+    over ``data`` too, each rank updating its slice): the gradients are
+    reduced (:func:`lm_grads`) and the norm is the global one
+    (:func:`clip_lm_grads`).
+    ``remat_policy`` chooses what the backward recomputes (the values are
+    the same); ``seq_shard`` and ``attn_shard`` the tensor-parallel layout
+    (:func:`loss_kwargs`).  Returns (params, opt_state, metrics)."""
     loss, grads = lm_grads(params, batch, cfg, mesh=mesh,
-                           remat_policy=remat_policy)
+                           remat_policy=remat_policy, seq_shard=seq_shard,
+                           attn_shard=attn_shard)
     with torch.profiler.record_function("lm_train_step.optimizer"):
-        reduce = None
-        if mesh is not None:
-            paths = [p for p, _ in flatten(params)[0]]
-            reduce = lambda sq: reduce_square_sums(sq, paths, mesh)  # noqa: E731
-        grads, gnorm = clip_by_global_norm(grads, 1.0, reduce=reduce)
+        grads, gnorm = clip_lm_grads(grads, params, cfg, mesh)
         lr = cosine_schedule(opt_state.step, base_lr=3e-4, warmup=20,
                              total=total)
-        params, opt_state = adamw_update(grads, opt_state, params, lr=lr)
+        params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
+                                         mesh=mesh)
     return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
 

@@ -32,35 +32,34 @@ through the load-balance loss's probabilities.  The KV cache's
 its k and v into the cache tensors in place.
 
 ``mesh`` (a :class:`~repro_torch.launch.mesh.TrainMesh` with a ``model``
-axis) and ``batch_axes`` reach the MoE block, the only place the
-reference's mesh changes a number: each rank holds its batch rows (its
-``batch_axes`` shard) and its ``E / model`` experts, and the block runs
+axis) and ``batch_axes`` reach the MoE block: each rank holds its batch rows
+(its ``batch_axes`` shard) and its ``E / model`` experts, and the block runs
 expert-parallel over the ``model`` group (:func:`_moe_block`).  A mesh
 without a ``model`` axis runs the one-device path, as in the reference.
-``seq_shard`` and ``attn_shard`` are layout hints that only the reference's
-dry run passes; they need the dense weights placed over ``model`` (ROADMAP.md
-A) and raise.  ``remat_policy`` (``"full"``, ``"dots"``, ``"save_ffn"``:
-:func:`check_remat_policy`) chooses what the backward recomputes.
+Where the rank's params are cut by the reference dry run's specs
+(``common/sharding.shard_lm_params``), or the layout hints ``seq_shard`` /
+``attn_shard`` are given over a ``model`` axis, the teacher-forced forward
+runs tensor-parallel (:func:`tensor_parallel`, :mod:`repro_torch.models.tp`):
+each leaf is used as its spec cuts it, the embedding and the cross-entropy
+vocab-parallel where ``embed`` / ``unembed`` are cut by vocabulary, the
+residual stream's ``S / model`` rows a rank under ``seq_shard``.  Prefill
+and decode keep the experts-only layout.  ``remat_policy`` (``"full"``,
+``"dots"``, ``"save_ffn"``: :func:`check_remat_policy`) chooses what the
+backward recomputes.
 """
 from __future__ import annotations
 
 import math
-from functools import partial
+from functools import lru_cache, partial
 from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.common import sharding as shard_lib
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import layers as L
-
-
-def _refuse_mesh(seq_shard: bool = False, attn_shard=None) -> None:
-    if seq_shard or attn_shard:
-        raise NotImplementedError(
-            "models.dense: seq_shard and attn_shard are layout hints of the "
-            "reference's dry run (sequence-sharded residuals, head-sharded "
-            "attention); they need the dense weights placed over 'model', "
-            "not ported yet (ROADMAP.md A, the next bring-up slice)")
+from repro_torch.models.tp import (TP, _BatchGather, _BatchMean, _ModelGather,
+                                   _ModelSlice, _Share)
 
 
 # ---------------------------------------------------------------------------
@@ -121,88 +120,9 @@ def init_lm(cfg, *, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 # one transformer layer
 # ---------------------------------------------------------------------------
-class _ModelSlice(torch.autograd.Function):
-    """This rank's 1 / model slice of ``x`` along ``dim`` (``x`` the same on
-    every ``model`` rank); the backward all-gathers the slices' cotangents
-    over ``model``, so what produced ``x`` gets the whole cotangent, the
-    same on every rank."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, dim):
-        ctx.mesh, ctx.dim = mesh, dim
-        k = x.shape[dim] // mesh.model
-        return x.narrow(dim, mesh.rank_in("model") * k, k).clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.mesh.model_gather(g, ctx.dim), None, None
-
-
-class _ModelGather(torch.autograd.Function):
-    """The ``model`` group's slices concatenated along ``dim``; the backward
-    keeps this rank's slice of the cotangent (the same on every rank: all
-    that reads the result is replicated)."""
-
-    @staticmethod
-    def forward(ctx, y, mesh, dim):
-        ctx.mesh, ctx.dim = mesh, dim
-        return mesh.model_gather(y, dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        k = g.shape[ctx.dim] // ctx.mesh.model
-        return g.narrow(ctx.dim, ctx.mesh.rank_in("model") * k, k), None, None
-
-
-class _BatchGather(torch.autograd.Function):
-    """Every batch shard's rows in lane order: the global batch, the same on
-    every rank.  The backward sums the cotangents over the batch group and
-    keeps this rank's rows: each rank's loss is its share of the one whose
-    gradients the trainer averages over that group."""
-
-    @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return mesh.batch_gather(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        k = g.shape[0] // ctx.mesh.lanes
-        return ctx.mesh.batch_sum(g).narrow(0, ctx.mesh.lane * k, k), None
-
-
-class _BatchMean(torch.autograd.Function):
-    """The mean over the batch group (the ``pod x data`` ranks); its
-    backward is the batch group's mean of the cotangent, since the trainer
-    averages the gradients over that group."""
-
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return mesh.batch_mean(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.mesh.batch_mean(g), None
-
-
-class _Share(torch.autograd.Function):
-    """The identity, whose backward is 1 / n of the cotangent: a leaf that
-    every ``model`` rank applies to the same tokens holds a 1 / n share of
-    its gradient, which the trainer's sum over ``model`` adds up."""
-
-    @staticmethod
-    def forward(ctx, t, n):
-        ctx.n = n
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None
-
-
 def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None, *,
-               batch_axes=("data",), capacity_floor: int = 8):
+               batch_axes=("data",), capacity_floor: int = 8, tp=None,
+               cut=None):
     """MoE FFN on (B, S, d); returns (y, load-balance loss).
 
     Without a mesh with a ``model`` axis: the reference's single-device
@@ -230,7 +150,15 @@ def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None, *,
     the gather's keeps the rank's own, so everything outside the block gets
     the whole cotangent on every ``model`` rank; the router and shared
     experts get the rank's share of theirs (the trainer sums them over
-    ``model``), the experts theirs from every rank's tokens."""
+    ``model``), the experts theirs from every rank's tokens.
+
+    Under tensor parallelism (``tp``, ``cut``: :mod:`repro_torch.models.tp`)
+    only the first branch runs (``S % model`` must be 0): under
+    ``seq_shard`` ``x`` already holds the rank's ``S / model`` rows, which
+    the block takes as they are and returns as they are; the router and
+    shared experts are read through :meth:`TP.use` (gathered on use where
+    their spec cuts them), whose backward sums their gradients over
+    ``model``."""
     B, S, d = x.shape
     if mesh is None or "model" not in getattr(mesh, "axis_names", ()):
         y, aux = moe_lib.moe_forward(p_moe, x.reshape(B * S, d), cfg)
@@ -239,7 +167,17 @@ def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None, *,
     if tuple(batch_axes) != tuple(a for a in ("pod", "data") if a in mesh.axis_names):
         raise ValueError(f"batch_axes {tuple(batch_axes)}: the port's batch group is "
                          f"the mesh's batch axes, launch.mesh.batch_axes(mesh)")
-    if S % ep == 0:
+    split = tp is not None and tp.seq
+    if tp is not None:
+        if (S * ep if split else S) % ep:
+            raise NotImplementedError(
+                f"tensor parallelism: the MoE block splits the sequence over "
+                f"'model'; S={S} does not divide over {ep} ranks")
+        p_moe = {k: v if k.startswith("experts_") else tp.use(v, cut[k], local=True)
+                 for k, v in p_moe.items()}
+    if split:
+        dim, t_local, over_batch = 1, B * S, True
+    elif S % ep == 0:
         dim, t_local, over_batch = 1, B * (S // ep), True
     else:
         x = x if mesh.lanes == 1 else _BatchGather.apply(x, mesh)
@@ -249,7 +187,7 @@ def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None, *,
         dim, t_local, over_batch = 0, (x.shape[0] // ep) * S, False
     capacity = moe_lib.default_capacity(t_local, cfg, floor=capacity_floor)
     group = mesh.ep_mesh
-    xl = x if group is None else _ModelSlice.apply(x, mesh, dim)
+    xl = x if group is None or split else _ModelSlice.apply(x, mesh, dim)
     b, s, _ = xl.shape
     y, aux = moe_lib.moe_forward(p_moe, xl.reshape(b * s, d), cfg,
                                  capacity=capacity, mesh=group)
@@ -259,7 +197,7 @@ def _moe_block(p_moe, x: torch.Tensor, cfg, mesh=None, *,
     if over_batch and mesh.lanes > 1:
         lb = _BatchMean.apply(lb, mesh)
     y = y.reshape(b, s, d)
-    y = y if group is None else _ModelGather.apply(y, mesh, dim)
+    y = y if group is None or split else _ModelGather.apply(y, mesh, dim)
     return _own_rows(y, mesh, B), lb
 
 
@@ -283,69 +221,83 @@ def _moe_replicated(p_moe, x: torch.Tensor, cfg, mesh):
 
 
 def _ffn(p, h: torch.Tensor, cfg, mesh=None, batch_axes=("data",),
-         capacity_floor: int = 8):
+         capacity_floor: int = 8, tp=None, cut=None):
     if cfg.is_moe:
         return _moe_block(p["moe"], h, cfg, mesh, batch_axes=batch_axes,
-                          capacity_floor=capacity_floor)
-    return (L.mlp_apply(p["mlp"], h, act=cfg.act),
+                          capacity_floor=capacity_floor, tp=tp,
+                          cut=None if cut is None else cut["moe"])
+    return (L.mlp_apply(p["mlp"], h, act=cfg.act, tp=tp,
+                        cut=None if cut is None else cut["mlp"]),
             torch.zeros((), dtype=torch.float32, device=h.device))
+
+
+def _norm(p, cut, name: str, tp):
+    """The norm ``name``'s params for the residual stream (:meth:`TP.norm`
+    under tensor parallelism)."""
+    return p[name] if tp is None else tp.norm(p[name], cut[name])
 
 
 def _attn_part(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
                window: Optional[int], kv_cache=None, cache_pos=None,
-               kv_valid_len=None):
+               kv_valid_len=None, tp=None, cut=None):
     """(attention output, (k, v)) of :func:`_layer`'s first half: the
     pre-norm and attention, with gemma2's post-norm when the config has
-    it."""
-    h = L.rmsnorm(p["ln1"], x, eps=cfg.norm_eps)
+    it.  ``tp``, ``cut``: tensor parallelism (:mod:`repro_torch.models.tp`;
+    the rank's leaves, their cut dims), which returns no (k, v)."""
+    h = L.rmsnorm(_norm(p, cut, "ln1", tp), x, eps=cfg.norm_eps)
     attn_out, new_kv = L.attn_apply(
         p["attn"], h, positions, cfg, kv_cache=kv_cache, cache_pos=cache_pos,
-        window=window, kv_valid_len=kv_valid_len)
+        window=window, kv_valid_len=kv_valid_len, tp=tp,
+        cut=None if cut is None else cut["attn"])
     if cfg.post_norm:
-        attn_out = L.rmsnorm(p["ln1_post"], attn_out, eps=cfg.norm_eps)
+        attn_out = L.rmsnorm(_norm(p, cut, "ln1_post", tp), attn_out,
+                             eps=cfg.norm_eps)
     return attn_out, new_kv
 
 
 def _ffn_part(p, x: torch.Tensor, attn_out: torch.Tensor, *, cfg, mesh=None,
-              batch_axes=("data",)):
+              batch_axes=("data",), tp=None, cut=None):
     """(x, lb) of :func:`_layer`'s second half: the residual add and norm,
     the MLP or MoE, gemma2's post-norm, the residual add."""
-    x, h = L.add_rmsnorm(x, attn_out, p["ln2"], eps=cfg.norm_eps)
-    ffn, lb = _ffn(p, h, cfg, mesh, batch_axes)
+    x, h = L.add_rmsnorm(x, attn_out, _norm(p, cut, "ln2", tp), eps=cfg.norm_eps)
+    ffn, lb = _ffn(p, h, cfg, mesh, batch_axes, tp=tp, cut=cut)
     if cfg.post_norm:
-        ffn = L.rmsnorm(p["ln2_post"], ffn, eps=cfg.norm_eps)
+        ffn = L.rmsnorm(_norm(p, cut, "ln2_post", tp), ffn, eps=cfg.norm_eps)
     return x + ffn, lb
 
 
 def _layer(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
            window: Optional[int], kv_cache=None, cache_pos=None,
-           kv_valid_len=None, mesh=None, batch_axes=("data",)):
+           kv_valid_len=None, mesh=None, batch_axes=("data",), tp=None,
+           cut=None):
     """(x, (k, v), lb) of one pre-norm block: attention, then the MLP or
     MoE, each with gemma2's post-norm when the config has it."""
     attn_out, new_kv = _attn_part(p, x, positions, cfg, window=window,
                                   kv_cache=kv_cache, cache_pos=cache_pos,
-                                  kv_valid_len=kv_valid_len)
-    x, lb = _ffn_part(p, x, attn_out, cfg=cfg, mesh=mesh, batch_axes=batch_axes)
+                                  kv_valid_len=kv_valid_len, tp=tp, cut=cut)
+    x, lb = _ffn_part(p, x, attn_out, cfg=cfg, mesh=mesh, batch_axes=batch_axes,
+                      tp=tp, cut=cut)
     return x, new_kv, lb
 
 
 def _train_layer(p, x: torch.Tensor, *, positions: torch.Tensor, cfg,
-                 window: Optional[int], mesh=None, batch_axes=("data",)):
+                 window: Optional[int], mesh=None, batch_axes=("data",),
+                 tp=None, cut=None):
     """(x, lb) of :func:`_layer` without a cache: the unit the teacher-
     forced forward recomputes in the backward (over a mesh the recompute
-    runs the MoE block's collectives again, in the same order on every
-    rank)."""
+    runs the MoE block's and tensor parallelism's collectives again, in
+    the same order on every rank)."""
     x, _, lb = _layer(p, x, positions, cfg, window=window, mesh=mesh,
-                      batch_axes=batch_axes)
+                      batch_axes=batch_axes, tp=tp, cut=cut)
     return x, lb
 
 
 def _saved_attn(p, x: torch.Tensor, *, positions: torch.Tensor, cfg,
-                window: Optional[int]) -> torch.Tensor:
+                window: Optional[int], tp=None, cut=None) -> torch.Tensor:
     """The first of a ``"save_ffn"`` layer's two recomputed regions: the
     attention output, which the second region's checkpoint keeps as its
     input."""
-    return _attn_part(p, x, positions, cfg, window=window)[0]
+    return _attn_part(p, x, positions, cfg, window=window, tp=tp, cut=cut)[0]
 
 
 REMAT_POLICIES = ("full", "dots", "save_ffn")
@@ -366,8 +318,22 @@ def check_remat_policy(remat_policy: str) -> None:
                          f"{REMAT_POLICIES})")
 
 
-def _embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = params["embed"][tokens.long()]
+def _embed(params, tokens: torch.Tensor, cfg, tp=None, cut=None) -> torch.Tensor:
+    """The embedded tokens, times gemma2's scale.  ``tp``: in the residual
+    stream's layout; an ``embed`` cut over ``model`` by vocabulary gives
+    each rank its rows' embeddings (zero for the other ranks' tokens),
+    summed over ``model`` (exact: one term is not zero)."""
+    e = params["embed"]
+    if tp is not None and cut["embed"] == 0:
+        V = e.shape[0]
+        t = tokens.long() - tp.r * V
+        x = e[t.clamp(0, V - 1)]
+        x = tp.exit_partial(torch.where(((t >= 0) & (t < V))[..., None], x,
+                                        torch.zeros_like(x)))
+    elif tp is not None:
+        x = tp.to_rows(tp.use(e, cut["embed"], local=False)[tokens.long()])
+    else:
+        x = e[tokens.long()]
     if cfg.embed_scale:
         # the reference multiplies by sqrt(d) cast to x's dtype first: in
         # bf16 the rounded scale gives other products than the exact one
@@ -376,13 +342,30 @@ def _embed(params, tokens: torch.Tensor, cfg) -> torch.Tensor:
     return x
 
 
-def _unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    w = params.get("unembed", params["embed"])
-    logits = x @ w.T
+def _softcap(logits: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)     # in the logits' dtype
     return logits
+
+
+def _unembed(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    w = params.get("unembed", params["embed"])
+    return _softcap(x @ w.T, cfg)
+
+
+def _unembed_tp(params, x: torch.Tensor, cfg, tp, cut):
+    """(logits, whether they are the rank's vocabulary slice) of the
+    residual stream's ``x`` under tensor parallelism: an unembedding cut
+    by vocabulary gives each rank its ``V / model`` columns over every
+    row, else the whole unembedding (gathered on use) gives every rank all
+    of them."""
+    key = "unembed" if "unembed" in params else "embed"
+    w, c = params[key], cut[key]
+    if c == 0:
+        return _softcap(tp.enter(x) @ w.T, cfg), True
+    x = _ModelGather.apply(x, tp.mesh, 1) if tp.seq else x
+    return _softcap(x @ tp.use(w, c, local=False).T, cfg), False
 
 
 def _positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
@@ -390,58 +373,154 @@ def _positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism: which leaves the rank holds cut
+# ---------------------------------------------------------------------------
+class _Shape:
+    """A leaf's shape alone (``held_cuts`` and ``param_spec`` read it)."""
+
+    def __init__(self, t):
+        self.shape = tuple(t.shape)
+
+
+@lru_cache(maxsize=32)
+def _whole_cuts(cfg, axis_names, shape):
+    """(the whole params' shapes, their cut dims) on a mesh of ``shape``:
+    shapes only, so the cache holds no tensor (the dry run counts every
+    storage a step makes, ``meta`` ones included)."""
+    class _Mesh:                           # param_spec reads these two only
+        pass
+    m = _Mesh()
+    m.axis_names, m.shape = axis_names, dict(shape)
+    whole = shard_lib.tree_map_leaves(_Shape, init_lm(cfg, generator=None))
+    return whole, shard_lib.lm_param_cuts(whole, m)
+
+
+def param_cuts(params, cfg, mesh):
+    """The tree of ``params`` with each leaf replaced by the dim its
+    ``param_spec`` cuts over ``model`` where this rank holds it cut
+    (:func:`~repro_torch.common.sharding.shard_lm_params`), None where it
+    holds the whole leaf (the routed experts are cut as ``train_lm`` cuts
+    them)."""
+    whole, cuts = _whole_cuts(cfg, tuple(mesh.axis_names),
+                              tuple(sorted(mesh.shape.items())))
+    return shard_lib.held_cuts(params, whole, cuts)
+
+
+def tensor_parallel(params, cfg, mesh, *, seq_shard: bool = False,
+                    attn_shard=None):
+    """(:class:`~repro_torch.models.tp.TP`, cut dims) when the step runs
+    tensor-parallel: a mesh whose ``model`` axis has more than one rank,
+    and a leaf other than the routed experts held cut (the reference's
+    ``tree_param_specs`` layout) or a layout hint given.  (None, None)
+    otherwise: the hints change nothing without a ``model`` axis, as the
+    reference's constraints do nothing without a mesh."""
+    if mesh is None or "model" not in getattr(mesh, "axis_names", ()) \
+            or mesh.shape["model"] == 1:
+        return None, None
+    cuts = param_cuts(params, cfg, mesh)
+    dense_cut = any(c is not None for path, c in shard_lib.tree_items(cuts)
+                    if not shard_lib.is_lm_expert(path))
+    if not (dense_cut or seq_shard or attn_shard):
+        return None, None
+    return TP(mesh, seq_shard=seq_shard, attn_shard=attn_shard), cuts
+
+
+def _layer_cuts(cuts):
+    """A stacked leaf's cut dim as its per-layer leaf's (one less)."""
+    if isinstance(cuts, dict):
+        return {k: _layer_cuts(v) for k, v in cuts.items()}
+    if cuts == 0:
+        raise NotImplementedError("tensor parallelism: a spec on the layer "
+                                  "axis of a stacked leaf (no config has one)")
+    return None if cuts is None else cuts - 1
+
+
+# ---------------------------------------------------------------------------
 # full teacher-forced forward
 # ---------------------------------------------------------------------------
-def forward_hidden(params, tokens: torch.Tensor, cfg, *,
-                   long_context: bool = False, mesh=None,
-                   batch_axes=("data",), seq_shard: bool = False,
-                   attn_shard=None, remat: bool = True,
-                   remat_policy: str = "full"):
-    """tokens (B, S) -> (final-normed hidden states (B, S, d), summed
-    load-balance loss): :func:`forward` before the unembedding, so a caller
-    can unembed only the positions it reads.  ``remat`` (the reference's
-    default): with grad enabled each layer is recomputed in the backward
-    (:func:`layers.remat`), the same values with less memory;
-    ``remat_policy`` as :func:`check_remat_policy`.  ``mesh`` and
-    ``batch_axes`` reach the MoE block (:func:`_moe_block`); ``seq_shard``
-    and ``attn_shard`` raise."""
-    _refuse_mesh(seq_shard, attn_shard)
+def _hidden(params, tokens: torch.Tensor, cfg, *, long_context: bool = False,
+            mesh=None, batch_axes=("data",), seq_shard: bool = False,
+            attn_shard=None, remat: bool = True, remat_policy: str = "full"):
+    """(final-normed hidden states in the residual stream's layout, summed
+    load-balance loss, :class:`TP` or None, the cut dims or None)."""
     check_remat_policy(remat_policy)
+    tp, cuts = tensor_parallel(params, cfg, mesh, seq_shard=seq_shard,
+                               attn_shard=attn_shard)
     B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
+    if tp is not None and tp.seq and S % tp.n:
+        raise ValueError(f"seq_shard: the sequence {S} does not divide over "
+                         f"{tp.n} 'model' ranks")
+    x = _embed(params, tokens, cfg, tp, cuts)
     positions = _positions(B, S, x.device)
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = L.unstack_layers(params["layers"], cfg.num_layers)
+    kw = dict(tp=tp, cut=None if cuts is None else _layer_cuts(cuts["layers"]))
     for p, win in zip(layers, layer_windows(cfg, long_context=long_context)):
         if remat_policy == "save_ffn":
             a = L.remat(partial(_saved_attn, positions=positions, cfg=cfg,
-                                window=win), p, x, enabled=remat)
+                                window=win, **kw), p, x, enabled=remat)
             x, lb_l = L.remat(partial(_ffn_part, cfg=cfg, mesh=mesh,
-                                      batch_axes=batch_axes), p, x, a,
+                                      batch_axes=batch_axes, **kw), p, x, a,
                               enabled=remat, save=L.SAVE_EXCHANGE)
         else:
             x, lb_l = L.remat(partial(_train_layer, positions=positions,
                                       cfg=cfg, window=win, mesh=mesh,
-                                      batch_axes=batch_axes), p, x,
+                                      batch_axes=batch_axes, **kw), p, x,
                               enabled=remat,
                               save=L.SAVE_DOTS if remat_policy == "dots" else None)
         lb = lb + lb_l
-    return L.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), lb
+    x = L.rmsnorm(_norm(params, cuts, "final_norm", tp), x, eps=cfg.norm_eps)
+    return x, lb, tp, cuts
+
+
+def forward_hidden(params, tokens: torch.Tensor, cfg, **kw):
+    """tokens (B, S) -> (final-normed hidden states (B, S, d), summed
+    load-balance loss): :func:`forward` before the unembedding, so a caller
+    can unembed only the positions it reads.
+
+    Keywords: ``remat`` (the reference's default): with grad enabled each
+    layer is recomputed in the backward (:func:`layers.remat`), the same
+    values with less memory; ``remat_policy`` as
+    :func:`check_remat_policy`.  ``mesh`` and ``batch_axes`` reach the MoE
+    block (:func:`_moe_block`).  With ``params`` cut by the reference's
+    specs (:func:`~repro_torch.common.sharding.shard_lm_params`) over a
+    mesh's ``model`` axis, or with the layout hints, the forward runs
+    tensor-parallel (:mod:`repro_torch.models.tp`): ``seq_shard`` keeps the
+    residual stream's ``S / model`` rows on each rank between layers (the
+    reference's ``constrain``; gathered back here), ``attn_shard``
+    (``"heads"`` / ``"seq"``) chooses the attention's layout
+    (:func:`layers._attn_tp`)."""
+    x, lb, tp, _ = _hidden(params, tokens, cfg, **kw)
+    if tp is not None and tp.seq:
+        x = _ModelGather.apply(x, tp.mesh, 1)
+    return x, lb
 
 
 def forward(params, tokens: torch.Tensor, cfg, **kw):
     """tokens (B, S) -> (logits (B, S, V), summed load-balance loss).
     Keywords as :func:`forward_hidden`."""
-    x, lb = forward_hidden(params, tokens, cfg, **kw)
-    return _unembed(params, x, cfg), lb
+    x, lb, tp, cuts = _hidden(params, tokens, cfg, **kw)
+    if tp is None:
+        return _unembed(params, x, cfg), lb
+    logits, sliced = _unembed_tp(params, x, cfg, tp, cuts)
+    return (_ModelGather.apply(logits, tp.mesh, 2) if sliced else logits), lb
 
 
 def loss_fn(params, batch, cfg, *, lb_weight: float = 0.01, **fwd_kw):
     """(cross-entropy + ``lb_weight`` x the load-balance loss, metrics) of
     the teacher-forced forward; keywords as :func:`forward_hidden`.  Its
-    backward runs the flash and expert backward kernels on the card."""
-    logits, lb = forward(params, batch["tokens"], cfg, **fwd_kw)
-    ce = L.softmax_cross_entropy(logits, batch["labels"])
+    backward runs the flash and expert backward kernels on the card.
+    Under tensor parallelism with the unembedding cut by vocabulary the
+    cross-entropy is the vocab-parallel one
+    (:func:`layers.vocab_parallel_cross_entropy`), the same on every
+    ``model`` rank."""
+    x, lb, tp, cuts = _hidden(params, batch["tokens"], cfg, **fwd_kw)
+    if tp is None:
+        ce = L.softmax_cross_entropy(_unembed(params, x, cfg), batch["labels"])
+    else:
+        logits, sliced = _unembed_tp(params, x, cfg, tp, cuts)
+        ce = L.vocab_parallel_cross_entropy(logits, batch["labels"], tp.mesh) \
+            if sliced else L.softmax_cross_entropy(logits, batch["labels"])
     return ce + lb_weight * lb, {"ce": ce, "lb": lb}
 
 

@@ -1,6 +1,8 @@
 """Shared layers of the port's models (port of ``repro.models.layers``):
 init helpers, RMS norm, RoPE, grouped-query attention with the KV-cache
-masks, the attention block, the gated MLP and the f32 cross-entropy.
+masks, the attention block, the gated MLP and the f32 cross-entropy; the
+attention block and the MLP also under tensor parallelism
+(:mod:`repro_torch.models.tp`), and the vocab-parallel cross-entropy.
 Params are plain dicts of tensors in the JAX package's layout: a
 projection weight is (in, out) and applies as ``x @ w``.
 """
@@ -15,6 +17,7 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import act_fn
+from repro_torch.models.tp import _ModelReduce
 
 
 def init_device(gen: Optional[torch.Generator]) -> torch.device:
@@ -212,13 +215,24 @@ def attn_init(gen: torch.Generator, d_model: int, num_heads: int,
 def attn_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
                kv_cache=None, cache_pos: Optional[int] = None,
                window: Optional[int] = None, kv_valid_len=None,
-               causal: bool = True):
+               causal: bool = True, tp=None, cut=None):
     """Self-attention block: projections, qk-norm, RoPE on q and k,
     attention, output projection.  Returns (out, (k, v)): this call's k and
     v (post-RoPE), or with ``kv_cache`` = (ck, cv) (B, Sc, KVH, Dh) the
     cache with them written at ``cache_pos`` (a host int), in place; the
     queries then sit at ``cache_pos`` on and attend over the whole cache,
-    ``kv_valid_len`` masking its unwritten tail."""
+    ``kv_valid_len`` masking its unwritten tail.
+
+    ``tp`` (a :class:`~repro_torch.models.tp.TP`; ``p`` the rank's leaves,
+    ``cut`` their cut dims): the block under tensor parallelism, without a
+    cache (:func:`_attn_tp`); returns (out in the residual stream's layout,
+    None)."""
+    if tp is not None:
+        if kv_cache is not None or kv_valid_len is not None:
+            raise ValueError("attn_apply: tensor parallelism trains; it takes "
+                             "no KV cache")
+        return _attn_tp(p, cut, x, positions, cfg, window=window,
+                        causal=causal, tp=tp), None
     B, S, _ = x.shape
     H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(B, S, H, Dh)
@@ -247,6 +261,124 @@ def attn_apply(p, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     return out.reshape(B, S, H * Dh) @ p["wo"], new_kv
 
 
+def _kv_for_heads(t: torch.Tensor, heads) -> torch.Tensor:
+    """The kv heads (dim 2 of (B, S, KVH, Dh)) that query heads read, one
+    per entry of ``heads``, as few as GQA allows: a run of kv heads each
+    read by the same number of consecutive query heads is narrowed to that
+    run (the flash kernel's GQA), anything else taken one per query head."""
+    run = sorted(set(heads))
+    g = len(heads) // len(run)
+    if run == list(range(run[0], run[0] + len(run))) \
+            and heads == [h for h in run for _ in range(g)]:
+        return t.narrow(2, run[0], len(run))
+    return t.index_select(2, torch.tensor(heads, device=t.device))
+
+
+def _attn_tp(p, cut, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+             window: Optional[int], causal: bool, tp) -> torch.Tensor:
+    """The attention block on this rank of a tensor-parallel step, in the
+    layout :meth:`TP.attn_layout` picks (the reference's ``attn_shard``):
+
+    * ``"heads"``: the rank's H / model query heads from its columns of
+      ``wq`` (its own slice where the spec cuts ``wq`` on its heads, else a
+      slice of ``wq`` gathered on use); k and v its KVH / model kv heads
+      where those divide, else every kv head computed and the ones its
+      query heads read kept (two ranks may share one; their dK and dV sum
+      over ``model`` in the backward); ``wo``'s rows of those heads; the
+      output is a partial sum, all-reduced (reduce-scattered under
+      ``seq_shard``);
+    * ``"seq"``: the rank's S / model query rows, at ``q_offset`` = their
+      first position, against every key; ``wq``, ``wk``, ``wv`` and ``wo``
+      gathered on use; the output is the rank's rows, gathered unless
+      ``seq_shard`` keeps them;
+    * ``"all"``: every head on every rank, the output's columns cut for
+      ``wo``'s rows, a partial sum as ``"heads"``.
+
+    ``x`` is the residual stream's normed rows (B, S or S / model, d);
+    ``positions`` (B, S) every row's."""
+    H, KVH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B = x.shape[0]
+    S = x.shape[1] * (tp.n if tp.seq else 1)
+    layout = tp.attn_layout(H, S)
+    xf = tp.enter(x)
+    full = partial(tp.use, local=True)
+
+    def project(w, rows, first, width):
+        # rows (B, s, d) times columns [first, first + width) of w (d, .)
+        return rows @ tp.part(p[w], cut[w], 1, first, width)
+
+    def normed(name, t):
+        if name not in p:
+            return t
+        return rmsnorm({"scale": full(p[name]["scale"], cut[name]["scale"])}, t)
+
+    if layout == "seq":
+        rows = S // tp.n
+        off = tp.seq_offset(S)
+        xq = x if tp.seq else xf.narrow(1, tp.r * rows, rows)
+        q = (xq @ full(p["wq"], cut["wq"])).reshape(B, rows, H, Dh)
+        k = (xf @ full(p["wk"], cut["wk"])).reshape(B, S, KVH, Dh)
+        v = (xf @ full(p["wv"], cut["wv"])).reshape(B, S, KVH, Dh)
+        q, k = normed("q_norm", q), normed("k_norm", k)
+        q = rope(q, positions.narrow(1, tp.r * rows, rows), theta=cfg.rope_theta)
+        k = rope(k, positions, theta=cfg.rope_theta)
+        out = attention(q, k, v, causal=causal, window=window,
+                        softcap=cfg.attn_logit_softcap, q_offset=off)
+        y = out.reshape(B, rows, H * Dh) @ full(p["wo"], cut["wo"])
+        return tp.exit_rows(y)
+
+    if layout == "heads":
+        hl = H // tp.n
+        first = tp.r * hl
+        q = project("wq", xf, first * Dh, hl * Dh).reshape(B, S, hl, Dh)
+        if KVH % tp.n == 0:
+            kl = KVH // tp.n
+            k = project("wk", xf, tp.r * kl * Dh, kl * Dh).reshape(B, S, kl, Dh)
+            v = project("wv", xf, tp.r * kl * Dh, kl * Dh).reshape(B, S, kl, Dh)
+        else:
+            heads = tp.kv_heads_for(first, hl, H // KVH)
+            k = _kv_for_heads((xf @ full(p["wk"], cut["wk"])).reshape(B, S, KVH, Dh), heads)
+            v = _kv_for_heads((xf @ full(p["wv"], cut["wv"])).reshape(B, S, KVH, Dh), heads)
+        cols = (first * Dh, hl * Dh)
+    else:
+        q = (xf @ full(p["wq"], cut["wq"])).reshape(B, S, H, Dh)
+        k = (xf @ full(p["wk"], cut["wk"])).reshape(B, S, KVH, Dh)
+        v = (xf @ full(p["wv"], cut["wv"])).reshape(B, S, KVH, Dh)
+        if (H * Dh) % tp.n:
+            raise ValueError(f"tensor parallelism: {H} x {Dh} attention "
+                             f"columns do not divide over {tp.n} 'model' ranks")
+        w = H * Dh // tp.n
+        cols = (tp.r * w, w)
+    q, k = normed("q_norm", q), normed("k_norm", k)
+    q = rope(q, positions, theta=cfg.rope_theta)
+    k = rope(k, positions, theta=cfg.rope_theta)
+    out = attention(q, k, v, causal=causal, window=window,
+                    softcap=cfg.attn_logit_softcap)
+    out = out.reshape(B, S, -1)
+    if layout == "all":
+        out = out.narrow(2, *cols)
+    return tp.exit_partial(out @ tp.part(p["wo"], cut["wo"], 0, *cols))
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 mesh) -> torch.Tensor:
+    """:func:`softmax_cross_entropy` of logits cut over ``model`` by
+    vocabulary (B, S, V / model: this rank's ``V / model`` consecutive
+    entries), in f32: the max, the sum of exponentials and the gold logit
+    are reduced over ``model``, so every rank returns the same mean (a
+    softcap is applied to the logits before)."""
+    lg = logits.to(torch.float32)
+    V = lg.shape[-1]
+    m = mesh.model_max(lg.detach().amax(dim=-1))
+    se = _ModelReduce.apply(torch.exp(lg - m[..., None]).sum(dim=-1), mesh)
+    lse = m + torch.log(se)
+    t = labels.long() - mesh.rank_in("model") * V
+    mine = (t >= 0) & (t < V)
+    gold = torch.gather(lg, -1, t.clamp(0, V - 1)[..., None])[..., 0]
+    gold = _ModelReduce.apply(torch.where(mine, gold, torch.zeros_like(gold)), mesh)
+    return (lse - gold).mean()
+
+
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
              dtype: torch.dtype = torch.bfloat16):
     return {
@@ -265,13 +397,31 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
-def mlp_apply(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, *, act: str = "silu", tp=None,
+              cut=None) -> torch.Tensor:
     """Gated MLP ``(act(x Wg) * (x Wu)) Wd``, plain matrix products (the
     JAX package leaves them to XLA); silu rounds as :func:`silu`, gelu is
-    the tanh form."""
+    the tanh form.
+
+    ``tp`` (``p`` the rank's leaves, ``cut`` their cut dims): each rank
+    computes the hidden columns of its ``d_ff / model`` slice (its own
+    ``w_gate`` / ``w_up`` columns and ``w_down`` rows where the spec cuts
+    them there, else slices of the leaves gathered on use), a partial sum
+    that leaves the block all-reduced (reduce-scattered under
+    ``seq_shard``)."""
     fn = silu if act == "silu" else act_fn(act)
-    h = fn(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    if tp is None:
+        h = fn(x @ p["w_gate"]) * (x @ p["w_up"])
+        return h @ p["w_down"]
+    f = tp.full_dim(p["w_gate"], cut["w_gate"], 1)
+    if f % tp.n:
+        raise ValueError(f"tensor parallelism: d_ff {f} does not divide over "
+                         f"{tp.n} 'model' ranks")
+    cols = (tp.r * (f // tp.n), f // tp.n)
+    xf = tp.enter(x)
+    h = fn(xf @ tp.part(p["w_gate"], cut["w_gate"], 1, *cols)) \
+        * (xf @ tp.part(p["w_up"], cut["w_up"], 1, *cols))
+    return tp.exit_partial(h @ tp.part(p["w_down"], cut["w_down"], 0, *cols))
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,

@@ -12,6 +12,12 @@ and the norm are 0-d tensors, and nothing here waits for the card.
 The moments and the params are updated in place (same arithmetic as the
 reference's new arrays); the functions still return the updated trees and
 state, so callers read like the reference's.
+
+ZeRO: where a moment is cut over a training mesh's ``data`` axis
+(``common/sharding.shard_lm_moments``, the reference's ``opt_state_spec``)
+the rank updates its slice of the param from its slice of the gradient and
+all-gathers the param over the data group.  AdamW is elementwise, so the
+param is bit for bit the one the whole moments give.
 """
 from __future__ import annotations
 
@@ -60,18 +66,38 @@ def cosine_schedule(step: torch.Tensor, *, base_lr: float = 3e-4,
     return base_lr * torch.where(step < warmup, warm, cos)
 
 
+def _zero_dim(m: torch.Tensor, p: torch.Tensor):
+    """The dim a moment is cut on over ``data`` (the first where its shape
+    differs from its param's), None where it is whole."""
+    for i, (a, b) in enumerate(zip(m.shape, p.shape)):
+        if a != b:
+            return i
+    return None
+
+
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.01):
+                 weight_decay: float = 0.01, mesh=None):
     """One AdamW step.  ``params``, ``state.mu`` and ``state.nu`` are
-    updated in place and returned with the new step."""
+    updated in place and returned with the new step.  A moment cut over
+    ``data`` (ZeRO) updates this rank's slice of its param, which is then
+    all-gathered over ``mesh``'s data group."""
     step = state.step + 1
     t = step.to(torch.float32)
     c1 = 1 - torch.pow(b1, t)
     c2 = 1 - torch.pow(b2, t)
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
                           tree_leaves(state.nu), tree_leaves(params)):
+        dim = _zero_dim(m, p)
+        whole = p
+        if dim is not None:
+            if mesh is None:
+                raise ValueError("adamw_update: moments cut over 'data' (ZeRO) "
+                                 "need the training mesh")
+            k = m.shape[dim]
+            g = g.narrow(dim, mesh.rank_in("data") * k, k)
+            p = p.narrow(dim, mesh.rank_in("data") * k, k)
         g32 = g.to(torch.float32)
         m.mul_(b1).add_((1 - b1) * g32)
         v.mul_(b2).add_((1 - b2) * torch.square(g32))
@@ -79,7 +105,11 @@ def adamw_update(grads, state: AdamWState, params, *, lr,
         vhat = v / c2
         delta = mhat / (torch.sqrt(vhat) + eps) \
             + weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
+        new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        if dim is None:
+            p.copy_(new)
+        else:
+            whole.copy_(mesh.data_gather(new, dim))
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 

@@ -964,8 +964,9 @@ def test_autograd_goes_through_the_backward_kernels(gen):
     with pytest.raises(NotImplementedError):       # the Pallas kernel's symmetric window
         o = ops.flash_attention(q, k, v, window=16)
         o.sum().backward()
-    with pytest.raises(NotImplementedError):       # KV-cache masks
-        o = ops.flash_attention(q, k, v, causal=True, q_offset=3)
+    with pytest.raises(NotImplementedError):       # ring-cache key positions
+        o = ops.flash_attention(q, k, v, causal=True, q_offset=3,
+                                k_pos=torch.arange(64, dtype=torch.int32, device="cuda"))
         o.sum().backward()
 
 

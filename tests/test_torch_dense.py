@@ -389,29 +389,26 @@ def _first_moe(p):
     return {k: v[0] for k, v in p["layers"]["moe"].items()}
 
 
-@pytest.mark.parametrize("call,raises", [
-    (lambda p, t, c, **kw: dense.forward(p, t, c, **kw), False),
-    (lambda p, t, c, **kw: dense.forward(p, t, c, seq_shard=True, **kw), True),
-    (lambda p, t, c, **kw: dense.forward(p, t, c, attn_shard="heads", **kw), True),
-    (lambda p, t, c, **kw: dense.prefill(p, t, c, **kw), False),
-    (lambda p, t, c, **kw: dense._moe_block(
+@pytest.mark.parametrize("call", [
+    lambda p, t, c, **kw: dense.forward(p, t, c, **kw),
+    lambda p, t, c, **kw: dense.forward(p, t, c, seq_shard=True, **kw),
+    lambda p, t, c, **kw: dense.forward(p, t, c, attn_shard="heads", **kw),
+    lambda p, t, c, **kw: dense.prefill(p, t, c, **kw),
+    lambda p, t, c, **kw: dense._moe_block(
         _first_moe(p), torch.linspace(-1, 1, 2 * c.d_model).view(1, 2, c.d_model), c,
-        kw.get("mesh")), False),
+        kw.get("mesh")),
 ], ids=["forward", "seq_shard", "attn_shard", "prefill", "moe_block"])
-def test_mesh_options_raise_and_name_roadmap(call, raises):
-    """``seq_shard`` and ``attn_shard``, the reference dry run's layout hints,
-    raise and name ROADMAP.  A ``mesh`` is ported (the training mesh,
+def test_mesh_options_raise_and_name_roadmap(call):
+    """A ``mesh`` is ported (the training mesh,
     ``tests/test_torch_train_mesh.py``): one without a ``model`` axis runs the
     one-device path, as the reference's ``_moe_block`` does, and gives the
-    mesh-less numbers bit for bit.  (The name is kept from when every mesh
-    option raised.)"""
+    mesh-less numbers bit for bit; so do ``seq_shard`` and ``attn_shard``,
+    the reference dry run's layout hints, which change nothing without a
+    ``model`` axis (tensor parallelism over one: ``tests/test_torch_tp.py``).
+    (The name is kept from when every mesh option raised.)"""
     cfg = get_smoke("qwen3-moe-30b-a3b")
     _, tp = _params(cfg, "float32")
     tokens = torch.arange(4, dtype=torch.int32)[None]
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call(tp, tokens, cfg, mesh=object())
-        return
     got, want = call(tp, tokens, cfg, mesh=object()), call(tp, tokens, cfg)
     flat = [x for out in (got, want) for x in out]
     flat = [v for x in flat for v in (x.values() if isinstance(x, dict) else [x])]

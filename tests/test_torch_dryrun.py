@@ -22,6 +22,14 @@ configs at small train, prefill and decode shapes; another runs the port's
 * ``model_flops_global`` / ``_per_chip``;
 * ``hetero_wire_seconds`` of the same totals.
 
+What the port holds: the train steps of the dense and moe families place
+every param by its spec and the moments by ``opt_state_spec`` (tensor
+parallelism, ZeRO), so their ``memory.argument_bytes`` equals
+``spec_argument_bytes`` exactly, on the 2 x 4 combos under every layout
+option (``seq_shard``, ``attn_shard``, ``attn_seq``, both) and on the
+production rows run here (qwen3-moe under ``seq_shard``, qwen3-32b under
+``seq_shard`` + ``attn_seq``).
+
 The production combos run on ``meta`` in subprocesses of their own (a fake
 world is one a process).  Time: about 60 s, the subprocesses in parallel.
 """
@@ -58,6 +66,10 @@ REF_ROOFLINE = {"flops", "bytes", "collective_bytes", "t_compute", "t_memory",
                 "t_collective", "dominant"}
 PRODUCTION = [("qwen3-moe-30b-a3b", "train_4k"), ("dit-moe-g", "dit_serve"),
               ("rwkv6-3b", "decode_32k")]
+# production train rows under the layout options, each a process of its own
+PRODUCTION_OPTS = [("qwen3-moe-30b-a3b", "seq_shard"), ("qwen3-32b", "seq_shard,attn_seq")]
+# the 2 x 4 train combos' layout options
+TRAIN_OPTS = ("seq_shard", "attn_shard", "attn_seq", "seq_shard,attn_seq")
 
 REF_PROG = textwrap.dedent("""
     import os, sys, json
@@ -132,6 +144,11 @@ PORT_PROG = textwrap.dedent("""
             out[arch + "/train/save_ffn"] = dryrun.run_one(
                 arch, "train_4k", mesh_shape=(2, 4), smoke=True, batch=B, seq=S,
                 opts=("save_ffn",), verbose=False)
+        if kind == "train":
+            for opts in json.loads(sys.argv[2]):
+                out[arch + "/train/" + opts] = dryrun.run_one(
+                    arch, "train_4k", mesh_shape=(2, 4), smoke=True, batch=B, seq=S,
+                    opts=tuple(opts.split(",")), verbose=False)
     print(json.dumps(out, default=str))
 """)
 
@@ -171,23 +188,23 @@ def _last_json(out):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The reference's and the port's 2 x 4 runs, the production combos and
-    a seq_shard combo, all started at once."""
+    """The reference's and the port's 2 x 4 runs, the production combos
+    (with and without layout options), all started at once."""
     combos = json.dumps(COMBOS)
     ref = _start([sys.executable, "-c", REF_PROG, combos])
-    port = _start([sys.executable, "-c", PORT_PROG, combos])
+    port = _start([sys.executable, "-c", PORT_PROG, combos, json.dumps(TRAIN_OPTS)])
     prod = {c: _start([sys.executable, "-m", "repro_torch.launch.dryrun",
                        "--arch", c[0], "--shape", c[1], "--quiet"])
             for c in PRODUCTION}
     one = _start([sys.executable, "-c", ONE_PROG])
     out = tmp_path_factory.mktemp("dry") / "rows.jsonl"
-    bad = _start([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                  "qwen3-moe-30b-a3b", "--shape", "train_4k", "--opts", "seq_shard",
-                  "--out", str(out), "--quiet"])
+    opts = {c: _start([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                       c[0], "--shape", "train_4k", "--opts", c[1], "--out", str(out),
+                       "--quiet"]) for c in PRODUCTION_OPTS}
     got = {"ref": _finish(ref), "port": _finish(port),
-           "prod": {c: _finish(p) for c, p in prod.items()}, "bad": _finish(bad),
-           "one": _finish(one)}
-    got["bad_rows"] = out.read_text().splitlines() if out.exists() else []
+           "prod": {c: _finish(p) for c, p in prod.items()},
+           "opts": {c: _finish(p) for c, p in opts.items()}, "one": _finish(one)}
+    got["opt_rows"] = out.read_text().splitlines() if out.exists() else []
     for key in ("ref", "port", "one"):
         rc, stdout, err = got[key]
         assert rc == 0, err[-3000:]
@@ -258,10 +275,17 @@ def test_model_flops_equal_the_reference(runs, combo):
 
 
 def test_the_port_holds_what_it_places(runs):
-    """The port places only the routed experts over ``model``: it holds at
-    least the reference's layout, and the MoE config's experts are cut."""
+    """The train steps hold exactly the reference's layout (every param by
+    its spec, the moments by ``opt_state_spec``), under every layout
+    option; the serving steps, which place only the routed experts over
+    ``model``, hold at least it."""
+    train = [k for k in runs["port"] if "/train" in k]
+    assert len(train) == 2 * (2 + len(TRAIN_OPTS)) - 1      # save_ffn: qwen3-moe only
     for key, r in runs["port"].items():
-        assert r["memory"]["argument_bytes"] >= r["spec_argument_bytes"], key
+        if "/train" in key:
+            assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"], key
+        else:
+            assert r["memory"]["argument_bytes"] >= r["spec_argument_bytes"], key
         assert r["memory"]["peak_bytes"] >= r["memory"]["argument_bytes"], key
 
 
@@ -456,12 +480,21 @@ def test_production_combos_give_the_reference_record_keys(runs, combo):
     assert "not measured" in r["roofline"]["modeled"]
 
 
-def test_seq_shard_gives_an_error_row_naming_the_roadmap(runs):
-    rc, out, _ = runs["bad"]
-    assert rc == 1
-    row = json.loads(runs["bad_rows"][-1])
-    assert row["arch"] == "qwen3-moe-30b-a3b" and row["mesh"] == "16x16"
-    assert "NotImplementedError" in row["error"] and "ROADMAP.md A" in row["error"]
+@pytest.mark.parametrize("combo", PRODUCTION_OPTS, ids=[f"{a}-{o}" for a, o in PRODUCTION_OPTS])
+def test_layout_options_give_production_rows_holding_the_reference_layout(runs, combo):
+    """``seq_shard`` and ``attn_seq`` (once refused with an error row) give a
+    record on 16 x 16, written to ``--out``, whose arguments are the
+    reference's placement to the byte; the sequence-sharded residuals
+    reduce-scatter over ``model``."""
+    rc, out, err = runs["opts"][combo]
+    assert rc == 0, err[-3000:]
+    r = _last_json(out)
+    assert r["opts"] == combo[1].split(",") and r["mesh"] == "16x16"
+    assert "error" not in r
+    assert r["memory"]["argument_bytes"] == r["spec_argument_bytes"]
+    assert r["collective_counts"]["reduce_scatter"] > 0
+    rows = [json.loads(ln) for ln in runs["opt_rows"]]
+    assert any(x["arch"] == combo[0] and x["opts"] == r["opts"] for x in rows)
 
 
 def _fixed_rows(path):

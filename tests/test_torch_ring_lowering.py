@@ -157,4 +157,4 @@ def test_check_names_the_counts_it_found(names, kind):
     ok = ["c10d::send", "c10d::recv_"] * 6 + ["c10d::allreduce_"]
     assert hlo_cost.check_ring_lowering(ok, n_dev=4, moe_layer_calls=1) == {
         "send": 6, "recv": 6, "all_to_all": 0, "all_reduce": 1,
-        "all_gather": 0}
+        "all_gather": 0, "reduce_scatter": 0}

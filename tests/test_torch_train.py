@@ -293,10 +293,12 @@ def test_autograd_functions_run_the_plain_backward_on_cpu():
     dict(causal=True, q_offset=2)])
 def test_flash_backward_raises_for_what_is_not_ported(opts):
     """What training passes (causal, a one-sided window, a softcap, GQA,
-    bf16, Dh 160) gives the plain backward's gradients bit for bit, dk and
-    dv in k's (B, Sk, KVH, Dh); the Pallas kernel's symmetric window and
-    the KV-cache masks, which training never passes, run the forward and
-    raise in the backward, naming ROADMAP.md."""
+    bf16, Dh 160, a query offset: tensor parallelism's "seq" rows) gives
+    the plain backward's gradients bit for bit, dk and dv in k's (B, Sk,
+    KVH, Dh); the Pallas kernel's symmetric window, which training never
+    passes, runs the forward and raises in the backward, naming
+    ROADMAP.md.  (The ring cache's key positions raise too:
+    ``tests/test_torch_attention_masks.py``.)"""
     g = torch.Generator().manual_seed(5)
     kvh, dtype, dh, kw = 3, torch.float32, 16, {}
     if opts == "gqa":
@@ -311,8 +313,7 @@ def test_flash_backward_raises_for_what_is_not_ported(opts):
     k, v = (torch.randn((1, 8, kvh, dh), generator=g).to(dtype)
             .requires_grad_() for _ in range(2))
     o = ops.flash_attention(q, k, v, **kw)     # the forward runs
-    if "q_offset" in kw or ("window" in kw and not (kw.get("causal")
-                                                     or kw.get("one_sided_window"))):
+    if "window" in kw and not (kw.get("causal") or kw.get("one_sided_window")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             o.sum().backward()
         return
@@ -320,7 +321,7 @@ def test_flash_backward_raises_for_what_is_not_ported(opts):
     got = torch.autograd.grad(o, (q, k, v), do)
     plain = [t.detach() for t in (q, k, v)]
     masks = dict(causal=bool(kw.get("causal")), window=kw.get("window"),
-                 softcap=kw.get("softcap"))
+                 softcap=kw.get("softcap"), q_offset=kw.get("q_offset", 0))
     o32, lse = ref.flash_attention_ref(*plain, one_sided_window=True, stats=True, **masks)
     want = ref.flash_attention_bwd_ref(*plain, o32, lse, do, **masks)
     for a, b, x in zip(got, want, plain):
